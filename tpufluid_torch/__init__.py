@@ -1,0 +1,36 @@
+"""tpufluid_torch — the stable-fluids simulator of ``tpufluid`` in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The simulation step runs four kernels (csrc/): the pre-pressure stencil
+(two launches), the Jacobi sweep, the gradient subtract and the advection.
+Every kernel has a plain PyTorch version beside it; a CPU state runs those,
+a CUDA state runs the kernels. The entry points default to
+``device="cuda"`` and raise without a GPU unless the caller passes
+``device="cpu"``. The package imports neither JAX nor ``tpufluid``.
+
+Public API:
+    FluidConfig, MAX_DT        — tunables (field names and defaults of tpufluid's)
+    FluidState, init_state     — fields and their allocation
+    resize_state               — resample into another config's sizes
+    fluid_step, make_step, make_multi_step — the simulation step
+    Trace, swirl_trace         — deterministic splat input
+"""
+
+from tpufluid_torch.config import MAX_DT, FluidConfig, get_resolution
+from tpufluid_torch.state import FluidState, init_state, resize_state
+from tpufluid_torch.step import fluid_step, make_multi_step, make_step
+from tpufluid_torch.trace import Trace, swirl_trace
+
+__all__ = [
+    "MAX_DT",
+    "FluidConfig",
+    "get_resolution",
+    "FluidState",
+    "init_state",
+    "resize_state",
+    "fluid_step",
+    "make_step",
+    "make_multi_step",
+    "Trace",
+    "swirl_trace",
+]

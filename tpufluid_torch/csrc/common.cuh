@@ -1,0 +1,65 @@
+// Shared helpers of the simulation kernels: storage-type conversion, the
+// dtype switch of the C entry points, and the launch shape.
+//
+// Every kernel stores float32, bfloat16 or float16 and computes in float32,
+// rounding to storage (round to nearest even, as torch's .to()) only where
+// its output is written. The files are compiled with -fmad=false: a fused
+// multiply-add rounds once where the plain PyTorch versions round twice, and
+// an ulp moved in a sampling coordinate can pick another bilinear corner.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+    return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+    return __float2half_rn(x);
+}
+
+// Round a float32 value through storage type T.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+    return to_f32(from_f32<T>(x));
+}
+
+// Storage type codes shared with ops/cuda/build.py.
+enum StorageCode { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// Runs BODY with T bound to the storage type of CODE; an unknown code returns
+// cudaErrorInvalidValue from the enclosing C entry point.
+#define DISPATCH_STORAGE(CODE, T, ...)                                  \
+    switch (CODE) {                                                     \
+        case kF32: { using T = float; __VA_ARGS__; break; }             \
+        case kBF16: { using T = __nv_bfloat16; __VA_ARGS__; break; }    \
+        case kF16: { using T = __half; __VA_ARGS__; break; }            \
+        default: return (int)cudaErrorInvalidValue;                     \
+    }
+
+// One thread per output texel, 32 threads along W (coalesced) by 8 rows.
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+
+inline dim3 grid_for(int h, int w) {
+    return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+}
+
+// The separable splat bump at texel (i, j) of channel c:
+// sum over s of (gy[i, s] * amt[s, c]) * gx[s, j], summed from s = 0 in
+// order — the order of ops/splat.splat_bump.
+__device__ __forceinline__ float splat_bump(const float* gy, const float* gx,
+                                            const float* amt, int S, int C,
+                                            int c, int i, int j, int W) {
+    float acc = 0.0f;
+    for (int s = 0; s < S; ++s) {
+        acc = acc + (gy[i * S + s] * amt[s * C + c]) * gx[s * W + j];
+    }
+    return acc;
+}

@@ -1,0 +1,62 @@
+"""The step's passes, routed by device: a CUDA tensor goes to the kernel, a
+CPU tensor to the kernel's plain version. There is no fallback: a CUDA
+tensor the kernel cannot take (a dtype it lacks, a failed build or launch)
+raises.
+
+Counterpart of tpufluid/ops/pallas/dispatch.py:152-284, 335-363, without its
+TPU padding and tiling policy: the kernels read global memory at any shape.
+"""
+
+from __future__ import annotations
+
+from tpufluid_torch.ops.cuda import advect as _advect
+from tpufluid_torch.ops.cuda import jacobi as _jacobi
+from tpufluid_torch.ops.cuda import stencil as _stencil
+
+
+def _routed(kernel, plain):
+    """Call ``kernel`` for a CUDA first argument, ``plain`` for a CPU one."""
+    def run(field, *args, **kwargs):
+        if field.is_cuda:
+            return kernel(field, *args, **kwargs)
+        if field.device.type == "cpu":
+            return plain(field, *args, **kwargs)
+        raise ValueError(f"no kernel or plain version for device {field.device}")
+    run.__name__ = kernel.__name__
+    run.__doc__ = kernel.__doc__
+    return run
+
+
+class Passes:
+    """The four passes of one step through one implementation."""
+
+    def __init__(self, pre_pressure, jacobi_pressure, gradient_subtract, advect):
+        self.pre_pressure = pre_pressure
+        self.jacobi_pressure = jacobi_pressure
+        self.gradient_subtract = gradient_subtract
+        self.advect = advect
+
+    def project_and_self_advect(self, velocity, pressure, dt, dissipation):
+        """(vel - grad p), then self-advection: the projected velocity goes
+        through storage before the advection reads it."""
+        vel = self.gradient_subtract(velocity, pressure)
+        return self.advect(vel, vel, dt, dissipation)
+
+
+# Kernels on the card, plain versions on the CPU: what fluid_step runs.
+ROUTED = Passes(
+    _routed(_stencil.pre_pressure, _stencil.pre_pressure_plain),
+    _routed(_jacobi.jacobi_pressure, _jacobi.jacobi_plain),
+    _routed(_stencil.gradient_subtract, _stencil.gradient_subtract_plain),
+    _routed(_advect.advect, _advect.advect_plain),
+)
+
+# The plain versions on any device: the reference the kernels are held to.
+PLAIN = Passes(_stencil.pre_pressure_plain, _jacobi.jacobi_plain,
+               _stencil.gradient_subtract_plain, _advect.advect_plain)
+
+pre_pressure = ROUTED.pre_pressure
+jacobi_pressure = ROUTED.jacobi_pressure
+gradient_subtract = ROUTED.gradient_subtract
+advect = ROUTED.advect
+project_and_self_advect = ROUTED.project_and_self_advect

@@ -1,0 +1,81 @@
+"""Gaussian splat impulse (the reference's splatShader and splat()).
+
+``out = base + exp(-||p||^2 / radius) * amount`` with p = (uv - point) and
+p.x scaled by the canvas aspect ratio. One splat event writes the same
+gaussian into the velocity grid (amount = (dx, dy)) and the dye grid
+(amount = rgb).
+
+Splats enter the step as a fixed-size (MAX_SPLATS, 8) array
+[x, y, dx, dy, r, g, b, active]; rows with active = 0 contribute nothing.
+The gaussian is separable, so a batch of S splats is a rank-S update
+gy (H, S) . diag(amt[:, c]) . gx (S, W) per channel — the kernels take the
+three factors and sum the S terms themselves.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpufluid_torch.ops.sampling import true_div
+
+# Columns of a splat event row.
+SPLAT_X, SPLAT_Y, SPLAT_DX, SPLAT_DY = 0, 1, 2, 3
+SPLAT_R, SPLAT_G, SPLAT_B, SPLAT_ACTIVE = 4, 5, 6, 7
+SPLAT_COLS = 8
+
+
+def _gaussians(splats: torch.Tensor, h: int, w: int, radius: float, aspect: float):
+    """(gy (S, H), gx (S, W)): the two 1-D gaussians of every splat row."""
+    dev = splats.device
+    u = true_div(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, float(w))
+    v = true_div(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, float(h))
+    px = (u[None, :] - splats[:, SPLAT_X][:, None]) * aspect
+    py = v[None, :] - splats[:, SPLAT_Y][:, None]
+    gx = torch.exp(true_div(-(px * px), radius))
+    gy = torch.exp(true_div(-(py * py), radius))
+    return gy, gx
+
+
+def splat_factors(splats: torch.Tensor, h: int, w: int, radius: float,
+                  aspect: float, amount_cols: slice):
+    """Separable factors of the splat batch for fusion into the kernels:
+    (gy (H, S), gx (S, W), amt (S, C)) float32, inactive rows zeroed."""
+    splats = splats.to(torch.float32)
+    gy, gx = _gaussians(splats, h, w, radius, aspect)
+    amt = splats[:, amount_cols] * splats[:, SPLAT_ACTIVE:SPLAT_ACTIVE + 1]
+    return gy.T.contiguous(), gx.contiguous(), amt.contiguous()
+
+
+def splat_bump(gy: torch.Tensor, gx: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:
+    """(C, H, W) float32 bump sum_s (gy[h, s] * amt[s, c]) * gx[s, w], summed
+    over s in order from 0 — the kernels' order and rounding, so a kernel
+    and this plain version agree bit for bit."""
+    s_rows = gy.shape[1]
+    acc = torch.zeros((amt.shape[1], gy.shape[0], gx.shape[1]),
+                      dtype=torch.float32, device=gy.device)
+    for s in range(s_rows):
+        acc = acc + (gy[None, :, s, None] * amt[s][:, None, None]) * gx[s][None, None, :]
+    return acc
+
+
+def _splat_sum(field: torch.Tensor, splats: torch.Tensor, amounts: torch.Tensor,
+               radius: float, aspect: float) -> torch.Tensor:
+    """field (C, H, W) + sum over S splats of gauss_s * amount_s, as one
+    rank-S einsum; added in float32, rounded to the field's dtype."""
+    h, w = field.shape[-2], field.shape[-1]
+    gy, gx = _gaussians(splats, h, w, radius, aspect)
+    bump = torch.einsum("sc,sh,sw->chw", amounts.to(torch.float32), gy, gx)
+    return (field.to(torch.float32) + bump).to(field.dtype)
+
+
+def apply_splat_batch(velocity: torch.Tensor, dye: torch.Tensor,
+                      splats: torch.Tensor, radius: float, aspect: float):
+    """Apply an (S, 8) batch of splat events to velocity (2, H, W) and dye
+    (3, Hd, Wd); inactive rows contribute amount * 0."""
+    splats = splats.to(torch.float32)
+    active = splats[:, SPLAT_ACTIVE:SPLAT_ACTIVE + 1]
+    vamt = splats[:, SPLAT_DX:SPLAT_DY + 1] * active
+    camt = splats[:, SPLAT_R:SPLAT_B + 1] * active
+    velocity = _splat_sum(velocity, splats, vamt, radius, aspect)
+    dye = _splat_sum(dye, splats, camt, radius, aspect)
+    return velocity, dye

@@ -1,0 +1,101 @@
+"""The simulation step — the reference's ``step(dt)`` with its inputs.
+
+Pass order, that of tpufluid/step.py's kernel path: splat bump + curl +
+vorticity confinement + divergence -> Jacobi x N with the warm start fused
+into the first sweep -> gradient subtract -> velocity self-advection -> dye
+advection with the dye splat bump fused into the gather.
+
+Nothing is updated in place: every pass writes fresh tensors from PyTorch's
+caching allocator, which hands the previous step's buffers back once the
+caller drops them, and the state passed in stays valid.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpufluid_torch.config import MAX_DT, FluidConfig
+from tpufluid_torch.ops.cuda import dispatch
+from tpufluid_torch.ops.splat import (SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R,
+                                      splat_factors)
+from tpufluid_torch.state import FluidState, resolve_device
+
+
+def clamp_dt(dt) -> float:
+    """min(float32(dt), float32(MAX_DT)), the reference's dt clamp at its
+    literal 0.016666, as a Python float holding a float32 value."""
+    return float(np.minimum(np.float32(float(dt)), np.float32(MAX_DT)))
+
+
+def _step(state: FluidState, dt, splats, config: FluidConfig,
+          passes: dispatch.Passes) -> FluidState:
+    dt = clamp_dt(dt)
+    splats = torch.as_tensor(splats, dtype=torch.float32, device=state.velocity.device)
+    # bf16 dye goes through RGB9E5 before it is sampled (config.DYE_RGB9E5).
+    dye_quant = ("rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16
+                 else None)
+    radius, aspect = config.splat_radius_uv(), config.aspect_ratio
+    dh, dw = state.dye.shape[-2:]
+    vh, vw = state.velocity.shape[-2:]
+    dye_factors = splat_factors(splats, dh, dw, radius, aspect, slice(SPLAT_R, SPLAT_B + 1))
+    vel_factors = splat_factors(splats, vh, vw, radius, aspect, slice(SPLAT_DX, SPLAT_DY + 1))
+
+    vel, div = passes.pre_pressure(state.velocity, config.CURL, dt,
+                                   splat_factors=vel_factors)
+    pressure = passes.jacobi_pressure(state.pressure, div, config.PRESSURE_ITERATIONS,
+                                      prescale=config.PRESSURE)
+    vel = passes.project_and_self_advect(vel, pressure, dt, config.VELOCITY_DISSIPATION)
+    dye = passes.advect(vel, state.dye, dt, config.DENSITY_DISSIPATION,
+                        splat_factors=dye_factors, quant=dye_quant)
+    return FluidState(velocity=vel, dye=dye, pressure=pressure)
+
+
+def fluid_step(state: FluidState, dt, splats, config: FluidConfig) -> FluidState:
+    """One simulation step. ``dt`` in seconds (a number), ``splats`` a
+    (MAX_SPLATS, 8) event batch (rows with active = 0 are no-ops). Runs the
+    CUDA kernels on a CUDA state, their plain versions on a CPU state."""
+    return _step(state, dt, splats, config, dispatch.ROUTED)
+
+
+def plain_step(state: FluidState, dt, splats, config: FluidConfig) -> FluidState:
+    """fluid_step through the kernels' plain versions on any device: the
+    reference the kernel step is held to on the card."""
+    return _step(state, dt, splats, config, dispatch.PLAIN)
+
+
+def _require(state: FluidState, device: torch.device) -> None:
+    if state.velocity.device.type != device.type:
+        raise ValueError(f"state on {state.velocity.device}, step made for {device}")
+
+
+def make_step(config: FluidConfig, device="cuda"):
+    """step(state, dt, splats) -> state on ``device`` (default the GPU)."""
+    device = resolve_device(device)
+
+    def step(state: FluidState, dt, splats) -> FluidState:
+        _require(state, device)
+        return fluid_step(state, dt, splats, config)
+
+    return step
+
+
+def make_multi_step(config: FluidConfig, device="cuda"):
+    """multi_step(state, dt, splats_seq) -> state: T steps in a Python loop.
+
+    ``splats_seq`` has shape (T, MAX_SPLATS, 8), one event batch per step;
+    it is copied to the device once. ``dt`` is a scalar (constant rate) or a
+    (T,) per-step array (Trace v2).
+    """
+    device = resolve_device(device)
+
+    def multi(state: FluidState, dt, splats_seq) -> FluidState:
+        _require(state, device)
+        seq = torch.as_tensor(splats_seq, dtype=torch.float32, device=state.velocity.device)
+        t = seq.shape[0]
+        dts = np.broadcast_to(np.asarray(dt, np.float32).reshape(-1), (t,))
+        for k in range(t):
+            state = fluid_step(state, dts[k], seq[k], config)
+        return state
+
+    return multi
