@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of tpufluid_torch on one NVIDIA GPU (sm_90a): the quickest
-proof that the port builds and runs its simulation step on the card.
+proof that the port builds and runs its simulation step and its render on
+the card.
 
     python3 chip_smoke.py
 
@@ -25,6 +26,25 @@ proof that the port builds and runs its simulation step on the card.
    plain version's time and its bound: max(bytes / 3.35 TB/s,
    float32 operations / 67 TFLOP/s), the H100 SXM's published peaks; last
    the host time of the step's Python layers under cProfile.
+5. Render kernel phase: every kernel call of a frame (check.render_cases:
+   the bloom chain's 14 stages and the display) against its plain version,
+   at both grids' canvas in every dtype of phase 2; then, in float32 and
+   bf16 (RGB9E5), the flag variants (SHADING, BLOOM, SUNRAYS each off), the
+   display without dither and with compose=False, the capture size and the
+   server's 360x640 tick. Prints each max error beside its tolerance and
+   fails past it.
+6. Render path phase, on each path's final state: one make_render frame
+   with the launch counts zeroed just before and read just after (2 x mips
+   bloom_blur4 stages, 1 display, no step kernel), held against the plain
+   render on the same GPU tensors; the frame must be finite, opaque and not
+   all background, and a transparent capture must have alpha = max(rgb).
+   Then frames/s of make_render over 200 frames and ticks/s of
+   make_step_and_render over 200 ticks (counts zeroed before each run and
+   checked after), each with its median and p95 and its device time per
+   frame (queued behind a spin kernel, so the idle share is 1 - device /
+   frame time), each render kernel's device time per frame beside its
+   plain version's and its bound, and the host time of the render's Python
+   layers under cProfile.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
@@ -33,6 +53,7 @@ out/chip_smoke.json. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -48,6 +69,8 @@ TIMED_STEPS = 200
 CHECK_STEPS = 3                # compared against the plain step
 EXPECTED_PER_STEP = {"splat_curl": 1, "confine_divergence": 1, "jacobi_sweep": 20,
                      "gradient_subtract": 1, "advect": 2}
+RENDER_KERNELS = ("bloom_blur4", "display")
+TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
 
 
 def gpu_line() -> str:
@@ -88,6 +111,21 @@ def kernel_phase(torch, check, cfgs, device) -> dict:
     return errors
 
 
+def frame_times(torch, fn, n: int):
+    """fn(k) for k < n with a CUDA event after each call -> (calls per s,
+    median ms, nearest-rank 95th percentile ms: n/20 calls lie beyond it)."""
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    for k in range(n):
+        fn(k)
+        events[k + 1].record()
+    events[-1].synchronize()
+    ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return (n / (events[0].elapsed_time(events[-1]) / 1e3), ms[len(ms) // 2],
+            ms[math.ceil(0.95 * len(ms)) - 1])
+
+
 def path_phase(torch, cfg, device) -> dict:
     """Drive make_multi_step, then make_step, over a swirl trace; return
     the launch counts, the step rate and the step-time distribution."""
@@ -117,16 +155,14 @@ def path_phase(torch, cfg, device) -> dict:
     # The timed window: one make_step call per step, as an interactive
     # caller steps, with a CUDA event between steps.
     step = make_step(cfg, device=device)
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
-    events[0].record()
-    for k in range(warm, PATH_STEPS):
-        state = step(state, trace.dts[k], trace.batches[k])
-        events[k - warm + 1].record()
-    events[-1].synchronize()
+    box = [state]
+
+    def one(k):
+        box[0] = step(box[0], trace.dts[warm + k], trace.batches[warm + k])
+
+    steps_per_s, step_median, step_p95 = frame_times(torch, one, TIMED_STEPS)
+    state = box[0]
     launches = {k: v.launches for k, v in build.KERNELS.items()}
-    step_ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-    steps_per_s = TIMED_STEPS / (events[0].elapsed_time(events[-1]) / 1e3)
 
     for k, per_step in EXPECTED_PER_STEP.items():
         assert launches[k] == per_step * PATH_STEPS, (k, launches[k], per_step * PATH_STEPS)
@@ -136,9 +172,7 @@ def path_phase(torch, cfg, device) -> dict:
     assert float(v.abs().max()) > 0.0 and float(d.max()) > 0.0, "nothing moved"
     return {"state": state, "splats": trace.batches[-1], "launches": launches,
             "steps_per_s": steps_per_s, "step_err": step_err,
-            "step_ms_median": step_ms[len(step_ms) // 2],
-            # nearest-rank 95th percentile: 10 of the 200 steps lie beyond it
-            "step_ms_p95": step_ms[math.ceil(0.95 * len(step_ms)) - 1]}
+            "step_ms_median": step_median, "step_ms_p95": step_p95}
 
 
 def device_ms(torch, fn, reps: int, cycles_per_ms: float) -> float:
@@ -172,9 +206,9 @@ def spin_rate(torch) -> float:
     return 20_000_000 / start.elapsed_time(end)
 
 
-def timing_phase(torch, check, cfg, run) -> dict:
-    """Per kernel: device ms per step, plain ms per step, bound ms per step."""
-    cases = check.step_cases(run["state"], torch.as_tensor(run["splats"]), cfg)
+def timing_phase(torch, check, cases) -> dict:
+    """Per kernel: device ms, plain ms and bound ms summed over ``cases``
+    (one step's or one frame's calls)."""
     rate = spin_rate(torch)
     out = {}
     for case in cases:
@@ -201,6 +235,110 @@ def timing_phase(torch, check, cfg, run) -> dict:
     return out
 
 
+def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
+    """Every kernel call of a frame against its plain version: at each
+    config's canvas, then the variants at the two path configs. Adds each
+    max abs error to ``errors`` per (config, kernel); asserts each within
+    tolerance."""
+    def run(name, cfg, label, state, **kw):
+        for case in check.render_cases(state, cfg, **kw):
+            err, tol = check.compare(case.run(), case.run(plain=True))
+            torch.cuda.synchronize()
+            print(f"kernel {name:22s} {label:14s} {case.label:15s} max_abs_err {err:.3e}  "
+                  f"tol {tol:.3e}")
+            assert err <= tol, f"{case.label} on {name} {label}: {err} > {tol}"
+            key = (name, case.kernel_name)
+            errors[key] = max(errors.get(key, 0.0), err)
+
+    for name, cfg in cfgs.items():
+        state, _ = check.random_state(cfg, seed=7, device=device)
+        run(name, cfg, "canvas", state)
+    for name in ("demo_float32", "1024_bfloat16_rgb9e5"):
+        cfg = cfgs[name]
+        state, _ = check.random_state(cfg, seed=8, device=device)
+        for flag in ("SHADING", "BLOOM", "SUNRAYS"):
+            run(name, dataclasses.replace(cfg, **{flag: False}), f"{flag.lower()}=off", state)
+        run(name, cfg, "no-dither", state, dither=False)
+        run(name, cfg, "compose=off", state, compose=False)
+        cw, ch = cfg.capture_size
+        run(name, cfg, f"capture{ch}x{cw}", state, out_hw=(ch, cw))
+        run(name, cfg, "tick360x640", state, out_hw=(360, 640))
+
+
+def render_path_phase(torch, check, cfg, run, device) -> dict:
+    """Render the path's final state through make_render and
+    make_step_and_render; return launch counts, rates, device times and
+    the render kernels' timing."""
+    from tpufluid_torch import capture_frame, make_render, make_step_and_render, swirl_trace
+    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.render import plain_render
+
+    state = run["state"]
+    render = make_render(cfg, device=device)
+    n_mips = len(cfg.bloom_mip_sizes())
+    per_frame = {"bloom_blur4": 2 * n_mips if n_mips >= 2 else 0, "display": 1}
+
+    build.reset_launches()
+    frame = render(state)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    want = {k: per_frame.get(k, 0) for k in launches}
+    assert launches == want, (launches, want)
+    err, tol = check.compare(frame, plain_render(state, cfg))
+    assert err <= tol, f"render vs plain render: {err} > {tol}"
+    assert frame.shape == (4, cfg.CANVAS_HEIGHT, cfg.CANVAS_WIDTH), frame.shape
+    assert bool(torch.isfinite(frame).all()), "non-finite frame"
+    back = torch.tensor([c / 255.0 for c in cfg.BACK_COLOR], device=device)[:, None, None]
+    assert float((frame[:3] - back).abs().max()) > 0.05, "frame is all background"
+    # opaque: alpha a + 1 * (1 - a) is 1 to within an ulp of a = max(rgb)
+    assert float((frame[3] - 1.0).abs().max()) <= 1e-6 * max(1.0, float(frame[:3].max())), \
+        "opaque frame with alpha != 1"
+    cap = capture_frame(state, dataclasses.replace(cfg, TRANSPARENT=True))
+    assert bool(torch.equal(cap[3], cap[:3].amax(dim=0))), "capture alpha != max(rgb)"
+
+    build.reset_launches()
+    fps, frame_med, frame_p95 = frame_times(torch, lambda k: render(state), TIMED_FRAMES)
+    frame_launches = {k: v.launches for k, v in build.KERNELS.items()}
+    for k, n in want.items():
+        assert frame_launches[k] == n * TIMED_FRAMES, (k, frame_launches[k])
+
+    trace = swirl_trace(cfg, TIMED_FRAMES, seed=43)
+    tick = make_step_and_render(cfg, device=device)
+    box = [state]
+
+    def one_tick(k):
+        box[0], pixels = tick(box[0], trace.dts[k], trace.batches[k])
+        return pixels
+
+    build.reset_launches()
+    tps, tick_med, tick_p95 = frame_times(torch, one_tick, TIMED_FRAMES)
+    tick_launches = {k: v.launches for k, v in build.KERNELS.items()}
+    for k, n in {**EXPECTED_PER_STEP, **per_frame}.items():
+        assert tick_launches[k] == n * TIMED_FRAMES, (k, tick_launches[k])
+    pixels = one_tick(0)
+    assert pixels.dtype == torch.uint8 and pixels.shape == (cfg.CANVAS_HEIGHT,
+                                                           cfg.CANVAS_WIDTH, 3)
+
+    # One frame (about 400 launches, most of them the sunrays' PyTorch ops)
+    # or one tick behind the spin kernel: the device's queue of pending
+    # launches holds about a thousand, and a host that blocks on a full queue
+    # would be timed with the device. The tick's splats are put on the card
+    # first: their copy from the host would wait for the spin.
+    rate = spin_rate(torch)
+    frame_device = device_ms(torch, lambda: render(state), 1, rate)
+    splats = torch.as_tensor(trace.batches[0], device=device)
+    tick_device = device_ms(torch, lambda: tick(state, trace.dts[0], splats), 1, rate)
+    timing = timing_phase(torch, check, check.render_cases(state, cfg))
+    host = host_profile(torch, lambda: render(state), 50, RENDER_HOST_FUNCS, "frame")
+    return {"frame_err": err, "host_ms_cprofile": host, "frames_per_s": fps,
+            "frame_ms_median": frame_med, "frame_ms_p95": frame_p95,
+            "frame_device_ms": frame_device,
+            "ticks_per_s": tps, "tick_ms_median": tick_med, "tick_ms_p95": tick_p95,
+            "tick_device_ms": tick_device,
+            "launches": {k: frame_launches[k] for k in RENDER_KERNELS},
+            "tick_launches": tick_launches, "kernels": timing}
+
+
 HOST_FUNCS = {  # (module file, function) -> label, for the host profile
     ("step.py", "_step"): "step (all)",
     ("splat.py", "splat_factors"): "splat_factors x2",
@@ -212,31 +350,52 @@ HOST_FUNCS = {  # (module file, function) -> label, for the host profile
 }
 
 
-def host_phase(torch, cfg, run, steps: int = 50) -> dict:
-    """Host time per step of the step's Python layers, under cProfile
-    (which inflates every Python call; read the shares, not the sums)."""
+RENDER_HOST_FUNCS = {  # the same, for the render profile
+    ("render.py", "_render"): "render (all)",
+    ("sunrays.py", "apply_sunrays"): "apply_sunrays",
+    ("sampling.py", "sample_affine"): "sample_affine (all callers)",
+    ("bloom.py", "bloom_chain"): "bloom_chain (resample + 14 launches)",
+    ("display.py", "display"): "display wrapper",
+    ("display.py", "blend_premultiplied"): "blend_premultiplied",
+    ("build.py", "__call__"): "Kernel.__call__ (ctypes)",
+}
+
+
+def host_profile(torch, fn, n: int, funcs: dict, what: str) -> dict:
+    """Host ms per call of fn's Python layers named in ``funcs``, over n
+    calls under cProfile (which inflates every Python call; read the
+    shares, not the sums)."""
     import cProfile
     import pstats
 
-    from tpufluid_torch import make_step
-
-    step = make_step(cfg)
-    state, splats = run["state"], run["splats"]
     torch.cuda.synchronize()
     prof = cProfile.Profile()
     prof.enable()
-    for _ in range(steps):
-        state = step(state, 1.0 / 60.0, splats)
+    for _ in range(n):
+        fn()
     torch.cuda.synchronize()
     prof.disable()
     out = {}
-    for (path, _, fn), (_, _, _, cum, _) in pstats.Stats(prof).stats.items():
-        label = HOST_FUNCS.get((Path(path).name, fn))
+    for (path, _, name), (_, _, _, cum, _) in pstats.Stats(prof).stats.items():
+        label = funcs.get((Path(path).name, name))
         if label and "tpufluid_torch" in path:
-            out[label] = out.get(label, 0.0) + 1e3 * cum / steps
-    print("host ms per step under cProfile: " + ", ".join(
+            out[label] = out.get(label, 0.0) + 1e3 * cum / n
+    print(f"host ms per {what} under cProfile: " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(out.items(), key=lambda kv: -kv[1])))
     return out
+
+
+def host_phase(torch, cfg, run, steps: int = 50) -> dict:
+    """Host time per step of the step's Python layers, under cProfile."""
+    from tpufluid_torch import make_step
+
+    step = make_step(cfg)
+    box = [run["state"]]
+
+    def one():
+        box[0] = step(box[0], 1.0 / 60.0, run["splats"])
+
+    return host_profile(torch, one, steps, HOST_FUNCS, "step")
 
 
 def main() -> int:
@@ -260,6 +419,7 @@ def main() -> int:
 
     cfgs = configs()
     errors = kernel_phase(torch, check, cfgs, device)
+    render_kernel_phase(torch, check, cfgs, device, errors)
 
     report = {}
     for name in ("demo_float32", "1024_bfloat16_rgb9e5"):
@@ -269,7 +429,8 @@ def main() -> int:
               f"(step median {run['step_ms_median']:.4f} ms, p95 {run['step_ms_p95']:.4f} ms); "
               f"launches {run['launches']}; first-{CHECK_STEPS}-step max err vs plain "
               f"{run['step_err']}")
-        timing = timing_phase(torch, check, cfg, run)
+        timing = timing_phase(torch, check, check.step_cases(
+            run["state"], torch.as_tensor(run["splats"]), cfg))
         device_total = sum(r["ms"] for r in timing.values())
         step_ms = 1e3 / run["steps_per_s"]
         print(f"path {name}: step {step_ms:.4f} ms, kernels' device time "
@@ -278,12 +439,29 @@ def main() -> int:
                   f"{k} {run['launches'][k] // PATH_STEPS} launches {r['ms']:.4f} ms"
                   for k, r in timing.items()))
         host = host_phase(torch, cfg, run)
+        rend = render_path_phase(torch, check, cfg, run, device)
+        frame_ms, tick_ms = 1e3 / rend["frames_per_s"], 1e3 / rend["ticks_per_s"]
+        print(f"path {name} render: {rend['frames_per_s']:.1f} frames/s over {TIMED_FRAMES} "
+              f"frames (median {rend['frame_ms_median']:.4f} ms, p95 "
+              f"{rend['frame_ms_p95']:.4f} ms), device {rend['frame_device_ms']:.4f} ms a "
+              f"frame ({100 * (1 - rend['frame_device_ms'] / frame_ms):.1f}% idle); "
+              f"{rend['ticks_per_s']:.1f} ticks/s over {TIMED_FRAMES} ticks (median "
+              f"{rend['tick_ms_median']:.4f} ms, p95 {rend['tick_ms_p95']:.4f} ms), device "
+              f"{rend['tick_device_ms']:.4f} ms a tick "
+              f"({100 * (1 - rend['tick_device_ms'] / tick_ms):.1f}% idle); launches "
+              f"{rend['launches']}; frame max err vs plain render {rend['frame_err']:.3e}; "
+              "per frame: " + ", ".join(
+                  f"{k} {rend['launches'][k] // TIMED_FRAMES} launches {r['ms']:.4f} ms"
+                  for k, r in rend["kernels"].items()))
         report[name] = {"steps_per_s": run["steps_per_s"], "step_ms": step_ms,
                         "host_ms_cprofile": host,
                         "step_ms_median": run["step_ms_median"],
                         "step_ms_p95": run["step_ms_p95"],
-                        "kernel_device_ms": device_total, "launches": run["launches"],
-                        "step_err": run["step_err"], "kernels": timing}
+                        "kernel_device_ms": device_total,
+                        "launches": {**run["launches"], **rend["launches"]},
+                        "step_err": run["step_err"], "kernels": {**timing, **rend["kernels"]},
+                        "render": {k: v for k, v in rend.items()
+                                   if k not in ("kernels", "launches")}}
 
     kernels = []
     for k in build.KERNELS.values():

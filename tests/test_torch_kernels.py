@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from tpufluid_torch import FluidConfig, init_state, make_multi_step, swirl_trace
-from tpufluid_torch.ops.cuda import build, check, stencil
+from tpufluid_torch.ops.cuda import bloom, build, check, display, stencil
+from tpufluid_torch.render import make_render, plain_render
 from tpufluid_torch.step import plain_step
 
 CONFIGS = {
@@ -65,3 +66,65 @@ def test_kernel_rejects_cpu_and_bad_dtype(cuda):
         stencil.splat_curl(vel)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         stencil.splat_curl(torch.zeros((2, 8, 8)))
+
+
+RENDER_VARIANTS = [dict(), dict(SHADING=False), dict(BLOOM=False), dict(SUNRAYS=False),
+                   dict(BLOOM_RESOLUTION=4)]  # the last: < 2 mips, zero bloom
+
+
+def _check_cases(cases):
+    for case in cases:
+        before = build.KERNELS[case.kernel_name].launches
+        err, tol = check.compare(case.run(), case.run(plain=True))
+        torch.cuda.synchronize()
+        assert build.KERNELS[case.kernel_name].launches == before + 1, case.label
+        assert err <= tol, (case.label, err, tol)
+
+
+@pytest.mark.parametrize("flags", RENDER_VARIANTS, ids=lambda f: ",".join(f) or "all")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_render_kernels_match_plain(flags, dtype, cuda):
+    """bloom_blur4 and display against their plain versions at small
+    shapes: odd canvas, every flag variant, each storage dtype."""
+    cfg = FluidConfig(DTYPE=dtype, **{**CONFIGS["ragged"], "CANVAS_WIDTH": 333,
+                                      "CANVAS_HEIGHT": 201, **flags}).validate()
+    state, _ = check.random_state(cfg, seed=5, device=cuda)
+    cases = check.render_cases(state, cfg)
+    bloom_stages = 2 * len(cfg.bloom_mip_sizes()) if cfg.BLOOM and len(
+        cfg.bloom_mip_sizes()) >= 2 else 0
+    assert [c.kernel_name for c in cases] == ["bloom_blur4"] * bloom_stages + ["display"]
+    _check_cases(cases)
+    _check_cases(check.render_cases(state, cfg, out_hw=(50, 77), dither=False))
+    _check_cases(check.render_cases(state, cfg, out_hw=(64, 130), compose=False))
+
+
+def test_render_kernels_match_plain_at_capture_shape(cuda):
+    """The demo's capture, 512x910 from a 1024x1820 dye: a width the TPU
+    display kernel refused."""
+    cfg = FluidConfig(MAX_SPLATS=8).validate()
+    cw, ch = cfg.capture_size
+    assert (ch, cw) == (512, 910)
+    state, _ = check.random_state(cfg, seed=9, device=cuda)
+    _check_cases(check.render_cases(state, cfg, out_hw=(ch, cw)))
+
+
+def test_kernel_render_matches_plain_render(cuda):
+    cfg = FluidConfig(DTYPE="bfloat16", **CONFIGS["small"]).validate()
+    state, _ = check.random_state(cfg, seed=2, device=cuda)
+    build.reset_launches()
+    got = make_render(cfg)(state)
+    launches = {k: v.launches for k, v in build.KERNELS.items()}
+    assert launches["bloom_blur4"] == 2 * len(cfg.bloom_mip_sizes())
+    assert launches["display"] == 1
+    err, tol = check.compare(got, plain_render(state, cfg))
+    assert err <= tol, (err, tol)
+
+
+def test_render_kernels_reject_bad_inputs(cuda):
+    with pytest.raises(ValueError, match="takes float32"):
+        bloom.blur4_stage(torch.zeros((3, 8, 8), device=cuda, dtype=torch.bfloat16), (4, 4))
+    with pytest.raises(ValueError, match="no kernel for dtype"):
+        display.display(torch.zeros((3, 8, 8), device=cuda, dtype=torch.float64), (8, 8), True)
+    with pytest.raises(ValueError, match="must be float32"):
+        display.display(torch.zeros((3, 8, 8), device=cuda), (8, 8), True,
+                        torch.zeros((3, 4, 4), device=cuda, dtype=torch.float16))

@@ -3,7 +3,8 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The simulation step runs four kernels (csrc/): the pre-pressure stencil
 (two launches), the Jacobi sweep, the gradient subtract and the advection.
-Every kernel has a plain PyTorch version beside it; a CPU state runs those,
+The frame runs two: a bloom pyramid stage (one launch per stage) and the
+display composite. Every kernel has a plain PyTorch version beside it; a CPU state runs those,
 a CUDA state runs the kernels. The entry points default to
 ``device="cuda"`` and raise without a GPU unless the caller passes
 ``device="cpu"``. The package imports neither JAX nor ``tpufluid``.
@@ -14,9 +15,13 @@ Public API:
     resize_state               — resample into another config's sizes
     fluid_step, make_step, make_multi_step — the simulation step
     Trace, swirl_trace         — deterministic splat input
+    render_frame, make_render, capture_frame — the frame (float32 RGBA)
+    frame_u8, tick_body, make_step_and_render — the servers' uint8 frame
 """
 
 from tpufluid_torch.config import MAX_DT, FluidConfig, get_resolution
+from tpufluid_torch.render import (capture_frame, frame_u8, make_render,
+                                   make_step_and_render, render_frame, tick_body)
 from tpufluid_torch.state import FluidState, init_state, resize_state
 from tpufluid_torch.step import fluid_step, make_multi_step, make_step
 from tpufluid_torch.trace import Trace, swirl_trace
@@ -33,4 +38,10 @@ __all__ = [
     "make_multi_step",
     "Trace",
     "swirl_trace",
+    "render_frame",
+    "make_render",
+    "capture_frame",
+    "frame_u8",
+    "tick_body",
+    "make_step_and_render",
 ]

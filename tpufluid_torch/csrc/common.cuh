@@ -51,6 +51,63 @@ inline dim3 grid_for(int h, int w) {
     return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
 }
 
+// One axis of a separable affine bilinear sample (ops/sampling.py
+// affine_axis_plan) for output index k: p = ((k + 0.5) / n_out) * scale + off,
+// x = p * n_in - 0.5, corners floor(x) and +1 clamped to [0, n_in - 1] (or
+// wrapped by floor modulo for REPEAT: -1 -> n_in - 1, where C's % gives -1),
+// weight f = x - floor(x). The render kernels recompute the plan per thread
+// instead of reading it as data: with IEEE division and -fmad=false these
+// are the very float32 operations of the plain version's plan.
+struct AxisTap {
+    int i0, i1;
+    float f;
+};
+
+__device__ __forceinline__ int floor_mod(int a, int n) {
+    const int r = a % n;
+    return r < 0 ? r + n : r;
+}
+
+__device__ __forceinline__ AxisTap axis_tap(int k, int n_in, int n_out, float scale, float off,
+                                            bool wrap) {
+    const float p = ((float)k + 0.5f) / (float)n_out * scale + off;
+    const float x = p * (float)n_in - 0.5f;
+    const float x0 = floorf(x);
+    const int i = (int)x0;
+    AxisTap t;
+    t.f = x - x0;
+    if (wrap) {
+        t.i0 = floor_mod(i, n_in);
+        t.i1 = floor_mod(i + 1, n_in);
+    } else {
+        t.i0 = min(max(i, 0), n_in - 1);
+        t.i1 = min(max(i + 1, 0), n_in - 1);
+    }
+    return t;
+}
+
+// The separable stages' lerp, a*(1-f) + b*f (not a + (b-a)*f).
+__device__ __forceinline__ float lerp_ab(float a, float b, float f) {
+    return a * (1.0f - f) + b * f;
+}
+
+// Bilinear sample of plane(y, x) at one (row, column) tap pair, column stage
+// first, then the row stage: ops/sampling.sample_affine's order.
+template <typename Fetch>
+__device__ __forceinline__ float sample_cols_rows(Fetch plane, AxisTap row, AxisTap col) {
+    const float top = lerp_ab(plane(row.i0, col.i0), plane(row.i0, col.i1), col.f);
+    const float bot = lerp_ab(plane(row.i1, col.i0), plane(row.i1, col.i1), col.f);
+    return lerp_ab(top, bot, row.f);
+}
+
+// The same sample, row stage first, then the column stage.
+template <typename Fetch>
+__device__ __forceinline__ float sample_rows_cols(Fetch plane, AxisTap row, AxisTap col) {
+    const float left = lerp_ab(plane(row.i0, col.i0), plane(row.i1, col.i0), row.f);
+    const float right = lerp_ab(plane(row.i0, col.i1), plane(row.i1, col.i1), row.f);
+    return lerp_ab(left, right, col.f);
+}
+
 // The separable splat bump at texel (i, j) of channel c:
 // sum over s of (gy[i, s] * amt[s, c]) * gx[s, j], summed from s = 0 in
 // order — the order of ops/splat.splat_bump.

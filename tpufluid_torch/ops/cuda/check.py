@@ -3,8 +3,8 @@
 ``step_cases`` takes a state and a splat batch and lays out every kernel
 call one step makes, in order, each with the inputs the step would give it
 (computed by the plain versions, so the kernel and its plain version see the
-very same tensors). The kernel tests and chip_smoke.py compare and time
-these cases on the card.
+very same tensors); ``render_cases`` does the same for one frame. The kernel
+tests and chip_smoke.py compare and time these cases on the card.
 
 Tolerance of a kernel against its plain version, as a fraction of the plain
 output's largest magnitude: both run the same float32 operations in the same
@@ -24,10 +24,16 @@ import numpy as np
 import torch
 
 from tpufluid_torch.config import FluidConfig
+from tpufluid_torch.ops import bloom as _bloom_ops
 from tpufluid_torch.ops.cuda import advect as _advect
+from tpufluid_torch.ops.cuda import bloom as _bloom
+from tpufluid_torch.ops.cuda import display as _display
 from tpufluid_torch.ops.cuda import jacobi as _jacobi
 from tpufluid_torch.ops.cuda import stencil as _stencil
+from tpufluid_torch.ops.sampling import resample_bilinear
 from tpufluid_torch.ops.splat import SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R, splat_factors
+from tpufluid_torch.ops.sunrays import apply_sunrays
+from tpufluid_torch.render import blue_noise
 from tpufluid_torch.state import FluidState
 from tpufluid_torch.step import clamp_dt
 
@@ -96,6 +102,110 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
              _bytes(vel3, state.dye, *df, dye_out),
              dye * (34 + 3 * (8 + 2 * n_active) + (40 if quant else 0))),
     ]
+
+
+# Float32 operations of the render kernels' arithmetic, counted from
+# csrc/common.cuh: one axis coordinate (axis_tap) 8, one bilinear tap of one
+# channel 12 (three lerps of 4), the soft knee 13 per source texel.
+_AXIS, _TAP, _KNEE = 8, 12, 13
+
+
+def _blur4_flops(out_hw, prefilter_texels: int) -> int:
+    """One bloom stage: 6 axis coordinates per texel; per channel 4 taps,
+    their sum, x 0.25 and the dst add or intensity scale."""
+    oh, ow = out_hw
+    return oh * ow * (6 * _AXIS + 3 * (4 * _TAP + 5)) + _KNEE * prefilter_texels
+
+
+def _display_flops(out_hw, c: int, shading: bool, bloom: bool, rays: bool, noise: bool,
+                   compose: bool) -> int:
+    """One display pass: the dye taps (5 with shading, with the channel
+    norms and the diffuse term), then bloom, sunrays, dither, gamma and
+    alpha where present."""
+    oh, ow = out_hw
+    n = 2 * _AXIS + c * _TAP
+    if shading:
+        n += 4 * _AXIS + 4 * c * _TAP + 4 * (2 * c) + 13 + c
+    if compose:
+        n += c                                        # alpha
+        if bloom:
+            n += 2 * _AXIS + 3 * _TAP + 3 * 5 + 3     # sample, gamma, add
+        if rays:
+            n += 2 * _AXIS + _TAP + c + (3 if bloom else 0)
+        if noise:
+            n += 2 * _AXIS + _TAP + 3 + 3
+    return oh * ow * n
+
+
+def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bool = True,
+                 compose: bool = True) -> List[Case]:
+    """Every kernel call of one frame from ``state`` at ``out_hw`` (default
+    the canvas), in the render's order: the bloom chain's stages, then the
+    display. ``dither=False`` leaves the dither out of the display and
+    ``compose=False`` makes it the shaded center alone: neither is what
+    render_frame calls, both are what the display kernel takes."""
+    out_hw = tuple(out_hw or (config.CANVAS_HEIGHT, config.CANVAS_WIDTH))
+    dye = state.dye.to(torch.float32)
+    cases: List[Case] = []
+
+    def stage(src, hw, dst=None, prefilter=None, scale=None):
+        cases.append(Case(
+            f"bloom_blur4:{len(cases)}", "bloom_blur4", _bloom.blur4_stage,
+            _bloom.blur4_stage_plain, (src, hw, dst, prefilter, scale),
+            _bytes(src, dst) + 4 * 3 * hw[0] * hw[1],
+            _blur4_flops(hw, src[0].numel() if prefilter else 0)))
+        return _bloom.blur4_stage_plain(src, hw, dst, prefilter, scale)
+
+    bloom = rays = noise = None
+    if config.BLOOM:
+        bw, bh = config.bloom_size
+        mips = config.bloom_mip_sizes()
+        if len(mips) < 2:
+            bloom = torch.zeros((3, bh, bw), dtype=torch.float32, device=dye.device)
+        else:
+            bloom = _bloom_ops.pyramid(stage, resample_bilinear(dye, (bh, bw)), mips,
+                                       config.BLOOM_THRESHOLD, config.BLOOM_SOFT_KNEE,
+                                       config.BLOOM_INTENSITY)
+        if dither:
+            noise = blue_noise(dye.device)
+    if config.SUNRAYS:
+        sw, sh = config.sunrays_size
+        rays = apply_sunrays(dye, (sh, sw), config.SUNRAYS_WEIGHT)
+    if not compose:
+        bloom = rays = noise = None
+    c = state.dye.shape[0]
+    n_out = (c + 1 if compose else c) * out_hw[0] * out_hw[1]
+    cases.append(Case(
+        "display" if compose else "display:base", "display", _display.display,
+        _display.display_plain,
+        (state.dye, out_hw, config.SHADING, bloom, rays, noise, compose),
+        _bytes(state.dye, bloom, rays, noise) + 4 * n_out,
+        _display_flops(out_hw, c, config.SHADING, bloom is not None, rays is not None,
+                       noise is not None, compose)))
+    return cases
+
+
+def floors_work() -> dict:
+    """Bytes and operations of the three TPU microbenchmarks of
+    tpufluid/ops/pallas/floors.py (not ported yet), reckoned from their
+    code: each input read once, each output written once, one operation per
+    add, multiply or subtract (the gathers and rolls move data and are not
+    counted). measure_roll_rate has no default shape; it is taken at that of
+    tests/test_floors.py:30 with its default trips."""
+    u32 = f32 = 4
+    r, lane = 64, 128
+    planes, n_idx, reps, trips = 2, 8, 32, 8                     # measure_taa_row_rate
+    taa_bytes = u32 * (r * lane + n_idx * r * lane + planes * (r + reps) * lane + r * lane)
+    taa_ops = trips * reps * n_idx * planes * r * lane           # one add per gathered word
+    rp, nrk, cbw, rtrips = 2, 96, 384, 256                       # measure_roll_rate
+    roll_bytes = u32 * 3 * rp * nrk * cbw                        # seed, operand, output
+    roll_ops = rtrips * rp * nrk * cbw
+    chunks, sweeps, h, w = 16, 20, 256, 1024                     # measure_sweep_rate
+    sweep_bytes = f32 * 3 * h * w                                # seed, div, output
+    sweep_ops = chunks * sweeps * h * w * 5                      # 3 adds, 1 subtract, 1 multiply
+    return {"floors.py:92 _taa_kernel": (taa_bytes, taa_ops),
+            "floors.py:133 _roll_kernel": (roll_bytes, roll_ops),
+            "floors.py:163 _sweep_kernel": (sweep_bytes, sweep_ops)}
 
 
 def compare(out, want) -> Tuple[float, float]:

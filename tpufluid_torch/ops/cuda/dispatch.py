@@ -1,15 +1,17 @@
-"""The step's passes, routed by device: a CUDA tensor goes to the kernel, a
-CPU tensor to the kernel's plain version. There is no fallback: a CUDA
-tensor the kernel cannot take (a dtype it lacks, a failed build or launch)
-raises.
+"""The step's passes and the frame's kernels, routed by device: a CUDA
+tensor goes to the kernel, a CPU tensor to the kernel's plain version. There
+is no fallback: a CUDA tensor the kernel cannot take (a dtype it lacks, a
+failed build or launch) raises.
 
-Counterpart of tpufluid/ops/pallas/dispatch.py:152-284, 335-363, without its
+Counterpart of tpufluid/ops/pallas/dispatch.py:152-284, 287-363, without its
 TPU padding and tiling policy: the kernels read global memory at any shape.
 """
 
 from __future__ import annotations
 
 from tpufluid_torch.ops.cuda import advect as _advect
+from tpufluid_torch.ops.cuda import bloom as _bloom
+from tpufluid_torch.ops.cuda import display as _display
 from tpufluid_torch.ops.cuda import jacobi as _jacobi
 from tpufluid_torch.ops.cuda import stencil as _stencil
 
@@ -60,3 +62,31 @@ jacobi_pressure = ROUTED.jacobi_pressure
 gradient_subtract = ROUTED.gradient_subtract
 advect = ROUTED.advect
 project_and_self_advect = ROUTED.project_and_self_advect
+
+
+class RenderPasses:
+    """The two kernels of one frame through one implementation:
+    ``bloom_chain(dye_rgb, base_hw, mip_sizes, threshold, soft_knee,
+    intensity)`` and ``display(dye, out_hw, shading, bloom, sunrays, dither,
+    compose=True)``."""
+
+    def __init__(self, bloom_chain, display):
+        self.bloom_chain = bloom_chain
+        self.display = display
+
+
+ROUTED_RENDER = RenderPasses(_routed(_bloom.bloom_chain, _bloom.bloom_chain_plain),
+                             _routed(_display.display, _display.display_plain))
+PLAIN_RENDER = RenderPasses(_bloom.bloom_chain_plain, _display.display_plain)
+
+bloom_chain = ROUTED_RENDER.bloom_chain
+
+
+def display_full(dye_rgb, out_hw, shading: bool, bloom_tex, sunrays_tex, dither_tex):
+    """The whole display composite -> (C + 1, h, w) premultiplied RGBA."""
+    return ROUTED_RENDER.display(dye_rgb, out_hw, shading, bloom_tex, sunrays_tex, dither_tex)
+
+
+def display_base(dye_rgb, out_hw, shading: bool):
+    """The shaded display center alone -> (C, h, w)."""
+    return ROUTED_RENDER.display(dye_rgb, out_hw, shading, compose=False)

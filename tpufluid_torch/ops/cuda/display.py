@@ -1,0 +1,77 @@
+"""The display composite: the CUDA kernel (csrc/display.cu) and its plain
+PyTorch version.
+
+Counterpart of tpufluid/ops/pallas/display.py:262 (display_pallas, and
+resample_shade_pallas with compose=False). One launch per frame writes the
+premultiplied (C + 1, oh, ow) RGBA, or the shaded (C, oh, ow) center when
+compose=False, at any output size. The kernel reads the dye in its storage
+type; the plain version casts it to float32 first, as the render does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from tpufluid_torch.ops import display as D
+from tpufluid_torch.ops.cuda.build import F, I, P, Kernel, check_storage, ptr, stream
+
+DISPLAY = Kernel("display", "display", "display_frame",
+                 [P, I, I, I, I, P, I, I, I, I, F, F, F, P, I, I, P, I, I, P, I, I, F, F, P],
+                 replaces="tpufluid/ops/pallas/display.py:262")
+
+
+def _check(dye, bloom_tex, sunrays_tex, dither_tex, compose):
+    if dye.ndim != 3 or not 1 <= dye.shape[0] <= 4:
+        raise ValueError(f"dye must be (C <= 4, H, W), got {tuple(dye.shape)}")
+    if not compose:
+        return None, None, None
+    if bloom_tex is not None and (bloom_tex.ndim != 3 or bloom_tex.shape[0] != 3
+                                  or dye.shape[0] != 3):
+        raise ValueError(f"bloom {tuple(bloom_tex.shape)} needs (3, h, w) over 3-channel dye")
+    for name, t in (("sunrays", sunrays_tex), ("dither", dither_tex)):
+        if t is not None and t.ndim != 2:
+            raise ValueError(f"{name} must be (h, w), got {tuple(t.shape)}")
+    return bloom_tex, sunrays_tex, dither_tex if bloom_tex is not None else None
+
+
+def display(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool,
+            bloom_tex: Optional[torch.Tensor] = None,
+            sunrays_tex: Optional[torch.Tensor] = None,
+            dither_tex: Optional[torch.Tensor] = None, compose: bool = True) -> torch.Tensor:
+    """The display pass on the card -> float32 (C + 1, oh, ow) premultiplied
+    RGBA, or with compose=False the shaded (C, oh, ow) center."""
+    bloom, rays, dither = _check(dye, bloom_tex, sunrays_tex, dither_tex, compose)
+    code = check_storage(dye)
+    extras = [t for t in (bloom, rays, dither) if t is not None]
+    if extras and check_storage(*extras) != 0:
+        raise ValueError("bloom, sunrays and dither must be float32")
+    if extras and extras[0].device != dye.device:
+        raise ValueError("display inputs on different devices")
+    c, h, w = dye.shape
+    oh, ow = out_hw
+    out = torch.empty((c + 1 if compose else c, oh, ow), dtype=torch.float32,
+                      device=dye.device)
+    tx, ty, nz = D.shading_constants(out_hw)
+    bh, bw = bloom.shape[-2:] if bloom is not None else (0, 0)
+    sh, sw = rays.shape if rays is not None else (0, 0)
+    dh, dw = dither.shape if dither is not None else (0, 0)
+    DISPLAY(ptr(dye), c, h, w, code, ptr(out), oh, ow, int(shading), int(compose),
+            tx, ty, nz, ptr(bloom), bh, bw, ptr(rays), sh, sw, ptr(dither), dh, dw,
+            ow / dw if dw else 0.0, oh / dh if dh else 0.0, stream())
+    return out
+
+
+def display_plain(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool,
+                  bloom_tex: Optional[torch.Tensor] = None,
+                  sunrays_tex: Optional[torch.Tensor] = None,
+                  dither_tex: Optional[torch.Tensor] = None,
+                  compose: bool = True) -> torch.Tensor:
+    """Plain version of display: ops/display.display_composite (or, with
+    compose=False, shaded_base) on the dye cast to float32."""
+    bloom, rays, dither = _check(dye, bloom_tex, sunrays_tex, dither_tex, compose)
+    dye = dye.to(torch.float32)
+    if not compose:
+        return D.shaded_base(dye, out_hw, shading)
+    return D.display_composite(dye, out_hw, shading, bloom, rays, dither)

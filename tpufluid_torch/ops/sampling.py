@@ -1,11 +1,13 @@
 """Bilinear texture sampling — the counterpart of GLSL ``texture2D``.
 
 Texel centers at (i + 0.5)/N, out-of-range taps clamped to the edge texel
-(CLAMP_TO_EDGE). Mirrors ``tpufluid.ops.sampling`` operation for operation.
+(CLAMP_TO_EDGE) or wrapped (REPEAT, the dither texture only). Mirrors
+``tpufluid.ops.sampling`` operation for operation.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -15,8 +17,10 @@ def true_div(a: torch.Tensor, b) -> torch.Tensor:
     """IEEE ``a / b`` for a scalar ``b``. PyTorch's CUDA division by a Python
     scalar multiplies by the reciprocal instead, which can move a result by
     an ulp — and a sampling coordinate that moved by an ulp can land on
-    another bilinear corner than the kernels' IEEE division."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    another bilinear corner than the kernels' IEEE division. The divisor is
+    a 0-d tensor filled on the device: ``torch.tensor(b, device=...)``
+    would copy it from the host and synchronize the stream on every call."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def sample_bilinear(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -46,6 +50,84 @@ def sample_bilinear(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torc
     return top + (bot - top) * fy
 
 
+def sample_bilinear_repeat(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """sample_bilinear with REPEAT wrap: corner indices taken modulo the
+    size by floor modulo (``torch.remainder``), so -1 wraps to N-1."""
+    h, w = tex.shape[-2], tex.shape[-1]
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0).to(tex.dtype)
+    fy = (y - y0).to(tex.dtype)
+
+    ix0 = torch.remainder(x0.long(), w)
+    ix1 = torch.remainder(x0.long() + 1, w)
+    iy0 = torch.remainder(y0.long(), h)
+    iy1 = torch.remainder(y0.long() + 1, h)
+
+    a = tex[..., iy0, ix0]
+    b = tex[..., iy0, ix1]
+    c = tex[..., iy1, ix0]
+    d = tex[..., iy1, ix1]
+
+    top = a + (b - a) * fx
+    bot = c + (d - c) * fx
+    return top + (bot - top) * fy
+
+
+@functools.lru_cache(maxsize=512)
+def _axis_plan(n_in: int, n_out: int, scale: float, off: float, wrap: bool,
+               device: torch.device):
+    p = true_div(torch.arange(n_out, dtype=torch.float32, device=device) + 0.5,
+                 float(n_out)) * scale + off
+    x = p * n_in - 0.5
+    x0 = torch.floor(x)
+    f = x - x0
+    i0 = x0.long()
+    if wrap:
+        i0, i1 = torch.remainder(i0, n_in), torch.remainder(i0 + 1, n_in)
+    else:
+        i0, i1 = i0.clamp(0, n_in - 1), (i0 + 1).clamp(0, n_in - 1)
+    return i0, i1, f
+
+
+def affine_axis_plan(n_in: int, n_out: int, scale: float = 1.0, off: float = 0.0,
+                     wrap: bool = False, device=None):
+    """(i0, i1, f) for one separable affine bilinear stage at
+    p = ((k+0.5)/n_out)*scale + off: corner indices (int64) and the float32
+    lerp weight. ``scale`` and ``off`` enter as float32, as in the JAX
+    package. The plans depend on the geometry alone, so they are cached per
+    (sizes, scale, offset, wrap, device); callers must not write to them."""
+    return _axis_plan(int(n_in), int(n_out), float(scale), float(off), bool(wrap),
+                      torch.device("cpu") if device is None else torch.device(device))
+
+
+def sample_affine_axis(tex: torch.Tensor, n_out: int, axis: int, scale: float = 1.0,
+                       off: float = 0.0, wrap: bool = False) -> torch.Tensor:
+    """One separable stage of an affine bilinear sample: take + lerp along
+    ``axis`` (-1 = u/columns, -2 = v/rows) at p = ((k+0.5)/n_out)*scale + off.
+    The lerp is a*(1-f) + b*f."""
+    assert axis in (-1, -2)
+    i0, i1, f = affine_axis_plan(tex.shape[axis], n_out, scale, off, wrap, tex.device)
+    f = f.to(tex.dtype)
+    if axis == -2:
+        f = f[:, None]
+    return tex.index_select(axis, i0) * (1 - f) + tex.index_select(axis, i1) * f
+
+
+def sample_affine(tex: torch.Tensor, out_hw: Tuple[int, int], su: float = 1.0,
+                  ou: float = 0.0, sv: float = 1.0, ov: float = 0.0,
+                  wrap: bool = False) -> torch.Tensor:
+    """Bilinear-sample ``tex`` (..., H, W) at the affine uv map
+    u = su * u_out + ou, v = sv * v_out + ov over an (out_h, out_w) raster:
+    the column (u) stage first, then the row (v) stage. CLAMP_TO_EDGE by
+    default; wrap=True gives REPEAT."""
+    out_h, out_w = out_hw
+    t = sample_affine_axis(tex, out_w, axis=-1, scale=su, off=ou, wrap=wrap)
+    return sample_affine_axis(t, out_h, axis=-2, scale=sv, off=ov, wrap=wrap)
+
+
 def uv_grid(h: int, w: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 (u, v) arrays of shape (h, w) at texel centers:
     ((j+0.5)/w, (i+0.5)/h)."""
@@ -56,21 +138,7 @@ def uv_grid(h: int, w: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def resample_bilinear(tex: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Resample (..., H, W) to (out_h, out_w) by sampling at the target's
-    texel centers; separable, one row gather and one column gather."""
-    out_h, out_w = out_hw
-    h, w = tex.shape[-2], tex.shape[-1]
-    dev = tex.device
-
-    x = true_div(torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5, float(out_w)) * w - 0.5
-    x0 = torch.floor(x)
-    fx = (x - x0).to(tex.dtype)
-    ix0 = x0.long().clamp(0, w - 1)
-    ix1 = (x0.long() + 1).clamp(0, w - 1)
-    t = tex[..., ix0] * (1 - fx) + tex[..., ix1] * fx
-
-    y = true_div(torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5, float(out_h)) * h - 0.5
-    y0 = torch.floor(y)
-    fy = (y - y0).to(tex.dtype)[:, None]
-    iy0 = y0.long().clamp(0, h - 1)
-    iy1 = (y0.long() + 1).clamp(0, h - 1)
-    return t[..., iy0, :] * (1 - fy) + t[..., iy1, :] * fy
+    texel centers: the identity affine map, one column gather and one row
+    gather through the cached plans (tpufluid's resample_bilinear computes
+    the same coordinates and lerps)."""
+    return sample_affine(tex, out_hw)

@@ -1,0 +1,164 @@
+"""render(state) -> RGBA frame — the reference's render(target)
+(script.js:1296-1348), counterpart of ``tpufluid.render``.
+
+Order, that of the reference: bloom chain -> sunrays (mask, march, 1x blur)
+-> background (flat BACK_COLOR, or a checkerboard in transparent screen
+mode) -> display composite, blended premultiplied (ONE, ONE_MINUS_SRC_ALPHA)
+unless rendering an offscreen transparent capture (no blend, raw RGBA).
+
+On a CUDA state the bloom chain (14 launches at the demo and 1024x1024
+configs) and the display composite (1 launch) run the CUDA kernels; on a CPU
+state their plain versions. Sunrays, the base resample and the blend are
+PyTorch ops on either device. The output is a float32 (4, H, W) RGBA tensor
+on the state's device; frame_u8 quantizes it to the servers' wire format.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from tpufluid_torch.config import FluidConfig
+from tpufluid_torch.ops.cuda import dispatch
+from tpufluid_torch.ops.display import blend_premultiplied, checkerboard
+from tpufluid_torch.ops.sunrays import apply_sunrays
+from tpufluid_torch.state import FluidState, resolve_device
+from tpufluid_torch.step import fluid_step
+from tpufluid_torch.utils.bluenoise import blue_noise_64
+
+@functools.lru_cache(maxsize=None)
+def blue_noise(device: torch.device) -> torch.Tensor:
+    """The 64x64 blue-noise dither tile as a float32 tensor on ``device``,
+    one copy per device, shared by every frame (read only)."""
+    return torch.from_numpy(blue_noise_64()).to(device)
+
+
+def _render(state: FluidState, config: FluidConfig, out_hw, to_screen: bool, dither,
+            passes: dispatch.RenderPasses) -> torch.Tensor:
+    if out_hw is None:
+        out_hw = (config.CANVAS_HEIGHT, config.CANVAS_WIDTH)
+    out_hw = tuple(out_hw)
+    dye = state.dye.to(torch.float32)
+    device = dye.device
+
+    bloom_tex = None
+    if config.BLOOM:
+        bw, bh = config.bloom_size
+        bloom_tex = passes.bloom_chain(dye, (bh, bw), config.bloom_mip_sizes(),
+                                       config.BLOOM_THRESHOLD, config.BLOOM_SOFT_KNEE,
+                                       config.BLOOM_INTENSITY)
+
+    sunrays_tex = None
+    if config.SUNRAYS:
+        sw, sh = config.sunrays_size
+        sunrays_tex = apply_sunrays(dye, (sh, sw), config.SUNRAYS_WEIGHT)
+
+    if config.BLOOM and dither is None:
+        dither = blue_noise(device)
+
+    # The display reads the dye in its storage type (its plain version casts).
+    display = passes.display(state.dye, out_hw, config.SHADING, bloom_tex, sunrays_tex,
+                             dither if config.BLOOM else None)
+
+    blend = to_screen or not config.TRANSPARENT  # script.js:1304-1310
+    if not config.TRANSPARENT:
+        back = torch.ones((4,) + out_hw, dtype=torch.float32, device=device)
+        for ch, value in enumerate(config.BACK_COLOR):
+            back[ch] = value / 255.0
+    elif to_screen:
+        back = checkerboard(out_hw, config.aspect_ratio, device=device)
+    else:
+        back = None
+
+    if blend and back is not None:
+        return blend_premultiplied(display, back)
+    return display
+
+
+def render_frame(state: FluidState, config: FluidConfig,
+                 out_hw: Optional[Tuple[int, int]] = None, to_screen: bool = True,
+                 dither: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The full display pipeline -> (4, out_h, out_w) float32 RGBA.
+
+    to_screen=False is the offscreen-capture path (captureScreenshot,
+    script.js:287-299): with TRANSPARENT it skips background and blending.
+    ``dither`` replaces the built-in blue noise (a (h, w) float32 tensor on
+    the state's device)."""
+    return _render(state, config, out_hw, to_screen, dither, dispatch.ROUTED_RENDER)
+
+
+def plain_render(state: FluidState, config: FluidConfig,
+                 out_hw: Optional[Tuple[int, int]] = None, to_screen: bool = True,
+                 dither: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """render_frame through the kernels' plain versions on any device: the
+    reference the kernel render is held to on the card."""
+    return _render(state, config, out_hw, to_screen, dither, dispatch.PLAIN_RENDER)
+
+
+def _require(state: FluidState, device: torch.device) -> None:
+    if state.dye.device.type != device.type:
+        raise ValueError(f"state on {state.dye.device}, render made for {device}")
+
+
+def make_render(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,
+                to_screen: bool = True, device="cuda"):
+    """render(state, dither=None) -> (4, h, w) frame on ``device`` (default
+    the GPU)."""
+    device = resolve_device(device)
+
+    def render(state: FluidState, dither: Optional[torch.Tensor] = None) -> torch.Tensor:
+        _require(state, device)
+        return render_frame(state, config, out_hw=out_hw, to_screen=to_screen, dither=dither)
+
+    return render
+
+
+def capture_frame(state: FluidState, config: FluidConfig,
+                  dither: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Offscreen capture at CAPTURE_RESOLUTION (captureScreenshot, script.js:287-299)."""
+    cw, ch = config.capture_size
+    return render_frame(state, config, out_hw=(ch, cw), to_screen=False, dither=dither)
+
+
+def frame_u8(state: FluidState, config: FluidConfig,
+             out_hw: Optional[Tuple[int, int]] = None,
+             dither_path: Optional[str] = None) -> torch.Tensor:
+    """The rendered frame in the servers' wire format, computed on the
+    state's device: render + clip01 * 255 quantize (truncating) + vertical
+    flip -> (h, w, 3) uint8, top row first."""
+    if dither_path is not None:
+        raise NotImplementedError(
+            "dither_path needs io.load_dither, which is not ported yet "
+            "(ROADMAP.md Queue 1 #7, headless app and I/O)")
+    frame = render_frame(state, config, out_hw=out_hw)
+    rgb = (frame[:3].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return torch.flip(rgb.permute(1, 2, 0), dims=(0,)).contiguous()
+
+
+def tick_body(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,
+              dither_path: Optional[str] = None):
+    """The per-frame body, step + render + uint8 quantize + flip:
+    tick(state, dt, splats) -> (state, (h, w, 3) uint8 frame)."""
+
+    def tick(state: FluidState, dt, splats):
+        state = fluid_step(state, dt, splats, config)
+        return state, frame_u8(state, config, out_hw=out_hw, dither_path=dither_path)
+
+    return tick
+
+
+def make_step_and_render(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,
+                         dither_path: Optional[str] = None, device="cuda"):
+    """tick(state, dt, splats) -> (state, frame_u8) on ``device`` (default
+    the GPU): one simulation step and its frame, as an interactive server
+    issues them."""
+    device = resolve_device(device)
+    body = tick_body(config, out_hw, dither_path)
+
+    def tick(state: FluidState, dt, splats):
+        _require(state, device)
+        return body(state, dt, splats)
+
+    return tick
