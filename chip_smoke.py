@@ -45,6 +45,25 @@ the card.
    frame time), each render kernel's device time per frame beside its
    plain version's and its bound, and the host time of the render's Python
    layers under cProfile.
+7. Floors kernel phase: the three microbenchmark kernels (floor_taa,
+   floor_roll, floor_sweep; check.floors_cases) against their plain
+   versions at the TPU microbenchmarks' default shapes (measure_roll_rate
+   at (2, 96, 384)) and at ragged ones, on the microbenchmarks' inputs and
+   on random ones (check.random_floors_cases: row-varying gather indices,
+   a sweep field that is not uniform): uint32 words bit-equal, the float32
+   sweep within tolerance, each launch counted.
+8. Floors phase, on the 1024x1024 bfloat16 (RGB9E5) path's final state
+   (bench.py config 3), launch counts zeroed just before and read just
+   after: the card's memory bandwidth, the three reference rates,
+   profile_step_kernels (torch.profiler over 30 steps: each kernel's own
+   device time a step, printed beside phase 4's spin-queued time, its event
+   count equal to its launch count) and one `floors {...}` JSON line of
+   floor_report; then the three kernels' device time beside their plain
+   version's and their bound.
+9. Long-horizon phase: tpufluid_torch.tools.long_horizon at 4096x4096
+   bfloat16 (RGB9E5), 1500 steps (300 with splats) in chunks of 50, launch
+   counts zeroed before and checked after; it must report ok with no
+   non-finite value (its output goes to out/long_horizon_4096/).
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
@@ -53,6 +72,7 @@ out/chip_smoke.json. Exits non-zero without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -71,6 +91,13 @@ EXPECTED_PER_STEP = {"splat_curl": 1, "confine_divergence": 1, "jacobi_sweep": 2
                      "gradient_subtract": 1, "advect": 2}
 RENDER_KERNELS = ("bloom_blur4", "display")
 TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
+FLOORS_KERNELS = ("floor_taa", "floor_roll", "floor_sweep")
+FLOORS_CONFIG = "1024_bfloat16_rgb9e5"    # bench.py config 3, where bench.py reports floors
+PROFILE_STEPS = 30                        # profile_step_kernels' default
+LONG_HORIZON_STEPS = 1500
+LONG_HORIZON_OUT = Path("out/long_horizon_4096")
+LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
+                     "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
 
 def gpu_line() -> str:
@@ -398,6 +425,83 @@ def host_phase(torch, cfg, run, steps: int = 50) -> dict:
     return host_profile(torch, one, steps, HOST_FUNCS, "step")
 
 
+def floors_kernel_phase(torch, check, device, errors: dict) -> None:
+    """The floors kernels against their plain versions at the default and
+    the ragged shapes; adds each max abs error to ``errors``."""
+    from tpufluid_torch.ops.cuda import build
+
+    for ragged in (False, True):
+        for case in check.floors_cases(device, ragged) + check.random_floors_cases(device, ragged):
+            before = build.KERNELS[case.kernel_name].launches
+            err, tol = check.compare(case.run(), case.run(plain=True))
+            torch.cuda.synchronize()
+            print(f"kernel floors {case.label:20s} max_abs_err {err:.3e}  tol {tol:.3e}")
+            assert err <= tol, f"{case.label}: {err} > {tol}"
+            assert build.KERNELS[case.kernel_name].launches > before, case.label
+            key = ("floors", case.kernel_name)
+            errors[key] = max(errors.get(key, 0.0), err)
+
+
+def floors_phase(torch, check, cfg, run, step_timing: dict, gpu: str, device) -> dict:
+    """The profiling path on the path's final state: bandwidth, reference
+    rates, the profiled step and the floor report, with the floors kernels'
+    launches counted; then their timing."""
+    from tpufluid_torch.ops.cuda import build, floors
+
+    planes, nrk, cbw, trips = check.ROLL_DEFAULT
+    build.reset_launches()
+    bw = floors.measure_hbm_bandwidth_gbps()
+    # floor_report profiles the step and measures the gather and sweep
+    # rates; the roll rate, which it does not use, is measured apart.
+    report = floors.floor_report(cfg, run["state"], 1.0 / 60.0, bw, run["steps_per_s"])
+    rolls = floors.measure_roll_rate(planes, nrk, cbw, trips)
+    launches = {k: build.KERNELS[k].launches for k in FLOORS_KERNELS}
+    for k, n in launches.items():
+        assert n > 0, f"{k} did not launch on the profiling path"
+    print(f"floors rates on {gpu}: memory {bw} GB/s; gather "
+          f"{report['velocity_gather']['reference_rows_per_us']} rows/us; roll ({planes}, "
+          f"{nrk}, {cbw}) {rolls} rolls/s; sweep "
+          f"{report['jacobi']['reference_gcells_per_s']} Gcell-sweeps/s")
+    other = report["other"]
+    print(f"profile {FLOORS_CONFIG} on {gpu}, torch.profiler over {PROFILE_STEPS} steps, "
+          "each kernel's device time a step beside the spin-queued time of phase 4:")
+    for name, row in other["kernel_events"].items():
+        print(f"profile {name:20s} {row['events'] // PROFILE_STEPS:3d} a step "
+              f"({row['events']} events = launches)  profiler {row['us']:.4f} us  "
+              f"spin-queued {1e3 * step_timing[name]['ms']:.4f} us")
+    print(f"profile other device {other['other_device_us']} us a step, CUDA runtime calls "
+          f"on the host {other['cuda_runtime_host_us']} us; top other: "
+          + "; ".join(f"{o['us']} us {o['op'][:60]}" for o in other["top_other_ops"]))
+    print("floors " + json.dumps({"gpu": gpu, **report}))
+    print(f"floors launches {launches}")
+    return {"device_bw_gbps": bw, "rolls_per_s": rolls, "report": report,
+            "launches": launches,
+            "kernels": timing_phase(torch, check, check.floors_cases(device))}
+
+
+def long_horizon_phase(gpu: str) -> dict:
+    """The long-horizon tool at 4096x4096 bf16 through the kernels; its
+    launches and its ok."""
+    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.tools import long_horizon
+
+    LONG_HORIZON_OUT.mkdir(parents=True, exist_ok=True)
+    build.reset_launches()
+    with open(LONG_HORIZON_OUT / "stdout.txt", "w") as log, contextlib.redirect_stdout(log):
+        summary = long_horizon.main(LONG_HORIZON_ARGS)
+    launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    for k, per_step in EXPECTED_PER_STEP.items():
+        assert launches.get(k) == per_step * LONG_HORIZON_STEPS, (k, launches.get(k))
+    assert summary["ok"] and summary["nonfinite_total"] == 0, summary
+    print(f"long horizon ok: 4096x4096 bfloat16 (RGB9E5) on {gpu}, {LONG_HORIZON_STEPS} "
+          f"steps: {summary['steps_per_s_compute_median']} steps/s (median chunk), "
+          f"{summary['steps_per_s']} steps/s wall; nonfinite {summary['nonfinite_total']}, "
+          f"backtrace peak {summary['backtrace_speed_peak']} <= "
+          f"{summary['halo_contract_speed']}, energy decay {summary['energy_decay_ratio']}, "
+          f"max uptick {summary['energy_max_uptick_frac']}; launches {launches}")
+    return {"summary": summary, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -420,11 +524,12 @@ def main() -> int:
     cfgs = configs()
     errors = kernel_phase(torch, check, cfgs, device)
     render_kernel_phase(torch, check, cfgs, device, errors)
+    floors_kernel_phase(torch, check, device, errors)
 
-    report = {}
+    report, runs = {}, {}
     for name in ("demo_float32", "1024_bfloat16_rgb9e5"):
         cfg = cfgs[name]
-        run = path_phase(torch, cfg, device)
+        run = runs[name] = path_phase(torch, cfg, device)
         print(f"path {name}: {run['steps_per_s']:.1f} steps/s over {TIMED_STEPS} steps "
               f"(step median {run['step_ms_median']:.4f} ms, p95 {run['step_ms_p95']:.4f} ms); "
               f"launches {run['launches']}; first-{CHECK_STEPS}-step max err vs plain "
@@ -463,27 +568,37 @@ def main() -> int:
                         "render": {k: v for k, v in rend.items()
                                    if k not in ("kernels", "launches")}}
 
+    floors_run = floors_phase(torch, check, cfgs[FLOORS_CONFIG], runs[FLOORS_CONFIG],
+                              report[FLOORS_CONFIG]["kernels"], gpu, device)
+    horizon = long_horizon_phase(gpu)
+
     kernels = []
     for k in build.KERNELS.values():
-        demo = report["demo_float32"]["kernels"][k.name]
+        if k.name in FLOORS_KERNELS:   # launched by the profiling path only
+            row, launches = floors_run["kernels"][k.name], floors_run["launches"][k.name]
+            err = max(errors[("floors", k.name)], row["max_abs_err"])
+            per_config = {}
+        else:
+            row, launches = report["demo_float32"]["kernels"][k.name], \
+                report["demo_float32"]["launches"][k.name]
+            err = errors[("demo_float32", k.name)]
+            per_config = {c: {**{f: r["kernels"][k.name][f] for f in
+                                 ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+                              "launches": r["launches"][k.name]}
+                          for c, r in report.items()}
         kernels.append({
             "name": k.name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
-            "replaces": k.replaces,
-            "launches": report["demo_float32"]["launches"][k.name],
-            "max_abs_err": errors[("demo_float32", k.name)],
-            "ms": demo["ms"], "plain_ms": demo["plain_ms"], "bound_ms": demo["bound_ms"],
-            "bound_by": demo["by"], "library_ms": None,
-            "configs": {c: {**{f: r["kernels"][k.name][f] for f in
-                               ("ms", "plain_ms", "bound_ms", "max_abs_err")},
-                            "launches": r["launches"][k.name]}
-                        for c, r in report.items()},
+            "replaces": k.replaces, "launches": launches, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["by"], "library_ms": None, "configs": per_config,
         })
     out_dir = Path("out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": gpu, "paths": report,
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
-         "kernels": kernels}, indent=1, default=str))
+         "floors": floors_run,
+         "long_horizon": horizon, "kernels": kernels}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

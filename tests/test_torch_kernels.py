@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from tpufluid_torch import FluidConfig, init_state, make_multi_step, swirl_trace
-from tpufluid_torch.ops.cuda import bloom, build, check, display, stencil
+from tpufluid_torch.ops import floors as plain_floors
+from tpufluid_torch.ops.cuda import bloom, build, check, display, floors, stencil
 from tpufluid_torch.render import make_render, plain_render
 from tpufluid_torch.step import plain_step
 
@@ -128,3 +129,51 @@ def test_render_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="must be float32"):
         display.display(torch.zeros((3, 8, 8), device=cuda), (8, 8), True,
                         torch.zeros((3, 4, 4), device=cuda, dtype=torch.float16))
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["default", "ragged"])
+def test_floors_kernels_match_plain(ragged, cuda):
+    """floor_taa and floor_roll bit-equal to their plain versions, the
+    sweep within tolerance, at the microbenchmarks' shapes and ragged ones,
+    on the microbenchmarks' inputs and on random ones."""
+    _check_cases(check.floors_cases(cuda, ragged))
+    _check_cases(check.random_floors_cases(cuda, ragged, seed=3))
+
+
+def test_floor_sweep_runs_any_number_of_sweeps_in_one_launch(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    seed = torch.rand((64, 96), generator=gen, device=cuda)
+    x = torch.randn((64, 96), generator=gen, device=cuda)
+    for chunks, sweeps in ((1, 1), (1, 2), (3, 7)):
+        before = floors.FLOOR_SWEEP.launches
+        got = floors.sweep(seed, x, chunks, sweeps)
+        torch.cuda.synchronize()
+        assert floors.FLOOR_SWEEP.launches == before + 1
+        err, tol = check.compare(got, plain_floors.sweep_plain(seed, x, chunks, sweeps))
+        assert err <= tol, (chunks, sweeps, err, tol)
+    with pytest.raises(ValueError, match="chunks \\* sweeps >= 1"):
+        floors.sweep(seed, x, 0, 20)
+    with pytest.raises(ValueError, match="takes torch.float32"):
+        floors.sweep(seed.half(), x.half(), 1, 1)
+
+
+def test_profile_counts_every_launch(cuda):
+    cfg = FluidConfig(DTYPE="bfloat16", **CONFIGS["small"]).validate()
+    state, _ = check.random_state(cfg, seed=4, device=cuda)
+    times, other = floors.profile_step_kernels(cfg, state, 1 / 60, steps=3)
+    events = {k: v["events"] for k, v in other["kernel_events"].items()}
+    assert events == {"advect": 6, "confine_divergence": 3, "gradient_subtract": 3,
+                      "jacobi_sweep": 60, "splat_curl": 3}
+    assert set(times) == {"velocity_gather", "dye_gather", "jacobi", "stencil",
+                          "gradient_subtract"}
+    assert all(v > 0 for v in times.values())
+
+
+def test_reference_rates_run(cuda):
+    before = {k: build.KERNELS[k].launches for k in ("floor_taa", "floor_roll", "floor_sweep")}
+    assert floors.measure_taa_row_rate(planes=2, n_idx=2, reps=2, trips=2) > 0
+    assert floors.measure_roll_rate(2, 96, 384, trips=8) > 0
+    assert floors.measure_sweep_rate(chunks=1, sweeps=2) > 0
+    assert floors.measure_hbm_bandwidth_gbps() > 0
+    for k, n in before.items():
+        assert build.KERNELS[k].launches == n + 40, k     # 10 warm-up + 3 x 10 timed

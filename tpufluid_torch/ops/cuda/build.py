@@ -33,7 +33,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
-SOURCES = ("stencil", "jacobi", "advect", "bloom", "display")
+SOURCES = ("stencil", "jacobi", "advect", "bloom", "display", "floors")
 
 # Storage type codes of csrc/common.cuh.
 STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -112,7 +112,9 @@ KERNELS: Dict[str, "Kernel"] = {}
 
 
 class Kernel:
-    """One C entry point of a ``csrc`` library, with its launch count."""
+    """One C entry point of a ``csrc`` library, with its launch count. The
+    ``__global__`` function it launches is named ``<name>_kernel``: that is
+    how a profiler's kernel events map back to it (ops/cuda/floors.py)."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: List,
                  replaces: str):

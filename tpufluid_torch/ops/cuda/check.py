@@ -3,8 +3,10 @@
 ``step_cases`` takes a state and a splat batch and lays out every kernel
 call one step makes, in order, each with the inputs the step would give it
 (computed by the plain versions, so the kernel and its plain version see the
-very same tensors); ``render_cases`` does the same for one frame. The kernel
-tests and chip_smoke.py compare and time these cases on the card.
+very same tensors); ``render_cases`` does the same for one frame, and
+``floors_cases`` for the three microbenchmark kernels on their own inputs
+(``random_floors_cases`` on random ones). The kernel tests and
+chip_smoke.py compare and time these cases on the card.
 
 Tolerance of a kernel against its plain version, as a fraction of the plain
 output's largest magnitude: both run the same float32 operations in the same
@@ -25,9 +27,11 @@ import torch
 
 from tpufluid_torch.config import FluidConfig
 from tpufluid_torch.ops import bloom as _bloom_ops
+from tpufluid_torch.ops import floors as _floors
 from tpufluid_torch.ops.cuda import advect as _advect
 from tpufluid_torch.ops.cuda import bloom as _bloom
 from tpufluid_torch.ops.cuda import display as _display
+from tpufluid_torch.ops.cuda import floors as _floors_k
 from tpufluid_torch.ops.cuda import jacobi as _jacobi
 from tpufluid_torch.ops.cuda import stencil as _stencil
 from tpufluid_torch.ops.sampling import resample_bilinear
@@ -185,32 +189,109 @@ def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bo
     return cases
 
 
-def floors_work() -> dict:
-    """Bytes and operations of the three TPU microbenchmarks of
-    tpufluid/ops/pallas/floors.py (not ported yet), reckoned from their
-    code: each input read once, each output written once, one operation per
-    add, multiply or subtract (the gathers and rolls move data and are not
-    counted). measure_roll_rate has no default shape; it is taken at that of
-    tests/test_floors.py:30 with its default trips."""
+# The floors microbenchmarks' default arguments (tpufluid/ops/pallas/
+# floors.py): measure_taa_row_rate's (planes, n_idx, reps, trips);
+# measure_roll_rate has no default shape and is taken at that of
+# tests/test_floors.py:30 with its default trips; measure_sweep_rate's
+# (chunks, sweeps) on its (256, 1024) field.
+TAA_DEFAULT = (2, 8, 32, 8)
+ROLL_DEFAULT = (2, 96, 384, 256)
+SWEEP_DEFAULT = (16, 20, 256, 1024)
+# Shapes that fill no block evenly, for the kernels' ragged edges. The
+# gather's tile is (64, 128) in the microbenchmark, 32 blocks of 256 threads
+# exactly; random_floors_cases also takes it at TAA_RAGGED_TILE, 3700 words.
+TAA_RAGGED = (3, 5, 7, 3)
+TAA_RAGGED_TILE = (37, 100)
+ROLL_RAGGED = (3, 37, 100, 41)
+SWEEP_RAGGED = (2, 3, 37, 131)
+
+
+def floors_work(taa=TAA_DEFAULT, roll=ROLL_DEFAULT, sweep=SWEEP_DEFAULT,
+                tile=(_floors.ROWS, _floors.LANE)) -> dict:
+    """Bytes and operations of the three floors microbenchmarks, reckoned
+    from their code: each input read once, each output written once, one
+    operation per add, multiply or subtract (the gathers and rolls move
+    data and are not counted). ``tile`` is the gather's (rows, lanes)."""
     u32 = f32 = 4
-    r, lane = 64, 128
-    planes, n_idx, reps, trips = 2, 8, 32, 8                     # measure_taa_row_rate
+    r, lane = tile
+    planes, n_idx, reps, trips = taa
     taa_bytes = u32 * (r * lane + n_idx * r * lane + planes * (r + reps) * lane + r * lane)
     taa_ops = trips * reps * n_idx * planes * r * lane           # one add per gathered word
-    rp, nrk, cbw, rtrips = 2, 96, 384, 256                       # measure_roll_rate
+    rp, nrk, cbw, rtrips = roll
     roll_bytes = u32 * 3 * rp * nrk * cbw                        # seed, operand, output
     roll_ops = rtrips * rp * nrk * cbw
-    chunks, sweeps, h, w = 16, 20, 256, 1024                     # measure_sweep_rate
-    sweep_bytes = f32 * 3 * h * w                                # seed, div, output
+    chunks, sweeps, h, w = sweep
+    sweep_bytes = f32 * 3 * h * w                                # seed, x, output
     sweep_ops = chunks * sweeps * h * w * 5                      # 3 adds, 1 subtract, 1 multiply
     return {"floors.py:92 _taa_kernel": (taa_bytes, taa_ops),
             "floors.py:133 _roll_kernel": (roll_bytes, roll_ops),
             "floors.py:163 _sweep_kernel": (sweep_bytes, sweep_ops)}
 
 
+def floors_cases(device, ragged: bool = False) -> List[Case]:
+    """The three floors kernels at the microbenchmarks' default shapes (or
+    at ragged ones), on the inputs measure_* builds, with their work from
+    floors_work()."""
+    taa, roll, sweep = ((TAA_RAGGED, ROLL_RAGGED, SWEEP_RAGGED) if ragged
+                        else (TAA_DEFAULT, ROLL_DEFAULT, SWEEP_DEFAULT))
+    work = list(floors_work(taa, roll, sweep).values())
+    tag = ":ragged" if ragged else ""
+    planes, n_idx, reps, trips = taa
+    rp, nrk, cbw, rtrips = roll
+    chunks, sweeps, h, w = sweep
+    return [
+        Case("floor_taa" + tag, "floor_taa", _floors_k.taa, _floors.taa_plain,
+             (*_floors.taa_inputs(planes, n_idx, reps, device), trips, reps), *work[0]),
+        Case("floor_roll" + tag, "floor_roll", _floors_k.roll, _floors.roll_plain,
+             (*_floors.roll_inputs(rp, nrk, cbw, device), rtrips), *work[1]),
+        Case("floor_sweep" + tag, "floor_sweep", _floors_k.sweep, _floors.sweep_plain,
+             (*_floors.sweep_inputs(h, w, device), chunks, sweeps), *work[2]),
+    ]
+
+
+def random_floors_cases(device, ragged: bool = False, seed: int = 0) -> List[Case]:
+    """The three floors kernels on inputs made by numpy from ``seed``, which
+    the microbenchmarks' own do not give: random uint32 words whose sums
+    wrap; gather indices that vary by row as well as by lane, on the
+    (64, 128) tile or, when ``ragged``, on TAA_RAGGED_TILE, which fills no
+    256-thread block evenly; and a sweep field and right-hand side that are
+    not uniform, so that a wrong neighbour, edge or order of the sum shows
+    (measure_sweep_rate's field stays uniform and sums exactly)."""
+    rng = np.random.default_rng(seed)
+    taa, roll, sweep = ((TAA_RAGGED, ROLL_RAGGED, SWEEP_RAGGED) if ragged
+                        else (TAA_DEFAULT, ROLL_DEFAULT, SWEEP_DEFAULT))
+    tile = TAA_RAGGED_TILE if ragged else (_floors.ROWS, _floors.LANE)
+    work = list(floors_work(taa, roll, sweep, tile).values())
+    tag = (":ragged" if ragged else "") + ":random"
+    planes, n_idx, reps, trips = taa
+    rp, nrk, cbw, rtrips = roll
+    chunks, sweeps, h, w = sweep
+    rows, lanes = tile
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def words(*shape):
+        return t(rng.integers(0, 2 ** 32, shape, dtype=np.uint32).view(np.int32))
+
+    idx = t(rng.integers(0, lanes, (n_idx, rows, lanes), dtype=np.int32))
+    field = t(rng.random((h, w), dtype=np.float32))
+    rhs = t(rng.standard_normal((h, w), dtype=np.float32))
+    return [
+        Case("floor_taa" + tag, "floor_taa", _floors_k.taa, _floors.taa_plain,
+             (words(rows, lanes), idx, words(planes, rows + reps, lanes), trips, reps),
+             *work[0]),
+        Case("floor_roll" + tag, "floor_roll", _floors_k.roll, _floors.roll_plain,
+             (words(rp, nrk, cbw), words(rp, nrk, cbw), rtrips), *work[1]),
+        Case("floor_sweep" + tag, "floor_sweep", _floors_k.sweep, _floors.sweep_plain,
+             (field, rhs, chunks, sweeps), *work[2]),
+    ]
+
+
 def compare(out, want) -> Tuple[float, float]:
     """(max abs error, tolerance) of a kernel's output(s) against the plain
-    version's, over every output of the call."""
+    version's, over every output of the call; int32 outputs hold uint32
+    words and must be equal."""
     outs = out if isinstance(out, tuple) else (out,)
     wants = want if isinstance(want, tuple) else (want,)
     err = tol = 0.0
@@ -218,6 +299,9 @@ def compare(out, want) -> Tuple[float, float]:
         if o.dtype != w.dtype or o.shape != w.shape:
             raise AssertionError(f"kernel output {o.dtype} {tuple(o.shape)} != "
                                  f"plain {w.dtype} {tuple(w.shape)}")
+        if w.dtype == torch.int32:  # uint32 words: bit-equal, tolerance 0
+            err = max(err, float((_floors._u64(o) - _floors._u64(w)).abs().max()))
+            continue
         w32 = w.to(torch.float32)
         err = max(err, float((o.to(torch.float32) - w32).abs().max()))
         tol = max(tol, TOLERANCE[w.dtype] * max(float(w32.abs().max()), 1.0))
