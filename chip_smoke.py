@@ -7,11 +7,15 @@ the card.
 
 1. Setup: builds the CUDA kernels from tpufluid_torch/csrc (one nvcc per
    source, all at once) and prints the card's name and power limit.
-2. Kernel phase: every kernel call of a step (check.step_cases) against its
-   plain PyTorch version on the same inputs, at the main path's shapes —
-   demo default (sim 128x228, dye 1024x1820) and 1024x1024 — in float32,
-   bfloat16 with and without RGB9E5, and float16. Prints each max error
-   beside its tolerance and fails past it.
+   Sums up the ptxas report (registers, stack frame, spills) of every
+   advect and jacobi_chunk instance and names any with a stack frame or
+   spills.
+2. Kernel phase: every kernel call of a step (check.step_cases) and the
+   dye's advect_prepare alone (check.part_cases) against its plain PyTorch
+   version on the same inputs, at the main path's shapes — demo default
+   (sim 128x228, dye 1024x1820) and 1024x1024 — in float32, bfloat16 with
+   and without RGB9E5, and float16. Prints each max error beside its
+   tolerance and fails past it.
 3. Path phase: the port's make_multi_step over a swirl_trace, 300 steps
    each: the demo default in float32 and 1024x1024 in bfloat16 (RGB9E5 on).
    Launch counts are zeroed just before each run and read just after; each
@@ -24,8 +28,11 @@ the card.
    each kernel's device time per step on the run's final state (launches
    queued behind a spin kernel, so host launch cost is hidden) beside its
    plain version's time and its bound: max(bytes / 3.35 TB/s,
-   float32 operations / 67 TFLOP/s), the H100 SXM's published peaks; last
-   the host time of the step's Python layers under cProfile.
+   float32 operations / 67 TFLOP/s), the H100 SXM's published peaks; the
+   dye's advect_prepare alone the same way; one torch grid_sample call on
+   the dye (bilinear, border, the dye's shape and storage type, on the
+   backtraced coordinates) as the advection's library yardstick; last the
+   host time of the step's Python layers under cProfile.
 5. Render kernel phase: every kernel call of a frame (check.render_cases:
    the bloom chain's 14 stages and the display) against its plain version,
    at both grids' canvas in every dtype of phase 2; then, in float32 and
@@ -87,14 +94,13 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 PATH_STEPS = 300               # per config; steps/s over the last TIMED_STEPS
 TIMED_STEPS = 200
 CHECK_STEPS = 3                # compared against the plain step
-EXPECTED_PER_STEP = {"splat_curl": 1, "confine_divergence": 1, "jacobi_sweep": 20,
-                     "gradient_subtract": 1, "advect": 2}
 RENDER_KERNELS = ("bloom_blur4", "display")
 TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
 FLOORS_KERNELS = ("floor_taa", "floor_roll", "floor_sweep")
 FLOORS_CONFIG = "1024_bfloat16_rgb9e5"    # bench.py config 3, where bench.py reports floors
 PROFILE_STEPS = 30                        # profile_step_kernels' default
 LONG_HORIZON_STEPS = 1500
+JACOBI_SWEEPS_A_LAUNCH = 10    # the chunk kernel's design: a solve of N sweeps is ceil(N / 10)
 LONG_HORIZON_OUT = Path("out/long_horizon_4096")
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
@@ -105,6 +111,31 @@ def gpu_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def expected_per_step(cfg) -> dict:
+    """Launches of each step kernel in one step of ``cfg``: the Jacobi
+    solve in launches of JACOBI_SWEEPS_A_LAUNCH sweeps, the dye's prepare
+    and the two gathers."""
+    return {"splat_curl": 1, "confine_divergence": 1,
+            "jacobi_chunk": math.ceil(cfg.PRESSURE_ITERATIONS / JACOBI_SWEEPS_A_LAUNCH),
+            "gradient_subtract": 1, "advect": 2, "advect_prepare": 1}
+
+
+def ptxas_report(build) -> list:
+    """The ptxas report of every advect and jacobi_chunk instance: one dict
+    per compiled kernel (name demangled where c++filt is found)."""
+    import shutil
+
+    rows = []
+    for name in ("advect", "jacobi"):
+        log = build.library_path(name).with_suffix(".log").read_text()
+        for f in build.ptxas_report(log):
+            if shutil.which("c++filt"):
+                f["function"] = subprocess.run(["c++filt", f["function"]], capture_output=True,
+                                               text=True, timeout=60).stdout.strip()
+            rows.append(f)
+    return rows
 
 
 def configs():
@@ -128,7 +159,7 @@ def kernel_phase(torch, check, cfgs, device) -> dict:
     errors = {}
     for name, cfg in cfgs.items():
         state, splats = check.random_state(cfg, seed=7, device=device)
-        for case in check.step_cases(state, splats, cfg):
+        for case in check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg):
             err, tol = check.compare(case.run(), case.run(plain=True))
             torch.cuda.synchronize()
             print(f"kernel {name:22s} {case.label:20s} max_abs_err {err:.3e}  tol {tol:.3e}")
@@ -191,7 +222,7 @@ def path_phase(torch, cfg, device) -> dict:
     state = box[0]
     launches = {k: v.launches for k, v in build.KERNELS.items()}
 
-    for k, per_step in EXPECTED_PER_STEP.items():
+    for k, per_step in expected_per_step(cfg).items():
         assert launches[k] == per_step * PATH_STEPS, (k, launches[k], per_step * PATH_STEPS)
     v, d, p = (x.float() for x in (state.velocity, state.dye, state.pressure))
     assert all(bool(torch.isfinite(x).all()) for x in (v, d, p)), "non-finite state"
@@ -202,45 +233,16 @@ def path_phase(torch, cfg, device) -> dict:
             "step_ms_median": step_median, "step_ms_p95": step_p95}
 
 
-def device_ms(torch, fn, reps: int, cycles_per_ms: float) -> float:
-    """Device time of one fn() call: ``reps`` calls queued behind a spin
-    kernel long enough to cover their enqueue, between CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(int(cycles_per_ms * (2 * enqueue_ms + 5)))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def spin_rate(torch) -> float:
-    """GPU spin-kernel cycles per millisecond."""
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(1_000_000)
-    start.record()
-    torch.cuda._sleep(20_000_000)
-    end.record()
-    end.synchronize()
-    return 20_000_000 / start.elapsed_time(end)
-
-
 def timing_phase(torch, check, cases) -> dict:
     """Per kernel: device ms, plain ms and bound ms summed over ``cases``
     (one step's or one frame's calls)."""
-    rate = spin_rate(torch)
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+
+    rate = spin_rate()
     out = {}
     for case in cases:
-        kernel = device_ms(torch, case.run, 20, rate)
-        plain = device_ms(torch, lambda: case.run(plain=True), 3, rate)
+        kernel = queued_ms(case.run, 20, rate)
+        plain = queued_ms(lambda: case.run(plain=True), 3, rate)
         bound = 1e3 * max(case.nbytes / HBM_BYTES_PER_S, case.flops / F32_FLOPS_PER_S)
         by = "bytes" if case.nbytes / HBM_BYTES_PER_S >= case.flops / F32_FLOPS_PER_S \
             else "operations"
@@ -260,6 +262,32 @@ def timing_phase(torch, check, cases) -> dict:
         if by == "operations":
             row["by"] = by
     return out
+
+
+def grid_sample_ms(torch, case, rate: float) -> float:
+    """Device ms of one torch.nn.functional.grid_sample call that gathers
+    the advect:dye case's dye: bilinear, padding_mode="border",
+    align_corners=False, the dye's shape and storage type, at the
+    coordinates the plain version's backtrace gives. It leaves out the
+    splat bump, the RGB9E5 quantization and the decay. Its inputs are built
+    before the timed window; the port never calls it."""
+    from tpufluid_torch.ops.cuda.floors import queued_ms
+    from tpufluid_torch.ops.sampling import sample_bilinear, true_div, uv_grid
+
+    vel, dye, dt = case.args[0], case.args[1], case.args[2]
+    (h, w), (sh, sw) = dye.shape[-2:], vel.shape[-2:]
+    v32 = vel.float()
+    u, v = uv_grid(h, w, device=dye.device)
+    if (sh, sw) == (h, w):
+        vu, vv = v32[0], v32[1]
+    else:
+        vu, vv = sample_bilinear(v32[0], u, v), sample_bilinear(v32[1], u, v)
+    cu = u - true_div(dt * vu, float(sw))
+    cv = v - true_div(dt * vv, float(sh))
+    grid = torch.stack([2.0 * cu - 1.0, 2.0 * cv - 1.0], dim=-1)[None].to(dye.dtype)
+    inp = dye[None].contiguous()
+    return queued_ms(lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="border", align_corners=False), 20, rate)
 
 
 def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
@@ -298,6 +326,7 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     the render kernels' timing."""
     from tpufluid_torch import capture_frame, make_render, make_step_and_render, swirl_trace
     from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
     from tpufluid_torch.render import plain_render
 
     state = run["state"]
@@ -340,7 +369,7 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     build.reset_launches()
     tps, tick_med, tick_p95 = frame_times(torch, one_tick, TIMED_FRAMES)
     tick_launches = {k: v.launches for k, v in build.KERNELS.items()}
-    for k, n in {**EXPECTED_PER_STEP, **per_frame}.items():
+    for k, n in {**expected_per_step(cfg), **per_frame}.items():
         assert tick_launches[k] == n * TIMED_FRAMES, (k, tick_launches[k])
     pixels = one_tick(0)
     assert pixels.dtype == torch.uint8 and pixels.shape == (cfg.CANVAS_HEIGHT,
@@ -351,10 +380,10 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     # launches holds about a thousand, and a host that blocks on a full queue
     # would be timed with the device. The tick's splats are put on the card
     # first: their copy from the host would wait for the spin.
-    rate = spin_rate(torch)
-    frame_device = device_ms(torch, lambda: render(state), 1, rate)
+    rate = spin_rate()
+    frame_device = queued_ms(lambda: render(state), 1, rate)
     splats = torch.as_tensor(trace.batches[0], device=device)
-    tick_device = device_ms(torch, lambda: tick(state, trace.dts[0], splats), 1, rate)
+    tick_device = queued_ms(lambda: tick(state, trace.dts[0], splats), 1, rate)
     timing = timing_phase(torch, check, check.render_cases(state, cfg))
     host = host_profile(torch, lambda: render(state), 50, RENDER_HOST_FUNCS, "frame")
     return {"frame_err": err, "host_ms_cprofile": host, "frames_per_s": fps,
@@ -469,6 +498,8 @@ def floors_phase(torch, check, cfg, run, step_timing: dict, gpu: str, device) ->
         print(f"profile {name:20s} {row['events'] // PROFILE_STEPS:3d} a step "
               f"({row['events']} events = launches)  profiler {row['us']:.4f} us  "
               f"spin-queued {1e3 * step_timing[name]['ms']:.4f} us")
+    print("profile: advect's spin-queued time is the function's (both gathers and the "
+          "dye's advect_prepare); its profiler time is the two gathers alone")
     print(f"profile other device {other['other_device_us']} us a step, CUDA runtime calls "
           f"on the host {other['cuda_runtime_host_us']} us; top other: "
           + "; ".join(f"{o['us']} us {o['op'][:60]}" for o in other["top_other_ops"]))
@@ -482,6 +513,7 @@ def floors_phase(torch, check, cfg, run, step_timing: dict, gpu: str, device) ->
 def long_horizon_phase(gpu: str) -> dict:
     """The long-horizon tool at 4096x4096 bf16 through the kernels; its
     launches and its ok."""
+    from tpufluid_torch import FluidConfig
     from tpufluid_torch.ops.cuda import build
     from tpufluid_torch.tools import long_horizon
 
@@ -490,7 +522,9 @@ def long_horizon_phase(gpu: str) -> dict:
     with open(LONG_HORIZON_OUT / "stdout.txt", "w") as log, contextlib.redirect_stdout(log):
         summary = long_horizon.main(LONG_HORIZON_ARGS)
     launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
-    for k, per_step in EXPECTED_PER_STEP.items():
+    cfg = FluidConfig(SIM_RESOLUTION=4096, DYE_RESOLUTION=4096, CANVAS_WIDTH=4096,
+                      CANVAS_HEIGHT=4096, DTYPE="bfloat16", MAX_SPLATS=8).validate()
+    for k, per_step in expected_per_step(cfg).items():
         assert launches.get(k) == per_step * LONG_HORIZON_STEPS, (k, launches.get(k))
     assert summary["ok"] and summary["nonfinite_total"] == 0, summary
     print(f"long horizon ok: 4096x4096 bfloat16 (RGB9E5) on {gpu}, {LONG_HORIZON_STEPS} "
@@ -509,6 +543,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
     from tpufluid_torch.ops.cuda import build, check
+    from tpufluid_torch.ops.cuda.floors import spin_rate
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -518,6 +553,14 @@ def main() -> int:
     print(f"setup: built {len(build.SOURCES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    ptxas = ptxas_report(build)
+    regs = [f.get("registers", 0) for f in ptxas]
+    frames = [f for f in ptxas if f.get("stack") or f.get("spill_stores") or f.get("spill_loads")]
+    print(f"ptxas: {len(ptxas)} advect and jacobi_chunk instances, {min(regs)}-{max(regs)} "
+          f"registers, {len(frames)} with a stack frame or spills "
+          "(the full report in out/chip_smoke.json)")
+    for f in frames:
+        print(f"ptxas {f['function']}: {f}")
     gpu = gpu_line()
     print(gpu)
 
@@ -534,9 +577,16 @@ def main() -> int:
               f"(step median {run['step_ms_median']:.4f} ms, p95 {run['step_ms_p95']:.4f} ms); "
               f"launches {run['launches']}; first-{CHECK_STEPS}-step max err vs plain "
               f"{run['step_err']}")
-        timing = timing_phase(torch, check, check.step_cases(
-            run["state"], torch.as_tensor(run["splats"]), cfg))
-        device_total = sum(r["ms"] for r in timing.values())
+        splats = torch.as_tensor(run["splats"])
+        cases = check.step_cases(run["state"], splats, cfg)
+        timing = timing_phase(torch, check, cases)
+        parts = timing_phase(torch, check, check.part_cases(run["state"], splats, cfg))
+        lib_ms = grid_sample_ms(torch, next(c for c in cases if c.label == "advect:dye"),
+                                spin_rate())
+        timing["advect"]["library_ms"] = lib_ms
+        print(f"time   grid_sample (library, dye in {cfg.dtype}) {lib_ms:.4f} ms: bilinear, "
+              "border, no splat bump, no RGB9E5, no decay")
+        device_total = sum(r["ms"] for r in timing.values())   # parts are inside it
         step_ms = 1e3 / run["steps_per_s"]
         print(f"path {name}: step {step_ms:.4f} ms, kernels' device time "
               f"{device_total:.4f} ms ({100 * (1 - device_total / step_ms):.1f}% idle); "
@@ -564,7 +614,8 @@ def main() -> int:
                         "step_ms_p95": run["step_ms_p95"],
                         "kernel_device_ms": device_total,
                         "launches": {**run["launches"], **rend["launches"]},
-                        "step_err": run["step_err"], "kernels": {**timing, **rend["kernels"]},
+                        "step_err": run["step_err"],
+                        "kernels": {**timing, **parts, **rend["kernels"]},
                         "render": {k: v for k, v in rend.items()
                                    if k not in ("kernels", "launches")}}
 
@@ -582,20 +633,20 @@ def main() -> int:
             row, launches = report["demo_float32"]["kernels"][k.name], \
                 report["demo_float32"]["launches"][k.name]
             err = errors[("demo_float32", k.name)]
-            per_config = {c: {**{f: r["kernels"][k.name][f] for f in
-                                 ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+            per_config = {c: {**{f: r["kernels"][k.name].get(f) for f in
+                                 ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")},
                               "launches": r["launches"][k.name]}
                           for c, r in report.items()}
         kernels.append({
             "name": k.name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
             "replaces": k.replaces, "launches": launches, "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["by"], "library_ms": None, "configs": per_config,
+            "bound_by": row["by"], "library_ms": row.get("library_ms"), "configs": per_config,
         })
     out_dir = Path("out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"gpu": gpu, "paths": report,
+        {"gpu": gpu, "paths": report, "ptxas": ptxas,
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
          "floors": floors_run,
          "long_horizon": horizon, "kernels": kernels}, indent=1, default=str))

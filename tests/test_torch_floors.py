@@ -173,6 +173,29 @@ def test_jacobi_cell_sweeps_hand_counts():
     assert fk.jacobi_cell_sweeps(T.FluidConfig().validate()) == 128 * 228 * 20
 
 
+def test_design_overhead_hand_counts():
+    """The kernels' work beyond the function's on the H100 SXM's 132 SMs:
+    1024^2 bf16 runs 2 launches of 240 tiles of 64x128 cells x 10 sweeps
+    (the function: 1024^2 x 20), and writes and reads a 4-byte RGB9E5 word
+    a dye texel; the demo's
+    128x228 grid runs 2 launches of 66 tiles of 32x64 x 10 sweeps, and its
+    float32 dye 16-byte quads on 1024x1820. floor_table carries it as is."""
+    d = fk.design_overhead(_square(1024), 132)
+    assert d == {"jacobi_launches": 2, "jacobi_design_cell_sweeps": 2 * 240 * 64 * 128 * 10,
+                 "jacobi_overcompute": 1.875, "dye_prepared_bytes": 2 * 4 * 1024 * 1024}
+    d = fk.design_overhead(T.FluidConfig(DTYPE="float32").validate(), 132)
+    assert d["jacobi_launches"] == 2
+    assert d["jacobi_design_cell_sweeps"] == 2 * 66 * 32 * 64 * 10
+    assert d["jacobi_overcompute"] == round(2 * 66 * 32 * 64 * 10 / (128 * 228 * 20), 3)
+    assert d["dye_prepared_bytes"] == 2 * 16 * 1024 * 1820
+    assert fk.design_overhead(_square(64, iters=0), 132)["jacobi_overcompute"] is None
+    other = {"other_device_us": 0.0, "cuda_runtime_host_us": 0.0, "top_other_ops": [],
+             "kernel_events": {}}
+    out = fk.floor_table({}, other, [(1.0, 2, 1), (1.0, 3, 1)], 1, 1, 1.0, 1.0, 1.0, 10.0,
+                         design=d)
+    assert out["design"] is d
+
+
 def test_floor_table_arithmetic():
     measured = {"velocity_gather": 20.0, "dye_gather": 40.0, "jacobi": 50.0,
                 "stencil": 30.0, "gradient_subtract": 10.0}
@@ -210,11 +233,13 @@ def _events(steps):
     names = [("void splat_curl_kernel<float>(float const*, float const*)", 2.0),
              ("void at::native::vectorized_elementwise_kernel<4, float>(int)", 1.5),
              ("void confine_divergence_kernel<float>(float const*)", 3.0)]
-    names += [("void jacobi_sweep_kernel<float, float, float>(float const*)", 0.5)] * 20
+    names += [("void jacobi_chunk_kernel<float, float, float, 128, 4, 16, false>"
+               "(float const*)", 5.0)] * 2
     names += [("void gradient_subtract_kernel<float>(float const*)", 1.0),
-              ("void advect_kernel<float>(float const*, int)", 4.0),
+              ("void advect_kernel<float, 2, 0, true>(float const*, int)", 4.0),
+              ("void advect_prepare_kernel<float, 3, false>(float const*, int)", 2.0),
               ("Memcpy HtoD (Pageable -> Device)", 0.25),
-              ("void advect_kernel<float>(float const*, int)", 8.0)]
+              ("void advect_kernel<float, 3, 1, false>(float const*, int)", 6.0)]
     for _ in range(steps):
         for name, dur in names:
             ev.append((name, True, t, dur))
@@ -225,8 +250,8 @@ def _events(steps):
 
 
 def test_attribute_device_events():
-    launched = {"splat_curl": 3, "confine_divergence": 3, "jacobi_sweep": 60,
-                "gradient_subtract": 3, "advect": 6, "display": 0}
+    launched = {"splat_curl": 3, "confine_divergence": 3, "jacobi_chunk": 6,
+                "gradient_subtract": 3, "advect": 6, "advect_prepare": 3, "display": 0}
     # any order in, stream order used
     ev = _events(3)[::-1]
     kt, other = fk.attribute_device_events(ev, launched, steps=3, top_other=1)
@@ -235,10 +260,20 @@ def test_attribute_device_events():
     assert other["other_device_us"] == 1.8            # 1.5 + 0.25 a step
     assert other["top_other_ops"] == [
         {"op": "void at::native::vectorized_elementwise_kernel<4, float>(int)", "us": 1.5}]
-    assert other["cuda_runtime_host_us"] == 5.0 * 27   # the sync is not counted
-    assert other["kernel_events"]["jacobi_sweep"] == {"events": 60, "us": 10.0}
-    with pytest.raises(AssertionError, match="jacobi_sweep"):
-        fk.attribute_device_events(ev, {**launched, "jacobi_sweep": 59}, steps=3)
+    assert other["cuda_runtime_host_us"] == 5.0 * 10   # the sync is not counted
+    assert other["kernel_events"]["jacobi_chunk"] == {"events": 6, "us": 10.0}
+    assert other["kernel_events"]["advect_prepare"] == {"events": 3, "us": 2.0}
+    with pytest.raises(AssertionError, match="jacobi_chunk"):
+        fk.attribute_device_events(ev, {**launched, "jacobi_chunk": 5}, steps=3)
+    # the dye's gather is the advect launch after the prepare, wherever the
+    # velocity's gather stands on the stream
+    moved = [e for e in _events(1) if "advect_kernel<float, 2" not in e[0]]
+    moved.append(("void advect_kernel<float, 2, 0, true>(float const*, int)", True, 1e4, 4.0))
+    kt1, _ = fk.attribute_device_events(moved, {**launched, "splat_curl": 1,
+                                                "confine_divergence": 1, "jacobi_chunk": 2,
+                                                "gradient_subtract": 1, "advect": 2,
+                                                "advect_prepare": 1}, steps=1)
+    assert (kt1["velocity_gather"], kt1["dye_gather"]) == (4.0, 8.0)
     with pytest.raises(RuntimeError, match="no CUDA kernel event"):
         fk.attribute_device_events([("Memcpy HtoD", True, 0.0, 1.0),
                                     ("cudaLaunchKernel", False, 0.0, 1.0)], {}, steps=1)
@@ -248,8 +283,10 @@ def test_port_kernel_names():
     assert fk.port_kernel("void advect_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)") \
         == "advect"
     assert fk.port_kernel("floor_sweep_kernel(float const*, float const*)") == "floor_sweep"
-    assert fk.port_kernel("void jacobi_sweep_kernel<float, __half, __half>(float const*)") \
-        == "jacobi_sweep"
+    assert fk.port_kernel("void jacobi_chunk_kernel<float, __half, __half, 128, 4, 16, "
+                          "false>(float const*)") == "jacobi_chunk"
+    assert fk.port_kernel("void advect_prepare_kernel<__nv_bfloat16, 3, true>(int)") \
+        == "advect_prepare"
     assert fk.port_kernel("void at::native::vectorized_elementwise_kernel<4>(int)") is None
     assert fk.port_kernel("Memset (Device)") is None
     assert fk.port_kernel("void unknown_kernel<float>(float)") is None

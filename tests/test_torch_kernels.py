@@ -7,12 +7,16 @@ chip_smoke.py makes the same comparisons at the main path's full shapes.
 Tolerances: tpufluid_torch/ops/cuda/check.py.
 """
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
 from tpufluid_torch import FluidConfig, init_state, make_multi_step, swirl_trace
 from tpufluid_torch.ops import floors as plain_floors
-from tpufluid_torch.ops.cuda import bloom, build, check, display, floors, stencil
+from tpufluid_torch.ops.cuda import advect, bloom, build, check, display, floors, jacobi, stencil
+from tpufluid_torch.ops.splat import splat_factors
 from tpufluid_torch.render import make_render, plain_render
 from tpufluid_torch.step import plain_step
 
@@ -39,7 +43,7 @@ def cuda():
 def test_kernels_match_plain(size, dtype, rgb9e5, cuda):
     cfg = FluidConfig(DTYPE=dtype, DYE_RGB9E5=rgb9e5, **CONFIGS[size]).validate()
     state, splats = check.random_state(cfg, seed=11, device=cuda)
-    for case in check.step_cases(state, splats, cfg):
+    for case in check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg):
         before = build.KERNELS[case.kernel_name].launches
         err, tol = check.compare(case.run(), case.run(plain=True))
         torch.cuda.synchronize()
@@ -59,6 +63,90 @@ def test_kernel_step_matches_plain_step(dtype, cuda):
                  (got.pressure, want.pressure)):
         w32 = w.float()
         assert float((g.float() - w32).abs().max()) <= 1e-3 * float(w32.abs().max())
+
+
+K = jacobi.SWEEPS
+JACOBI_ITERS = sorted({0, 1, K - 1, K, K + 1, 20, 23})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("shape", [(5, 7), (100, 300), (37, 66), (128, 228), (530, 1090)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jacobi_chunk_matches_plain(shape, dtype, cuda):
+    """N sweeps in launches of K (and of 1, 4 and the tiles' most): bit-equal
+    to jacobi_plain in ceil(N / K) launches. Grids smaller than one tile, not
+    a multiple of it, the ragged config's 37x66 sim grid and the demo's, all
+    on the small tiles, and one on the large tiles (143 blocks at K = 10)."""
+    gen = np.random.default_rng(shape[0] * 1000 + shape[1])
+    p = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+    d = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+    tiles = jacobi.tiles_for(*shape, jacobi.sm_count(p.device))
+    assert tiles == (jacobi.LARGE if shape == (530, 1090) else jacobi.SMALL)
+    for n in JACOBI_ITERS:
+        want = jacobi.jacobi_plain(p, d, n, 0.8)
+        before = jacobi.JACOBI_CHUNK.launches
+        got = jacobi.jacobi_pressure(p, d, n, 0.8)
+        torch.cuda.synchronize()
+        assert jacobi.JACOBI_CHUNK.launches - before == math.ceil(n / K), n
+        assert torch.equal(got, want), n
+        if n == 0:
+            continue
+        for k in (1, 4, jacobi.TILES[tiles].max_sweeps()):
+            before = jacobi.JACOBI_CHUNK.launches
+            got = jacobi.run_chunks(p, d, 0.8, jacobi.chunks(n, k))
+            torch.cuda.synchronize()
+            assert jacobi.JACOBI_CHUNK.launches - before == math.ceil(n / k)
+            err = float((got.float() - want.float()).abs().max())
+            assert err == 0.0, (n, k, err)
+
+
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, None), (torch.bfloat16, "rgb9e5"),
+                                         (torch.bfloat16, None), (torch.float16, None)],
+                         ids=["float32", "bfloat16-rgb9e5", "bfloat16", "float16"])
+@pytest.mark.parametrize("splats", [0, 8])
+@pytest.mark.parametrize("dye_hw", [(256, 448), (250, 437)], ids=["256x448", "250x437"])
+def test_advect_far_backtraces_match_plain(dye_hw, splats, dtype, quant, cuda):
+    """Velocity at +/-1000 on a grid ~8x coarser than the dye (the demo's
+    ratio): backtraces of ~130 dye texels, far past any tile, clamped at the
+    grid's edge. With and without a splat bump, RGB9E5 on and off, a width
+    that fills no row of threads evenly: bit-equal to advect_plain; one
+    prepare launch where there is a bump or RGB9E5; the prepare and the
+    gather each bit-equal to its plain version."""
+    gen = np.random.default_rng(21)
+    vel = np.clip(gen.standard_normal((2, 32, 56)) * 3000, -1000, 1000).astype(np.float32)
+    dye = (gen.random((3,) + dye_hw) * 1.5).astype(np.float32)
+    v = torch.from_numpy(vel).to(cuda, dtype)
+    s = torch.from_numpy(dye).to(cuda, dtype)
+    factors = None
+    if splats:
+        rows = np.zeros((splats, 8), np.float32)
+        rows[:, 0:2] = gen.random((splats, 2))
+        rows[:, 4:7] = gen.random((splats, 3)) * 1.5
+        rows[:-1, 7] = 1.0
+        factors = splat_factors(torch.from_numpy(rows).to(cuda), *dye_hw, 0.0025, 1.75,
+                                slice(4, 7))
+    before = (advect.ADVECT.launches, advect.ADVECT_PREPARE.launches)
+    got = advect.advect(v, s, 1 / 60, 1.0, splat_factors=factors, quant=quant)
+    torch.cuda.synchronize()
+    prepares = 1 if (factors is not None or quant) else 0
+    assert (advect.ADVECT.launches - before[0],
+            advect.ADVECT_PREPARE.launches - before[1]) == (1, prepares)
+    want = advect.advect_plain(v, s, 1 / 60, 1.0, splat_factors=factors, quant=quant)
+    assert float((got.float() - want.float()).abs().max()) == 0.0
+    # the velocity's self-advection at +/-1000: no prepare
+    before = advect.ADVECT_PREPARE.launches
+    got = advect.advect(v, v, 1 / 60, 0.2)
+    assert advect.ADVECT_PREPARE.launches == before
+    assert torch.equal(got, advect.advect_plain(v, v, 1 / 60, 0.2))
+    prepared = advect.prepare_plain(s, factors, quant)
+    layout = advect.WORDS if quant else advect.QUADS
+    err, _ = check.compare(advect.prepare(s, factors, quant), prepared)
+    assert err == 0.0
+    got = advect.gather(v, prepared, layout, 3, 1 / 60, 1.0)
+    assert torch.equal(got, advect.gather_plain(v, prepared, 3, 1 / 60, 1.0))
+    got = advect.gather(v, s, advect.PLANES, 3, 1 / 60, 1.0)
+    assert torch.equal(got, advect.advect_plain(v, s, 1 / 60, 1.0))
 
 
 def test_kernel_rejects_cpu_and_bad_dtype(cuda):
@@ -162,8 +250,9 @@ def test_profile_counts_every_launch(cuda):
     state, _ = check.random_state(cfg, seed=4, device=cuda)
     times, other = floors.profile_step_kernels(cfg, state, 1 / 60, steps=3)
     events = {k: v["events"] for k, v in other["kernel_events"].items()}
-    assert events == {"advect": 6, "confine_divergence": 3, "gradient_subtract": 3,
-                      "jacobi_sweep": 60, "splat_curl": 3}
+    chunks = math.ceil(cfg.PRESSURE_ITERATIONS / 10)  # the chunk kernel's 10 sweeps a launch
+    assert events == {"advect": 6, "advect_prepare": 3, "confine_divergence": 3,
+                      "gradient_subtract": 3, "jacobi_chunk": 3 * chunks, "splat_curl": 3}
     assert set(times) == {"velocity_gather", "dye_gather", "jacobi", "stencil",
                           "gradient_subtract"}
     assert all(v > 0 for v in times.values())

@@ -1,46 +1,77 @@
-// Semi-Lagrangian advection, for Hopper (sm_90a).
+// Semi-Lagrangian advection, for Hopper (sm_90a): a prepare kernel and a
+// gather kernel.
 //
 // Replaces tpufluid/ops/pallas/advect.py:301 `_advect_kernel` (entered
 // through advect_pallas, :567) AND tpufluid/ops/pallas/advect_hbm.py:108
 // `_kernel` (entered through advect_pallas_hbm, :419). The TPU needs two
 // kernels because its gather reads a VMEM window sized from the displacement
 // bound; here every thread reads global memory wherever its backtrace lands,
-// so one kernel covers velocity self-advection, same-grid dye and dye on a
-// grid finer than the velocity.
+// so one gather covers velocity self-advection, same-grid dye and dye on a
+// grid finer than the velocity. It clamps a backtrace at the grid's edge, as
+// the jnp oracle does, never at a window's edge. No hardware texture
+// filtering: its 8-bit fixed-point weights would break parity with the plain
+// version.
 //
-// Per target texel (i, j), all C <= 3 channels:
-//   1. uv = ((j + 0.5) / W, (i + 0.5) / H);
-//   2. velocity: the texel itself on the same grid, else a bilinear sample of
-//      the coarser velocity at uv (no resampled field is materialised);
-//   3. backtrace coord = uv - dt * vel / sim_size;
-//   4. bilinear clamp-to-edge gather of the source over the FULL grid, in
-//      float32. Each corner texel optionally gets the splat bump (rounded to
-//      storage, as the splat pass would store it) and, for bf16 dye with
-//      RGB9E5 on, the shared-exponent round trip (ops/quant.py);
-//   5. divide by 1 + k * dt (computed by the caller in float32), round once.
-// The TPU kernels clamp a backtrace at their window's edge when it leaves the
-// window; this one clamps at the grid's edge, as the jnp oracle does.
-// No hardware texture filtering: its 8-bit fixed-point weights would break
-// parity with the plain version.
+// What bounds it. The function moves each input once and each output once:
+// 1024x1024 bf16 reads 2s of velocity for the self-advection and writes 2s,
+// then reads 2s of velocity and 3s of dye and writes 3s (s = storage bytes;
+// 25 MB with the splat factors, 7.5 us at 3.35 TB/s); the demo's f32 dye on
+// 1024x1820 reads 3s and writes 3s per texel plus the 128x228 velocity
+// (45 MB, 13.4 us). The gather's corners are neighbours of the texel's own
+// row and come from L1/L2. What the first design lost was arithmetic and
+// instructions, not bytes: for each of 4 corners and C channels it recomputed
+// the splat bump (S rows, 3 loads each) and the RGB9E5 round trip, each of
+// them ~4 times per source texel, kept the corners in a local-memory array
+// indexed under a runtime channel loop, and loaded C scalars per corner.
 //
-// Bytes per launch (s = storage bytes). Demo default, f32: velocity
-// self-advection on 128x228 reads 2s, writes 2s per texel (0.47 MB,
-// 0.14 us at 3.35 TB/s); dye on 1024x1820 reads 3s + writes 3s per texel
-// plus the 128x228 velocity (45 MB, 13.4 us). 1024x1024 bf16: velocity
-// 8.4 MB (2.5 us); dye on the same grid reads 2s of velocity and 3s of dye,
-// writes 3s per texel (16.8 MB, 5.0 us). HBM bytes bound it; the gather's
-// corners are neighbours of the texel's own row and hit L1/L2. Left for
-// later: staging source rows in shared memory and vector loads.
+// The design:
+//   1. advect_prepare_kernel, once per SOURCE texel (dye only: the splat
+//      bump, the quantization or both): adds the separable bump in the plain
+//      version's order (s = 0..S-1, (gy * amt) * gx, no FMA), rounds to
+//      storage, then writes either one RGB9E5 word (bf16 with RGB9E5 on; the
+//      layout of ops/quant.py rgb9e5_pack, whose unpacked values are exactly
+//      the round trip's) or the C storage values interleaved and padded to 4
+//      (one corner = one 8-byte or 16-byte load).
+//   2. advect_kernel, one thread per TARGET texel, templated on the storage
+//      type, the channel count, the source layout (planes, quads, words) and
+//      same grid against a coarser velocity, so every corner and channel
+//      lives in registers: read the velocity once, backtrace with the same
+//      float32 operations as the plain version, load the 4 corners, lerp in
+//      the plain order, divide by 1 + k * dt and round once.
+// The velocity self-advection has no bump and no quantization: its gather
+// reads the two planes directly and no prepare runs. A prepare thread takes
+// two texels, kBlockX apart along the row, and computes their row's
+// gy * amt once for both; the gather takes one texel a thread. Measured on
+// the H100 (PERF.md), two texels made the prepare faster and the gather no
+// faster.
+//
+// Extra bytes of the design, beyond the function's: the prepared source,
+// written once and read back by the gather (mostly from L2). 1024x1024 bf16
+// RGB9E5: 4 B a texel, 4.2 MB written and read. Demo f32: 16 B a texel on
+// 1024x1820, 29.8 MB written and read.
+#include <cstdint>
+
 #include "common.cuh"
 
 constexpr float kMaxRgb9e5 = 65408.0f;  // (511 / 512) * 2^16
 
-// Quantize (r, g, b) through RGB9E5 storage, bit for bit the procedure of
-// ops/quant.py (pack, then unpack).
-__device__ __forceinline__ void rgb9e5_roundtrip(float* rgb) {
-    float r = fminf(fmaxf(rgb[0], 0.0f), kMaxRgb9e5);
-    float g = fminf(fmaxf(rgb[1], 0.0f), kMaxRgb9e5);
-    float b = fminf(fmaxf(rgb[2], 0.0f), kMaxRgb9e5);
+// Source layouts of the gather (ops/cuda/advect.py LAYOUTS).
+enum Layout { kPlanes = 0, kQuads = 1, kWords = 2 };
+
+// One prepared texel of the kQuads layout: C <= 3 storage values and a pad,
+// loaded and stored as one vector (16 bytes in f32, 8 in 16-bit storage).
+template <typename T> struct QuadVec { using type = uint2; };
+template <> struct QuadVec<float> { using type = float4; };
+template <typename T> union Quad {
+    typename QuadVec<T>::type vec;
+    T v[4];
+};
+
+// Pack (r, g, b) into one RGB9E5 word, bit for bit ops/quant.py rgb9e5_pack.
+__device__ __forceinline__ uint32_t rgb9e5_pack(float r, float g, float b) {
+    r = fminf(fmaxf(r, 0.0f), kMaxRgb9e5);
+    g = fminf(fmaxf(g, 0.0f), kMaxRgb9e5);
+    b = fminf(fmaxf(b, 0.0f), kMaxRgb9e5);
     const float maxc = fmaxf(r, fmaxf(g, b));
     const int e = (int)(__float_as_uint(maxc) >> 23) - 127;
     int E = min(max(e + 16, 0), 31);
@@ -48,17 +79,40 @@ __device__ __forceinline__ void rgb9e5_roundtrip(float* rgb) {
     int mr = (int)floorf(r * scale + 0.5f);
     int mg = (int)floorf(g * scale + 0.5f);
     int mb = (int)floorf(b * scale + 0.5f);
-    if (max(mr, max(mg, mb)) > 511) {
+    if (max(mr, max(mg, mb)) > 511) {  // round-up overflow: re-round at E + 1
         const float half = scale * 0.5f;
         mr = (int)floorf(r * half + 0.5f);
         mg = (int)floorf(g * half + 0.5f);
         mb = (int)floorf(b * half + 0.5f);
         E = E + 1;
     }
-    const float us = __uint_as_float((unsigned)((E & 31) + 103) << 23);  // 2^(E - 24)
-    rgb[0] = (float)mr * us;
-    rgb[1] = (float)mg * us;
-    rgb[2] = (float)mb * us;
+    return (uint32_t)mr | ((uint32_t)mg << 9) | ((uint32_t)mb << 18) |
+           ((uint32_t)(E & 31) << 27);
+}
+
+// ops/quant.py rgb9e5_unpack: channel i is m_i * 2^(E - 24).
+__device__ __forceinline__ void rgb9e5_unpack(uint32_t w, float* rgb) {
+    const float s = __uint_as_float(((w >> 27) + 103u) << 23);
+    rgb[0] = (float)(w & 0x1FFu) * s;
+    rgb[1] = (float)((w >> 9) & 0x1FFu) * s;
+    rgb[2] = (float)((w >> 18) & 0x1FFu) * s;
+}
+
+// The C float32 values of source texel `at` in layout LAYOUT.
+template <typename T, int C, int LAYOUT>
+__device__ __forceinline__ void fetch(const void* src, int at, int hw, float* val) {
+    if constexpr (LAYOUT == kPlanes) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) val[c] = to_f32(static_cast<const T*>(src)[c * hw + at]);
+    } else if constexpr (LAYOUT == kQuads) {
+        Quad<T> q;
+        q.vec = static_cast<const typename QuadVec<T>::type*>(src)[at];
+#pragma unroll
+        for (int c = 0; c < C; ++c) val[c] = to_f32(q.v[c]);
+    } else {
+        static_assert(C == 3, "RGB9E5 words hold three channels");
+        rgb9e5_unpack(static_cast<const uint32_t*>(src)[at], val);
+    }
 }
 
 // Bilinear sample of one (h, w) plane at pixel-space (x, y) = uv * size - 0.5.
@@ -75,21 +129,77 @@ __device__ __forceinline__ float sample_plane(const T* plane, float x, float y, 
     return top + (bot - top) * fy;
 }
 
-template <typename T>
+constexpr int kPrepareTexels = 2;  // texels a prepare thread, kBlockX apart
+
+template <typename T, int C, bool WORDS>
+__global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restrict__ prep, int H,
+                                      int W, const float* __restrict__ gy,
+                                      const float* __restrict__ gx,
+                                      const float* __restrict__ amt, int S) {
+    constexpr int TPT = kPrepareTexels;
+    const int j0 = blockIdx.x * (kBlockX * TPT) + threadIdx.x;
+    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    if (i >= H || j0 >= W) return;
+    const int hw = H * W;
+    int j[TPT];  // the thread's texels, kBlockX apart; past the edge: the last column
+    float val[TPT][C];
+#pragma unroll
+    for (int t = 0; t < TPT; ++t) {
+        j[t] = min(j0 + t * kBlockX, W - 1);
+#pragma unroll
+        for (int c = 0; c < C; ++c) val[t][c] = to_f32(src[c * hw + i * W + j[t]]);
+    }
+    if (S > 0) {
+        float acc[TPT][C];
+#pragma unroll
+        for (int t = 0; t < TPT; ++t)
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[t][c] = 0.0f;
+        for (int s = 0; s < S; ++s) {
+            const float a = gy[i * S + s];
+            float ga[C];  // gy * amt: the row's factor, shared by the thread's texels
+#pragma unroll
+            for (int c = 0; c < C; ++c) ga[c] = a * amt[s * C + c];
+#pragma unroll
+            for (int t = 0; t < TPT; ++t) {
+                const float b = gx[s * W + j[t]];
+#pragma unroll
+                for (int c = 0; c < C; ++c) acc[t][c] = acc[t][c] + ga[c] * b;
+            }
+        }
+#pragma unroll
+        for (int t = 0; t < TPT; ++t)
+#pragma unroll
+            for (int c = 0; c < C; ++c) val[t][c] = round_to<T>(val[t][c] + acc[t][c]);
+    }
+#pragma unroll
+    for (int t = 0; t < TPT; ++t) {
+        if (j0 + t * kBlockX >= W) break;
+        const int at = i * W + j[t];
+        if constexpr (WORDS) {
+            static_assert(C == 3, "RGB9E5 packs three channels");
+            static_cast<uint32_t*>(prep)[at] = rgb9e5_pack(val[t][0], val[t][1], val[t][2]);
+        } else {
+            Quad<T> q;
+#pragma unroll
+            for (int c = 0; c < 4; ++c) q.v[c] = from_f32<T>(c < C ? val[t][c] : 0.0f);
+            static_cast<typename QuadVec<T>::type*>(prep)[at] = q.vec;
+        }
+    }
+}
+
+template <typename T, int C, int LAYOUT, bool SAME_GRID>
 __global__ void advect_kernel(const T* __restrict__ vel, int hv, int wv,
-                              const T* __restrict__ src, T* __restrict__ out, int C, int H,
-                              int W, float dt, float decay, const float* __restrict__ gy,
-                              const float* __restrict__ gx, const float* __restrict__ amt,
-                              int S, int quant) {
+                              const void* __restrict__ src, T* __restrict__ out, int H, int W,
+                              float dt, float decay) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
     const int i = blockIdx.y * blockDim.y + threadIdx.y;
     if (i >= H || j >= W) return;
     const int hw = H * W;
     const float u = ((float)j + 0.5f) / (float)W;
     const float v = ((float)i + 0.5f) / (float)H;
-
     float vu, vv;
-    if (hv == H && wv == W) {
+    if constexpr (SAME_GRID) {
         vu = to_f32(vel[i * W + j]);
         vv = to_f32(vel[hw + i * W + j]);
     } else {
@@ -99,44 +209,96 @@ __global__ void advect_kernel(const T* __restrict__ vel, int hv, int wv,
     }
     const float cu = u - (dt * vu) / (float)wv;
     const float cv = v - (dt * vv) / (float)hv;
-
     const float x = cu * (float)W - 0.5f, y = cv * (float)H - 0.5f;
     const float x0 = floorf(x), y0 = floorf(y);
     const float fx = x - x0, fy = y - y0;
-    const int ix[2] = {min(max((int)x0, 0), W - 1), min(max((int)x0 + 1, 0), W - 1)};
-    const int iy[2] = {min(max((int)y0, 0), H - 1), min(max((int)y0 + 1, 0), H - 1)};
+    const int q0 = min(max((int)x0, 0), W - 1), q1 = min(max((int)x0 + 1, 0), W - 1);
+    const int r0 = min(max((int)y0, 0), H - 1), r1 = min(max((int)y0 + 1, 0), H - 1);
+    float a[C], b[C], c[C], d[C];  // the lerp's corners
+    fetch<T, C, LAYOUT>(src, r0 * W + q0, hw, a);
+    fetch<T, C, LAYOUT>(src, r0 * W + q1, hw, b);
+    fetch<T, C, LAYOUT>(src, r1 * W + q0, hw, c);
+    fetch<T, C, LAYOUT>(src, r1 * W + q1, hw, d);
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+        const float top = a[k] + (b[k] - a[k]) * fx;
+        const float bot = c[k] + (d[k] - c[k]) * fx;
+        out[k * hw + i * W + j] = from_f32<T>((top + (bot - top) * fy) / decay);
+    }
+}
 
-    // corner[k][c], k = 2 * row + column: a, b, c, d of the lerp.
-    float corner[4][3];
-    for (int k = 0; k < 4; ++k) {
-        const int r = iy[k >> 1], q = ix[k & 1];
-        for (int c = 0; c < C; ++c) {
-            float val = to_f32(src[c * hw + r * W + q]);
-            if (S > 0) val = round_to<T>(val + splat_bump(gy, gx, amt, S, C, c, r, q, W));
-            corner[k][c] = val;
-        }
-        if (quant) rgb9e5_roundtrip(corner[k]);
-    }
-    for (int c = 0; c < C; ++c) {
-        const float top = corner[0][c] + (corner[1][c] - corner[0][c]) * fx;
-        const float bot = corner[2][c] + (corner[3][c] - corner[2][c]) * fx;
-        out[c * hw + i * W + j] = from_f32<T>((top + (bot - top) * fy) / decay);
-    }
+template <typename T, int C, bool WORDS>
+static int launch_prepare(const void* src, void* prep, int H, int W, const float* gy,
+                          const float* gx, const float* amt, int S, cudaStream_t stream) {
+    constexpr int cols = kBlockX * kPrepareTexels;
+    const dim3 grid((W + cols - 1) / cols, (H + kBlockY - 1) / kBlockY);
+    advect_prepare_kernel<T, C, WORDS><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
+        (const T*)src, prep, H, W, gy, gx, amt, S);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int C, int LAYOUT>
+static int launch_gather(const void* vel, int hv, int wv, const void* src, void* out, int H,
+                         int W, float dt, float decay, cudaStream_t stream) {
+    const dim3 grid = grid_for(H, W), block(kBlockX, kBlockY);
+    if (hv == H && wv == W)
+        advect_kernel<T, C, LAYOUT, true><<<grid, block, 0, stream>>>(
+            (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay);
+    else
+        advect_kernel<T, C, LAYOUT, false><<<grid, block, 0, stream>>>(
+            (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int C>
+static int launch_c(const void* vel, int hv, int wv, const void* src, int layout, void* out,
+                    int H, int W, float dt, float decay, cudaStream_t stream) {
+    if (layout == kPlanes)
+        return launch_gather<T, C, kPlanes>(vel, hv, wv, src, out, H, W, dt, decay, stream);
+    if (layout == kQuads)
+        return launch_gather<T, C, kQuads>(vel, hv, wv, src, out, H, W, dt, decay, stream);
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
 
-// vel (2, hv, wv) and src (C, H, W) share the storage type `dtype`; gy (H, S),
-// gx (S, W), amt (S, C) float32 when S > 0. quant = 1: RGB9E5 (C must be 3).
-int fluid_advect(const void* vel, int hv, int wv, const void* src, void* out, int C, int H,
-                 int W, float dt, float decay, const void* gy, const void* gx, const void* amt,
-                 int S, int quant, int dtype, void* stream) {
-    if (C < 1 || C > 3 || (quant && C != 3)) return (int)cudaErrorInvalidValue;
+// src (C, H, W) storage `dtype` -> prep: (H, W) uint32 RGB9E5 words when
+// words = 1 (bf16, C = 3), else (H, W, 4) storage quads. gy (H, S), gx (S, W),
+// amt (S, C) float32 when S > 0.
+int fluid_advect_prepare(const void* src, void* prep, int C, int H, int W, const void* gy,
+                         const void* gx, const void* amt, int S, int words, int dtype,
+                         void* stream) {
+    if (C < 1 || C > 3 || (words && (C != 3 || dtype != kBF16)))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    const float *fy = (const float*)gy, *fx = (const float*)gx, *fa = (const float*)amt;
+    if (words)
+        return launch_prepare<__nv_bfloat16, 3, true>(src, prep, H, W, fy, fx, fa, S, s);
     DISPATCH_STORAGE(dtype, T,
-        advect_kernel<T><<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-            (const T*)vel, hv, wv, (const T*)src, (T*)out, C, H, W, dt, decay,
-            (const float*)gy, (const float*)gx, (const float*)amt, S, quant));
-    return (int)cudaGetLastError();
+        if (C == 1) return launch_prepare<T, 1, false>(src, prep, H, W, fy, fx, fa, S, s);
+        if (C == 2) return launch_prepare<T, 2, false>(src, prep, H, W, fy, fx, fa, S, s);
+        return launch_prepare<T, 3, false>(src, prep, H, W, fy, fx, fa, S, s));
+    return (int)cudaErrorInvalidValue;
+}
+
+// vel (2, hv, wv) storage `dtype`; src in `layout`: kPlanes (C, H, W) storage,
+// kQuads (H, W, 4) storage, kWords (H, W) uint32 (bf16, C = 3); out (C, H, W).
+int fluid_advect(const void* vel, int hv, int wv, const void* src, int layout, void* out, int C,
+                 int H, int W, float dt, float decay, int dtype, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (C < 1 || C > 3) return (int)cudaErrorInvalidValue;
+    if (layout == kWords) {
+        if (C != 3 || dtype != kBF16) return (int)cudaErrorInvalidValue;
+        return launch_gather<__nv_bfloat16, 3, kWords>(vel, hv, wv, src, out, H, W, dt, decay,
+                                                       s);
+    }
+    DISPATCH_STORAGE(dtype, T,
+        if (C == 1)
+            return launch_c<T, 1>(vel, hv, wv, src, layout, out, H, W, dt, decay, s);
+        if (C == 2)
+            return launch_c<T, 2>(vel, hv, wv, src, layout, out, H, W, dt, decay, s);
+        return launch_c<T, 3>(vel, hv, wv, src, layout, out, H, W, dt, decay, s));
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,61 +1,152 @@
-// One Jacobi sweep of the pressure solve, for Hopper (sm_90a).
+// Jacobi pressure solve, several sweeps per launch, for Hopper (sm_90a).
 //
 // Replaces tpufluid/ops/pallas/jacobi.py:139 `_jacobi_chunk_kernel` (entered
-// through jacobi_pressure, :281, via _jacobi_chunk, :235). That kernel runs
-// up to 20 sweeps per memory pass inside a VMEM window; here each launch is
-// one sweep, p' = (((L + R) + T) + B - div) * 0.25 with clamp-to-edge
-// neighbours — the jnp oracle's sum order (the TPU kernel's exact path sums
-// ((L + R) + B) + T, which is not bit-equal to it in float32).
+// through jacobi_pressure, :281, via _jacobi_chunk, :235), which runs up to
+// 20 sweeps per memory pass inside a VMEM window. Each sweep is
+// p' = ((((L + R) + T) + B) - div) * 0.25 with clamp-to-edge neighbours, T
+// the row below (i + 1): the jnp oracle's sum order (the TPU kernel's exact
+// path sums ((L + R) + B) + T, which is not bit-equal to it in float32).
 //
-// The wrapper (ops/cuda/jacobi.py) ping-pongs two float32 buffers: the first
-// sweep reads the stored pressure times `prescale` (the 0.8 warm start,
-// applied at the load and not rounded on its own), the last writes storage.
-// So a solve rounds once, after its last sweep, like the TPU kernel's chunk.
+// What bounds it. The solve as a function reads p and div once and writes p
+// once: 3 storage values a cell (0.1 us on the demo's 128x228 f32 grid, 1.9 us
+// on 1024x1024 bf16, at 3.35 TB/s). One launch per sweep, the first design,
+// moved the field through L2 20 times and paid 20 launch latencies
+// (2.4 us a sweep at the demo, 4.2 us at 1024^2).
 //
-// Bytes per sweep (s = storage bytes): read p (4 or s) + div (s), write p'
-// (4 or s). Sim grid 128x228 f32: 0.35 MB a sweep, 7.0 MB for 20 sweeps
-// (2.1 us at 3.35 TB/s). 1024x1024 bf16: 10.5 MB a middle sweep, ~210 MB
-// for 20 (63 us at HBM rate; the 10 MB working set fits the 50 MB L2, so
-// the launches mostly read L2). The solve as a function moves only 3s per
-// texel (0.1 us / 1.9 us): the bound is set by the 20 passes this design
-// makes, and several sweeps per launch in shared-memory tiles (the TPU
-// kernel's chunking) are left for later.
+// The design: jacobi_chunk_kernel runs K sweeps per launch on a region of
+// RH = NY * R rows by RW columns that one block holds on chip: a tile plus
+// a K-deep halo, loaded from global memory (out-of-grid cells hold the
+// clamped edge values and are never read by a cell of the grid, whose
+// neighbours clamp at the grid's edge). Each thread owns one column and R
+// consecutive rows of it in registers (its p and its div); a sweep writes
+// the block's values to one of two shared-memory buffers, synchronises once,
+// and reads the left and right neighbours and the two rows beyond the
+// thread's strip from there; the rows inside the strip are registers. The
+// valid part shrinks by one cell a sweep; after K sweeps the block writes
+// its central tile. Between launches the field goes through float32
+// scratch, so a solve of N sweeps is ceil(N / K) launches.
+// Measured on the H100 (PERF.md), the step runs 10 sweeps a launch on one
+// of two geometries (ops/cuda/jacobi.py TILES, chosen by its plan): 64x128
+// regions, two blocks an SM, where they give every SM a block (1024^2 and
+// larger); else 32x64 regions (the demo's 128x228 keeps 66 SMs busy). A
+// thread block cluster that held the demo's grid in distributed shared
+// memory and ran all 20 sweeps in one launch was slower there: 16 SMs and
+// 20 cluster barriers.
+// The first launch loads the stored pressure times `prescale` (the 0.8 warm
+// start, not rounded on its own); only the last writes storage. So a solve
+// rounds once, after its last sweep, and equals jacobi_plain bit for bit
+// for every K.
 #include "common.cuh"
 
-template <typename TIn, typename TOut, typename TD>
-__global__ void jacobi_sweep_kernel(const TIn* __restrict__ p, const TD* __restrict__ div,
-                                    TOut* __restrict__ out, float prescale, int H, int W) {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
-    if (i >= H || j >= W) return;
-    const float L = to_f32(p[i * W + max(j - 1, 0)]) * prescale;
-    const float R = to_f32(p[i * W + min(j + 1, W - 1)]) * prescale;
-    const float T = to_f32(p[min(i + 1, H - 1) * W + j]) * prescale;
-    const float B = to_f32(p[max(i - 1, 0) * W + j]) * prescale;
-    const float acc = ((L + R) + T) + B;
-    out[i * W + j] = from_f32<TOut>((acc - to_f32(div[i * W + j])) * 0.25f);
+template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB>
+__global__ void __launch_bounds__(RW * NY, MINB)
+jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut* __restrict__ out,
+                    float prescale, int H, int W, int K) {
+    constexpr int RH = NY * R;
+    extern __shared__ float buf[];  // two RH x RW buffers, one per sweep parity
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    // Region origin: the tile's, less the K-deep halo on every side.
+    const int r0 = blockIdx.y * (RH - 2 * K) - K;
+    const int c0 = blockIdx.x * (RW - 2 * K) - K;
+    const int gj = c0 + tx;
+    const int cj = min(max(gj, 0), W - 1);
+    // Region columns of the left and right neighbours: clamped at the grid's
+    // edge, then into the region (a region-edge cell is outside the valid
+    // part after its first sweep).
+    const int jl = min(max(max(gj - 1, 0) - c0, 0), RW - 1);
+    const int jr = min(max(min(gj + 1, W - 1) - c0, 0), RW - 1);
+    const int row0 = ty * R;  // the strip's first region row
+
+    float v[R], d[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        const int at = min(max(r0 + row0 + k, 0), H - 1) * W + cj;
+        v[k] = to_f32(p[at]) * prescale;
+        d[k] = to_f32(div[at]);
+    }
+
+    for (int s = 0; s < K; ++s) {
+        float* cur = buf + (s & 1) * (RH * RW);
+#pragma unroll
+        for (int k = 0; k < R; ++k) cur[(row0 + k) * RW + tx] = v[k];
+        __syncthreads();
+        // The rows just beyond the strip: another strip of this block, or the
+        // region's own edge row (a cell of the grid that reads it there is
+        // either at the grid's edge, where it reads itself instead, or
+        // outside the valid part).
+        const float hi = ty + 1 < NY ? cur[(row0 + R) * RW + tx] : cur[(RH - 1) * RW + tx];
+        const float lo = ty > 0 ? cur[(row0 - 1) * RW + tx] : cur[tx];
+        float below = lo;  // the old value of the row above k (i - 1)
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            const int gi = r0 + row0 + k;
+            const float* row = cur + (row0 + k) * RW;
+            const float T = gi + 1 < H ? (k + 1 < R ? v[min(k + 1, R - 1)] : hi) : v[k];
+            const float B = gi > 0 ? below : v[k];
+            below = v[k];
+            v[k] = ((((row[jl] + row[jr]) + T) + B) - d[k]) * 0.25f;
+        }
+    }
+
+    const bool col_out = tx >= K && tx < RW - K && gj < W;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        const int lr = row0 + k, gi = r0 + lr;
+        if (col_out && lr >= K && lr < RH - K && gi < H)
+            out[gi * W + gj] = from_f32<TOut>(v[k]);
+    }
 }
 
+template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB = 1>
+static int launch(const void* p, const void* div, void* out, float prescale, int H, int W, int K,
+                  cudaStream_t stream) {
+    constexpr int RH = NY * R;
+    if (K < 1 || RH - 2 * K < 1 || RW - 2 * K < 1) return (int)cudaErrorInvalidValue;
+    auto kernel = jacobi_chunk_kernel<TIn, TOut, TD, RW, NY, R, MINB>;
+    const size_t smem = 2 * RH * RW * sizeof(float);
+    static bool configured = false;  // per instance: the attribute is set once
+    if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    const dim3 grid((W + RW - 2 * K - 1) / (RW - 2 * K), (H + RH - 2 * K - 1) / (RH - 2 * K));
+    kernel<<<grid, dim3(RW, NY), smem, stream>>>((const TIn*)p, (const TD*)div, (TOut*)out,
+                                                 prescale, H, W, K);
+    return (int)cudaGetLastError();
+}
+
+// The compiled geometries: (RW, NY, R[, blocks an SM must hold]), in the
+// order of ops/cuda/jacobi.py TILES.
 template <typename TIn, typename TOut, typename TD>
-static void launch(const void* p, const void* div, void* out, float prescale, int H, int W,
-                   cudaStream_t stream) {
-    jacobi_sweep_kernel<TIn, TOut, TD><<<grid_for(H, W), dim3(kBlockX, kBlockY), 0, stream>>>(
-        (const TIn*)p, (const TD*)div, (TOut*)out, prescale, H, W);
+static int launch_tiles(int tiles, const void* p, const void* div, void* out, float prescale,
+                        int H, int W, int K, cudaStream_t s) {
+    switch (tiles) {
+        case 0: return launch<TIn, TOut, TD, 128, 4, 16, 2>(p, div, out, prescale, H, W, K, s);
+        case 1: return launch<TIn, TOut, TD, 64, 4, 8>(p, div, out, prescale, H, W, K, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 extern "C" {
 
+// K sweeps of the (H, W) field in one launch on geometry `tiles`.
 // p_f32 / out_f32: 1 when that buffer is a float32 scratch buffer, 0 when it
 // holds the storage type `dtype` (which the divergence always does).
-int fluid_jacobi_sweep(const void* p, int p_f32, const void* div, void* out, int out_f32,
-                       float prescale, int H, int W, int dtype, void* stream) {
+int fluid_jacobi_chunk(const void* p, int p_f32, const void* div, void* out, int out_f32,
+                       float prescale, int H, int W, int K, int tiles, int dtype,
+                       void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     DISPATCH_STORAGE(dtype, T,
-        if (p_f32 && out_f32) launch<float, float, T>(p, div, out, prescale, H, W, s);
-        else if (p_f32) launch<float, T, T>(p, div, out, prescale, H, W, s);
-        else if (out_f32) launch<T, float, T>(p, div, out, prescale, H, W, s);
-        else launch<T, T, T>(p, div, out, prescale, H, W, s));
-    return (int)cudaGetLastError();
+        if (p_f32 && out_f32)
+            return launch_tiles<float, float, T>(tiles, p, div, out, prescale, H, W, K, s);
+        if (p_f32)
+            return launch_tiles<float, T, T>(tiles, p, div, out, prescale, H, W, K, s);
+        if (out_f32)
+            return launch_tiles<T, float, T>(tiles, p, div, out, prescale, H, W, K, s);
+        return launch_tiles<T, T, T>(tiles, p, div, out, prescale, H, W, K, s));
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

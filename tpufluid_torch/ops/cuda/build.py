@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -89,6 +90,33 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed on " + "\n".join(failed))
     return paths
+
+
+_PTXAS_FN = re.compile(r"Function properties for (\S+)")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Per compiled function of an ``nvcc -Xptxas=-v`` log: its (mangled)
+    name, registers, stack frame bytes and spill store / load bytes."""
+    out: List[dict] = []
+    for line in log.splitlines():
+        m = _PTXAS_FN.search(line)
+        if m:
+            out.append({"function": m.group(1)})
+            continue
+        if not out:
+            continue
+        m = _PTXAS_FRAME.search(line)
+        if m:
+            out[-1].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = _PTXAS_REGS.search(line)
+        if m and "registers" not in out[-1]:
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def library(name: str) -> ctypes.CDLL:

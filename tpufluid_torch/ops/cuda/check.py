@@ -92,7 +92,7 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
         Case("confine_divergence", "confine_divergence", _stencil.confine_divergence,
              _stencil.confine_divergence_plain, (vel_b, curl, config.CURL, dt),
              _bytes(vel_b, curl, vel1, div), sim * 30),
-        Case("jacobi", "jacobi_sweep", _jacobi.jacobi_pressure, _jacobi.jacobi_plain,
+        Case("jacobi", "jacobi_chunk", _jacobi.jacobi_pressure, _jacobi.jacobi_plain,
              (state.pressure, div, iters, config.PRESSURE),
              _bytes(state.pressure, div, pressure), sim * 6 * iters),
         Case("gradient_subtract", "gradient_subtract", _stencil.gradient_subtract,
@@ -101,11 +101,30 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
         Case("advect:velocity", "advect", _advect.advect, _advect.advect_plain,
              (vel2, vel2, dt, config.VELOCITY_DISSIPATION), _bytes(vel2, vel3),
              sim * (20 + 2 * 8)),
+        # The whole function, prepare and gather: the function's bytes.
         Case("advect:dye", "advect", _advect.advect, _advect.advect_plain,
              (vel3, state.dye, dt, config.DENSITY_DISSIPATION, df, quant),
              _bytes(vel3, state.dye, *df, dye_out),
              dye * (34 + 3 * (8 + 2 * n_active) + (40 if quant else 0))),
     ]
+
+
+def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig) -> List[Case]:
+    """The kernels that run inside one of step_cases' calls, each alone
+    against its own plain version: the dye's advect_prepare (inside
+    "advect:dye"), on the step's dye and splat factors. Its bytes are its
+    own: the dye and the factors read, the prepared source written."""
+    dtype = state.dye.dtype
+    quant = "rgb9e5" if config.DYE_RGB9E5 and dtype == torch.bfloat16 else None
+    dh, dw = state.dye.shape[-2:]
+    splats = splats.to(device=state.dye.device, dtype=torch.float32)
+    df = splat_factors(splats, dh, dw, config.splat_radius_uv(), config.aspect_ratio,
+                       slice(SPLAT_R, SPLAT_B + 1))
+    n_active = int((splats[:, 7] != 0).sum())
+    prepared = _advect.prepare_plain(state.dye, df, quant)
+    return [Case("advect:prepare", "advect_prepare", _advect.prepare, _advect.prepare_plain,
+                 (state.dye, df, quant), _bytes(state.dye, *df, prepared),
+                 dh * dw * (3 * (3 * n_active + 1) + (40 if quant else 0)))]
 
 
 # Float32 operations of the render kernels' arithmetic, counted from

@@ -18,12 +18,14 @@ events (``attribute_device_events``) are pure functions.
 from __future__ import annotations
 
 import re
+import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
 from tpufluid_torch.ops import floors as plain
 from tpufluid_torch.ops.cuda import build
+from tpufluid_torch.ops.cuda import jacobi as _jacobi
 from tpufluid_torch.ops.cuda.build import I, P, Kernel, ptr, stream
 from tpufluid_torch.step import make_step
 from tpufluid_torch.trace import swirl_trace
@@ -114,6 +116,39 @@ def _event_rate(call, seed, scan_len: int = 10, reps: int = 3) -> float:
     return start.elapsed_time(end) / 1e3 / (reps * scan_len)
 
 
+def spin_rate() -> float:
+    """GPU spin-kernel (torch.cuda._sleep) cycles per millisecond."""
+    _require_cuda()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(1_000_000)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def queued_ms(fn, reps: int, cycles_per_ms: float) -> float:
+    """Device ms of one fn() call: ``reps`` calls queued behind a spin
+    kernel long enough to cover their enqueue, between CUDA events, so the
+    host's launch cost is hidden. ``cycles_per_ms`` from spin_rate()."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(cycles_per_ms * (2 * enqueue_ms + 5)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def measure_taa_row_rate(planes: int = 2, n_idx: int = 8, reps: int = 32,
                          trips: int = 8) -> float:
     """Reduced-structure gather reference: gathered (64, 128)-word rows/s of
@@ -161,13 +196,15 @@ def measure_hbm_bandwidth_gbps() -> float:
 def gather_rows_per_step(config, velocity, dt) -> List[Tuple[float, int, int]]:
     """(taa_rows, channels, texels) of the velocity and the dye advection.
 
-    The port's advect kernel (csrc/advect.cu) reads the 4 bilinear corners
+    The function's gather, whatever implements it: the 4 bilinear corners
     of every source channel for every target texel, and where the velocity
     lies on a coarser grid than the target (the demo's dye) the 4 corners of
-    its 2 channels as well; words / 128 = rows. Every texel gathers the
-    same, so unlike the TPU model (tile-picked trips over a displacement
-    window, floors.py:232) the count depends on neither ``velocity`` nor
-    ``dt``: they are taken for the signature's sake."""
+    its 2 channels as well; words / 128 = rows. (csrc/advect.cu loads one
+    prepared word or quad per dye corner; its prepare pass is reported
+    apart, floor_report's "design".) Every texel gathers the same, so unlike
+    the TPU model (tile-picked trips over a displacement window,
+    floors.py:232) the count depends on neither ``velocity`` nor ``dt``:
+    they are taken for the signature's sake."""
     sw, sh = config.sim_size
     dw, dh = config.dye_size
     out = []
@@ -180,10 +217,30 @@ def gather_rows_per_step(config, velocity, dt) -> List[Tuple[float, int, int]]:
 
 
 def jacobi_cell_sweeps(config) -> int:
-    """Cells x sweeps the Jacobi kernel computes per step: one launch per
-    sweep over the H x W grid, no halo and no overcompute."""
+    """Cells x sweeps of the Jacobi solve per step as a function: H x W x
+    iterations, no halo. The chunk kernel's halos and padding are reported
+    apart (floor_report's "design", jacobi.design_cell_sweeps)."""
     sw, sh = config.sim_size
     return sw * sh * config.PRESSURE_ITERATIONS
+
+
+def design_overhead(config, sms: int) -> dict:
+    """What the port's kernels compute and move beyond the function's work
+    per step on a GPU of ``sms`` SMs: the Jacobi chunk kernel's cell-sweeps
+    (halos and the last tiles' padding) over the function's, and its
+    launches; the bytes the dye's prepared source adds, written once and
+    read once."""
+    sw, sh = config.sim_size
+    dw, dh = config.dye_size
+    iters = config.PRESSURE_ITERATIONS
+    quant = config.DYE_RGB9E5 and config.dtype == torch.bfloat16
+    itemsize = torch.empty((), dtype=config.dtype).element_size()
+    prepared = dw * dh * (4 if quant else 4 * itemsize)
+    design = _jacobi.design_cell_sweeps(sh, sw, iters, sms)
+    return {"jacobi_launches": len(_jacobi.plan(sh, sw, iters, sms)[1]),
+            "jacobi_design_cell_sweeps": design,
+            "jacobi_overcompute": round(design / (sw * sh * iters), 3) if iters else None,
+            "dye_prepared_bytes": 2 * prepared}
 
 
 # ---- profiled step -----------------------------------------------------
@@ -209,9 +266,10 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
     """(kernel_times, other) in microseconds per step from profiler events
     ``(name, on_device, start_us, duration_us)`` of ``steps`` steps.
 
-    kernel_times: velocity_gather and dye_gather (the step's first and
-    second advect launch, told apart by their order on the device),
-    jacobi (the sweeps), stencil (splat_curl + confine_divergence) and
+    kernel_times: velocity_gather and dye_gather (an advect launch that
+    follows an advect_prepare on the device is the dye's gather, and the
+    prepare counts with it; any other advect launch gathers the velocity),
+    jacobi (the chunks), stencil (splat_curl + confine_divergence) and
     gradient_subtract. other: the device time of every other device event
     (PyTorch's own kernels, copies, fills), its ``top_other`` largest names,
     ``cuda_runtime_host_us``: the host time of the CUDA runtime calls the
@@ -226,12 +284,19 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
         raise RuntimeError("the profiler recorded no CUDA kernel event")
     ours: Dict[str, List[float]] = {}
     other: Dict[str, float] = {}
+    gathers: Dict[str, float] = {"velocity_gather": 0.0, "dye_gather": 0.0}
+    prev = None
     for name, _, _, dur in device:
         k = port_kernel(name)
         if k is None:
             other[name] = other.get(name, 0.0) + dur
-        else:
-            ours.setdefault(k, []).append(dur)
+            continue
+        ours.setdefault(k, []).append(dur)
+        if k == "advect_prepare" or (k == "advect" and prev == "advect_prepare"):
+            gathers["dye_gather"] += dur
+        elif k == "advect":
+            gathers["velocity_gather"] += dur
+        prev = k
     counts = {k: len(v) for k, v in ours.items()}
     wrong = {k: (counts.get(k, 0), n) for k, n in launched.items() if counts.get(k, 0) != n}
     if wrong:
@@ -239,13 +304,13 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
     runtime = sum(dur for name, on_dev, _, dur in events
                   if not on_dev and name.startswith("cuda") and "Synchronize" not in name)
 
-    def per_step(*names, part=slice(None)) -> float:
-        return sum(sum(ours.get(n, [])[part]) for n in names) / steps
+    def per_step(*names) -> float:
+        return sum(sum(ours.get(n, [])) for n in names) / steps
 
     kernel_times = {
-        "velocity_gather": per_step("advect", part=slice(0, None, 2)),
-        "dye_gather": per_step("advect", part=slice(1, None, 2)),
-        "jacobi": per_step("jacobi_sweep"),
+        "velocity_gather": gathers["velocity_gather"] / steps,
+        "dye_gather": gathers["dye_gather"] / steps,
+        "jacobi": per_step("jacobi_chunk"),
         "stencil": per_step("splat_curl", "confine_divergence"),
         "gradient_subtract": per_step("gradient_subtract"),
     }
@@ -294,12 +359,15 @@ def profile_step_kernels(config, state, dt, steps: int = 30, top_other: int = 6)
 
 def floor_table(measured: dict, other_info: dict, gathers, cell_sweeps: int,
                 stencil_bytes: int, taa_rate: float, sweep_rate: float,
-                device_bw_gbps: float, measured_steps_per_s: float) -> dict:
+                device_bw_gbps: float, measured_steps_per_s: float,
+                design: Optional[dict] = None) -> dict:
     """The floor report's arithmetic (floors.py:506-569 without the TPU
     projection), from measured per-step kernel microseconds, the work
     models, the reference rates (rows/s, cell-sweeps/s), the device's
-    bandwidth and the measured step rate."""
-    out = {}
+    bandwidth and the measured step rate. ``design``, where given, is the
+    kernels' own work beyond the function's (design_overhead), carried
+    into the report as it is."""
+    out = {} if design is None else {"design": design}
     for name, geo in zip(("velocity_gather", "dye_gather"), gathers):
         rows = geo[0]
         m = measured.get(name, 0.0)
@@ -356,4 +424,5 @@ def floor_report(config, state, dt, device_bw_gbps: float,
                        gather_rows_per_step(config, state.velocity, float(dt)),
                        jacobi_cell_sweeps(config), 5 * sw * sh * itemsize,
                        measure_taa_row_rate(), measure_sweep_rate(),
-                       device_bw_gbps, measured_steps_per_s)
+                       device_bw_gbps, measured_steps_per_s,
+                       design_overhead(config, _jacobi.sm_count(state.velocity.device)))
