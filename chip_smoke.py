@@ -7,9 +7,9 @@ the card.
 
 1. Setup: builds the CUDA kernels from tpufluid_torch/csrc (one nvcc per
    source, all at once) and prints the card's name and power limit.
-   Sums up the ptxas report (registers, stack frame, spills) of every
-   advect and jacobi_chunk instance and names any with a stack frame or
-   spills.
+   Sums up the ptxas report (registers, static shared memory, stack
+   frame, spills) of every advect, jacobi_chunk, bloom_pyramid and display
+   instance and names any with a stack frame or spills.
 2. Kernel phase: every kernel call of a step (check.step_cases) and the
    dye's advect_prepare alone (check.part_cases) against its plain PyTorch
    version on the same inputs, at the main path's shapes — demo default
@@ -34,15 +34,16 @@ the card.
    backtraced coordinates) as the advection's library yardstick; last the
    host time of the step's Python layers under cProfile.
 5. Render kernel phase: every kernel call of a frame (check.render_cases:
-   the bloom chain's 14 stages and the display) against its plain version,
+   the whole bloom pyramid, one launch, and the display) against its plain
+   version, with max abs error 0 required,
    at both grids' canvas in every dtype of phase 2; then, in float32 and
    bf16 (RGB9E5), the flag variants (SHADING, BLOOM, SUNRAYS each off), the
    display without dither and with compose=False, the capture size and the
    server's 360x640 tick. Prints each max error beside its tolerance and
    fails past it.
 6. Render path phase, on each path's final state: one make_render frame
-   with the launch counts zeroed just before and read just after (2 x mips
-   bloom_blur4 stages, 1 display, no step kernel), held against the plain
+   with the launch counts zeroed just before and read just after (1
+   bloom_pyramid, 1 display, no step kernel), held against the plain
    render on the same GPU tensors; the frame must be finite, opaque and not
    all background, and a transparent capture must have alpha = max(rgb).
    Then frames/s of make_render over 200 frames and ticks/s of
@@ -50,8 +51,11 @@ the card.
    checked after), each with its median and p95 and its device time per
    frame (queued behind a spin kernel, so the idle share is 1 - device /
    frame time), each render kernel's device time per frame beside its
-   plain version's and its bound, and the host time of the render's Python
-   layers under cProfile.
+   plain version's and its bound, the host time of the render's Python
+   layers under cProfile, and profile_frame_kernels (torch.profiler over 30
+   frames: each render kernel's device time a frame, its event count equal
+   to its launch count, and the rest of the frame's device time by PyTorch
+   op).
 7. Floors kernel phase: the three microbenchmark kernels (floor_taa,
    floor_roll, floor_sweep; check.floors_cases) against their plain
    versions at the TPU microbenchmarks' default shapes (measure_roll_rate
@@ -94,11 +98,13 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 PATH_STEPS = 300               # per config; steps/s over the last TIMED_STEPS
 TIMED_STEPS = 200
 CHECK_STEPS = 3                # compared against the plain step
-RENDER_KERNELS = ("bloom_blur4", "display")
+RENDER_KERNELS = ("bloom_pyramid", "display")
+PTXAS_LIBRARIES = ("advect", "jacobi", "bloom", "display")
 TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
 FLOORS_KERNELS = ("floor_taa", "floor_roll", "floor_sweep")
 FLOORS_CONFIG = "1024_bfloat16_rgb9e5"    # bench.py config 3, where bench.py reports floors
 PROFILE_STEPS = 30                        # profile_step_kernels' default
+PROFILE_FRAMES = 30                       # profile_frame_kernels' default
 LONG_HORIZON_STEPS = 1500
 JACOBI_SWEEPS_A_LAUNCH = 10    # the chunk kernel's design: a solve of N sweeps is ceil(N / 10)
 LONG_HORIZON_OUT = Path("out/long_horizon_4096")
@@ -123,12 +129,12 @@ def expected_per_step(cfg) -> dict:
 
 
 def ptxas_report(build) -> list:
-    """The ptxas report of every advect and jacobi_chunk instance: one dict
-    per compiled kernel (name demangled where c++filt is found)."""
+    """The ptxas report of every kernel instance of PTXAS_LIBRARIES: one
+    dict per compiled kernel (name demangled where c++filt is found)."""
     import shutil
 
     rows = []
-    for name in ("advect", "jacobi"):
+    for name in PTXAS_LIBRARIES:
         log = build.library_path(name).with_suffix(".log").read_text()
         for f in build.ptxas_report(log):
             if shutil.which("c++filt"):
@@ -169,27 +175,13 @@ def kernel_phase(torch, check, cfgs, device) -> dict:
     return errors
 
 
-def frame_times(torch, fn, n: int):
-    """fn(k) for k < n with a CUDA event after each call -> (calls per s,
-    median ms, nearest-rank 95th percentile ms: n/20 calls lie beyond it)."""
-    torch.cuda.synchronize()
-    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    events[0].record()
-    for k in range(n):
-        fn(k)
-        events[k + 1].record()
-    events[-1].synchronize()
-    ms = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-    return (n / (events[0].elapsed_time(events[-1]) / 1e3), ms[len(ms) // 2],
-            ms[math.ceil(0.95 * len(ms)) - 1])
-
-
 def path_phase(torch, cfg, device) -> dict:
     """Drive make_multi_step, then make_step, over a swirl trace; return
     the launch counts, the step rate and the step-time distribution."""
     from tpufluid_torch import init_state, make_multi_step, make_step, swirl_trace
     from tpufluid_torch.ops.cuda import build
     from tpufluid_torch.step import plain_step
+    from tpufluid_torch.tools.render_rate import call_times
 
     trace = swirl_trace(cfg, PATH_STEPS, seed=42)
     multi = make_multi_step(cfg, device=device)
@@ -218,7 +210,7 @@ def path_phase(torch, cfg, device) -> dict:
     def one(k):
         box[0] = step(box[0], trace.dts[warm + k], trace.batches[warm + k])
 
-    steps_per_s, step_median, step_p95 = frame_times(torch, one, TIMED_STEPS)
+    steps_per_s, step_median, step_p95 = call_times(one, TIMED_STEPS)
     state = box[0]
     launches = {k: v.launches for k, v in build.KERNELS.items()}
 
@@ -300,8 +292,8 @@ def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
             err, tol = check.compare(case.run(), case.run(plain=True))
             torch.cuda.synchronize()
             print(f"kernel {name:22s} {label:14s} {case.label:15s} max_abs_err {err:.3e}  "
-                  f"tol {tol:.3e}")
-            assert err <= tol, f"{case.label} on {name} {label}: {err} > {tol}"
+                  f"tol 0")
+            assert err == 0.0, f"{case.label} on {name} {label}: {err} != 0"
             key = (name, case.kernel_name)
             errors[key] = max(errors.get(key, 0.0), err)
 
@@ -322,17 +314,18 @@ def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
 
 def render_path_phase(torch, check, cfg, run, device) -> dict:
     """Render the path's final state through make_render and
-    make_step_and_render; return launch counts, rates, device times and
-    the render kernels' timing."""
+    make_step_and_render; return launch counts, rates, device times, the
+    render kernels' timing and the frame's profile."""
     from tpufluid_torch import capture_frame, make_render, make_step_and_render, swirl_trace
-    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.ops.cuda import build, floors
     from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
     from tpufluid_torch.render import plain_render
+    from tpufluid_torch.tools.render_rate import call_times
 
     state = run["state"]
     render = make_render(cfg, device=device)
     n_mips = len(cfg.bloom_mip_sizes())
-    per_frame = {"bloom_blur4": 2 * n_mips if n_mips >= 2 else 0, "display": 1}
+    per_frame = {"bloom_pyramid": 1 if n_mips >= 2 else 0, "display": 1}
 
     build.reset_launches()
     frame = render(state)
@@ -353,7 +346,7 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     assert bool(torch.equal(cap[3], cap[:3].amax(dim=0))), "capture alpha != max(rgb)"
 
     build.reset_launches()
-    fps, frame_med, frame_p95 = frame_times(torch, lambda k: render(state), TIMED_FRAMES)
+    fps, frame_med, frame_p95 = call_times(lambda k: render(state), TIMED_FRAMES)
     frame_launches = {k: v.launches for k, v in build.KERNELS.items()}
     for k, n in want.items():
         assert frame_launches[k] == n * TIMED_FRAMES, (k, frame_launches[k])
@@ -367,7 +360,7 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
         return pixels
 
     build.reset_launches()
-    tps, tick_med, tick_p95 = frame_times(torch, one_tick, TIMED_FRAMES)
+    tps, tick_med, tick_p95 = call_times(one_tick, TIMED_FRAMES)
     tick_launches = {k: v.launches for k, v in build.KERNELS.items()}
     for k, n in {**expected_per_step(cfg), **per_frame}.items():
         assert tick_launches[k] == n * TIMED_FRAMES, (k, tick_launches[k])
@@ -386,7 +379,17 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     tick_device = queued_ms(lambda: tick(state, trace.dts[0], splats), 1, rate)
     timing = timing_phase(torch, check, check.render_cases(state, cfg))
     host = host_profile(torch, lambda: render(state), 50, RENDER_HOST_FUNCS, "frame")
+    profile = floors.profile_frame_kernels(cfg, state, PROFILE_FRAMES)
+    for k, row in profile["kernel_events"].items():
+        assert row["events"] == per_frame[k] * PROFILE_FRAMES, (k, row)
+    print(f"profile frame {cfg.DTYPE} {cfg.CANVAS_HEIGHT}x{cfg.CANVAS_WIDTH}, torch.profiler over "
+          f"{PROFILE_FRAMES} frames: device {profile['frame_device_us']} us a frame; " + ", ".join(
+              f"{k} {row['us']:.4f} us ({row['events']} events = launches), spin-queued "
+              f"{1e3 * timing[k]['ms']:.4f} us" for k, row in profile["kernel_events"].items())
+          + f"; other device {profile['other_device_us']} us: " + "; ".join(
+              f"{o['us']} us {o['op'][:40]}" for o in profile["top_other_ops"]))
     return {"frame_err": err, "host_ms_cprofile": host, "frames_per_s": fps,
+            "frame_profile": profile,
             "frame_ms_median": frame_med, "frame_ms_p95": frame_p95,
             "frame_device_ms": frame_device,
             "ticks_per_s": tps, "tick_ms_median": tick_med, "tick_ms_p95": tick_p95,
@@ -410,7 +413,7 @@ RENDER_HOST_FUNCS = {  # the same, for the render profile
     ("render.py", "_render"): "render (all)",
     ("sunrays.py", "apply_sunrays"): "apply_sunrays",
     ("sampling.py", "sample_affine"): "sample_affine (all callers)",
-    ("bloom.py", "bloom_chain"): "bloom_chain (resample + 14 launches)",
+    ("bloom.py", "bloom_chain"): "bloom_chain (resample + 1 launch)",
     ("display.py", "display"): "display wrapper",
     ("display.py", "blend_premultiplied"): "blend_premultiplied",
     ("build.py", "__call__"): "Kernel.__call__ (ctypes)",
@@ -556,9 +559,14 @@ def main() -> int:
     ptxas = ptxas_report(build)
     regs = [f.get("registers", 0) for f in ptxas]
     frames = [f for f in ptxas if f.get("stack") or f.get("spill_stores") or f.get("spill_loads")]
-    print(f"ptxas: {len(ptxas)} advect and jacobi_chunk instances, {min(regs)}-{max(regs)} "
-          f"registers, {len(frames)} with a stack frame or spills "
+    print(f"ptxas: {len(ptxas)} instances of {', '.join(PTXAS_LIBRARIES)}, "
+          f"{min(regs)}-{max(regs)} registers, {len(frames)} with a stack frame or spills "
           "(the full report in out/chip_smoke.json)")
+    for f in ptxas:
+        if "bloom" in f["function"] or "display" in f["function"]:
+            print(f"ptxas {f['function'][:90]}: {f.get('registers')} registers, "
+                  f"{f.get('smem')} bytes static smem, {f.get('stack')} bytes stack frame, "
+                  f"{f.get('spill_stores')} / {f.get('spill_loads')} bytes spill stores / loads")
     for f in frames:
         print(f"ptxas {f['function']}: {f}")
     gpu = gpu_line()

@@ -290,10 +290,10 @@ ptxas info    : Function properties for _Z13advect_kernelIfLi2ELi0ELb1EEvPKT_
 ptxas info    : Used 30 registers, used 0 barriers, 400 bytes cmem[0]
 ptxas info    : Function properties for _Z5otheri
     24 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
-ptxas info    : Used 255 registers, used 1 barriers, 380 bytes cmem[0]
+ptxas info    : Used 255 registers, used 1 barriers, 5760 bytes smem, 380 bytes cmem[0]
 """
     assert build.ptxas_report(log) == [
         {"function": "_Z13advect_kernelIfLi2ELi0ELb1EEvPKT_", "stack": 0, "spill_stores": 0,
-         "spill_loads": 0, "registers": 30},
+         "spill_loads": 0, "registers": 30, "smem": 0},
         {"function": "_Z5otheri", "stack": 24, "spill_stores": 8, "spill_loads": 4,
-         "registers": 255}]
+         "registers": 255, "smem": 5760}]

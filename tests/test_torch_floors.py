@@ -279,6 +279,32 @@ def test_attribute_device_events():
                                     ("cudaLaunchKernel", False, 0.0, 1.0)], {}, steps=1)
 
 
+def test_frame_breakdown():
+    """Microseconds a frame: every device event, the render kernels' own
+    (events counted against launches), the rest by the PyTorch op that
+    launched it."""
+    ev = []
+    for f in range(2):
+        t = 100.0 * f
+        ev += [("void at::native::index_select_kernel<float>(int)", True, t, 3.0),
+               ("bloom_pyramid_kernel(Pyramid)", True, t + 5, 10.0),
+               ("cudaLaunchCooperativeKernel", False, t + 4, 2.0),
+               ("void display_kernel<float, 3>(float const*, int)", True, t + 20, 20.0),
+               ("Memset (Device)", True, t + 50, 1.0)]
+    ops = [("aten::index_select", 6.0), ("aten::fill_", 2.0), ("aten::empty", 0.0)]
+    out = fk.frame_breakdown(ev, ops, {"bloom_pyramid": 2, "display": 2, "advect": 0},
+                             frames=2, top_other=1)
+    assert out["frame_device_us"] == 34.0
+    assert out["kernel_events"] == {"bloom_pyramid": {"events": 2, "us": 10.0},
+                                    "display": {"events": 2, "us": 20.0}}
+    assert out["other_device_us"] == 4.0
+    assert out["top_other_ops"] == [{"op": "aten::index_select", "us": 3.0}]
+    with pytest.raises(AssertionError, match="display"):
+        fk.frame_breakdown(ev, ops, {"bloom_pyramid": 2, "display": 1}, frames=2)
+    with pytest.raises(RuntimeError, match="no CUDA kernel event"):
+        fk.frame_breakdown([("Memset (Device)", True, 0.0, 1.0)], ops, {}, frames=1)
+
+
 def test_port_kernel_names():
     assert fk.port_kernel("void advect_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)") \
         == "advect"
@@ -351,6 +377,7 @@ def test_measurements_raise_without_a_card(monkeypatch):
     for call in (fk.measure_taa_row_rate, fk.measure_sweep_rate, fk.measure_hbm_bandwidth_gbps,
                  lambda: fk.measure_roll_rate(2, 96, 384),
                  lambda: fk.profile_step_kernels(cfg, state, 1 / 60),
+                 lambda: fk.profile_frame_kernels(cfg, state),
                  lambda: fk.floor_report(cfg, state, 1 / 60, 3000.0, 1000.0)):
         with pytest.raises(RuntimeError, match="CUDA GPU"):
             call()

@@ -173,15 +173,14 @@ def _check_cases(cases):
 @pytest.mark.parametrize("flags", RENDER_VARIANTS, ids=lambda f: ",".join(f) or "all")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_render_kernels_match_plain(flags, dtype, cuda):
-    """bloom_blur4 and display against their plain versions at small
+    """bloom_pyramid and display against their plain versions at small
     shapes: odd canvas, every flag variant, each storage dtype."""
     cfg = FluidConfig(DTYPE=dtype, **{**CONFIGS["ragged"], "CANVAS_WIDTH": 333,
                                       "CANVAS_HEIGHT": 201, **flags}).validate()
     state, _ = check.random_state(cfg, seed=5, device=cuda)
     cases = check.render_cases(state, cfg)
-    bloom_stages = 2 * len(cfg.bloom_mip_sizes()) if cfg.BLOOM and len(
-        cfg.bloom_mip_sizes()) >= 2 else 0
-    assert [c.kernel_name for c in cases] == ["bloom_blur4"] * bloom_stages + ["display"]
+    pyramid = cfg.BLOOM and len(cfg.bloom_mip_sizes()) >= 2
+    assert [c.kernel_name for c in cases] == ["bloom_pyramid"] * pyramid + ["display"]
     _check_cases(cases)
     _check_cases(check.render_cases(state, cfg, out_hw=(50, 77), dither=False))
     _check_cases(check.render_cases(state, cfg, out_hw=(64, 130), compose=False))
@@ -197,13 +196,74 @@ def test_render_kernels_match_plain_at_capture_shape(cuda):
     _check_cases(check.render_cases(state, cfg, out_hw=(ch, cw)))
 
 
+# (bloom resolution, canvas w x h, BLOOM_ITERATIONS, the first level in the
+# block): 2, 3, 5 and 7 mips with odd sizes; every level in the block (a
+# base under the small-level threshold), every level grid-wide (a 256 base
+# with 2 or 3 mips), split between them, the two main paths' pyramids.
+PYRAMIDS = [(64, (1280, 720), 2, 1), (37, (333, 201), 3, 1), (101, (1280, 720), 8, 2),
+            (24, (1280, 720), 8, 0), (256, (1280, 720), 2, 2), (256, (1280, 720), 3, 3),
+            (256, (1280, 720), 8, 3), (256, (1024, 1024), 8, 3)]
+
+
+@pytest.mark.parametrize("res,canvas,iters,small", PYRAMIDS,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_bloom_pyramid_matches_plain(res, canvas, iters, small, cuda):
+    """The whole pyramid in one launch, bit-equal to bloom_pyramid_plain,
+    at each split the configs give: all levels in the block, all grid-wide,
+    and between."""
+    cfg = FluidConfig(BLOOM_RESOLUTION=res, CANVAS_WIDTH=canvas[0], CANVAS_HEIGHT=canvas[1],
+                      BLOOM_ITERATIONS=iters).validate()
+    mips = cfg.bloom_mip_sizes()
+    assert bloom.small_level([(h, w) for w, h in mips]) == small
+    bw, bh = cfg.bloom_size
+    gen = np.random.default_rng(res)
+    base = torch.from_numpy((gen.random((3, bh, bw)) * 2.0).astype(np.float32)).to(cuda)
+    args = (base, mips, cfg.BLOOM_THRESHOLD, cfg.BLOOM_SOFT_KNEE, cfg.BLOOM_INTENSITY)
+    want = bloom.bloom_pyramid_plain(*args)
+    before = bloom.BLOOM_PYRAMID.launches
+    got = bloom.bloom_pyramid(*args)
+    torch.cuda.synchronize()
+    assert bloom.BLOOM_PYRAMID.launches == before + 1
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+# Output sizes the render asks for: the canvases, the captures, the tick.
+DISPLAY_SHAPES = [((1024, 1820), (720, 1280)), ((1024, 1820), (512, 910)),
+                  ((1024, 1820), (360, 640)), ((1024, 1024), (1024, 1024)),
+                  ((1024, 1024), (512, 512)), ((1024, 1024), (360, 640))]
+
+
+@pytest.mark.parametrize("dye_hw,out_hw", DISPLAY_SHAPES,
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+def test_display_matches_plain_at_render_sizes(dye_hw, out_hw, dtype, cuda):
+    """The display at each output size the render gives it, each storage
+    type, shaded and not, composed and not: bit-equal to display_plain."""
+    gen = np.random.default_rng(out_hw[0] + out_hw[1])
+
+    def t(*shape):
+        return torch.from_numpy((gen.random(shape) * 1.5).astype(np.float32)).to(cuda)
+
+    dye = t(3, *dye_hw).to(dtype)
+    extras = (t(3, 256, 455), t(196, 348), t(64, 64))
+    for shading in (True, False):
+        for compose in (True, False):
+            before = display.DISPLAY.launches
+            got = display.display(dye, out_hw, shading, *extras, compose=compose)
+            torch.cuda.synchronize()
+            assert display.DISPLAY.launches == before + 1
+            want = display.display_plain(dye, out_hw, shading, *extras, compose=compose)
+            assert torch.equal(got, want), (shading, compose)
+
+
 def test_kernel_render_matches_plain_render(cuda):
     cfg = FluidConfig(DTYPE="bfloat16", **CONFIGS["small"]).validate()
     state, _ = check.random_state(cfg, seed=2, device=cuda)
     build.reset_launches()
     got = make_render(cfg)(state)
     launches = {k: v.launches for k, v in build.KERNELS.items()}
-    assert launches["bloom_blur4"] == 2 * len(cfg.bloom_mip_sizes())
+    assert launches["bloom_pyramid"] == 1
     assert launches["display"] == 1
     err, tol = check.compare(got, plain_render(state, cfg))
     assert err <= tol, (err, tol)
@@ -211,12 +271,54 @@ def test_kernel_render_matches_plain_render(cuda):
 
 def test_render_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="takes float32"):
-        bloom.blur4_stage(torch.zeros((3, 8, 8), device=cuda, dtype=torch.bfloat16), (4, 4))
+        bloom.bloom_pyramid(torch.zeros((3, 8, 8), device=cuda, dtype=torch.bfloat16),
+                            ((4, 4), (2, 2)), 0.6, 0.7, 0.8)
     with pytest.raises(ValueError, match="no kernel for dtype"):
         display.display(torch.zeros((3, 8, 8), device=cuda, dtype=torch.float64), (8, 8), True)
     with pytest.raises(ValueError, match="must be float32"):
         display.display(torch.zeros((3, 8, 8), device=cuda), (8, 8), True,
                         torch.zeros((3, 4, 4), device=cuda, dtype=torch.float16))
+
+
+def test_refused_render_launches_raise(cuda):
+    """A launch the card refuses raises, with no plain fallback: the bloom
+    kernel's block phase and the display's window past the shared memory a
+    block may have, through the wrapper too, and shapes the entry points
+    reject. The next launch runs."""
+    import ctypes
+
+    from tpufluid_torch.ops.cuda.build import ptr, stream
+
+    base = torch.zeros((3, 256, 455), device=cuda)
+    sizes = (ctypes.c_int * 4)(128, 227, 64, 113)
+    mips = torch.empty(3 * (128 * 227 + 64 * 113), device=cuda)
+    before = bloom.BLOOM_PYRAMID.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):   # 436 KB of levels in a block
+        bloom.BLOOM_PYRAMID(ptr(base), 256, 455, ptr(mips), ptr(base), sizes, 2, 0, 0.6, 0.0,
+                            0.0, 0.0, 0.8, stream())
+    with pytest.raises(RuntimeError, match="failed to launch"):   # one mip
+        bloom.BLOOM_PYRAMID(ptr(base), 256, 455, ptr(mips), ptr(base), sizes, 1, 0, 0.6, 0.0,
+                            0.0, 0.0, 0.8, stream())
+    assert bloom.BLOOM_PYRAMID.launches == before
+    dye, out = torch.zeros((3, 64, 64), device=cuda), torch.empty((4, 64, 64), device=cuda)
+    for win in ((64, 2000), (0, 64)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            display.DISPLAY(ptr(dye), 3, 64, 64, 0, ptr(out), 64, 64, 1, 0, 0.0, 0.0, 0.0,
+                            None, 0, 0, None, 0, 0, None, 0, 0, 0.0, 0.0, *win, stream())
+    # a dye window past a block's shared memory (a 4096x7282 dye shown at
+    # 200x360): the wrapper's launch is refused and raises
+    before = display.DISPLAY.launches
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        display.display(torch.zeros((3, 4096, 7282), device=cuda), (200, 360), True)
+    assert display.DISPLAY.launches == before
+    dye, base = dye.uniform_(), base.uniform_()
+    got = display.display(dye, (64, 64), True)
+    bloom_args = (base, ((227, 128), (113, 64)), 0.6, 0.7, 0.8)
+    glow = bloom.bloom_pyramid(*bloom_args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, display.display_plain(dye, (64, 64), True))
+    assert torch.equal(glow, bloom.bloom_pyramid_plain(*bloom_args))
+    assert display.DISPLAY.launches == before + 1
 
 
 @pytest.mark.parametrize("ragged", [False, True], ids=["default", "ragged"])

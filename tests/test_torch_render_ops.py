@@ -268,11 +268,11 @@ def test_bloom_stage_plain_matches_jax(rng):
     src = torch.from_numpy(_rand(rng, (3, 24, 43), 2.0))
     dst = torch.from_numpy(_rand(rng, (3, 24, 43)))
     j = jnp.asarray(src.numpy())
-    _close(kbloom.blur4_stage_plain(src, (12, 21), prefilter=(0.6, 0.7)),
+    _close(tbloom.blur4_stage(src, (12, 21), prefilter=(0.6, 0.7)),
            _jax(jbloom.blur4, _jax(jbloom.bloom_prefilter, j, (24, 43), 0.6, 0.7), (12, 21)))
-    _close(kbloom.blur4_stage_plain(src, (24, 43), dst=dst),
+    _close(tbloom.blur4_stage(src, (24, 43), dst=dst),
            jnp.asarray(dst.numpy()) + _jax(jbloom.blur4, j, (24, 43)))
-    _close(kbloom.blur4_stage_plain(src, (48, 86), scale=0.8), _jax(jbloom.blur4, j, (48, 86)) * 0.8)
+    _close(tbloom.blur4_stage(src, (48, 86), scale=0.8), _jax(jbloom.blur4, j, (48, 86)) * 0.8)
 
 
 def test_blue_noise_equals_jax():
@@ -289,7 +289,7 @@ def test_kernels_refuse_cpu_tensors():
     through the dispatch."""
     x = torch.zeros((3, 8, 8))
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        kbloom.blur4_stage(x, (4, 4))
+        kbloom.bloom_pyramid(x, ((4, 4), (2, 2)), 0.6, 0.7, 0.8)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kdisplay.display(x, (8, 8), True)
 

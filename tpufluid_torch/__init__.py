@@ -3,9 +3,9 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The simulation step runs four kernels (csrc/): the pre-pressure stencil
 (two launches), the Jacobi sweep, the gradient subtract and the advection.
-The frame runs two: a bloom pyramid stage (one launch per stage) and the
-display composite. Every kernel has a plain PyTorch version beside it; a CPU state runs those,
-a CUDA state runs the kernels. The entry points default to
+The frame runs two, one launch each: the bloom pyramid and the display
+composite. Every kernel has a plain PyTorch version beside it; a CPU state
+runs those, a CUDA state runs the kernels. The entry points default to
 ``device="cuda"`` and raise without a GPU unless the caller passes
 ``device="cpu"``. The package imports neither JAX nor ``tpufluid``.
 

@@ -1,39 +1,84 @@
-// One stage of the bloom mip chain, for Hopper (sm_90a).
+// The bloom mip pyramid, for Hopper (sm_90a).
 //
 // Replaces tpufluid/ops/pallas/bloom.py:91 `_kernel` (entered through
 // bloom_pyramid_pallas, :132), which runs the whole pyramid as one
 // VMEM-resident program with every blur stage as two bilinear "hat" matrix
-// products on the MXU. Here the pyramid is 2 * mips launches of this kernel
-// (14 at the demo and 1024x1024 configs: 7 down, 6 up, 1 final), one thread
-// per output texel, each reading global memory where its taps land. The
-// dye -> base resample stays outside (ops/cuda/bloom.py), as on the TPU.
+// products on the MXU. The dye -> base resample stays outside
+// (ops/cuda/bloom.py), as on the TPU.
 //
-// Per output texel (i, j), each of the 3 channels:
+// Stages, in the order of ops/bloom.pyramid (n mips m0..m{n-1}, base b):
+//   down D_k: m{k-1} (b for k = 0, prefiltered on read) -> m_k,
+//   up U_k (k = n-2 .. 0): m_k + blur(m{k+1}) -> m_k, in place,
+//   final F: blur(m0) * intensity -> the output, base-sized.
+// Per output texel (i, j) of a stage, each of the 3 channels:
 //   out = [dst +] 0.25 * (((tap(-tx, 0) + tap(+tx, 0)) + tap(0, -ty)) + tap(0, +ty))
 //         [* intensity]
-// with tx = 1/sw, ty = 1/sh one source texel (Python doubles rounded to
-// float32 by the caller) and each tap a bilinear CLAMP_TO_EDGE sample taken
-// column stage first, then row stage (ops/sampling.sample_affine), lerps
-// a*(1-f) + b*f, the sum in the order of ops/bloom.blur4. The first down
-// stage prefilters its source on read: each corner texel is multiplied by
-// the soft-knee scale of its own 3 channels (ops/bloom.knee_threshold), with the
-// knee's curve constants computed in Python doubles by the caller.
+// with tx = 1/sw, ty = 1/sh one source texel (doubles rounded to float32, as
+// the plain version's Python floats) and each tap a bilinear CLAMP_TO_EDGE
+// sample taken column stage first, then row stage (ops/sampling
+// .sample_affine), lerps a*(1-f) + b*f, the sum in the order of
+// ops/bloom.blur4. D_0 multiplies each corner texel by the soft-knee scale
+// of its own 3 channels (ops/bloom.knee_threshold), the curve's constants
+// computed in Python doubles by the caller.
 //
-// Bound: bytes. The largest stage (the first down stage at the demo: base
-// 256x455, mip 128x227, float32) moves 1.75 MB (0.52 us at 3.35 TB/s); the
-// whole chain 5.1 MB at the demo and 2.9 MB at 1024x1024 (1.5 and 0.9 us),
-// against 14 launches of a few microseconds each: launch latency, not bytes,
-// sets its time. Left for later: the whole pyramid in one launch (a
-// cooperative grid or a cluster, every mip of a 256-scale pyramid fits in
-// one SM's shared memory below the first two levels).
+// Bound: the pyramid as a function reads its base and writes its output,
+// 2.8 MB at the demo (base 256x455) and 1.6 MB at 1024x1024 (base 256x256):
+// under 1 us at 3.35 TB/s. Its 14 stages depend one on the next, and each is
+// small (m1 is 7232 texels at the demo), so their chain of dependencies sets
+// the time: one launch per stage took about 6 us a stage. The design: one
+// cooperative launch of one 1024-thread block an SM. The large levels (more
+// than `small` texels: m0, m1 and m2 at both configs) run grid-wide with a
+// grid barrier after each stage (about 1.1 us each on the H100), in work
+// items of one tap and channel (12 a texel, the 4 taps of a channel in 4
+// lanes, summed by shuffles) where they take no more rounds of the threads
+// than items of one channel (3 a texel), for the shortest chain of
+// dependent loads a round. Every level from the first small one down, and
+// back up to it, lives in one block's shared memory (at most ~8 KB for 512
+// texels) and runs with block barriers while the other blocks wait at the
+// next grid barrier: 7 grid barriers a frame at both configs instead of 13
+// launch boundaries. Levels live in one float32 scratch buffer, m0 first.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
+constexpr int kMaxMips = 24;
+constexpr int kBlockThreads = 1024;
+
 struct Knee {
-    int on;
     float threshold, curve0, curve1, curve2;
 };
 
-// Source texel (y, x) of channel c, prefiltered when knee.on.
+struct Level {
+    int h, w, off;   // off: float offset of the level in the scratch buffer
+    float tx, ty;    // one texel of this level as a source: 1/w, 1/h
+};
+
+struct Pyramid {
+    const float* base;
+    float* mips;     // every level, m0 first, (3, h, w) each
+    float* out;      // (3, base h, base w)
+    int n, small;    // mips; levels >= small run in one block
+    Level b;
+    Level lv[kMaxMips];
+    Knee knee;
+    float intensity;
+};
+
+// One blur stage: source and output planes (3, h, w), an optional dst added
+// texel for texel (it may be the output), the knee on the source, a scale.
+struct Stage {
+    const float* src;
+    Level s;
+    const float* dst;
+    float* out;
+    Level o;
+    int knee, scaled;
+};
+
+// Source texel (y, x) of channel c, prefiltered when KNEE.
+template <bool KNEE>
 struct BloomSource {
     const float* src;
     int h, w, c;
@@ -42,7 +87,7 @@ struct BloomSource {
     __device__ __forceinline__ float operator()(int y, int x) const {
         const int hw = h * w, at = y * w + x;
         const float v = src[c * hw + at];
-        if (!knee.on) return v;
+        if (!KNEE) return v;
         const float r = src[at], g = src[hw + at], b = src[2 * hw + at];
         const float br = fmaxf(fmaxf(r, g), b);
         float rq = fminf(fmaxf(br - knee.curve0, 0.0f), knee.curve1);
@@ -52,46 +97,222 @@ struct BloomSource {
     }
 };
 
-__global__ void bloom_blur4_kernel(const float* __restrict__ src, int sh, int sw,
-                                   const float* __restrict__ dst, float* __restrict__ out,
-                                   int oh, int ow, float tx, float ty, Knee knee, int scaled,
-                                   float intensity) {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
-    if (i >= oh || j >= ow) return;
-    const AxisTap row = axis_tap(i, sh, oh, 1.0f, 0.0f, false);
-    const AxisTap col = axis_tap(j, sw, ow, 1.0f, 0.0f, false);
-    const AxisTap left = axis_tap(j, sw, ow, 1.0f, -tx, false);
-    const AxisTap right = axis_tap(j, sw, ow, 1.0f, tx, false);
-    const AxisTap below = axis_tap(i, sh, oh, 1.0f, -ty, false);
-    const AxisTap above = axis_tap(i, sh, oh, 1.0f, ty, false);
-    const int ohw = oh * ow, at = i * ow + j;
-    for (int c = 0; c < 3; ++c) {
-        const BloomSource plane{src, sh, sw, c, knee};
-        float s = sample_cols_rows(plane, row, left);
-        s = s + sample_cols_rows(plane, row, right);
-        s = s + sample_cols_rows(plane, below, col);
-        s = s + sample_cols_rows(plane, above, col);
-        s = s * 0.25f;
-        if (dst) s = dst[c * ohw + at] + s;
-        if (scaled) s = s * intensity;
-        out[c * ohw + at] = s;
+// One work item: taps [k0, k0 + TAPS) of the 4 of output texel (i, j),
+// channel c (0 row/-tx, 1 row/+tx, 2 -ty/column, 3 +ty/column; offset 0
+// where the tap has none, as the plain version's center plan). With all 4
+// taps, their sum in ops/bloom.blur4's order; with one, the tap alone.
+template <bool KNEE, int TAPS>
+__device__ __forceinline__ float blur_item(const Stage& st, const Knee& knee, int c, int i, int j,
+                                           int k0) {
+    const int sh = st.s.h, sw = st.s.w, oh = st.o.h, ow = st.o.w;
+    AxisTap rows[TAPS], cols[TAPS];
+    if (TAPS == 4) {
+        const AxisTap row = axis_tap(i, sh, oh, 1.0f, 0.0f, false);
+        const AxisTap col = axis_tap(j, sw, ow, 1.0f, 0.0f, false);
+        rows[0] = row;
+        rows[1 % TAPS] = row;
+        rows[2 % TAPS] = axis_tap(i, sh, oh, 1.0f, -st.s.ty, false);
+        rows[3 % TAPS] = axis_tap(i, sh, oh, 1.0f, st.s.ty, false);
+        cols[0] = axis_tap(j, sw, ow, 1.0f, -st.s.tx, false);
+        cols[1 % TAPS] = axis_tap(j, sw, ow, 1.0f, st.s.tx, false);
+        cols[2 % TAPS] = col;
+        cols[3 % TAPS] = col;
+    } else {
+        const float ox = k0 == 0 ? -st.s.tx : (k0 == 1 ? st.s.tx : 0.0f);
+        const float oy = k0 == 2 ? -st.s.ty : (k0 == 3 ? st.s.ty : 0.0f);
+        rows[0] = axis_tap(i, sh, oh, 1.0f, oy, false);
+        cols[0] = axis_tap(j, sw, ow, 1.0f, ox, false);
     }
+    const BloomSource<KNEE> plane{st.src, sh, sw, c, knee};
+    float s = sample_cols_rows(plane, rows[0], cols[0]);
+#pragma unroll
+    for (int k = 1; k < TAPS; ++k) s = s + sample_cols_rows(plane, rows[k], cols[k]);
+    return s;
+}
+
+// One stage over work items e = (channel * texels + texel) * (4 / TAPS) +
+// tap, from `first` in steps of `stride` (both multiples of 32 apart from
+// the lane, so the taps of one texel's channel sit in neighbouring lanes of
+// one warp, and the loop's condition is the same across a warp). With one
+// tap an item, the first tap's lane sums the 4 by shuffles, in blur4's
+// order.
+template <bool KNEE, int TAPS>
+__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, int first,
+                                          int stride) {
+    constexpr int kSplit = 4 / TAPS;
+    const int texels = st.o.h * st.o.w, n = 3 * kSplit * texels;
+    const int lane = threadIdx.x & 31;
+    for (int e = first; e - lane < n; e += stride) {
+        const bool valid = e < n;
+        const int g = e / kSplit, k0 = e - g * kSplit, c = g / texels, t = g - c * texels;
+        const bool writes = valid && k0 == 0;
+        const float dst = writes && st.dst ? st.dst[g] : 0.0f;
+        float s = 0.0f;
+        if (valid) {
+            const int i = t / st.o.w;
+            s = blur_item<KNEE, TAPS>(st, p.knee, c, i, t - i * st.o.w, k0);
+        }
+        if (TAPS == 1) {
+            const float v1 = __shfl_down_sync(0xffffffffu, s, 1);
+            const float v2 = __shfl_down_sync(0xffffffffu, s, 2);
+            const float v3 = __shfl_down_sync(0xffffffffu, s, 3);
+            s = s + v1;
+            s = s + v2;
+            s = s + v3;
+        }
+        s = s * 0.25f;
+        if (st.dst) s = dst + s;
+        if (st.scaled) s = s * p.intensity;
+        if (writes) st.out[g] = s;
+    }
+}
+
+// A stage with one work item a tap and channel (12 a texel) where that
+// takes no more rounds of the threads (`stride`) than one a channel (3 a
+// texel), else one a channel.
+template <bool KNEE>
+__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, int first,
+                                          int stride) {
+    const int items = 3 * st.o.h * st.o.w, rounds = (items + stride - 1) / stride;
+    if (4 * items <= rounds * stride)
+        run_stage<KNEE, 1>(st, p, first, stride);
+    else
+        run_stage<KNEE, 4>(st, p, first, stride);
+}
+
+__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, int first,
+                                          int stride) {
+    if (st.knee)
+        run_stage<true>(st, p, first, stride);
+    else
+        run_stage<false>(st, p, first, stride);
+}
+
+// Planes of level k (-1 the base, n the output); levels >= p.small from
+// `smem` where it is given.
+__device__ __forceinline__ float* level_ptr(const Pyramid& p, int k, float* smem) {
+    if (k < 0) return const_cast<float*>(p.base);
+    if (k >= p.n) return p.out;
+    if (smem && k >= p.small) return smem + (p.lv[k].off - p.lv[p.small].off);
+    return p.mips + p.lv[k].off;
+}
+
+__device__ __forceinline__ Level level(const Pyramid& p, int k) {
+    return k < 0 || k >= p.n ? p.b : p.lv[k];
+}
+
+__device__ __forceinline__ Stage down_stage(const Pyramid& p, int k, float* smem) {
+    return Stage{level_ptr(p, k - 1, smem), level(p, k - 1), nullptr, level_ptr(p, k, smem),
+                 p.lv[k], k == 0 ? 1 : 0, 0};
+}
+
+__device__ __forceinline__ Stage up_stage(const Pyramid& p, int k, float* smem) {
+    float* m = level_ptr(p, k, smem);
+    return Stage{level_ptr(p, k + 1, smem), p.lv[k + 1], m, m, p.lv[k], 0, 0};
+}
+
+__device__ __forceinline__ Stage final_stage(const Pyramid& p) {
+    return Stage{level_ptr(p, 0, nullptr), p.lv[0], nullptr, p.out, p.b, 0, 1};
+}
+
+// The small levels in one block: D_small .. D_{n-1}, U_{n-2} .. U_small in
+// shared memory, then level `small` written to the scratch buffer.
+__device__ void small_levels(const Pyramid& p, float* smem) {
+    for (int k = p.small; k < p.n; ++k) {
+        run_stage(down_stage(p, k, smem), p, threadIdx.x, blockDim.x);
+        __syncthreads();
+    }
+    for (int k = p.n - 2; k >= p.small; --k) {
+        run_stage(up_stage(p, k, smem), p, threadIdx.x, blockDim.x);
+        __syncthreads();
+    }
+    const Level& m = p.lv[p.small];
+    for (int t = threadIdx.x; t < 3 * m.h * m.w; t += blockDim.x) p.mips[m.off + t] = smem[t];
+}
+
+// The whole pyramid in one cooperative launch. Scratch levels are written
+// and read inside the launch: plain loads, no __restrict__.
+__global__ void __launch_bounds__(kBlockThreads, 1) bloom_pyramid_kernel(Pyramid p) {
+    extern __shared__ float smem[];
+    cg::grid_group grid = cg::this_grid();
+    const int first = (int)grid.thread_rank(), stride = (int)grid.size();
+    const int grid_down = min(p.small, p.n), grid_up = min(p.small, p.n - 1);
+    for (int k = 0; k < grid_down; ++k) {
+        run_stage(down_stage(p, k, nullptr), p, first, stride);
+        grid.sync();
+    }
+    if (p.small < p.n) {
+        if (blockIdx.x == 0) small_levels(p, smem);
+        grid.sync();
+    }
+    for (int k = grid_up - 1; k >= 0; --k) {
+        run_stage(up_stage(p, k, nullptr), p, first, stride);
+        grid.sync();
+    }
+    run_stage(final_stage(p), p, first, stride);
+}
+
+// Shared memory bytes of the small levels, m[small] .. m[n-1].
+static int small_bytes(const int* sizes, int n, int small) {
+    long bytes = 0;
+    for (int k = small; k < n; ++k) bytes += 3L * sizes[2 * k] * sizes[2 * k + 1] * 4;
+    return (int)bytes;
 }
 
 extern "C" {
 
-// src (3, sh, sw), dst (3, oh, ow) or null, out (3, oh, ow), all float32;
-// out may be dst (each thread reads only its own dst texel). prefilter = 1
-// applies the soft knee to src on read; scaled = 1 multiplies by intensity.
-int bloom_blur4(const void* src, int sh, int sw, const void* dst, void* out, int oh, int ow,
-                float tx, float ty, int prefilter, float threshold, float curve0, float curve1,
-                float curve2, int scaled, float intensity, void* stream) {
-    if (sh < 1 || sw < 1 || oh < 1 || ow < 1) return (int)cudaErrorInvalidValue;
-    const Knee knee{prefilter, threshold, curve0, curve1, curve2};
-    bloom_blur4_kernel<<<grid_for(oh, ow), dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-        (const float*)src, sh, sw, (const float*)dst, (float*)out, oh, ow, tx, ty, knee, scaled,
-        intensity);
+// base (3, bh, bw) float32; mips: the scratch, 3 * sum(h * w) float32; out
+// (3, bh, bw) float32. sizes: n (h, w) pairs on the host, each level at
+// least 1x1; levels >= small run in one block's shared memory. Returns the
+// launch's error: a cooperative launch larger than the card holds at once,
+// or shared memory past the block's limit, is refused.
+int bloom_pyramid(const void* base, int bh, int bw, void* mips, void* out, const int* sizes,
+                  int n, int small, float threshold, float curve0, float curve1, float curve2,
+                  float intensity, void* stream) {
+    if (n < 2 || n > kMaxMips || small < 0 || bh < 1 || bw < 1)
+        return (int)cudaErrorInvalidValue;
+    Pyramid p{};
+    p.base = (const float*)base;
+    p.mips = (float*)mips;
+    p.out = (float*)out;
+    p.n = n;
+    p.small = min(small, n);
+    p.b = Level{bh, bw, 0, (float)(1.0 / bw), (float)(1.0 / bh)};
+    int off = 0;
+    for (int k = 0; k < n; ++k) {
+        const int h = sizes[2 * k], w = sizes[2 * k + 1];
+        if (h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+        p.lv[k] = Level{h, w, off, (float)(1.0 / w), (float)(1.0 / h)};
+        off += 3 * h * w;
+    }
+    p.knee = Knee{threshold, curve0, curve1, curve2};
+    p.intensity = intensity;
+    const int smem = p.small < n ? small_bytes(sizes, n, p.small) : 0;
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024)
+        err = cudaFuncSetAttribute(bloom_pyramid_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bloom_pyramid_kernel,
+                                                            kBlockThreads, smem);
+    if (err != cudaSuccess) {
+        cudaGetLastError();  // clear it, so that it is not reported by a later launch
+        return (int)err;
+    }
+    int texels = bh * bw;
+    for (int k = 0; k < n; ++k) texels = max(texels, p.lv[k].h * p.lv[k].w);
+    const int blocks = min((12 * texels + kBlockThreads - 1) / kBlockThreads, per_sm * sms);
+    if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&p};
+    err = cudaLaunchCooperativeKernel((const void*)bloom_pyramid_kernel, dim3(blocks),
+                                      dim3(kBlockThreads), args, smem, (cudaStream_t)stream);
+    if (err != cudaSuccess) {
+        cudaGetLastError();  // clear it, so that it is not reported by a later launch
+        return (int)err;
+    }
     return (int)cudaGetLastError();
 }
 

@@ -100,14 +100,6 @@ __device__ __forceinline__ float sample_cols_rows(Fetch plane, AxisTap row, Axis
     return lerp_ab(top, bot, row.f);
 }
 
-// The same sample, row stage first, then the column stage.
-template <typename Fetch>
-__device__ __forceinline__ float sample_rows_cols(Fetch plane, AxisTap row, AxisTap col) {
-    const float left = lerp_ab(plane(row.i0, col.i0), plane(row.i1, col.i0), row.f);
-    const float right = lerp_ab(plane(row.i0, col.i1), plane(row.i1, col.i1), row.f);
-    return lerp_ab(left, right, col.f);
-}
-
 // The separable splat bump at texel (i, j) of channel c:
 // sum over s of (gy[i, s] * amt[s, c]) * gx[s, j], summed from s = 0 in
 // order — the order of ops/splat.splat_bump.

@@ -4,9 +4,8 @@
 // display_pallas, :387, and resample_shade_pallas, :518). The TPU kernel
 // streams source row windows through VMEM per output row tile and gathers
 // columns within 128-lane groups, so it refuses output widths that are not a
-// multiple of 128; here one thread per output texel reads global memory
-// where its taps land, at any output size (the demo's 512x910 capture, the
-// server's 360x640 tick).
+// multiple of 128; here any output size is taken (the demo's 512x910
+// capture, the server's 360x640 tick).
 //
 // Per output texel, C <= 4 dye channels (read in their storage type, which
 // widens to float32 exactly):
@@ -24,19 +23,40 @@
 //      max(1.055 * powf(b, 0.416666667) - 0.055, 0); added to the color;
 //      alpha = max over channels -> (C + 1, oh, ow) premultiplied RGBA.
 //      compose = 0: the (C, oh, ow) shaded center alone.
-// Every sampling coordinate is recomputed per thread (common.cuh axis_tap).
 //
-// Bound: bytes. Demo (f32 dye 1024x1820 -> 720x1280): 22.4 MB of dye,
-// 1.4 MB of bloom, 0.27 MB of sunrays, 14.7 MB of RGBA written, 38.8 MB in
-// all (11.6 us at 3.35 TB/s); 1024x1024 (bf16 dye): 6.3 + 0.8 + 0.15 +
-// 16.8 = 24 MB (7.2 us). About 410 float32 operations per texel with
-// every option on (5.6 us of the 67 TFLOP/s at 720x1280). The shading taps
-// of neighbouring threads share corners, which L1 serves. Left for later:
-// staging the dye rows of a block in shared memory and vector loads.
+// Bound: instructions, not bytes. The demo (f32 dye 1024x1820 -> 720x1280)
+// moves 38.8 MB (11.6 us at 3.35 TB/s), 1024x1024 (bf16 dye) 24 MB (7.2
+// us); one thread per texel recomputing 12 sampling coordinates (an IEEE
+// division each) and issuing ~80 scalar loads took longer at 1024x1024 than
+// at the demo, following the output texels, not the bytes; 3 powf, 5 sqrtf
+// and 2 IEEE divisions a texel stay. So a block owns a 16x64 output tile,
+// 4 texels a thread along a row:
+//   * tap tables: each row and column coordinate of the tile (dye center,
+//     above/below, left/right; bloom, sunrays, dither) computed once, by
+//     common.cuh axis_tap, into shared memory;
+//   * the dye window the tile's taps touch, clamped at the grid's edge,
+//     copied into shared memory in its storage type by 4-byte asynchronous
+//     copies (cp.async); its largest extent over the tiles comes from the
+//     caller (ops/cuda/display.py window, the same axis math), and a tile
+//     past it traps;
+//   * while the window arrives, the part of the composite that does not
+//     read the dye: bloom, sunrays, dither and the gamma's powf;
+//   * the separable stages shared: the column stage at the tile's 64
+//     columns for every window row (the unshaded center, top, bottom), and
+//     with shading the row stage at the tile's 16 rows for every window
+//     column (center, left, right), so a texel's dye taps are one lerp each
+//     from shared memory; the values, and so the bits, are the per-texel
+//     samples';
+//   * 16-byte stores of each plane where the width is a multiple of 4.
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
 
-constexpr int kMaxChannels = 4;
 constexpr float kGammaExponent = 0.416666667f;
+constexpr int kTileH = 16, kTileW = 64, kVec = 4;
+constexpr int kThreadsX = kTileW / kVec;
+constexpr int kThreads = kTileH * kThreadsX;
+constexpr int kWarps = kThreads / 32;
 
 template <typename T>
 struct Plane {
@@ -62,82 +82,279 @@ struct Extras {
     float dsu, dsv;  // dither scales, out_w / dw and out_h / dh
 };
 
+// Shared memory of a block, in bytes: the dye window in its storage type,
+// (C, win_h, pitch) with pitch = win_w + 1 rounded up to even (a 16-bit
+// window starts on an even column, so that it copies in 4-byte pairs),
+// padded to 16 bytes; then in float32 the column stage (C, win_h, kTileW)
+// and, with shading, the row stage (C, kTileH, pitch). A size past the
+// block's limit is refused at the launch.
+__host__ __device__ inline int win_pitch(int win_w) { return (win_w + 2) & ~1; }
+__host__ __device__ inline int hc_offset(int C, int win_h, int win_w, int item) {
+    return (C * win_h * win_pitch(win_w) * item + 15) / 16 * 16;
+}
+__host__ __device__ inline int vr_offset(int C, int win_h, int win_w, int item) {
+    return hc_offset(C, win_h, win_w, item) + 4 * C * win_h * kTileW;
+}
+__host__ __device__ inline int display_smem_bytes(int C, int win_h, int win_w, int shading,
+                                                  int item) {
+    return vr_offset(C, win_h, win_w, item) + (shading ? 4 * C * kTileH * win_pitch(win_w) : 0);
+}
+
+// Elements of T a window copy moves at once: 4 bytes (one float32, or a
+// pair of 16-bit values in rows of even width from a 4-byte aligned start),
+// else one 16-bit element. The window's first column is rounded down to a
+// multiple of it.
 template <typename T>
-__global__ void display_kernel(const T* __restrict__ dye, int C, int H, int W,
-                               float* __restrict__ out, int oh, int ow, int shading,
-                               int compose, float tx, float ty, float nz, Extras ex) {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
-    if (i >= oh || j >= ow) return;
-    const int hw = H * W, ohw = oh * ow, at = i * ow + j;
+__device__ __forceinline__ int copy_unit(const T* dye, int W) {
+    constexpr int pair = 4 / sizeof(T);
+    return W % pair == 0 && reinterpret_cast<size_t>(dye) % 4 == 0 ? pair : 1;
+}
 
-    const AxisTap row = axis_tap(i, H, oh, 1.0f, 0.0f, false);
-    const AxisTap col = axis_tap(j, W, ow, 1.0f, 0.0f, false);
-    float c[kMaxChannels];
+// Starts the copy of the window's rows [oy, oy + wh) x [ox, ox + ww) into
+// `win` (ox a multiple of `unit`): 4-byte asynchronous copies, or, for
+// single 16-bit elements, plain loads.
+template <typename T>
+__device__ __forceinline__ void copy_window(const T* __restrict__ dye, int C, int H, int W,
+                                            int oy, int wh, int ox, int ww, int unit, T* win,
+                                            int win_h, int pitch, int warp, int lane) {
+    const int units = (ww + unit - 1) / unit;
+    const bool async = unit * sizeof(T) == 4;
+    for (int e = warp; e < C * wh; e += kWarps) {
+        const int c = e / wh, y = e - c * wh;
+        const T* src = dye + ((size_t)c * H + oy + y) * W + ox;
+        T* dst = win + (c * win_h + y) * pitch;
+        for (int m = lane; m < units; m += 32) {
+            if (async)
+                __pipeline_memcpy_async(dst + m * unit, src + m * unit, 4);
+            else
+                dst[m] = src[m];
+        }
+    }
+    __pipeline_commit();
+}
+
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads, 4) display_kernel(
+        const T* __restrict__ dye, int H, int W, float* __restrict__ out, int oh, int ow,
+        int shading, int compose, float tx, float ty, float nz, Extras ex, int win_h,
+        int win_w) {
+    // Tap tables: rows 0 center, 1 above (+ty), 2 below (-ty); columns 0
+    // center, 1 right (+tx), 2 left (-tx); extras 0 bloom, 1 sunrays, 2
+    // dither. Entries past the output's edge repeat its last row or column.
+    __shared__ AxisTap rows[3][kTileH], cols[3][kTileW], xrows[3][kTileH], xcols[3][kTileW];
+    extern __shared__ float4 dyn[];
+    const int pitch = win_pitch(win_w);
+    T* win = reinterpret_cast<T*>(dyn);
+    float* hc = reinterpret_cast<float*>(reinterpret_cast<char*>(dyn) +
+                                         hc_offset(C, win_h, win_w, sizeof(T)));
+    float* vr = reinterpret_cast<float*>(reinterpret_cast<char*>(dyn) +
+                                         vr_offset(C, win_h, win_w, sizeof(T)));
+
+    const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+    const int r0 = blockIdx.y * kTileH, q0 = blockIdx.x * kTileW;
+    const int nr = min(kTileH, oh - r0), nq = min(kTileW, ow - q0);
+
+    for (int e = tid; e < 3 * kTileH; e += kThreads) {
+        const int t = e / kTileH, r = e % kTileH, i = min(r0 + r, oh - 1);
+        rows[t][r] = axis_tap(i, H, oh, 1.0f, t == 0 ? 0.0f : (t == 1 ? ty : -ty), false);
+        if (t == 0 && ex.bloom) xrows[0][r] = axis_tap(i, ex.bh, oh, 1.0f, 0.0f, false);
+        if (t == 1 && ex.sunrays) xrows[1][r] = axis_tap(i, ex.sh, oh, 1.0f, 0.0f, false);
+        if (t == 2 && ex.dither) xrows[2][r] = axis_tap(i, ex.dh, oh, ex.dsv, 0.0f, true);
+    }
+    for (int e = tid; e < 3 * kTileW; e += kThreads) {
+        const int t = e / kTileW, q = e % kTileW, j = min(q0 + q, ow - 1);
+        cols[t][q] = axis_tap(j, W, ow, 1.0f, t == 0 ? 0.0f : (t == 1 ? tx : -tx), false);
+        if (t == 0 && ex.bloom) xcols[0][q] = axis_tap(j, ex.bw, ow, 1.0f, 0.0f, false);
+        if (t == 1 && ex.sunrays) xcols[1][q] = axis_tap(j, ex.sw, ow, 1.0f, 0.0f, false);
+        if (t == 2 && ex.dither) xcols[2][q] = axis_tap(j, ex.dw, ow, ex.dsu, 0.0f, true);
+    }
+    __syncthreads();
+
+    // The window: every coordinate is monotone in its index and its offset,
+    // so the lowest corner is the first row's lowest tap, the highest the
+    // last row's highest. The window starts on a multiple of the copy's unit.
+    const int lo = shading ? 2 : 0, hi = shading ? 1 : 0;
+    const int oy = rows[lo][0].i0, wh = rows[hi][nr - 1].i1 - oy + 1;
+    const int ox_tap = cols[lo][0].i0, ww_tap = cols[hi][nq - 1].i1 - ox_tap + 1;
+    if (wh > win_h || ww_tap > win_w) __trap();
+    const int unit = copy_unit(dye, W), ox = ox_tap / unit * unit, ww = ox_tap + ww_tap - ox;
+    copy_window(dye, C, H, W, oy, wh, ox, ww, unit, win, win_h, pitch, warp, lane);
+
+    // While the window arrives: the part of the composite that does not
+    // read the dye, for this thread's 4 texels along its row.
+    const int r = tid / kThreadsX, qb = (tid % kThreadsX) * kVec;
+    const bool active = r < nr && qb < nq;
+    float rays[kVec], glow[3][kVec];
+    if (compose && active) {
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) {
+            const int q = qb + u;
+            float bl[3];
+            if (ex.bloom) {
+#pragma unroll
+                for (int k = 0; k < 3; ++k)
+                    bl[k] = sample_cols_rows(Plane<float>{ex.bloom + k * ex.bh * ex.bw, ex.bw},
+                                             xrows[0][r], xcols[0][q]);
+            }
+            if (ex.sunrays) {
+                rays[u] = sample_cols_rows(Plane<float>{ex.sunrays, ex.sw}, xrows[1][r],
+                                           xcols[1][q]);
+                if (ex.bloom)
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) bl[k] = bl[k] * rays[u];
+            }
+            if (ex.bloom) {
+                if (ex.dither) {
+                    const float noise = sample_cols_rows(Plane<float>{ex.dither, ex.dw},
+                                                         xrows[2][r], xcols[2][q]);
+                    const float d = (noise * 2.0f - 1.0f) / 255.0f;
+#pragma unroll
+                    for (int k = 0; k < 3; ++k) bl[k] = bl[k] + d;
+                }
+#pragma unroll
+                for (int k = 0; k < 3; ++k) glow[k][u] = linear_to_gamma(bl[k]);
+            }
+        }
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    // The column stage at the tile's columns (2 a lane) for every window row.
+    const AxisTap ca = cols[0][lane], cb = cols[0][lane + 32];
+    const int a0 = ca.i0 - ox, a1 = ca.i1 - ox, b0 = cb.i0 - ox, b1 = cb.i1 - ox;
+#pragma unroll 4
+    for (int e = warp; e < C * wh; e += kWarps) {
+        const int c = e / wh, y = e - c * wh;
+        const T* src = win + (c * win_h + y) * pitch;
+        float* dst = hc + (c * win_h + y) * kTileW;
+        dst[lane] = lerp_ab(to_f32(src[a0]), to_f32(src[a1]), ca.f);
+        dst[lane + 32] = lerp_ab(to_f32(src[b0]), to_f32(src[b1]), cb.f);
+    }
+    // With shading, the row stage at the tile's rows for every window column.
+    if (shading) {
+        for (int e = warp; e < C * kTileH; e += kWarps) {
+            const int c = e / kTileH, rr = e - c * kTileH;
+            const AxisTap t = rows[0][rr];
+            const T* a = win + (c * win_h + t.i0 - oy) * pitch;
+            const T* b = win + (c * win_h + t.i1 - oy) * pitch;
+            float* dst = vr + (c * kTileH + rr) * pitch;
+#pragma unroll 4
+            for (int x = lane; x < ww; x += 32)
+                dst[x] = lerp_ab(to_f32(a[x]), to_f32(b[x]), t.f);
+        }
+    }
+    __syncthreads();
+    if (!active) return;
+    const int i = r0 + r;
+
+    // The dye's column stage (shared) at rows t.i0, t.i1 for this thread's
+    // 4 columns, then the row stage.
+    auto col_then_row = [&](int c, AxisTap t, float v[kVec]) {
+        const float4 a = *reinterpret_cast<const float4*>(hc + (c * win_h + t.i0 - oy) * kTileW + qb);
+        const float4 b = *reinterpret_cast<const float4*>(hc + (c * win_h + t.i1 - oy) * kTileW + qb);
+        v[0] = lerp_ab(a.x, b.x, t.f);
+        v[1] = lerp_ab(a.y, b.y, t.f);
+        v[2] = lerp_ab(a.z, b.z, t.f);
+        v[3] = lerp_ab(a.w, b.w, t.f);
+    };
+    // The dye's row stage (shared) at this row, then the column stage at
+    // column table `k`.
+    auto row_then_col = [&](int c, int k, float v[kVec]) {
+        const float* rowv = vr + (c * kTileH + r) * pitch;
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) {
+            const AxisTap t = cols[k][qb + u];
+            v[u] = lerp_ab(rowv[t.i0 - ox], rowv[t.i1 - ox], t.f);
+        }
+    };
+
+    float res[C + 1][kVec];
     if (!shading) {
-        for (int k = 0; k < C; ++k) c[k] = sample_cols_rows(Plane<T>{dye + k * hw, W}, row, col);
+#pragma unroll
+        for (int c = 0; c < C; ++c) col_then_row(c, rows[0][r], res[c]);
     } else {
-        const AxisTap left = axis_tap(j, W, ow, 1.0f, -tx, false);
-        const AxisTap right = axis_tap(j, W, ow, 1.0f, tx, false);
-        const AxisTap above = axis_tap(i, H, oh, 1.0f, ty, false);
-        const AxisTap below = axis_tap(i, H, oh, 1.0f, -ty, false);
-        float nl = 0.0f, nr = 0.0f, nt = 0.0f, nb = 0.0f;
-        for (int k = 0; k < C; ++k) {
-            const Plane<T> plane{dye + k * hw, W};
-            c[k] = sample_rows_cols(plane, row, col);
-            const float l = sample_rows_cols(plane, row, left);
-            const float r = sample_rows_cols(plane, row, right);
-            const float t = sample_cols_rows(plane, above, col);
-            const float b = sample_cols_rows(plane, below, col);
+        float nl[kVec], nr_[kVec], nt[kVec], nb[kVec];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+            float l[kVec], rt[kVec], t[kVec], b[kVec];
+            row_then_col(c, 0, res[c]);
+            row_then_col(c, 2, l);
+            row_then_col(c, 1, rt);
+            col_then_row(c, rows[1][r], t);
+            col_then_row(c, rows[2][r], b);
             // channel 0 starts each sum: x0*x0, then + xk*xk in order
-            nl = k ? nl + l * l : l * l;
-            nr = k ? nr + r * r : r * r;
-            nt = k ? nt + t * t : t * t;
-            nb = k ? nb + b * b : b * b;
+#pragma unroll
+            for (int u = 0; u < kVec; ++u) {
+                nl[u] = c ? nl[u] + l[u] * l[u] : l[u] * l[u];
+                nr_[u] = c ? nr_[u] + rt[u] * rt[u] : rt[u] * rt[u];
+                nt[u] = c ? nt[u] + t[u] * t[u] : t[u] * t[u];
+                nb[u] = c ? nb[u] + b[u] * b[u] : b[u] * b[u];
+            }
         }
-        const float dx = sqrtf(nr) - sqrtf(nl);
-        const float dy = sqrtf(nt) - sqrtf(nb);
-        const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + nz * nz);
-        const float diffuse = fminf(fmaxf(nz * inv_len + 0.7f, 0.7f), 1.0f);
-        for (int k = 0; k < C; ++k) c[k] = c[k] * diffuse;
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) {
+            const float dx = sqrtf(nr_[u]) - sqrtf(nl[u]);
+            const float dy = sqrtf(nt[u]) - sqrtf(nb[u]);
+            const float inv_len = 1.0f / sqrtf(dx * dx + dy * dy + nz * nz);
+            const float diffuse = fminf(fmaxf(nz * inv_len + 0.7f, 0.7f), 1.0f);
+#pragma unroll
+            for (int c = 0; c < C; ++c) res[c][u] = res[c][u] * diffuse;
+        }
     }
 
-    if (!compose) {
-        for (int k = 0; k < C; ++k) out[k * ohw + at] = c[k];
-        return;
+    int planes = C;
+    if (compose) {
+        planes = C + 1;
+#pragma unroll
+        for (int u = 0; u < kVec; ++u) {
+            if (ex.sunrays)
+#pragma unroll
+                for (int c = 0; c < C; ++c) res[c][u] = res[c][u] * rays[u];
+            if (ex.bloom)
+#pragma unroll
+                for (int c = 0; c < C; ++c)
+                    if (c < 3) res[c][u] = res[c][u] + glow[c][u];
+            float a = res[0][u];
+#pragma unroll
+            for (int c = 0; c < C; ++c) a = fmaxf(a, res[c][u]);
+            res[C][u] = a;
+        }
     }
 
-    float bl[3];
-    if (ex.bloom) {
-        const AxisTap brow = axis_tap(i, ex.bh, oh, 1.0f, 0.0f, false);
-        const AxisTap bcol = axis_tap(j, ex.bw, ow, 1.0f, 0.0f, false);
-        for (int k = 0; k < 3; ++k)
-            bl[k] = sample_cols_rows(Plane<float>{ex.bloom + k * ex.bh * ex.bw, ex.bw}, brow, bcol);
+    const size_t ohw = (size_t)oh * ow, at = (size_t)i * ow + q0 + qb;
+    if (ow % kVec == 0) {
+#pragma unroll
+        for (int k = 0; k < C + 1; ++k)
+            if (k < planes)
+                *reinterpret_cast<float4*>(out + k * ohw + at) =
+                    make_float4(res[k][0], res[k][1], res[k][2], res[k][3]);
+    } else {
+        const int n = min(kVec, nq - qb);
+#pragma unroll
+        for (int k = 0; k < C + 1; ++k)
+            if (k < planes)
+                for (int u = 0; u < n; ++u) out[k * ohw + at + u] = res[k][u];
     }
-    if (ex.sunrays) {
-        const AxisTap srow = axis_tap(i, ex.sh, oh, 1.0f, 0.0f, false);
-        const AxisTap scol = axis_tap(j, ex.sw, ow, 1.0f, 0.0f, false);
-        const float rays = sample_cols_rows(Plane<float>{ex.sunrays, ex.sw}, srow, scol);
-        for (int k = 0; k < C; ++k) c[k] = c[k] * rays;
-        if (ex.bloom)
-            for (int k = 0; k < 3; ++k) bl[k] = bl[k] * rays;
-    }
-    if (ex.bloom) {
-        if (ex.dither) {
-            const AxisTap drow = axis_tap(i, ex.dh, oh, ex.dsv, 0.0f, true);
-            const AxisTap dcol = axis_tap(j, ex.dw, ow, ex.dsu, 0.0f, true);
-            const float noise = sample_cols_rows(Plane<float>{ex.dither, ex.dw}, drow, dcol);
-            const float d = (noise * 2.0f - 1.0f) / 255.0f;
-            for (int k = 0; k < 3; ++k) bl[k] = bl[k] + d;
+}
+
+template <typename T, int C>
+static int launch(const void* dye, int H, int W, void* out, int oh, int ow, int shading,
+                  int compose, float tx, float ty, float nz, const Extras& ex, int win_h,
+                  int win_w, cudaStream_t stream) {
+    const auto kernel = display_kernel<T, C>;
+    const int smem = display_smem_bytes(C, win_h, win_w, shading, sizeof(T));
+    if (smem > 48 * 1024) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) {
+            cudaGetLastError();  // clear it, so that it is not reported by a later launch
+            return (int)err;
         }
-        for (int k = 0; k < 3; ++k) c[k] = c[k] + linear_to_gamma(bl[k]);
     }
-    float a = c[0];
-    for (int k = 0; k < C; ++k) {
-        out[k * ohw + at] = c[k];
-        a = fmaxf(a, c[k]);
-    }
-    out[C * ohw + at] = a;
+    const dim3 grid((ow + kTileW - 1) / kTileW, (oh + kTileH - 1) / kTileH);
+    kernel<<<grid, kThreads, smem, stream>>>((const T*)dye, H, W, (float*)out, oh, ow, shading,
+                                             compose, tx, ty, nz, ex, win_h, win_w);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -145,20 +362,30 @@ extern "C" {
 // dye (C, H, W) in storage type `dtype`, C in 1..4 (3 with bloom); out
 // float32, (C + 1, oh, ow) with compose = 1, else (C, oh, ow). bloom
 // (3, bh, bw), sunrays (sh, sw) and dither (dh, dw) are float32 or null and
-// read only with compose = 1; the dither only with bloom.
+// read only with compose = 1; the dither only with bloom. win_h x win_w: the
+// largest dye window of a tile (ops/cuda/display.py window); shared memory
+// past the block's limit is refused at the launch.
 int display_frame(const void* dye, int C, int H, int W, int dtype, void* out, int oh, int ow,
                   int shading, int compose, float tx, float ty, float nz, const void* bloom,
                   int bh, int bw, const void* sunrays, int sh, int sw, const void* dither,
-                  int dh, int dw, float dsu, float dsv, void* stream) {
-    if (C < 1 || C > kMaxChannels || (compose && bloom && C != 3))
+                  int dh, int dw, float dsu, float dsv, int win_h, int win_w, void* stream) {
+    if (C < 1 || C > 4 || (compose && bloom && C != 3) || oh < 1 || ow < 1 || win_h < 1 ||
+        win_w < 1)
         return (int)cudaErrorInvalidValue;
     const Extras ex{compose ? (const float*)bloom : nullptr, bh, bw,
                     compose ? (const float*)sunrays : nullptr, sh, sw,
                     compose && bloom ? (const float*)dither : nullptr, dh, dw, dsu, dsv};
+    const cudaStream_t s = (cudaStream_t)stream;
+#define DISPLAY_ARGS dye, H, W, out, oh, ow, shading, compose, tx, ty, nz, ex, win_h, win_w, s
     DISPATCH_STORAGE(dtype, T,
-        display_kernel<T><<<grid_for(oh, ow), dim3(kBlockX, kBlockY), 0, (cudaStream_t)stream>>>(
-            (const T*)dye, C, H, W, (float*)out, oh, ow, shading, compose, tx, ty, nz, ex));
-    return (int)cudaGetLastError();
+        switch (C) {
+            case 1: return launch<T, 1>(DISPLAY_ARGS);
+            case 2: return launch<T, 2>(DISPLAY_ARGS);
+            case 3: return launch<T, 3>(DISPLAY_ARGS);
+            default: return launch<T, 4>(DISPLAY_ARGS);
+        });
+#undef DISPLAY_ARGS
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,17 +1,20 @@
-"""The bloom pyramid: the CUDA stage kernel (csrc/bloom.cu) and its plain
-PyTorch version.
+"""The bloom pyramid: the CUDA kernel (csrc/bloom.cu) and its plain PyTorch
+version.
 
 Counterpart of tpufluid/ops/pallas/bloom.py:91, whose one program runs the
-whole chain; here the chain is ops/bloom.pyramid with one kernel launch per
-stage (2 * mips: 14 at the demo and 1024x1024 configs). The first down
-stage prefilters its source on read. Everything is float32: the render casts
-the dye before the base resample, which stays outside the kernel (as on the
-TPU) in ops/sampling.resample_bilinear.
+whole chain. Here too the chain after the base resample is one launch, a
+cooperative one: the large levels run grid-wide with a grid barrier after
+each stage, every level of at most SMALL_TEXELS texels and all below it run
+in one block's shared memory (``stage_plan``). Everything is float32: the
+render casts the dye before the base resample, which stays outside the
+kernel (as on the TPU) in ops/sampling.resample_bilinear.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+import functools
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -19,63 +22,88 @@ from tpufluid_torch.ops import bloom as B
 from tpufluid_torch.ops.cuda.build import F, I, P, Kernel, check_storage, ptr, stream
 from tpufluid_torch.ops.sampling import resample_bilinear
 
-BLOOM_BLUR4 = Kernel("bloom_blur4", "bloom", "bloom_blur4",
-                     [P, I, I, P, P, I, I, F, F, I, F, F, F, F, I, F, P],
-                     replaces="tpufluid/ops/pallas/bloom.py:91")
+BLOOM_PYRAMID = Kernel("bloom_pyramid", "bloom", "bloom_pyramid",
+                       [P, I, I, P, P, P, I, I, F, F, F, F, F, P],
+                       replaces="tpufluid/ops/pallas/bloom.py:91")
+
+# A level of at most this many texels, and every level below it, runs in
+# one block: at both main-path configs m3 (16x28, 16x16) and below.
+SMALL_TEXELS = 512
+MAX_MIPS = 24          # csrc/bloom.cu kMaxMips
 
 
-def _check(src: torch.Tensor, out_hw, dst) -> None:
-    if src.ndim != 3 or src.shape[0] != 3:
-        raise ValueError(f"bloom source must be (3, H, W), got {tuple(src.shape)}")
-    if dst is not None and tuple(dst.shape) != (3,) + tuple(out_hw):
-        raise ValueError(f"bloom dst {tuple(dst.shape)} for output {tuple(out_hw)}")
+def small_level(level_hw: Sequence[Tuple[int, int]], small_texels: int = SMALL_TEXELS) -> int:
+    """Index of the first level (m0 first, (h, w) each) of at most
+    ``small_texels`` texels: it and every level below it run in one block.
+    len(level_hw) when none is that small."""
+    for k, (h, w) in enumerate(level_hw):
+        if h * w <= small_texels:
+            return k
+    return len(level_hw)
 
 
-def blur4_stage(src: torch.Tensor, out_hw: Tuple[int, int], dst=None, prefilter=None,
-                scale=None) -> torch.Tensor:
-    """One stage on the card: ``[dst +] blur4(knee_threshold(src) if prefilter
-    else src) [* scale]`` -> (3, out_h, out_w) float32. ``prefilter`` is
-    (threshold, soft_knee); the knee's curve and the tap offsets 1/sw, 1/sh
-    are computed here in Python doubles and round to float32 at the call,
-    as in the plain version."""
-    _check(src, out_hw, dst)
-    if check_storage(*(t for t in (src, dst) if t is not None)) != 0:
-        raise ValueError(f"the bloom kernel takes float32, got {src.dtype}")
-    _, sh, sw = src.shape
-    oh, ow = out_hw
-    out = torch.empty((3, oh, ow), dtype=torch.float32, device=src.device)
-    threshold, curve = (prefilter[0], B.knee_curve(*prefilter)) if prefilter else (0.0, (0.0,) * 3)
-    BLOOM_BLUR4(ptr(src), sh, sw, ptr(dst), ptr(out), oh, ow, 1.0 / sw, 1.0 / sh,
-                1 if prefilter else 0, threshold, *curve, 0 if scale is None else 1,
-                0.0 if scale is None else float(scale), stream())
-    return out
+def stage_plan(n: int, small: int) -> List[Tuple[str, List[Tuple[str, int]]]]:
+    """The kernel's phases for n mips with levels >= small in one block:
+    ("grid", [stage]) or ("block", [stages]), in order, each stage
+    ("down", k) m{k-1} -> m_k (the base for k = 0), ("up", k) m_k +=
+    blur(m{k+1}) or ("final", -1) m0 -> the output. A grid barrier follows
+    every phase but the last."""
+    grid_down, grid_up = min(small, n), min(small, n - 1)
+    phases = [("grid", [("down", k)]) for k in range(grid_down)]
+    block = [("down", k) for k in range(grid_down, n)]
+    block += [("up", k) for k in range(n - 2, grid_up - 1, -1)]
+    if block:
+        phases.append(("block", block))
+    phases += [("grid", [("up", k)]) for k in range(grid_up - 1, -1, -1)]
+    return phases + [("grid", [("final", -1)])]
 
 
-def blur4_stage_plain(src: torch.Tensor, out_hw: Tuple[int, int], dst=None, prefilter=None,
-                      scale=None) -> torch.Tensor:
-    """Plain version of blur4_stage, same operations in the same order."""
-    _check(src, out_hw, dst)
-    return B.blur4_stage(src, out_hw, dst=dst, prefilter=prefilter, scale=scale)
+@functools.lru_cache(maxsize=64)
+def _sizes(level_hw: Tuple[Tuple[int, int], ...]):
+    return (ctypes.c_int * (2 * len(level_hw)))(*(v for hw in level_hw for v in hw))
+
+
+def _check(base: torch.Tensor, mip_sizes) -> Tuple[Tuple[int, int], ...]:
+    if base.ndim != 3 or base.shape[0] != 3:
+        raise ValueError(f"bloom base must be (3, H, W), got {tuple(base.shape)}")
+    if not 2 <= len(mip_sizes) <= MAX_MIPS:
+        raise ValueError(f"the bloom kernel takes 2..{MAX_MIPS} mips, got {len(mip_sizes)}")
+    return tuple((int(mh), int(mw)) for mw, mh in mip_sizes)
 
 
 def bloom_pyramid(base: torch.Tensor, mip_sizes: Sequence[Tuple[int, int]], threshold: float,
                   soft_knee: float, intensity: float) -> torch.Tensor:
-    """The chain after the base resample, one kernel launch per stage."""
-    return B.pyramid(blur4_stage, base, mip_sizes, threshold, soft_knee, intensity)
+    """The chain after the base resample on the card, one launch:
+    (3, bh, bw) float32 base -> (3, bh, bw) float32 bloom. ``mip_sizes`` are
+    (w, h) pairs as FluidConfig.bloom_mip_sizes gives them. The knee's curve
+    is computed here in Python doubles and rounds to float32 at the call, as
+    in the plain version. A refused launch raises in Kernel."""
+    level_hw = _check(base, mip_sizes)
+    if check_storage(base) != 0:
+        raise ValueError(f"the bloom kernel takes float32, got {base.dtype}")
+    small = small_level(level_hw)
+    _, bh, bw = base.shape
+    mips = torch.empty(3 * sum(h * w for h, w in level_hw), dtype=torch.float32,
+                       device=base.device)
+    out = torch.empty_like(base)
+    BLOOM_PYRAMID(ptr(base), bh, bw, ptr(mips), ptr(out), _sizes(level_hw), len(level_hw),
+                  small, threshold, *B.knee_curve(threshold, soft_knee), intensity, stream())
+    return out
 
 
 def bloom_pyramid_plain(base: torch.Tensor, mip_sizes: Sequence[Tuple[int, int]],
                         threshold: float, soft_knee: float, intensity: float) -> torch.Tensor:
     """Plain version of bloom_pyramid: ops/bloom.apply_bloom after its base
-    resample."""
-    return B.pyramid(blur4_stage_plain, base, mip_sizes, threshold, soft_knee, intensity)
+    resample, one plain stage at a time."""
+    _check(base, mip_sizes)
+    return B.pyramid(B.blur4_stage, base, mip_sizes, threshold, soft_knee, intensity)
 
 
 def bloom_chain(dye_rgb: torch.Tensor, base_hw: Tuple[int, int],
                 mip_sizes: Sequence[Tuple[int, int]], threshold: float, soft_knee: float,
                 intensity: float) -> torch.Tensor:
     """apply_bloom on the card: the base resample in PyTorch ops, then the
-    kernel chain; zeros and no launch below 2 mips."""
+    pyramid kernel; zeros and no launch below 2 mips."""
     if len(mip_sizes) < 2:
         return torch.zeros((3,) + tuple(base_hw), dtype=dye_rgb.dtype, device=dye_rgb.device)
     return bloom_pyramid(resample_bilinear(dye_rgb, base_hw), mip_sizes, threshold,

@@ -96,11 +96,13 @@ _PTXAS_FN = re.compile(r"Function properties for (\S+)")
 _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 
 def ptxas_report(log: str) -> List[dict]:
     """Per compiled function of an ``nvcc -Xptxas=-v`` log: its (mangled)
-    name, registers, stack frame bytes and spill store / load bytes."""
+    name, registers, static shared memory bytes, stack frame bytes and
+    spill store / load bytes."""
     out: List[dict] = []
     for line in log.splitlines():
         m = _PTXAS_FN.search(line)
@@ -116,6 +118,8 @@ def ptxas_report(log: str) -> List[dict]:
         m = _PTXAS_REGS.search(line)
         if m and "registers" not in out[-1]:
             out[-1]["registers"] = int(m.group(1))
+            m = _PTXAS_SMEM.search(line)
+            out[-1]["smem"] = int(m.group(1)) if m else 0
     return out
 
 

@@ -26,7 +26,6 @@ import numpy as np
 import torch
 
 from tpufluid_torch.config import FluidConfig
-from tpufluid_torch.ops import bloom as _bloom_ops
 from tpufluid_torch.ops import floors as _floors
 from tpufluid_torch.ops.cuda import advect as _advect
 from tpufluid_torch.ops.cuda import bloom as _bloom
@@ -127,58 +126,80 @@ def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig) -> 
                  dh * dw * (3 * (3 * n_active + 1) + (40 if quant else 0)))]
 
 
-# Float32 operations of the render kernels' arithmetic, counted from
-# csrc/common.cuh: one axis coordinate (axis_tap) 8, one bilinear tap of one
-# channel 12 (three lerps of 4), the soft knee 13 per source texel.
-_AXIS, _TAP, _KNEE = 8, 12, 13
+# Float32 operations of the render kernels' arithmetic, each counted at its
+# cost in the card's float32 pipe (128 lanes a clock an SM; its special
+# function unit does 16, so one of its instructions counts as 8): an add,
+# multiply, compare or conversion 1; an IEEE division 18 (a reciprocal on
+# the special function unit and ~10 instructions of refinement and
+# rounding); an IEEE sqrtf 16 (a reciprocal square root and ~8 more); a
+# powf 56 (a log and an exp on the special function unit and ~40
+# instructions of extended precision). One axis coordinate (axis_tap) is a
+# division and 7 more operations; one lerp 4 (a*(1-f) + b*f); the soft knee
+# 13 per source texel with its division.
+_DIV, _SQRT, _POW = 18, 16, 56
+_AXIS, _LERP = _DIV + 7, 4
+_KNEE = 12 + _DIV
 
 
 def _blur4_flops(out_hw, prefilter_texels: int) -> int:
-    """One bloom stage: 6 axis coordinates per texel; per channel 4 taps,
-    their sum, x 0.25 and the dst add or intensity scale."""
+    """One bloom stage: 6 axis coordinates per texel; per channel 4 taps
+    of 3 lerps, their sum, x 0.25 and the dst add or intensity scale."""
     oh, ow = out_hw
-    return oh * ow * (6 * _AXIS + 3 * (4 * _TAP + 5)) + _KNEE * prefilter_texels
+    return oh * ow * (6 * _AXIS + 3 * (4 * 3 * _LERP + 5)) + _KNEE * prefilter_texels
 
 
-def _display_flops(out_hw, c: int, shading: bool, bloom: bool, rays: bool, noise: bool,
-                   compose: bool) -> int:
-    """One display pass: the dye taps (5 with shading, with the channel
-    norms and the diffuse term), then bloom, sunrays, dither, gamma and
-    alpha where present."""
-    oh, ow = out_hw
-    n = 2 * _AXIS + c * _TAP
+def _pyramid_flops(base_hw, mip_sizes) -> int:
+    """Every stage of the pyramid (ops/bloom.pyramid), down, up and final."""
+    hw = [(h, w) for w, h in mip_sizes]
+    n = _blur4_flops(hw[0], base_hw[0] * base_hw[1])
+    n += sum(_blur4_flops(x, 0) for x in hw[1:])
+    n += sum(_blur4_flops(x, 0) for x in hw[:-1])
+    return n + _blur4_flops(base_hw, 0)
+
+
+def _display_flops(dye_hw, out_hw, c: int, shading: bool, extras, compose: bool) -> int:
+    """One display pass, counted as the plain version computes it: every
+    axis coordinate once per output row or column, each separable stage's
+    lerps over the grid it produces (the dye's row stage over the dye's
+    columns, its column stage over the dye's rows), then per texel the
+    channel norms, sqrtf, the diffuse term, the gamma's powf, the dither's
+    division and the alpha. ``extras`` maps "bloom", "sunrays", "dither" to
+    their (h, w) where present."""
+    (h, w), (oh, ow) = dye_hw, out_hw
+    texels = oh * ow
     if shading:
-        n += 4 * _AXIS + 4 * c * _TAP + 4 * (2 * c) + 13 + c
+        n = 3 * (oh + ow) * _AXIS
+        n += c * _LERP * (oh * w + 3 * texels + h * ow + 2 * texels)   # rows, c/l/r, cols, t/b
+        n += texels * (4 * (2 * c - 1) + 4 * _SQRT + 2 + 5 + _DIV + _SQRT + 4 + c)
+    else:
+        n = (oh + ow) * _AXIS + c * _LERP * (h * ow + texels)
     if compose:
-        n += c                                        # alpha
-        if bloom:
-            n += 2 * _AXIS + 3 * _TAP + 3 * 5 + 3     # sample, gamma, add
-        if rays:
-            n += 2 * _AXIS + _TAP + c + (3 if bloom else 0)
-        if noise:
-            n += 2 * _AXIS + _TAP + 3 + 3
-    return oh * ow * n
+        n += texels * (c - 1)                                           # alpha
+        for name, (th, tw) in extras.items():
+            ch = 3 if name == "bloom" else 1
+            n += (oh + ow) * _AXIS + ch * _LERP * (th * ow + texels)
+        if "sunrays" in extras:
+            n += texels * (c + (3 if "bloom" in extras else 0))
+        if "bloom" in extras:
+            n += texels * 3 * (_POW + 5)                                # gamma, add
+        if "dither" in extras:
+            n += texels * (2 + _DIV + 3)
+    return n
 
 
 def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bool = True,
                  compose: bool = True) -> List[Case]:
     """Every kernel call of one frame from ``state`` at ``out_hw`` (default
-    the canvas), in the render's order: the bloom chain's stages, then the
+    the canvas), in the render's order: the bloom pyramid (one call, after
+    the base resample, where the config has 2 mips or more), then the
     display. ``dither=False`` leaves the dither out of the display and
     ``compose=False`` makes it the shaded center alone: neither is what
-    render_frame calls, both are what the display kernel takes."""
+    render_frame calls, both are what the display kernel takes. The
+    pyramid's bytes are its base read and its output written: the mips
+    between are the function's own."""
     out_hw = tuple(out_hw or (config.CANVAS_HEIGHT, config.CANVAS_WIDTH))
     dye = state.dye.to(torch.float32)
     cases: List[Case] = []
-
-    def stage(src, hw, dst=None, prefilter=None, scale=None):
-        cases.append(Case(
-            f"bloom_blur4:{len(cases)}", "bloom_blur4", _bloom.blur4_stage,
-            _bloom.blur4_stage_plain, (src, hw, dst, prefilter, scale),
-            _bytes(src, dst) + 4 * 3 * hw[0] * hw[1],
-            _blur4_flops(hw, src[0].numel() if prefilter else 0)))
-        return _bloom.blur4_stage_plain(src, hw, dst, prefilter, scale)
-
     bloom = rays = noise = None
     if config.BLOOM:
         bw, bh = config.bloom_size
@@ -186,9 +207,13 @@ def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bo
         if len(mips) < 2:
             bloom = torch.zeros((3, bh, bw), dtype=torch.float32, device=dye.device)
         else:
-            bloom = _bloom_ops.pyramid(stage, resample_bilinear(dye, (bh, bw)), mips,
-                                       config.BLOOM_THRESHOLD, config.BLOOM_SOFT_KNEE,
-                                       config.BLOOM_INTENSITY)
+            base = resample_bilinear(dye, (bh, bw))
+            args = (base, mips, config.BLOOM_THRESHOLD, config.BLOOM_SOFT_KNEE,
+                    config.BLOOM_INTENSITY)
+            cases.append(Case("bloom_pyramid", "bloom_pyramid", _bloom.bloom_pyramid,
+                              _bloom.bloom_pyramid_plain, args, 2 * _bytes(base),
+                              _pyramid_flops((bh, bw), mips)))
+            bloom = _bloom.bloom_pyramid_plain(*args)
         if dither:
             noise = blue_noise(dye.device)
     if config.SUNRAYS:
@@ -198,13 +223,17 @@ def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bo
         bloom = rays = noise = None
     c = state.dye.shape[0]
     n_out = (c + 1 if compose else c) * out_hw[0] * out_hw[1]
+    extras = {k: tuple(t.shape[-2:]) for k, t in
+              (("bloom", bloom), ("sunrays", rays), ("dither", noise)) if t is not None}
+    if "bloom" not in extras:
+        extras.pop("dither", None)
     cases.append(Case(
         "display" if compose else "display:base", "display", _display.display,
         _display.display_plain,
         (state.dye, out_hw, config.SHADING, bloom, rays, noise, compose),
-        _bytes(state.dye, bloom, rays, noise) + 4 * n_out,
-        _display_flops(out_hw, c, config.SHADING, bloom is not None, rays is not None,
-                       noise is not None, compose)))
+        _bytes(state.dye, bloom, rays, noise if bloom is not None else None) + 4 * n_out,
+        _display_flops(tuple(state.dye.shape[-2:]), out_hw, c, config.SHADING, extras,
+                       compose)))
     return cases
 
 

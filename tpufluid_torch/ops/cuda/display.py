@@ -4,22 +4,50 @@ PyTorch version.
 Counterpart of tpufluid/ops/pallas/display.py:262 (display_pallas, and
 resample_shade_pallas with compose=False). One launch per frame writes the
 premultiplied (C + 1, oh, ow) RGBA, or the shaded (C, oh, ow) center when
-compose=False, at any output size. The kernel reads the dye in its storage
-type; the plain version casts it to float32 first, as the render does.
+compose=False, at any output size. A block owns a TILE of the output and
+stages the dye window its taps touch in shared memory; ``window`` gives the
+largest such window of a launch from the same axis math. The kernel reads
+the dye in its storage type; the plain version casts it to float32 first,
+as the render does.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from tpufluid_torch.ops import display as D
 from tpufluid_torch.ops.cuda.build import F, I, P, Kernel, check_storage, ptr, stream
+from tpufluid_torch.ops.sampling import affine_axis_plan
 
 DISPLAY = Kernel("display", "display", "display_frame",
-                 [P, I, I, I, I, P, I, I, I, I, F, F, F, P, I, I, P, I, I, P, I, I, F, F, P],
+                 [P, I, I, I, I, P, I, I, I, I, F, F, F, P, I, I, P, I, I, P, I, I, F, F, I, I,
+                  P],
                  replaces="tpufluid/ops/pallas/display.py:262")
+
+TILE = (16, 64)          # output rows x columns a block (csrc/display.cu kTileH, kTileW)
+
+
+@functools.lru_cache(maxsize=64)
+def window(h: int, w: int, out_h: int, out_w: int, shading: bool) -> Tuple[int, int]:
+    """(rows, columns) of the largest dye window a TILE of an (out_h, out_w)
+    output reads from an (h, w) dye: over every tile, the lowest corner of
+    its first row or column (the center tap, or with shading the -1 texel
+    tap) to the highest of its last (the center, or the +1 tap), from the
+    plain version's axis plans, which compute the kernel's coordinates."""
+    tx, ty, _ = D.shading_constants((out_h, out_w))
+
+    def extent(n_in, n_out, t, off):
+        off = off if shading else 0.0
+        lo = affine_axis_plan(n_in, n_out, off=-off)[0]
+        hi = affine_axis_plan(n_in, n_out, off=off)[1]
+        first = torch.arange(0, n_out, t)
+        last = (first + t).clamp(max=n_out) - 1
+        return int((hi[last] - lo[first]).max()) + 1
+
+    return extent(h, out_h, TILE[0], ty), extent(w, out_w, TILE[1], tx)
 
 
 def _check(dye, bloom_tex, sunrays_tex, dither_tex, compose):
@@ -41,7 +69,9 @@ def display(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool,
             sunrays_tex: Optional[torch.Tensor] = None,
             dither_tex: Optional[torch.Tensor] = None, compose: bool = True) -> torch.Tensor:
     """The display pass on the card -> float32 (C + 1, oh, ow) premultiplied
-    RGBA, or with compose=False the shaded (C, oh, ow) center."""
+    RGBA, or with compose=False the shaded (C, oh, ow) center. A window past
+    the shared memory a block may have is refused by the launch, which
+    raises in Kernel."""
     bloom, rays, dither = _check(dye, bloom_tex, sunrays_tex, dither_tex, compose)
     code = check_storage(dye)
     extras = [t for t in (bloom, rays, dither) if t is not None]
@@ -54,12 +84,13 @@ def display(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool,
     out = torch.empty((c + 1 if compose else c, oh, ow), dtype=torch.float32,
                       device=dye.device)
     tx, ty, nz = D.shading_constants(out_hw)
+    win = window(h, w, oh, ow, bool(shading))
     bh, bw = bloom.shape[-2:] if bloom is not None else (0, 0)
     sh, sw = rays.shape if rays is not None else (0, 0)
     dh, dw = dither.shape if dither is not None else (0, 0)
     DISPLAY(ptr(dye), c, h, w, code, ptr(out), oh, ow, int(shading), int(compose),
             tx, ty, nz, ptr(bloom), bh, bw, ptr(rays), sh, sw, ptr(dither), dh, dw,
-            ow / dw if dw else 0.0, oh / dh if dh else 0.0, stream())
+            ow / dw if dw else 0.0, oh / dh if dh else 0.0, *win, stream())
     return out
 
 

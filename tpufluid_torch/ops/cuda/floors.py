@@ -1,6 +1,6 @@
 """The profiling path: the three microbenchmark kernels (csrc/floors.cu), the
-reference rates they give, a torch.profiler breakdown of the real step by
-kernel, and the floor report that puts the two side by side.
+reference rates they give, torch.profiler breakdowns of the real step and
+frame by kernel, and the floor report that puts the step's beside the rates.
 
 Counterpart of tpufluid/ops/pallas/floors.py. The report holds each of the
 step's kernels, timed inside a profiled run of the step, against a bare
@@ -352,6 +352,71 @@ def profile_step_kernels(config, state, dt, steps: int = 30, top_other: int = 6)
     events = [(e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
                e.time_range.elapsed_us()) for e in prof.events()]
     return attribute_device_events(events, launched, steps, top_other)
+
+
+def frame_breakdown(events: Iterable[Tuple[str, bool, float, float]],
+                    ops: Iterable[Tuple[str, float]], launched: Dict[str, int], frames: int,
+                    top_other: int = 8) -> dict:
+    """Microseconds a frame from profiler events ``(name, on_device,
+    start_us, duration_us)`` of ``frames`` frames and ``ops``, (PyTorch op,
+    its own device microseconds) over the same frames: the whole device
+    time, each port kernel's events and time, the rest of the device time
+    and its ``top_other`` largest ops. Raises if no kernel ran on the
+    device, and if a kernel's event count differs from its launch count
+    ``launched``."""
+    device = [e for e in events if e[1]]
+    if all(name.startswith(("Memcpy", "Memset")) for name, *_ in device):
+        raise RuntimeError("the profiler recorded no CUDA kernel event")
+    ours: Dict[str, List[float]] = {}
+    for name, _, _, dur in device:
+        k = port_kernel(name)
+        if k is not None:
+            ours.setdefault(k, []).append(dur)
+    wrong = {k: (len(ours.get(k, [])), n) for k, n in launched.items()
+             if len(ours.get(k, [])) != n}
+    if wrong:
+        raise AssertionError(f"profiler events != launches (events, launches): {wrong}")
+    total = sum(e[3] for e in device)
+    mine = sum(sum(v) for v in ours.values())
+    top = sorted(((n, us) for n, us in ops if us > 0), key=lambda kv: -kv[1])[:top_other]
+    return {
+        "frame_device_us": round(total / frames, 1),
+        "kernel_events": {k: {"events": len(v), "us": sum(v) / frames}
+                          for k, v in sorted(ours.items())},
+        "other_device_us": round((total - mine) / frames, 1),
+        "top_other_ops": [{"op": n[:120], "us": round(us / frames, 1)} for n, us in top],
+    }
+
+
+def profile_frame_kernels(config, state, frames: int = 30, top_other: int = 8) -> dict:
+    """frame_breakdown of ``frames`` calls of the real make_render on the
+    card from ``state``, after one warm-up frame, under torch.profiler (CPU
+    and CUDA activities): the render kernels' own device time a frame from
+    their events, and the rest of the frame's device time by the PyTorch op
+    that launched it (its self device time). Raises without a CUDA GPU or a
+    CUDA state, and if the profiler records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufluid_torch.render import make_render
+
+    device = _require_cuda()
+    if not state.dye.is_cuda:
+        raise ValueError(f"state on {state.dye.device}, the profile runs on the GPU")
+    render = make_render(config, device=device)
+    render(state)
+    torch.cuda.synchronize()
+    before = {k: v.launches for k, v in build.KERNELS.items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            render(state)
+        torch.cuda.synchronize()
+    launched = {k: v.launches - before[k] for k, v in build.KERNELS.items()}
+    events = [(e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
+               e.time_range.elapsed_us()) for e in prof.events()]
+    ops = [(row.key, float(getattr(row, "self_device_time_total", 0.0)))
+           for row in prof.key_averages() if row.device_type == DeviceType.CPU]
+    return frame_breakdown(events, ops, launched, frames, top_other)
 
 
 # ---- the report --------------------------------------------------------

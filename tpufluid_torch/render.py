@@ -6,9 +6,8 @@ Order, that of the reference: bloom chain -> sunrays (mask, march, 1x blur)
 mode) -> display composite, blended premultiplied (ONE, ONE_MINUS_SRC_ALPHA)
 unless rendering an offscreen transparent capture (no blend, raw RGBA).
 
-On a CUDA state the bloom chain (14 launches at the demo and 1024x1024
-configs) and the display composite (1 launch) run the CUDA kernels; on a CPU
-state their plain versions. Sunrays, the base resample and the blend are
+On a CUDA state the bloom pyramid (1 launch) and the display composite (1
+launch) run the CUDA kernels; on a CPU state their plain versions. Sunrays, the base resample and the blend are
 PyTorch ops on either device. The output is a float32 (4, H, W) RGBA tensor
 on the state's device; frame_u8 quantizes it to the servers' wire format.
 """

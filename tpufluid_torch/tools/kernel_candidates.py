@@ -1,15 +1,24 @@
-"""Time the Jacobi chunk kernel at each candidate number of sweeps a launch.
+"""Time the candidate designs of the redesigned kernels on the card.
 
     python -m tpufluid_torch.tools.kernel_candidates [--iters 20] [--json PATH]
 
-On 1024x1024 bfloat16 and the demo's 128x228 float32 (pressure and
+Jacobi: on 1024x1024 bfloat16 and the demo's 128x228 float32 (pressure and
 divergence from numpy, seed 0), a solve of ``--iters`` sweeps cut into
 launches of K = 1, 4, 5, 8, 10 and 20 sweeps (where the grid's tiles,
-ops/cuda/jacobi.py tiles_for, leave room for a K-deep halo). Every candidate
-must equal jacobi_plain bit for bit. Prints one line per candidate: its
-device ms (spin-queued CUDA events, as chip_smoke.py times), launches, the
-cell-sweeps it computes over the function's, and the card's name and power
-limit; ``--json`` writes the rows.
+ops/cuda/jacobi.py tiles_for, leave room for a K-deep halo).
+
+Bloom: the pyramid at the demo's base (256x455, 7 mips) and 1024x1024's
+(256x256, 7 mips), base from numpy (seed 0), in its one cooperative launch
+(the designs it beat are gone; their times are in PERF.md).
+
+Display: at the demo (f32 dye 1024x1820 -> 720x1280) and 1024x1024 (bf16
+dye), with bloom, sunrays and dither from numpy (seed 0): the composite
+with and without shading, composed and not.
+
+Every candidate must equal its plain version bit for bit. Prints one line
+per candidate: its device ms (spin-queued CUDA events, as chip_smoke.py
+times), its launches and the card's name and power limit; ``--json``
+writes the rows.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ import sys
 import numpy as np
 import torch
 
-from tpufluid_torch.ops.cuda import jacobi
+from tpufluid_torch import FluidConfig
+from tpufluid_torch.ops.cuda import bloom, display, jacobi
 from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 
 GRIDS = (("1024_bfloat16", 1024, 1024, torch.bfloat16),
@@ -58,6 +68,67 @@ def jacobi_rows(iters: int, rate: float, gpu: str) -> list:
     return rows
 
 
+RENDER_CONFIGS = (("demo_float32", dict(CANVAS_WIDTH=1280, CANVAS_HEIGHT=720), torch.float32),
+                  ("1024_bfloat16", dict(DYE_RESOLUTION=1024, CANVAS_WIDTH=1024,
+                                         CANVAS_HEIGHT=1024), torch.bfloat16))
+
+
+def bloom_rows(rate: float, gpu: str) -> list:
+    rng = np.random.default_rng(0)
+    rows = []
+    for name, kw, _ in RENDER_CONFIGS:
+        cfg = FluidConfig(**kw).validate()
+        mips = cfg.bloom_mip_sizes()
+        bw, bh = cfg.bloom_size
+        base = torch.from_numpy((rng.random((3, bh, bw)) * 2.0).astype(np.float32)).cuda()
+        args = (base, mips, cfg.BLOOM_THRESHOLD, cfg.BLOOM_SOFT_KNEE, cfg.BLOOM_INTENSITY)
+        want = bloom.bloom_pyramid_plain(*args)
+        small = bloom.small_level([(h, w) for w, h in mips])
+        barriers = len(bloom.stage_plan(len(mips), small)) - 1
+
+        def run():
+            return bloom.bloom_pyramid(*args)
+
+        err = float((run() - want).abs().max())
+        ms = queued_ms(run, 20, rate)
+        rows.append({"kernel": "bloom_pyramid", "grid": name, "small_level": small,
+                     "grid_barriers": barriers, "launches": 1, "ms": ms, "max_abs_err": err})
+        print(f"bloom candidate {name:14s} small from m{small}, {barriers} grid barriers: "
+              f"{ms:.4f} ms, max_abs_err {err:.1e} on {gpu}", flush=True)
+    return rows
+
+
+def display_rows(rate: float, gpu: str) -> list:
+    from tpufluid_torch.render import blue_noise
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for name, kw, dtype in RENDER_CONFIGS:
+        cfg = FluidConfig(**kw).validate()
+        (dw, dh), (bw, bh), (sw, sh) = cfg.dye_size, cfg.bloom_size, cfg.sunrays_size
+        out_hw = (cfg.CANVAS_HEIGHT, cfg.CANVAS_WIDTH)
+
+        def t(*shape):
+            return torch.from_numpy((rng.random(shape) * 1.5).astype(np.float32)).cuda()
+
+        dye = t(3, dh, dw).to(dtype)
+        extras = (t(3, bh, bw), t(sh, sw), blue_noise(dye.device))
+        for shading, compose in ((True, True), (False, True), (True, False), (False, False)):
+            want = display.display_plain(dye, out_hw, shading, *extras, compose=compose)
+
+            def run():
+                return display.display(dye, out_hw, shading, *extras, compose=compose)
+
+            err = float((run() - want).abs().max())
+            ms = queued_ms(run, 20, rate)
+            row = {"kernel": "display", "grid": name, "shading": shading, "compose": compose,
+                   "launches": 1, "ms": ms, "max_abs_err": err}
+            rows.append(row)
+            print(f"display candidate {name:14s} shading={int(shading)} compose={int(compose)}: "
+                  f"{ms:.4f} ms, max_abs_err {err:.1e} on {gpu}", flush=True)
+    return rows
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
@@ -67,7 +138,8 @@ def main(argv=None) -> list:
         raise SystemExit("kernel_candidates measures a CUDA GPU and none is available")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    rows = jacobi_rows(args.iters, spin_rate(), gpu)
+    rate = spin_rate()
+    rows = jacobi_rows(args.iters, rate, gpu) + bloom_rows(rate, gpu) + display_rows(rate, gpu)
     sms = jacobi.sm_count(torch.device("cuda"))
     chosen = {name: jacobi.plan(h, w, args.iters, sms) for name, h, w, _ in GRIDS}
     print(f"jacobi plan on {sms} SMs: {chosen}")
@@ -76,7 +148,7 @@ def main(argv=None) -> list:
             json.dump({"gpu": gpu, "rows": rows, "jacobi_plan": chosen}, f, indent=1)
     bad = [r for r in rows if r["max_abs_err"] != 0.0]
     if bad:
-        raise AssertionError(f"candidates that differ from jacobi_plain: {bad}")
+        raise AssertionError(f"candidates that differ from their plain version: {bad}")
     return rows
 
 
