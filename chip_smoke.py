@@ -8,14 +8,16 @@ the card.
 1. Setup: builds the CUDA kernels from tpufluid_torch/csrc (one nvcc per
    source, all at once) and prints the card's name and power limit.
    Sums up the ptxas report (registers, static shared memory, stack
-   frame, spills) of every advect, jacobi_chunk, bloom_pyramid and display
-   instance and names any with a stack frame or spills.
+   frame, spills) of every pre_pressure, gradient_subtract, advect,
+   jacobi_chunk, bloom_pyramid and display instance and names any with a
+   stack frame or spills.
 2. Kernel phase: every kernel call of a step (check.step_cases) and the
    dye's advect_prepare alone (check.part_cases) against its plain PyTorch
    version on the same inputs, at the main path's shapes — demo default
    (sim 128x228, dye 1024x1820) and 1024x1024 — in float32, bfloat16 with
    and without RGB9E5, and float16. Prints each max error beside its
-   tolerance and fails past it.
+   tolerance and fails past it; pre_pressure must equal its plain version
+   bit for bit (max abs error 0).
 3. Path phase: the port's make_multi_step over a swirl_trace, 300 steps
    each: the demo default in float32 and 1024x1024 in bfloat16 (RGB9E5 on).
    Launch counts are zeroed just before each run and read just after; each
@@ -74,7 +76,11 @@ the card.
 9. Long-horizon phase: tpufluid_torch.tools.long_horizon at 4096x4096
    bfloat16 (RGB9E5), 1500 steps (300 with splats) in chunks of 50, launch
    counts zeroed before and checked after; it must report ok with no
-   non-finite value (its output goes to out/long_horizon_4096/).
+   non-finite value (its output goes to out/long_horizon_4096/). Then, at
+   the same config on a random state: every kernel call of a step against
+   its plain version (as phase 2), their device time beside their bound
+   (as phase 4), and profile_step_kernels over 30 steps (each kernel's
+   device time a step, its events equal to its launches).
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
@@ -99,7 +105,7 @@ PATH_STEPS = 300               # per config; steps/s over the last TIMED_STEPS
 TIMED_STEPS = 200
 CHECK_STEPS = 3                # compared against the plain step
 RENDER_KERNELS = ("bloom_pyramid", "display")
-PTXAS_LIBRARIES = ("advect", "jacobi", "bloom", "display")
+PTXAS_LIBRARIES = ("stencil", "advect", "jacobi", "bloom", "display")
 TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
 FLOORS_KERNELS = ("floor_taa", "floor_roll", "floor_sweep")
 FLOORS_CONFIG = "1024_bfloat16_rgb9e5"    # bench.py config 3, where bench.py reports floors
@@ -107,6 +113,7 @@ PROFILE_STEPS = 30                        # profile_step_kernels' default
 PROFILE_FRAMES = 30                       # profile_frame_kernels' default
 LONG_HORIZON_STEPS = 1500
 JACOBI_SWEEPS_A_LAUNCH = 10    # the chunk kernel's design: a solve of N sweeps is ceil(N / 10)
+EXACT_KERNELS = ("pre_pressure",)   # step kernels held to max abs error 0
 LONG_HORIZON_OUT = Path("out/long_horizon_4096")
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
@@ -123,7 +130,7 @@ def expected_per_step(cfg) -> dict:
     """Launches of each step kernel in one step of ``cfg``: the Jacobi
     solve in launches of JACOBI_SWEEPS_A_LAUNCH sweeps, the dye's prepare
     and the two gathers."""
-    return {"splat_curl": 1, "confine_divergence": 1,
+    return {"pre_pressure": 1,
             "jacobi_chunk": math.ceil(cfg.PRESSURE_ITERATIONS / JACOBI_SWEEPS_A_LAUNCH),
             "gradient_subtract": 1, "advect": 2, "advect_prepare": 1}
 
@@ -160,18 +167,29 @@ def configs():
     return out
 
 
+def check_cases(torch, check, name, cases, errors: dict) -> None:
+    """Each case's kernel against its plain version: prints the max abs
+    error beside its tolerance (0 for EXACT_KERNELS), fails past it, and
+    adds it to ``errors`` per (config, kernel)."""
+    for case in cases:
+        err, tol = check.compare(case.run(), case.run(plain=True))
+        torch.cuda.synchronize()
+        if case.kernel_name in EXACT_KERNELS:
+            tol = 0.0
+        print(f"kernel {name:22s} {case.label:20s} max_abs_err {err:.3e}  tol {tol:.3e}")
+        assert err <= tol, f"{case.label} on {name}: {err} > {tol}"
+        key = (name, case.kernel_name)
+        errors[key] = max(errors.get(key, 0.0), err)
+
+
 def kernel_phase(torch, check, cfgs, device) -> dict:
     """Max abs error per (config, case); asserts each within tolerance."""
     errors = {}
     for name, cfg in cfgs.items():
         state, splats = check.random_state(cfg, seed=7, device=device)
-        for case in check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg):
-            err, tol = check.compare(case.run(), case.run(plain=True))
-            torch.cuda.synchronize()
-            print(f"kernel {name:22s} {case.label:20s} max_abs_err {err:.3e}  tol {tol:.3e}")
-            assert err <= tol, f"{case.label} on {name}: {err} > {tol}"
-            key = (name, case.kernel_name)
-            errors[key] = max(errors.get(key, 0.0), err)
+        check_cases(torch, check, name,
+                    check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg),
+                    errors)
     return errors
 
 
@@ -513,11 +531,13 @@ def floors_phase(torch, check, cfg, run, step_timing: dict, gpu: str, device) ->
             "kernels": timing_phase(torch, check, check.floors_cases(device))}
 
 
-def long_horizon_phase(gpu: str) -> dict:
-    """The long-horizon tool at 4096x4096 bf16 through the kernels; its
-    launches and its ok."""
+def long_horizon_phase(torch, check, gpu: str, device, errors: dict) -> dict:
+    """The long-horizon tool at 4096x4096 bf16 through the kernels, its
+    launches and its ok; then the step's kernels at that config on a random
+    state: each against its plain version (adding to ``errors``), their
+    timing, and the profiled step."""
     from tpufluid_torch import FluidConfig
-    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.ops.cuda import build, floors
     from tpufluid_torch.tools import long_horizon
 
     LONG_HORIZON_OUT.mkdir(parents=True, exist_ok=True)
@@ -536,7 +556,24 @@ def long_horizon_phase(gpu: str) -> dict:
           f"backtrace peak {summary['backtrace_speed_peak']} <= "
           f"{summary['halo_contract_speed']}, energy decay {summary['energy_decay_ratio']}, "
           f"max uptick {summary['energy_max_uptick_frac']}; launches {launches}")
-    return {"summary": summary, "launches": launches}
+
+    name = "4096_bfloat16_rgb9e5"
+    state, splats = check.random_state(cfg, seed=7, device=device)
+    cases = check.step_cases(state, splats, cfg)
+    parts = check.part_cases(state, splats, cfg)
+    check_cases(torch, check, name, cases + parts, errors)
+    timing = {**timing_phase(torch, check, cases), **timing_phase(torch, check, parts)}
+    _, other = floors.profile_step_kernels(cfg, state, 1.0 / 60.0, PROFILE_STEPS)
+    print(f"profile {name} on {gpu}, torch.profiler over {PROFILE_STEPS} steps from a random "
+          f"state, each kernel's device time a step beside its spin-queued time:")
+    for k, row in other["kernel_events"].items():
+        print(f"profile {k:20s} {row['events'] // PROFILE_STEPS:3d} a step "
+              f"({row['events']} events = launches)  profiler {row['us']:.4f} us  "
+              f"spin-queued {1e3 * timing[k]['ms']:.4f} us")
+    print(f"profile other device {other['other_device_us']} us a step, CUDA runtime calls "
+          f"on the host {other['cuda_runtime_host_us']} us; top other: "
+          + "; ".join(f"{o['us']} us {o['op'][:60]}" for o in other["top_other_ops"]))
+    return {"summary": summary, "launches": launches, "kernels": timing, "profile": other}
 
 
 def main() -> int:
@@ -563,7 +600,7 @@ def main() -> int:
           f"{min(regs)}-{max(regs)} registers, {len(frames)} with a stack frame or spills "
           "(the full report in out/chip_smoke.json)")
     for f in ptxas:
-        if "bloom" in f["function"] or "display" in f["function"]:
+        if any(k in f["function"] for k in ("pre_pressure", "bloom", "display")):
             print(f"ptxas {f['function'][:90]}: {f.get('registers')} registers, "
                   f"{f.get('smem')} bytes static smem, {f.get('stack')} bytes stack frame, "
                   f"{f.get('spill_stores')} / {f.get('spill_loads')} bytes spill stores / loads")
@@ -629,7 +666,7 @@ def main() -> int:
 
     floors_run = floors_phase(torch, check, cfgs[FLOORS_CONFIG], runs[FLOORS_CONFIG],
                               report[FLOORS_CONFIG]["kernels"], gpu, device)
-    horizon = long_horizon_phase(gpu)
+    horizon = long_horizon_phase(torch, check, gpu, device, errors)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -645,6 +682,11 @@ def main() -> int:
                                  ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")},
                               "launches": r["launches"][k.name]}
                           for c, r in report.items()}
+            if k.name in horizon["kernels"]:
+                row4096 = horizon["kernels"][k.name]
+                per_config["4096_bfloat16_rgb9e5"] = {
+                    **{f: row4096.get(f) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+                    "launches": horizon["launches"].get(k.name, 0)}
         kernels.append({
             "name": k.name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
             "replaces": k.replaces, "launches": launches, "max_abs_err": err,

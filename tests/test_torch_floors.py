@@ -230,9 +230,8 @@ def _events(steps):
     """Synthetic profiler events of ``steps`` steps in stream order:
     (name, on_device, start_us, duration_us)."""
     ev, t = [], 0.0
-    names = [("void splat_curl_kernel<float>(float const*, float const*)", 2.0),
-             ("void at::native::vectorized_elementwise_kernel<4, float>(int)", 1.5),
-             ("void confine_divergence_kernel<float>(float const*)", 3.0)]
+    names = [("void pre_pressure_kernel<float, 8, 32>(float const*, float const*)", 5.0),
+             ("void at::native::vectorized_elementwise_kernel<4, float>(int)", 1.5)]
     names += [("void jacobi_chunk_kernel<float, float, float, 128, 4, 16, false>"
                "(float const*)", 5.0)] * 2
     names += [("void gradient_subtract_kernel<float>(float const*)", 1.0),
@@ -250,7 +249,7 @@ def _events(steps):
 
 
 def test_attribute_device_events():
-    launched = {"splat_curl": 3, "confine_divergence": 3, "jacobi_chunk": 6,
+    launched = {"pre_pressure": 3, "jacobi_chunk": 6,
                 "gradient_subtract": 3, "advect": 6, "advect_prepare": 3, "display": 0}
     # any order in, stream order used
     ev = _events(3)[::-1]
@@ -260,7 +259,7 @@ def test_attribute_device_events():
     assert other["other_device_us"] == 1.8            # 1.5 + 0.25 a step
     assert other["top_other_ops"] == [
         {"op": "void at::native::vectorized_elementwise_kernel<4, float>(int)", "us": 1.5}]
-    assert other["cuda_runtime_host_us"] == 5.0 * 10   # the sync is not counted
+    assert other["cuda_runtime_host_us"] == 5.0 * 9    # the sync is not counted
     assert other["kernel_events"]["jacobi_chunk"] == {"events": 6, "us": 10.0}
     assert other["kernel_events"]["advect_prepare"] == {"events": 3, "us": 2.0}
     with pytest.raises(AssertionError, match="jacobi_chunk"):
@@ -269,8 +268,8 @@ def test_attribute_device_events():
     # velocity's gather stands on the stream
     moved = [e for e in _events(1) if "advect_kernel<float, 2" not in e[0]]
     moved.append(("void advect_kernel<float, 2, 0, true>(float const*, int)", True, 1e4, 4.0))
-    kt1, _ = fk.attribute_device_events(moved, {**launched, "splat_curl": 1,
-                                                "confine_divergence": 1, "jacobi_chunk": 2,
+    kt1, _ = fk.attribute_device_events(moved, {**launched, "pre_pressure": 1,
+                                                "jacobi_chunk": 2,
                                                 "gradient_subtract": 1, "advect": 2,
                                                 "advect_prepare": 1}, steps=1)
     assert (kt1["velocity_gather"], kt1["dye_gather"]) == (4.0, 8.0)

@@ -152,9 +152,9 @@ def test_advect_far_backtraces_match_plain(dye_hw, splats, dtype, quant, cuda):
 def test_kernel_rejects_cpu_and_bad_dtype(cuda):
     vel = torch.zeros((2, 8, 8), device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError, match="no kernel for dtype"):
-        stencil.splat_curl(vel)
+        stencil.pre_pressure(vel, 30.0, 1 / 60)
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        stencil.splat_curl(torch.zeros((2, 8, 8)))
+        stencil.pre_pressure(torch.zeros((2, 8, 8)), 30.0, 1 / 60)
 
 
 RENDER_VARIANTS = [dict(), dict(SHADING=False), dict(BLOOM=False), dict(SUNRAYS=False),
@@ -353,8 +353,8 @@ def test_profile_counts_every_launch(cuda):
     times, other = floors.profile_step_kernels(cfg, state, 1 / 60, steps=3)
     events = {k: v["events"] for k, v in other["kernel_events"].items()}
     chunks = math.ceil(cfg.PRESSURE_ITERATIONS / 10)  # the chunk kernel's 10 sweeps a launch
-    assert events == {"advect": 6, "advect_prepare": 3, "confine_divergence": 3,
-                      "gradient_subtract": 3, "jacobi_chunk": 3 * chunks, "splat_curl": 3}
+    assert events == {"advect": 6, "advect_prepare": 3, "gradient_subtract": 3,
+                      "jacobi_chunk": 3 * chunks, "pre_pressure": 3}
     assert set(times) == {"velocity_gather", "dye_gather", "jacobi", "stencil",
                           "gradient_subtract"}
     assert all(v > 0 for v in times.values())

@@ -99,16 +99,3 @@ __device__ __forceinline__ float sample_cols_rows(Fetch plane, AxisTap row, Axis
     const float bot = lerp_ab(plane(row.i1, col.i0), plane(row.i1, col.i1), col.f);
     return lerp_ab(top, bot, row.f);
 }
-
-// The separable splat bump at texel (i, j) of channel c:
-// sum over s of (gy[i, s] * amt[s, c]) * gx[s, j], summed from s = 0 in
-// order — the order of ops/splat.splat_bump.
-__device__ __forceinline__ float splat_bump(const float* gy, const float* gx,
-                                            const float* amt, int S, int C,
-                                            int c, int i, int j, int W) {
-    float acc = 0.0f;
-    for (int s = 0; s < S; ++s) {
-        acc = acc + (gy[i * S + s] * amt[s * C + c]) * gx[s * W + j];
-    }
-    return acc;
-}

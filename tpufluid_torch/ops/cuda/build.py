@@ -14,6 +14,7 @@ count is how a run shows that the main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -134,6 +135,12 @@ def library(name: str) -> ctypes.CDLL:
 def stream() -> ctypes.c_void_p:
     """PyTorch's current CUDA stream, as the kernels' launch stream."""
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA device (132 on the H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

@@ -63,6 +63,29 @@ def _bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+# Float32 operations of the kernels' arithmetic, each counted at its
+# cost in the card's float32 pipe (128 lanes a clock an SM; its special
+# function unit does 16, so one of its instructions counts as 8): an add,
+# multiply, compare or conversion 1; an IEEE division 18 (a reciprocal on
+# the special function unit and ~10 instructions of refinement and
+# rounding); an IEEE sqrtf 16 (a reciprocal square root and ~8 more); a
+# powf 56 (a log and an exp on the special function unit and ~40
+# instructions of extended precision). One axis coordinate (axis_tap) is a
+# division and 7 more operations; one lerp 4 (a*(1-f) + b*f); the soft knee
+# 13 per source texel with its division.
+_DIV, _SQRT, _POW = 18, 16, 56
+_AXIS, _LERP = _DIV + 7, 4
+_KNEE = 12 + _DIV
+
+
+# The pre-pressure chain a texel, beside the bump's 2 operations a channel
+# and active splat: the bump's add to the velocity (2), the curl (4), the
+# confinement (4 + 4 for the force's two differences, 3 for its squared
+# length, a sqrtf, 1 for the +1e-4, a division, 5 for the scale and its
+# sign, 8 for the two updates and clamps) and the divergence (4).
+_PRE_PRESSURE = 2 + 4 + (4 + 4 + 3 + _SQRT + 1 + _DIV + 5 + 8) + 4
+
+
 def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
                dt: float = 1.0 / 60.0) -> List[Case]:
     """Every kernel call of one step from ``state``, in the step's order."""
@@ -78,19 +101,15 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
     sim, dye = vh * vw, dh * dw
     iters = config.PRESSURE_ITERATIONS
 
-    vel_b, curl = _stencil.splat_curl_plain(state.velocity, vf)
-    vel1, div = _stencil.confine_divergence_plain(vel_b, curl, config.CURL, dt)
+    vel1, div = _stencil.pre_pressure_plain(state.velocity, config.CURL, dt, vf)
     pressure = _jacobi.jacobi_plain(state.pressure, div, iters, config.PRESSURE)
     vel2 = _stencil.gradient_subtract_plain(vel1, pressure)
     vel3 = _advect.advect_plain(vel2, vel2, dt, config.VELOCITY_DISSIPATION)
     dye_out = _advect.advect_plain(vel3, state.dye, dt, config.DENSITY_DISSIPATION, df, quant)
     return [
-        Case("splat_curl", "splat_curl", _stencil.splat_curl, _stencil.splat_curl_plain,
-             (state.velocity, vf), _bytes(state.velocity, *vf, vel_b, curl),
-             sim * (2 * 2 * n_active + 6)),
-        Case("confine_divergence", "confine_divergence", _stencil.confine_divergence,
-             _stencil.confine_divergence_plain, (vel_b, curl, config.CURL, dt),
-             _bytes(vel_b, curl, vel1, div), sim * 30),
+        Case("pre_pressure", "pre_pressure", _stencil.pre_pressure,
+             _stencil.pre_pressure_plain, (state.velocity, config.CURL, dt, vf),
+             _bytes(state.velocity, *vf, vel1, div), sim * (2 * 2 * n_active + _PRE_PRESSURE)),
         Case("jacobi", "jacobi_chunk", _jacobi.jacobi_pressure, _jacobi.jacobi_plain,
              (state.pressure, div, iters, config.PRESSURE),
              _bytes(state.pressure, div, pressure), sim * 6 * iters),
@@ -124,21 +143,6 @@ def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig) -> 
     return [Case("advect:prepare", "advect_prepare", _advect.prepare, _advect.prepare_plain,
                  (state.dye, df, quant), _bytes(state.dye, *df, prepared),
                  dh * dw * (3 * (3 * n_active + 1) + (40 if quant else 0)))]
-
-
-# Float32 operations of the render kernels' arithmetic, each counted at its
-# cost in the card's float32 pipe (128 lanes a clock an SM; its special
-# function unit does 16, so one of its instructions counts as 8): an add,
-# multiply, compare or conversion 1; an IEEE division 18 (a reciprocal on
-# the special function unit and ~10 instructions of refinement and
-# rounding); an IEEE sqrtf 16 (a reciprocal square root and ~8 more); a
-# powf 56 (a log and an exp on the special function unit and ~40
-# instructions of extended precision). One axis coordinate (axis_tap) is a
-# division and 7 more operations; one lerp 4 (a*(1-f) + b*f); the soft knee
-# 13 per source texel with its division.
-_DIV, _SQRT, _POW = 18, 16, 56
-_AXIS, _LERP = _DIV + 7, 4
-_KNEE = 12 + _DIV
 
 
 def _blur4_flops(out_hw, prefilter_texels: int) -> int:

@@ -269,7 +269,7 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
     kernel_times: velocity_gather and dye_gather (an advect launch that
     follows an advect_prepare on the device is the dye's gather, and the
     prepare counts with it; any other advect launch gathers the velocity),
-    jacobi (the chunks), stencil (splat_curl + confine_divergence) and
+    jacobi (the chunks), stencil (pre_pressure) and
     gradient_subtract. other: the device time of every other device event
     (PyTorch's own kernels, copies, fills), its ``top_other`` largest names,
     ``cuda_runtime_host_us``: the host time of the CUDA runtime calls the
@@ -311,7 +311,7 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
         "velocity_gather": gathers["velocity_gather"] / steps,
         "dye_gather": gathers["dye_gather"] / steps,
         "jacobi": per_step("jacobi_chunk"),
-        "stencil": per_step("splat_curl", "confine_divergence"),
+        "stencil": per_step("pre_pressure"),
         "gradient_subtract": per_step("gradient_subtract"),
     }
     top = sorted(other.items(), key=lambda kv: -kv[1])[:top_other]
@@ -455,7 +455,7 @@ def floor_table(measured: dict, other_info: dict, gathers, cell_sweeps: int,
     }
     # The fused pre-pressure stencil as a function streams 5 planes (read
     # velocity, write velocity and divergence): its HBM time is a companion
-    # to its measured time, which the port spends in two launches.
+    # to its measured time, one launch a step.
     out["stencil"] = {"occupancy_us": round(measured.get("stencil", 0.0), 1),
                       "hbm_stream_us": round(stencil_bytes / (device_bw_gbps * 1e3), 1)}
     step_us = 1e6 / measured_steps_per_s
@@ -490,4 +490,4 @@ def floor_report(config, state, dt, device_bw_gbps: float,
                        jacobi_cell_sweeps(config), 5 * sw * sh * itemsize,
                        measure_taa_row_rate(), measure_sweep_rate(),
                        device_bw_gbps, measured_steps_per_s,
-                       design_overhead(config, _jacobi.sm_count(state.velocity.device)))
+                       design_overhead(config, build.sm_count(state.velocity.device)))

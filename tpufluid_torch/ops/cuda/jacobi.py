@@ -14,13 +14,13 @@ bit however the sweeps are cut.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import List, Sequence, Tuple
 
 import torch
 
 from tpufluid_torch.ops import stencil as S
-from tpufluid_torch.ops.cuda.build import F, I, P, Kernel, check_storage, ptr, stream
+from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, check_storage, ptr, sm_count,
+                                           stream)
 
 JACOBI_CHUNK = Kernel("jacobi_chunk", "jacobi", "fluid_jacobi_chunk",
                       [P, I, P, P, I, F, I, I, I, I, I, P],
@@ -58,12 +58,6 @@ class Tiles:
 # times the others).
 TILES = (Tiles(128, 4, 16, 2), Tiles(64, 4, 8))
 LARGE, SMALL, SWEEPS = 0, 1, 10
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of the CUDA device (132 on the H100 SXM)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def chunks(iterations: int, sweeps: int) -> List[int]:

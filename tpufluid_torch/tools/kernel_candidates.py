@@ -2,6 +2,11 @@
 
     python -m tpufluid_torch.tools.kernel_candidates [--iters 20] [--json PATH]
 
+Pre-pressure: on the demo's 128x228 float32, 1024x1024 bfloat16 and
+4096x4096 bfloat16 (velocity and 8 splat rows, 7 of them active, from
+numpy, seed 0), one launch on each tile of ops/cuda/stencil.py TILES, with
+the splat factors and without them.
+
 Jacobi: on 1024x1024 bfloat16 and the demo's 128x228 float32 (pressure and
 divergence from numpy, seed 0), a solve of ``--iters`` sweeps cut into
 launches of K = 1, 4, 5, 8, 10 and 20 sweeps (where the grid's tiles,
@@ -32,17 +37,56 @@ import numpy as np
 import torch
 
 from tpufluid_torch import FluidConfig
-from tpufluid_torch.ops.cuda import bloom, display, jacobi
+from tpufluid_torch.ops.cuda import bloom, display, jacobi, stencil
+from tpufluid_torch.ops.cuda.build import sm_count
 from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+from tpufluid_torch.ops.splat import splat_factors
 
 GRIDS = (("1024_bfloat16", 1024, 1024, torch.bfloat16),
          ("demo_float32", 128, 228, torch.float32))
 SWEEPS = (1, 4, 5, 8, 10, 20)
 
 
+STENCIL_GRIDS = (("demo_float32", 128, 228, torch.float32),
+                 ("1024_bfloat16", 1024, 1024, torch.bfloat16),
+                 ("4096_bfloat16", 4096, 4096, torch.bfloat16))
+
+
+def stencil_rows(rate: float, gpu: str) -> list:
+    rng = np.random.default_rng(0)
+    sms = sm_count(torch.device("cuda"))
+    rows = []
+    for name, h, w, dtype in STENCIL_GRIDS:
+        vel = np.clip(rng.standard_normal((2, h, w), dtype=np.float32) * 400, -1000, 1000)
+        vel = torch.from_numpy(vel).cuda().to(dtype)
+        s = np.zeros((8, 8), np.float32)
+        s[:, 0:4] = rng.random((8, 4)) * np.array([1, 1, 1000, 1000]) - [0, 0, 500, 500]
+        s[:-1, 7] = 1.0
+        factors = splat_factors(torch.from_numpy(s).cuda(), h, w, 0.0025, w / h, slice(2, 4))
+        picked = stencil.plan(h, w, sms)
+        for fac in (factors, None):
+            want = stencil.pre_pressure_plain(vel, 30.0, 1 / 60, fac)
+            for n, t in enumerate(stencil.TILES):
+                def run():
+                    return stencil.run_tiles(vel, 30.0, 1 / 60, fac, n)
+
+                err = max(float((g.float() - x.float()).abs().max())
+                          for g, x in zip(run(), want))
+                ms = queued_ms(run, 20, rate)
+                rows.append({"kernel": "pre_pressure", "grid": name, "th": t.th, "tw": t.tw,
+                             "splats": fac is not None, "blocks": t.blocks(h, w),
+                             "overcompute": t.overcompute(), "planned": n == picked,
+                             "launches": 1, "ms": ms, "max_abs_err": err})
+                print(f"pre_pressure candidate {name:14s} {t.th:2d}x{t.tw:3d} tiles "
+                      f"{'7 splats' if fac else 'no splat'}, {t.blocks(h, w):5d} blocks, "
+                      f"overcompute {t.overcompute():.3f}{' (plan)' if n == picked else ''}: "
+                      f"{ms:.4f} ms, max_abs_err {err:.1e} on {gpu}", flush=True)
+    return rows
+
+
 def jacobi_rows(iters: int, rate: float, gpu: str) -> list:
     rng = np.random.default_rng(0)
-    sms = jacobi.sm_count(torch.device("cuda"))
+    sms = sm_count(torch.device("cuda"))
     rows = []
     for name, h, w, dtype in GRIDS:
         p = torch.from_numpy(rng.standard_normal((h, w), dtype=np.float32)).cuda().to(dtype)
@@ -139,13 +183,17 @@ def main(argv=None) -> list:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     rate = spin_rate()
-    rows = jacobi_rows(args.iters, rate, gpu) + bloom_rows(rate, gpu) + display_rows(rate, gpu)
-    sms = jacobi.sm_count(torch.device("cuda"))
+    rows = (stencil_rows(rate, gpu) + jacobi_rows(args.iters, rate, gpu)
+            + bloom_rows(rate, gpu) + display_rows(rate, gpu))
+    sms = sm_count(torch.device("cuda"))
     chosen = {name: jacobi.plan(h, w, args.iters, sms) for name, h, w, _ in GRIDS}
     print(f"jacobi plan on {sms} SMs: {chosen}")
+    tiles = {name: stencil.TILES[stencil.plan(h, w, sms)] for name, h, w, _ in STENCIL_GRIDS}
+    print(f"pre_pressure plan on {sms} SMs: {tiles}")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"gpu": gpu, "rows": rows, "jacobi_plan": chosen}, f, indent=1)
+            json.dump({"gpu": gpu, "rows": rows, "jacobi_plan": chosen,
+                       "pre_pressure_plan": {k: str(v) for k, v in tiles.items()}}, f, indent=1)
     bad = [r for r in rows if r["max_abs_err"] != 0.0]
     if bad:
         raise AssertionError(f"candidates that differ from their plain version: {bad}")
