@@ -82,6 +82,24 @@ the card.
    (as phase 4), and profile_step_kernels over 30 steps (each kernel's
    device time a step, its events equal to its launches).
 
+10. Batched phase (tpufluid_torch.batch, the serving mode of bench.py
+   config 7): at serving_256_b16 (16 sims of 256^2) and serving_1024_b8 (8
+   sims of 1024^2), bf16 with the RGB9E5 dye, 20 sweeps, MAX_SPLATS=8.
+   Every batched kernel call of a step (check.batched_step_cases: random
+   per-sim states and splats, sim 0 without an active splat row, sim 1 with
+   all 8) against its plain version in both forms of dt (lock-step 1/60 and
+   per sim linspace(1/90, 1/60, B)), max abs error 0 required; the same at
+   the demo's cross grid (128/1024) with B = 4. Then make_batched_multi_step
+   over each sim's own swirl_trace (seed 42 + i), per-sim dts: launch counts
+   zeroed before and read after 3 steps (7 launches a batched step), each
+   sim equal bit for bit to make_step on that sim alone and the batch to
+   the plain batched step; then 100 warm-up and 200 timed steps, lock-step
+   and per sim (aggregate sim-steps/s), the batched step's median and p95
+   over 200 make_batched_step calls, the batched kernels' spin-queued ms
+   beside each kernel's single-sim ms x B, the idle share, the profiled
+   batched step (torch.profiler, 30 steps) and the same rates at B = 1
+   beside make_step.
+
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
 out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -97,6 +115,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
@@ -115,6 +135,11 @@ LONG_HORIZON_STEPS = 1500
 JACOBI_SWEEPS_A_LAUNCH = 10    # the chunk kernel's design: a solve of N sweeps is ceil(N / 10)
 EXACT_KERNELS = ("pre_pressure",)   # step kernels held to max abs error 0
 LONG_HORIZON_OUT = Path("out/long_horizon_4096")
+# The batched serving cells (bench.py config 7 at --serve-res 256 and 1024):
+# (resolution, sims); each sim replays its own swirl_trace(seed 42 + i).
+BATCH_CONFIGS = {"serving_256_b16": (256, 16), "serving_1024_b8": (1024, 8)}
+BATCH_WARM, BATCH_TIMED = 100, 200
+CROSS_GRID_BATCH = 4           # the demo's 128/1024 cross grid, batched
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -167,14 +192,15 @@ def configs():
     return out
 
 
-def check_cases(torch, check, name, cases, errors: dict) -> None:
+def check_cases(torch, check, name, cases, errors: dict, exact: bool = False) -> None:
     """Each case's kernel against its plain version: prints the max abs
-    error beside its tolerance (0 for EXACT_KERNELS), fails past it, and
-    adds it to ``errors`` per (config, kernel)."""
+    error beside its tolerance (0 for EXACT_KERNELS, or for every case when
+    ``exact``), fails past it, and adds it to ``errors`` per (config,
+    kernel)."""
     for case in cases:
         err, tol = check.compare(case.run(), case.run(plain=True))
         torch.cuda.synchronize()
-        if case.kernel_name in EXACT_KERNELS:
+        if exact or case.kernel_name in EXACT_KERNELS:
             tol = 0.0
         print(f"kernel {name:22s} {case.label:20s} max_abs_err {err:.3e}  tol {tol:.3e}")
         assert err <= tol, f"{case.label} on {name}: {err} > {tol}"
@@ -243,9 +269,9 @@ def path_phase(torch, cfg, device) -> dict:
             "step_ms_median": step_median, "step_ms_p95": step_p95}
 
 
-def timing_phase(torch, check, cases) -> dict:
+def timing_phase(torch, check, cases, verbose: bool = True) -> dict:
     """Per kernel: device ms, plain ms and bound ms summed over ``cases``
-    (one step's or one frame's calls)."""
+    (one step's or one frame's calls); ``verbose`` prints each case."""
     from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 
     rate = spin_rate()
@@ -258,8 +284,9 @@ def timing_phase(torch, check, cases) -> dict:
             else "operations"
         err, tol = check.compare(case.run(), case.run(plain=True))
         assert err <= tol, f"{case.label} on the path's state: {err} > {tol}"
-        print(f"time   {case.label:20s} kernel {kernel:.4f} ms  plain {plain:.4f} ms  "
-              f"bound {bound:.4f} ms ({by}, {case.nbytes} B, {case.flops} flop)")
+        if verbose:
+            print(f"time   {case.label:20s} kernel {kernel:.4f} ms  plain {plain:.4f} ms  "
+                  f"bound {bound:.4f} ms ({by}, {case.nbytes} B, {case.flops} flop)")
         row = out.setdefault(case.kernel_name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                                 "bytes": 0, "flops": 0, "by": by,
                                                 "max_abs_err": 0.0})
@@ -576,6 +603,160 @@ def long_horizon_phase(torch, check, gpu: str, device, errors: dict) -> dict:
     return {"summary": summary, "launches": launches, "kernels": timing, "profile": other}
 
 
+def batch_config(res: int):
+    from tpufluid_torch import FluidConfig
+
+    return FluidConfig(SIM_RESOLUTION=res, DYE_RESOLUTION=res, CANVAS_WIDTH=res,
+                       CANVAS_HEIGHT=res, PRESSURE_ITERATIONS=20, MAX_SPLATS=8,
+                       DTYPE="bfloat16", DYE_RGB9E5=True).validate()
+
+
+def batch_rates(torch, cfg, batch: int, seq, dts, device) -> dict:
+    """make_batched_multi_step: BATCH_WARM warm-up steps, then BATCH_TIMED
+    timed in one call (aggregate sim-steps/s); then BATCH_TIMED
+    make_batched_step calls, one a step, for the median and p95 step."""
+    from tpufluid_torch import init_batch, make_batched_multi_step, make_batched_step
+    from tpufluid_torch.tools.render_rate import call_times
+
+    multi = make_batched_multi_step(cfg, device=device)
+    end = BATCH_WARM + BATCH_TIMED
+    per_sim = np.ndim(dts) == 2
+    state = multi(init_batch(cfg, batch, device=device),
+                  dts[:BATCH_WARM] if per_sim else dts, seq[:BATCH_WARM])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = multi(state, dts[BATCH_WARM:end] if per_sim else dts, seq[BATCH_WARM:end])
+    torch.cuda.synchronize()
+    rate = batch * BATCH_TIMED / (time.perf_counter() - t0)
+    step = make_batched_step(cfg, device=device)
+    box = [state]
+
+    def one(k):
+        box[0] = step(box[0], dts[BATCH_WARM + k] if per_sim else dts, seq[BATCH_WARM + k])
+
+    steps_per_s, median, p95 = call_times(one, BATCH_TIMED)
+    v = box[0].velocity.float()
+    assert bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0.0, "batched run broke"
+    return {"sim_steps_per_s": rate, "steps_per_s": steps_per_s,
+            "sim_steps_per_s_stepped": batch * steps_per_s,
+            "step_ms_median": median, "step_ms_p95": p95}
+
+
+def single_rate(torch, cfg, seq, device) -> dict:
+    """make_step at ``cfg`` over sim 0's trace: BATCH_WARM warm-up steps in
+    make_multi_step, BATCH_TIMED timed make_step calls."""
+    from tpufluid_torch import init_state, make_multi_step, make_step
+    from tpufluid_torch.tools.render_rate import call_times
+
+    state = make_multi_step(cfg, device=device)(init_state(cfg, device=device), 1.0 / 60.0,
+                                                seq[:BATCH_WARM, 0])
+    step = make_step(cfg, device=device)
+    box = [state]
+
+    def one(k):
+        box[0] = step(box[0], 1.0 / 60.0, seq[BATCH_WARM + k, 0])
+
+    steps_per_s, median, p95 = call_times(one, BATCH_TIMED)
+    return {"steps_per_s": steps_per_s, "step_ms_median": median, "step_ms_p95": p95}
+
+
+def batched_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
+    """The batched serving mode at BATCH_CONFIGS: kernel comparisons (and
+    the demo's cross grid), launches and per-sim equality after 3 steps,
+    rates lock-step and per sim, kernel timing beside single-sim x B, the
+    profiled batched step, and B = 1 beside make_step."""
+    from tpufluid_torch import init_batch, init_state, make_batched_multi_step, make_step
+    from tpufluid_torch import swirl_trace, unstack_state
+    from tpufluid_torch.batch import plain_batched_step
+    from tpufluid_torch.ops.cuda import build, floors
+
+    for name in ("demo_float32", "demo_bfloat16_rgb9e5"):
+        check_cases(torch, check, name, check.batched_step_cases(
+            cfgs[name], CROSS_GRID_BATCH, seed=7, device=device), errors, exact=True)
+    out = {}
+    for name, (res, batch) in BATCH_CONFIGS.items():
+        cfg = batch_config(res)
+        check_cases(torch, check, name, check.batched_step_cases(cfg, batch, seed=7,
+                                                                 device=device), errors,
+                    exact=True)
+        steps = BATCH_WARM + BATCH_TIMED
+        seq = torch.as_tensor(np.stack([swirl_trace(cfg, steps, seed=42 + i).batches
+                                        for i in range(batch)], axis=1), device=device)
+        dts = np.broadcast_to(check.per_sim_dts(batch), (steps, batch))
+
+        build.reset_launches()
+        state = make_batched_multi_step(cfg, device=device)(
+            init_batch(cfg, batch, device=device), dts[:CHECK_STEPS], seq[:CHECK_STEPS])
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+        want = {k: n * CHECK_STEPS for k, n in expected_per_step(cfg).items()}
+        assert launches == want, (name, launches, want)
+        plain = init_batch(cfg, batch, device=device)
+        for t in range(CHECK_STEPS):
+            plain = plain_batched_step(plain, dts[t], seq[t], cfg)
+        step = make_step(cfg, device=device)
+        for i in range(batch):
+            one = init_state(cfg, device=device)
+            for t in range(CHECK_STEPS):
+                one = step(one, dts[t, i], seq[t, i])
+            for f in ("velocity", "dye", "pressure"):
+                got = getattr(unstack_state(state, i), f)
+                assert torch.equal(got, getattr(one, f)), (name, i, f, "vs make_step")
+                assert torch.equal(got, getattr(unstack_state(plain, i), f)), (name, i, f)
+        print(f"batched {name}: {batch} sims of {res}x{res} bf16, {CHECK_STEPS} steps, per-sim "
+              f"dt: every sim equal to make_step on it alone and to the plain batched step "
+              f"(max abs err 0); launches {launches} ({sum(launches.values()) // CHECK_STEPS} "
+              "a batched step)")
+
+        lock = batch_rates(torch, cfg, batch, seq, 1.0 / 60.0, device)
+        per = batch_rates(torch, cfg, batch, seq, dts, device)
+        state0, splats0 = check.random_batch(cfg, batch, seed=7, device=device)
+        cases = check.step_cases(state0, splats0, cfg, check.per_sim_dts(batch), ":batched")
+        timing = timing_phase(torch, check, cases)
+        parts = timing_phase(torch, check, check.part_cases(state0, splats0, cfg, ":batched"))
+        # Each sim's kernels launched on it alone, summed over the B sims.
+        single = {}
+        for i in range(batch):
+            sim = unstack_state(state0, i)
+            dt = float(check.per_sim_dts(batch)[i])
+            for k, row in timing_phase(torch, check, check.step_cases(sim, splats0[i], cfg, dt)
+                                       + check.part_cases(sim, splats0[i], cfg), False).items():
+                single[k] = single.get(k, 0.0) + row["ms"]
+        device_ms = sum(r["ms"] for r in timing.values())
+        kt, other = floors.profile_step_kernels(cfg, state0, check.per_sim_dts(batch),
+                                                PROFILE_STEPS)
+        prof_us = sum(r["us"] for r in other["kernel_events"].values())
+        for k, row in other["kernel_events"].items():
+            assert row["events"] == expected_per_step(cfg)[k] * PROFILE_STEPS, (k, row)
+        b1 = batch_rates(torch, cfg, 1, seq[:, :1], 1.0 / 60.0, device)
+        alone = single_rate(torch, cfg, seq, device)
+        for form, r in (("lock-step", lock), ("per-sim", per)):
+            print(f"batched {name} {form} on {gpu}: {r['sim_steps_per_s']:.1f} sim-steps/s "
+                  f"(make_batched_multi_step, {BATCH_TIMED} steps in one call); stepped "
+                  f"{r['sim_steps_per_s_stepped']:.1f} sim-steps/s, step median "
+                  f"{r['step_ms_median']:.4f} ms, p95 {r['step_ms_p95']:.4f} ms")
+        print(f"batched {name}: kernels' device {device_ms:.4f} ms a batched step (spin-queued), "
+              f"{100 * (1 - device_ms / per['step_ms_median']):.1f}% idle at the per-sim median; "
+              f"profiler {prof_us:.1f} us of kernels + {other['other_device_us']} us other a "
+              f"batched step over {PROFILE_STEPS} steps; " + ", ".join(
+                  f"{k} {row['events'] // PROFILE_STEPS} launches {row['us']:.2f} us"
+                  for k, row in other["kernel_events"].items()))
+        for k, row in {**timing, **parts}.items():
+            print(f"batched {name} {k:18s} spin-queued {row['ms']:.4f} ms for {batch} sims, "
+                  f"single-sim launches on each sim summed {single[k]:.4f} ms "
+                  f"({single[k] / batch:.4f} ms x {batch}); bound {row['bound_ms']:.4f} "
+                  f"ms ({row['by']}), plain {row['plain_ms']:.4f} ms")
+        print(f"batched {name} B=1 lock-step: {b1['sim_steps_per_s']:.1f} sim-steps/s "
+              f"(make_batched_multi_step), step median {b1['step_ms_median']:.4f} ms, p95 "
+              f"{b1['step_ms_p95']:.4f} ms; make_step {alone['steps_per_s']:.1f} steps/s, "
+              f"median {alone['step_ms_median']:.4f} ms, p95 {alone['step_ms_p95']:.4f} ms")
+        out[name] = {"batch": batch, "res": res, "launches": launches, "lockstep": lock,
+                     "per_sim": per, "kernel_device_ms": device_ms,
+                     "kernels": {**timing, **parts}, "single_sim_kernels": single,
+                     "profile": {"kernel_times_us": kt, **other}, "b1": b1, "make_step": alone}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -667,6 +848,7 @@ def main() -> int:
     floors_run = floors_phase(torch, check, cfgs[FLOORS_CONFIG], runs[FLOORS_CONFIG],
                               report[FLOORS_CONFIG]["kernels"], gpu, device)
     horizon = long_horizon_phase(torch, check, gpu, device, errors)
+    batched = batched_phase(torch, check, cfgs, gpu, device, errors)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -687,6 +869,13 @@ def main() -> int:
                 per_config["4096_bfloat16_rgb9e5"] = {
                     **{f: row4096.get(f) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
                     "launches": horizon["launches"].get(k.name, 0)}
+            for c, run in batched.items():
+                if k.name in run["kernels"]:
+                    per_config[c] = {
+                        **{f: run["kernels"][k.name].get(f)
+                           for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+                        "single_sim_ms": run["single_sim_kernels"][k.name],
+                        "launches": run["launches"].get(k.name, 0)}
         kernels.append({
             "name": k.name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
             "replaces": k.replaces, "launches": launches, "max_abs_err": err,
@@ -699,7 +888,8 @@ def main() -> int:
         {"gpu": gpu, "paths": report, "ptxas": ptxas,
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
          "floors": floors_run,
-         "long_horizon": horizon, "kernels": kernels}, indent=1, default=str))
+         "long_horizon": horizon, "batched": batched, "kernels": kernels}, indent=1,
+        default=str))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -278,6 +278,31 @@ def test_attribute_device_events():
                                     ("cudaLaunchKernel", False, 0.0, 1.0)], {}, steps=1)
 
 
+def test_window_events_keep_the_marked_window():
+    """Only the device events between the two marker kernels and the host
+    events inside the window's range are kept; the markers, the range and
+    the traced steps around them are not; a missing marker raises."""
+    mark = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    ev = [("void pre_pressure_kernel<float, 8, 32>(float const*)", True, 1.0, 2.0),
+          ("cudaLaunchKernel", False, 0.5, 1.0),
+          ("profiled window", False, 10.0, 50.0),
+          (mark, True, 12.0, 1.0),
+          ("cudaLaunchKernel", False, 20.0, 1.0),
+          ("void pre_pressure_kernel<float, 8, 32>(float const*)", True, 25.0, 2.0),
+          ("Memcpy HtoD", True, 30.0, 1.0),
+          (mark, True, 40.0, 1.0),
+          ("void pre_pressure_kernel<float, 8, 32>(float const*)", True, 70.0, 2.0),
+          ("cudaLaunchKernel", False, 65.0, 1.0)]
+    kept = fk.window_events(ev[::-1])
+    assert sorted(kept, key=lambda e: e[2]) == [ev[4], ev[5], ev[6]]
+    kt, other = fk.attribute_device_events(kept, {"pre_pressure": 1}, steps=1)
+    assert kt["stencil"] == 2.0 and other["other_device_us"] == 1.0
+    with pytest.raises(RuntimeError, match="1 marker kernels"):
+        fk.window_events([e for e in ev if e[2] != 40.0])
+    with pytest.raises(RuntimeError, match="0 window ranges"):
+        fk.window_events([e for e in ev if e[0] != "profiled window"])
+
+
 def test_frame_breakdown():
     """Microseconds a frame: every device event, the render kernels' own
     (events counted against launches), the rest by the PyTorch op that

@@ -1,8 +1,9 @@
 """tpufluid_torch — the stable-fluids simulator of ``tpufluid`` in PyTorch,
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
-The simulation step runs four kernels (csrc/): the pre-pressure stencil
-(two launches), the Jacobi sweep, the gradient subtract and the advection.
+The simulation step runs four kernels (csrc/): the pre-pressure stencil,
+the Jacobi sweeps, the gradient subtract and the advection (with its
+prepare), each for one sim or a batch of B sims in one launch.
 The frame runs two, one launch each: the bloom pyramid and the display
 composite. Every kernel has a plain PyTorch version beside it; a CPU state
 runs those, a CUDA state runs the kernels. The entry points default to
@@ -14,11 +15,15 @@ Public API:
     FluidState, init_state     — fields and their allocation
     resize_state               — resample into another config's sizes
     fluid_step, make_step, make_multi_step — the simulation step
+    init_batch, stack_states, unstack_state, make_batched_step,
+    make_batched_multi_step    — B sims in one set of launches, dt per sim
     Trace, swirl_trace         — deterministic splat input
     render_frame, make_render, capture_frame — the frame (float32 RGBA)
     frame_u8, tick_body, make_step_and_render — the servers' uint8 frame
 """
 
+from tpufluid_torch.batch import (init_batch, make_batched_multi_step, make_batched_step,
+                                  stack_states, unstack_state)
 from tpufluid_torch.config import MAX_DT, FluidConfig, get_resolution
 from tpufluid_torch.render import (capture_frame, frame_u8, make_render,
                                    make_step_and_render, render_frame, tick_body)
@@ -36,6 +41,11 @@ __all__ = [
     "fluid_step",
     "make_step",
     "make_multi_step",
+    "init_batch",
+    "stack_states",
+    "unstack_state",
+    "make_batched_step",
+    "make_batched_multi_step",
     "Trace",
     "swirl_trace",
     "render_frame",

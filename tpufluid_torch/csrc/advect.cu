@@ -45,10 +45,22 @@
 // the H100 (PERF.md), two texels made the prepare faster and the gather no
 // faster.
 //
+// Both kernels take a batch of B independent sims in one launch (the
+// counterpart of jax.vmap over the TPU kernels, tpufluid/batch.py): the
+// grid's z axis is the sim, each block adds its sim's offset to the index
+// of every field, factor and prepared source (32-bit where the batch fits,
+// else 64: common.cuh DISPATCH_INDEX; here left to the optimizer, which
+// measured faster than sim_offset's opaque term), and the gather reads its
+// sim's dt and decay from a (B, 2) table that the host computed (or the
+// scalars, for lock-step). The single-sim advection is B = 1 with the
+// scalars; each sim of a batch runs the operations of its own launch, bit
+// for bit.
+//
 // Extra bytes of the design, beyond the function's: the prepared source,
 // written once and read back by the gather (mostly from L2). 1024x1024 bf16
 // RGB9E5: 4 B a texel, 4.2 MB written and read. Demo f32: 16 B a texel on
 // 1024x1820, 29.8 MB written and read.
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
@@ -98,9 +110,10 @@ __device__ __forceinline__ void rgb9e5_unpack(uint32_t w, float* rgb) {
     rgb[2] = (float)((w >> 18) & 0x1FFu) * s;
 }
 
-// The C float32 values of source texel `at` in layout LAYOUT.
-template <typename T, int C, int LAYOUT>
-__device__ __forceinline__ void fetch(const void* src, int at, int hw, float* val) {
+// The C float32 values of source texel `at` (its sim's offset included) in
+// layout LAYOUT.
+template <typename T, int C, int LAYOUT, typename I>
+__device__ __forceinline__ void fetch(const void* src, I at, int hw, float* val) {
     if constexpr (LAYOUT == kPlanes) {
 #pragma unroll
         for (int c = 0; c < C; ++c) val[c] = to_f32(static_cast<const T*>(src)[c * hw + at]);
@@ -115,15 +128,17 @@ __device__ __forceinline__ void fetch(const void* src, int at, int hw, float* va
     }
 }
 
-// Bilinear sample of one (h, w) plane at pixel-space (x, y) = uv * size - 0.5.
-template <typename T>
-__device__ __forceinline__ float sample_plane(const T* plane, float x, float y, int h, int w) {
+// Bilinear sample at pixel-space (x, y) = uv * size - 0.5 of the (h, w)
+// plane that starts at index `base` of `field`.
+template <typename T, typename I>
+__device__ __forceinline__ float sample_plane(const T* field, I base, float x, float y, int h,
+                                              int w) {
     const float x0 = floorf(x), y0 = floorf(y);
     const float fx = x - x0, fy = y - y0;
     const int ix0 = min(max((int)x0, 0), w - 1), ix1 = min(max((int)x0 + 1, 0), w - 1);
     const int iy0 = min(max((int)y0, 0), h - 1), iy1 = min(max((int)y0 + 1, 0), h - 1);
-    const float a = to_f32(plane[iy0 * w + ix0]), b = to_f32(plane[iy0 * w + ix1]);
-    const float c = to_f32(plane[iy1 * w + ix0]), d = to_f32(plane[iy1 * w + ix1]);
+    const float a = to_f32(field[base + iy0 * w + ix0]), b = to_f32(field[base + iy0 * w + ix1]);
+    const float c = to_f32(field[base + iy1 * w + ix0]), d = to_f32(field[base + iy1 * w + ix1]);
     const float top = a + (b - a) * fx;
     const float bot = c + (d - c) * fx;
     return top + (bot - top) * fy;
@@ -131,7 +146,7 @@ __device__ __forceinline__ float sample_plane(const T* plane, float x, float y, 
 
 constexpr int kPrepareTexels = 2;  // texels a prepare thread, kBlockX apart
 
-template <typename T, int C, bool WORDS>
+template <typename T, int C, bool WORDS, typename I>
 __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restrict__ prep, int H,
                                       int W, const float* __restrict__ gy,
                                       const float* __restrict__ gx,
@@ -141,13 +156,17 @@ __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restric
     const int i = blockIdx.y * blockDim.y + threadIdx.y;
     if (i >= H || j0 >= W) return;
     const int hw = H * W;
+    // The block's sim: its offset in each array, added to every index.
+    const I sim = blockIdx.z;
+    const I sb = sim * C * hw, pb = sim * hw, fy = sim * H * S, fx = sim * S * W;
+    const I fa = sim * S * C;
     int j[TPT];  // the thread's texels, kBlockX apart; past the edge: the last column
     float val[TPT][C];
 #pragma unroll
     for (int t = 0; t < TPT; ++t) {
         j[t] = min(j0 + t * kBlockX, W - 1);
 #pragma unroll
-        for (int c = 0; c < C; ++c) val[t][c] = to_f32(src[c * hw + i * W + j[t]]);
+        for (int c = 0; c < C; ++c) val[t][c] = to_f32(src[sb + c * hw + i * W + j[t]]);
     }
     if (S > 0) {
         float acc[TPT][C];
@@ -156,13 +175,13 @@ __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restric
 #pragma unroll
             for (int c = 0; c < C; ++c) acc[t][c] = 0.0f;
         for (int s = 0; s < S; ++s) {
-            const float a = gy[i * S + s];
+            const float a = gy[fy + i * S + s];
             float ga[C];  // gy * amt: the row's factor, shared by the thread's texels
 #pragma unroll
-            for (int c = 0; c < C; ++c) ga[c] = a * amt[s * C + c];
+            for (int c = 0; c < C; ++c) ga[c] = a * amt[fa + s * C + c];
 #pragma unroll
             for (int t = 0; t < TPT; ++t) {
-                const float b = gx[s * W + j[t]];
+                const float b = gx[fx + s * W + j[t]];
 #pragma unroll
                 for (int c = 0; c < C; ++c) acc[t][c] = acc[t][c] + ga[c] * b;
             }
@@ -175,7 +194,7 @@ __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restric
 #pragma unroll
     for (int t = 0; t < TPT; ++t) {
         if (j0 + t * kBlockX >= W) break;
-        const int at = i * W + j[t];
+        const I at = pb + i * W + j[t];
         if constexpr (WORDS) {
             static_assert(C == 3, "RGB9E5 packs three channels");
             static_cast<uint32_t*>(prep)[at] = rgb9e5_pack(val[t][0], val[t][1], val[t][2]);
@@ -188,24 +207,33 @@ __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restric
     }
 }
 
-template <typename T, int C, int LAYOUT, bool SAME_GRID>
+template <typename T, int C, int LAYOUT, bool SAME_GRID, typename I>
 __global__ void advect_kernel(const T* __restrict__ vel, int hv, int wv,
                               const void* __restrict__ src, T* __restrict__ out, int H, int W,
-                              float dt, float decay) {
+                              float dt, float decay, const float* __restrict__ dts) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
     const int i = blockIdx.y * blockDim.y + threadIdx.y;
     if (i >= H || j >= W) return;
     const int hw = H * W;
+    // The block's sim: its offsets, added to every index (the source's in
+    // texels for quads and words, in values for planes), its dt and decay.
+    const I sim = blockIdx.z;
+    const I vb = sim * 2 * hv * wv, ob = sim * C * hw;
+    const I sb = LAYOUT == kPlanes ? ob : sim * hw;
+    if (dts != nullptr) {
+        dt = dts[2 * blockIdx.z];
+        decay = dts[2 * blockIdx.z + 1];
+    }
     const float u = ((float)j + 0.5f) / (float)W;
     const float v = ((float)i + 0.5f) / (float)H;
     float vu, vv;
     if constexpr (SAME_GRID) {
-        vu = to_f32(vel[i * W + j]);
-        vv = to_f32(vel[hw + i * W + j]);
+        vu = to_f32(vel[vb + i * W + j]);
+        vv = to_f32(vel[vb + hw + i * W + j]);
     } else {
         const float x = u * (float)wv - 0.5f, y = v * (float)hv - 0.5f;
-        vu = sample_plane(vel, x, y, hv, wv);
-        vv = sample_plane(vel + hv * wv, x, y, hv, wv);
+        vu = sample_plane(vel, vb, x, y, hv, wv);
+        vv = sample_plane(vel, vb + hv * wv, x, y, hv, wv);
     }
     const float cu = u - (dt * vu) / (float)wv;
     const float cv = v - (dt * vv) / (float)hv;
@@ -215,89 +243,100 @@ __global__ void advect_kernel(const T* __restrict__ vel, int hv, int wv,
     const int q0 = min(max((int)x0, 0), W - 1), q1 = min(max((int)x0 + 1, 0), W - 1);
     const int r0 = min(max((int)y0, 0), H - 1), r1 = min(max((int)y0 + 1, 0), H - 1);
     float a[C], b[C], c[C], d[C];  // the lerp's corners
-    fetch<T, C, LAYOUT>(src, r0 * W + q0, hw, a);
-    fetch<T, C, LAYOUT>(src, r0 * W + q1, hw, b);
-    fetch<T, C, LAYOUT>(src, r1 * W + q0, hw, c);
-    fetch<T, C, LAYOUT>(src, r1 * W + q1, hw, d);
+    fetch<T, C, LAYOUT>(src, sb + r0 * W + q0, hw, a);
+    fetch<T, C, LAYOUT>(src, sb + r0 * W + q1, hw, b);
+    fetch<T, C, LAYOUT>(src, sb + r1 * W + q0, hw, c);
+    fetch<T, C, LAYOUT>(src, sb + r1 * W + q1, hw, d);
 #pragma unroll
     for (int k = 0; k < C; ++k) {
         const float top = a[k] + (b[k] - a[k]) * fx;
         const float bot = c[k] + (d[k] - c[k]) * fx;
-        out[k * hw + i * W + j] = from_f32<T>((top + (bot - top) * fy) / decay);
+        out[ob + k * hw + i * W + j] = from_f32<T>((top + (bot - top) * fy) / decay);
     }
 }
 
 template <typename T, int C, bool WORDS>
-static int launch_prepare(const void* src, void* prep, int H, int W, const float* gy,
+static int launch_prepare(const void* src, void* prep, int B, int H, int W, const float* gy,
                           const float* gx, const float* amt, int S, cudaStream_t stream) {
     constexpr int cols = kBlockX * kPrepareTexels;
-    const dim3 grid((W + cols - 1) / cols, (H + kBlockY - 1) / kBlockY);
-    advect_prepare_kernel<T, C, WORDS><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
-        (const T*)src, prep, H, W, gy, gx, amt, S);
+    const dim3 grid((W + cols - 1) / cols, (H + kBlockY - 1) / kBlockY, B);
+    const size_t most = std::max({(size_t)C * H * W, (size_t)H * S, (size_t)S * W});
+    DISPATCH_INDEX(wide_batch(B, most), I,
+        advect_prepare_kernel<T, C, WORDS, I><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
+            (const T*)src, prep, H, W, gy, gx, amt, S));
     return (int)cudaGetLastError();
 }
 
 template <typename T, int C, int LAYOUT>
-static int launch_gather(const void* vel, int hv, int wv, const void* src, void* out, int H,
-                         int W, float dt, float decay, cudaStream_t stream) {
-    const dim3 grid = grid_for(H, W), block(kBlockX, kBlockY);
-    if (hv == H && wv == W)
-        advect_kernel<T, C, LAYOUT, true><<<grid, block, 0, stream>>>(
-            (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay);
-    else
-        advect_kernel<T, C, LAYOUT, false><<<grid, block, 0, stream>>>(
-            (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay);
+static int launch_gather(const void* vel, int hv, int wv, const void* src, void* out, int B,
+                         int H, int W, float dt, float decay, const float* dts,
+                         cudaStream_t stream) {
+    const dim3 grid = grid_for(H, W, B), block(kBlockX, kBlockY);
+    DISPATCH_INDEX(wide_batch(B, std::max(2 * (size_t)hv * wv, (size_t)C * H * W)), I,
+        if (hv == H && wv == W)
+            advect_kernel<T, C, LAYOUT, true, I><<<grid, block, 0, stream>>>(
+                (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay, dts);
+        else
+            advect_kernel<T, C, LAYOUT, false, I><<<grid, block, 0, stream>>>(
+                (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay, dts));
     return (int)cudaGetLastError();
 }
 
 template <typename T, int C>
 static int launch_c(const void* vel, int hv, int wv, const void* src, int layout, void* out,
-                    int H, int W, float dt, float decay, cudaStream_t stream) {
+                    int B, int H, int W, float dt, float decay, const float* dts,
+                    cudaStream_t stream) {
     if (layout == kPlanes)
-        return launch_gather<T, C, kPlanes>(vel, hv, wv, src, out, H, W, dt, decay, stream);
+        return launch_gather<T, C, kPlanes>(vel, hv, wv, src, out, B, H, W, dt, decay, dts,
+                                            stream);
     if (layout == kQuads)
-        return launch_gather<T, C, kQuads>(vel, hv, wv, src, out, H, W, dt, decay, stream);
+        return launch_gather<T, C, kQuads>(vel, hv, wv, src, out, B, H, W, dt, decay, dts,
+                                           stream);
     return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
 
-// src (C, H, W) storage `dtype` -> prep: (H, W) uint32 RGB9E5 words when
-// words = 1 (bf16, C = 3), else (H, W, 4) storage quads. gy (H, S), gx (S, W),
-// amt (S, C) float32 when S > 0.
-int fluid_advect_prepare(const void* src, void* prep, int C, int H, int W, const void* gy,
-                         const void* gx, const void* amt, int S, int words, int dtype,
-                         void* stream) {
-    if (C < 1 || C > 3 || (words && (C != 3 || dtype != kBF16)))
+// B sims: src (B, C, H, W) storage `dtype` -> prep: (B, H, W) uint32 RGB9E5
+// words when words = 1 (bf16, C = 3), else (B, H, W, 4) storage quads. gy
+// (B, H, S), gx (B, S, W), amt (B, S, C) float32 when S > 0.
+int fluid_advect_prepare(const void* src, void* prep, int B, int C, int H, int W,
+                         const void* gy, const void* gx, const void* amt, int S, int words,
+                         int dtype, void* stream) {
+    if (B < 1 || B > kMaxBatch || C < 1 || C > 3 || (words && (C != 3 || dtype != kBF16)))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const float *fy = (const float*)gy, *fx = (const float*)gx, *fa = (const float*)amt;
     if (words)
-        return launch_prepare<__nv_bfloat16, 3, true>(src, prep, H, W, fy, fx, fa, S, s);
+        return launch_prepare<__nv_bfloat16, 3, true>(src, prep, B, H, W, fy, fx, fa, S, s);
     DISPATCH_STORAGE(dtype, T,
-        if (C == 1) return launch_prepare<T, 1, false>(src, prep, H, W, fy, fx, fa, S, s);
-        if (C == 2) return launch_prepare<T, 2, false>(src, prep, H, W, fy, fx, fa, S, s);
-        return launch_prepare<T, 3, false>(src, prep, H, W, fy, fx, fa, S, s));
+        if (C == 1) return launch_prepare<T, 1, false>(src, prep, B, H, W, fy, fx, fa, S, s);
+        if (C == 2) return launch_prepare<T, 2, false>(src, prep, B, H, W, fy, fx, fa, S, s);
+        return launch_prepare<T, 3, false>(src, prep, B, H, W, fy, fx, fa, S, s));
     return (int)cudaErrorInvalidValue;
 }
 
-// vel (2, hv, wv) storage `dtype`; src in `layout`: kPlanes (C, H, W) storage,
-// kQuads (H, W, 4) storage, kWords (H, W) uint32 (bf16, C = 3); out (C, H, W).
-int fluid_advect(const void* vel, int hv, int wv, const void* src, int layout, void* out, int C,
-                 int H, int W, float dt, float decay, int dtype, void* stream) {
+// B sims: vel (B, 2, hv, wv) storage `dtype`; src in `layout`: kPlanes
+// (B, C, H, W) storage, kQuads (B, H, W, 4) storage, kWords (B, H, W) uint32
+// (bf16, C = 3); out (B, C, H, W). dts: a (B, 2) float32 table of (clamped
+// dt, decay) a sim, or null for the scalars dt and decay of every sim.
+int fluid_advect(const void* vel, int hv, int wv, const void* src, int layout, void* out, int B,
+                 int C, int H, int W, float dt, float decay, const void* dts, int dtype,
+                 void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
-    if (C < 1 || C > 3) return (int)cudaErrorInvalidValue;
+    const float* d = (const float*)dts;
+    if (B < 1 || B > kMaxBatch || C < 1 || C > 3) return (int)cudaErrorInvalidValue;
     if (layout == kWords) {
         if (C != 3 || dtype != kBF16) return (int)cudaErrorInvalidValue;
-        return launch_gather<__nv_bfloat16, 3, kWords>(vel, hv, wv, src, out, H, W, dt, decay,
-                                                       s);
+        return launch_gather<__nv_bfloat16, 3, kWords>(vel, hv, wv, src, out, B, H, W, dt,
+                                                       decay, d, s);
     }
     DISPATCH_STORAGE(dtype, T,
         if (C == 1)
-            return launch_c<T, 1>(vel, hv, wv, src, layout, out, H, W, dt, decay, s);
+            return launch_c<T, 1>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, s);
         if (C == 2)
-            return launch_c<T, 2>(vel, hv, wv, src, layout, out, H, W, dt, decay, s);
-        return launch_c<T, 3>(vel, hv, wv, src, layout, out, H, W, dt, decay, s));
+            return launch_c<T, 2>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, s);
+        return launch_c<T, 3>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, s));
     return (int)cudaErrorInvalidValue;
 }
 

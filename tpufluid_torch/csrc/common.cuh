@@ -12,6 +12,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
@@ -47,8 +49,52 @@ enum StorageCode { kF32 = 0, kBF16 = 1, kF16 = 2 };
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
-inline dim3 grid_for(int h, int w) {
-    return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+// The grid of an (h, w) field, and of `sims` of them along z (blockIdx.z =
+// the sim; a batched kernel offsets its fields by it).
+inline dim3 grid_for(int h, int w, int sims = 1) {
+    return dim3((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY, sims);
+}
+
+// Most sims a batched launch takes: the grid's z axis holds at most 65535.
+constexpr int kMaxBatch = 65535;
+
+// The index type of a batched launch. A block adds its sim's offset,
+// blockIdx.z times the elements of one sim, to every index inside the sim,
+// in type I: int where every element of the batch has a 32-bit index (every
+// single-sim launch), so that an address forms as in a single-sim kernel;
+// long long past that. A 64-bit offset on every index, or a per-sim base
+// pointer held in registers, cost the single-sim launches up to 30% of their
+// time on the H100 (PERF.md).
+inline bool wide_batch(int B, size_t elements_per_sim) {
+    return (size_t)B * elements_per_sim > (size_t)INT_MAX;
+}
+
+#define DISPATCH_INDEX(WIDE, I, ...)                  \
+    if (WIDE) {                                       \
+        using I = long long;                          \
+        __VA_ARGS__;                                  \
+    } else {                                          \
+        using I = int;                                \
+        __VA_ARGS__;                                  \
+    }
+
+// The offset of this block's sim, `per_sim` elements a sim, opaque to the
+// optimizer: it is added to each index as one term instead of being folded
+// into the index's own products. blockIdx.z is read anew at every call, so
+// an offset needed only after a kernel's main loop is formed there, not
+// held in a register across it. Measured on the H100 (PERF.md), it
+// suits the stencils and the Jacobi chunk; the advection's kernels were
+// faster with a plain blockIdx.z product.
+template <typename I>
+__device__ __forceinline__ I sim_offset(I per_sim) {
+    unsigned z;
+    asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+    I off = (I)z * per_sim;
+    if constexpr (sizeof(I) == 8)
+        asm("" : "+l"(off));
+    else
+        asm("" : "+r"(off));
+    return off;
 }
 
 // One axis of a separable affine bilinear sample (ops/sampling.py

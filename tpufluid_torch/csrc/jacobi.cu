@@ -36,9 +36,14 @@
 // start, not rounded on its own); only the last writes storage. So a solve
 // rounds once, after its last sweep, and equals jacobi_plain bit for bit
 // for every K.
+// A launch takes B independent sims (the grid's z axis, each block adding
+// its sim's offset to every index: common.cuh DISPATCH_INDEX), the
+// counterpart of jax.vmap over the TPU kernel; the single-sim solve is
+// B = 1. A sim's blocks run the operations of a single-sim launch, so each
+// sim equals its own solve bit for bit.
 #include "common.cuh"
 
-template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB>
+template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB, typename I>
 __global__ void __launch_bounds__(RW * NY, MINB)
 jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut* __restrict__ out,
                     float prescale, int H, int W, int K) {
@@ -50,6 +55,7 @@ jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut*
     const int c0 = blockIdx.x * (RW - 2 * K) - K;
     const int gj = c0 + tx;
     const int cj = min(max(gj, 0), W - 1);
+    const I col = sim_offset((I)H * W) + cj;  // the column in the block's sim
     // Region columns of the left and right neighbours: clamped at the grid's
     // edge, then into the region (a region-edge cell is outside the valid
     // part after its first sweep).
@@ -60,7 +66,7 @@ jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut*
     float v[R], d[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) {
-        const int at = min(max(r0 + row0 + k, 0), H - 1) * W + cj;
+        const I at = min(max(r0 + row0 + k, 0), H - 1) * W + col;
         v[k] = to_f32(p[at]) * prescale;
         d[k] = to_f32(div[at]);
     }
@@ -89,20 +95,22 @@ jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut*
     }
 
     const bool col_out = tx >= K && tx < RW - K && gj < W;
+    const I col_at = sim_offset((I)H * W) + gj;  // formed anew after the sweeps
 #pragma unroll
     for (int k = 0; k < R; ++k) {
         const int lr = row0 + k, gi = r0 + lr;
         if (col_out && lr >= K && lr < RH - K && gi < H)
-            out[gi * W + gj] = from_f32<TOut>(v[k]);
+            out[gi * W + col_at] = from_f32<TOut>(v[k]);
     }
 }
 
-template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB = 1>
-static int launch(const void* p, const void* div, void* out, float prescale, int H, int W, int K,
-                  cudaStream_t stream) {
+template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB, typename I>
+static int launch(const void* p, const void* div, void* out, float prescale, int B, int H, int W,
+                  int K, cudaStream_t stream) {
     constexpr int RH = NY * R;
-    if (K < 1 || RH - 2 * K < 1 || RW - 2 * K < 1) return (int)cudaErrorInvalidValue;
-    auto kernel = jacobi_chunk_kernel<TIn, TOut, TD, RW, NY, R, MINB>;
+    if (K < 1 || RH - 2 * K < 1 || RW - 2 * K < 1 || B < 1 || B > kMaxBatch)
+        return (int)cudaErrorInvalidValue;
+    auto kernel = jacobi_chunk_kernel<TIn, TOut, TD, RW, NY, R, MINB, I>;
     const size_t smem = 2 * RH * RW * sizeof(float);
     static bool configured = false;  // per instance: the attribute is set once
     if (!configured) {
@@ -111,41 +119,48 @@ static int launch(const void* p, const void* div, void* out, float prescale, int
         if (err != cudaSuccess) return (int)err;
         configured = true;
     }
-    const dim3 grid((W + RW - 2 * K - 1) / (RW - 2 * K), (H + RH - 2 * K - 1) / (RH - 2 * K));
+    const dim3 grid((W + RW - 2 * K - 1) / (RW - 2 * K), (H + RH - 2 * K - 1) / (RH - 2 * K), B);
     kernel<<<grid, dim3(RW, NY), smem, stream>>>((const TIn*)p, (const TD*)div, (TOut*)out,
                                                  prescale, H, W, K);
     return (int)cudaGetLastError();
 }
 
-// The compiled geometries: (RW, NY, R[, blocks an SM must hold]), in the
-// order of ops/cuda/jacobi.py TILES.
+// The compiled geometries: (RW, NY, R, blocks an SM must hold), in the
+// order of ops/cuda/jacobi.py TILES; I the index type (common.cuh).
 template <typename TIn, typename TOut, typename TD>
 static int launch_tiles(int tiles, const void* p, const void* div, void* out, float prescale,
-                        int H, int W, int K, cudaStream_t s) {
-    switch (tiles) {
-        case 0: return launch<TIn, TOut, TD, 128, 4, 16, 2>(p, div, out, prescale, H, W, K, s);
-        case 1: return launch<TIn, TOut, TD, 64, 4, 8>(p, div, out, prescale, H, W, K, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+                        int B, int H, int W, int K, cudaStream_t s) {
+    DISPATCH_INDEX(wide_batch(B, (size_t)H * W), I,
+        switch (tiles) {
+            case 0:
+                return launch<TIn, TOut, TD, 128, 4, 16, 2, I>(p, div, out, prescale, B, H, W,
+                                                               K, s);
+            case 1:
+                return launch<TIn, TOut, TD, 64, 4, 8, 1, I>(p, div, out, prescale, B, H, W, K,
+                                                             s);
+            default: return (int)cudaErrorInvalidValue;
+        });
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
 
-// K sweeps of the (H, W) field in one launch on geometry `tiles`.
-// p_f32 / out_f32: 1 when that buffer is a float32 scratch buffer, 0 when it
-// holds the storage type `dtype` (which the divergence always does).
+// K sweeps of B (H, W) fields, (B, H, W) each buffer, in one launch on
+// geometry `tiles`. p_f32 / out_f32: 1 when that buffer is a float32
+// scratch buffer, 0 when it holds the storage type `dtype` (which the
+// divergence always does).
 int fluid_jacobi_chunk(const void* p, int p_f32, const void* div, void* out, int out_f32,
-                       float prescale, int H, int W, int K, int tiles, int dtype,
+                       float prescale, int B, int H, int W, int K, int tiles, int dtype,
                        void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     DISPATCH_STORAGE(dtype, T,
         if (p_f32 && out_f32)
-            return launch_tiles<float, float, T>(tiles, p, div, out, prescale, H, W, K, s);
+            return launch_tiles<float, float, T>(tiles, p, div, out, prescale, B, H, W, K, s);
         if (p_f32)
-            return launch_tiles<float, T, T>(tiles, p, div, out, prescale, H, W, K, s);
+            return launch_tiles<float, T, T>(tiles, p, div, out, prescale, B, H, W, K, s);
         if (out_f32)
-            return launch_tiles<T, float, T>(tiles, p, div, out, prescale, H, W, K, s);
-        return launch_tiles<T, T, T>(tiles, p, div, out, prescale, H, W, K, s));
+            return launch_tiles<T, float, T>(tiles, p, div, out, prescale, B, H, W, K, s);
+        return launch_tiles<T, T, T>(tiles, p, div, out, prescale, B, H, W, K, s));
     return (int)cudaErrorInvalidValue;
 }
 

@@ -51,6 +51,17 @@
 // accesses a texel across the stages. Measured (PERF.md), it is bound by
 // the instructions of its stages, not by the bytes. ops/cuda/stencil.py
 // plan picks the tile from the grid and the SM count.
+//
+// Both kernels take a batch of B independent sims in one launch, the
+// counterpart of jax.vmap over the TPU kernels (tpufluid/batch.py): the
+// grid's z axis is the sim, every block adds its sim's offset to the index
+// of each field and splat factor it reads (in 64 bits, or for the gradient
+// subtract in 32 where the batch fits: common.cuh DISPATCH_INDEX), and
+// pre_pressure reads its dt either from the scalar (lock-step) or from
+// dts[2 sim] of a (B, 2) table of (clamped dt, decay) that the host
+// computed. The single-sim step is B = 1 with the scalar dt. Sims never read each other, and each sim's blocks run the very
+// operations of a single-sim launch, so every sim equals its own launch bit
+// for bit on either tile.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -80,7 +91,8 @@ struct PreTile {
 };
 
 // Stages 1-4 of a block (the header), on the splat rows listed in
-// `moving` (S = 0: no factors, and no rounding after the bump). EDGE: the
+// `moving` (S = 0: no factors, and no rounding after the bump), writing the
+// sim whose velocity and divergence start at vb and db. EDGE: the
 // window reaches past the grid, so neighbours clamp, the walls reflect and
 // the texels outside the grid are skipped; in an interior block every
 // neighbour is the texel beside.
@@ -88,7 +100,7 @@ template <bool EDGE, typename T, int TH, int TW>
 __device__ __forceinline__ void pre_pressure_stages(
         const T* win, float* curl, float* bu, float* bv, const float* ga, const float* gxs,
         const int* moving, int S, float cs, float dt, T* __restrict__ vel_out,
-        T* __restrict__ div_out, int H, int W, int ti0, int tj0) {
+        T* __restrict__ div_out, size_t vb, size_t db, int H, int W, int ti0, int tj0) {
     using L = PreTile<T, TH, TW>;
     constexpr int WH = L::WH, WW = L::WW, WHP = L::WHP, LW = L::LW, U = L::U;
     constexpr int CH = L::CH, CW = L::CW;
@@ -182,9 +194,9 @@ __device__ __forceinline__ void pre_pressure_stages(
         const float Bv = !EDGE || gi > 0 ? bv[at - WW] : -v;
         const float Tv = !EDGE || gi < H - 1 ? bv[at + WW] : -v;
         const size_t o = (size_t)gi * W + gj;
-        vel_out[o] = from_f32<T>(u);
-        vel_out[plane + o] = from_f32<T>(v);
-        div_out[o] = from_f32<T>(0.5f * (((Ru - Lu) + Tv) - Bv));
+        vel_out[vb + o] = from_f32<T>(u);
+        vel_out[vb + plane + o] = from_f32<T>(v);
+        div_out[db + o] = from_f32<T>(0.5f * (((Ru - Lu) + Tv) - Bv));
     }
 }
 
@@ -192,8 +204,9 @@ template <typename T, int TH, int TW>
 __global__ void __launch_bounds__(kPreThreads)
 pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
                     const float* __restrict__ gx, const float* __restrict__ amt, int S,
-                    float cs, float dt, T* __restrict__ vel_out, T* __restrict__ div_out,
-                    int H, int W, int aligned) {
+                    float cs, float dt, const float* __restrict__ dts,
+                    T* __restrict__ vel_out, T* __restrict__ div_out, int H, int W,
+                    int aligned) {
     using L = PreTile<T, TH, TW>;
     constexpr int WH = L::WH, WW = L::WW, WHP = L::WHP, LW = L::LW, U = L::U;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -208,6 +221,11 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
     const int ti0 = blockIdx.y * TH, tj0 = blockIdx.x * TW;
     const int r0 = ti0 - kHalo, c0 = tj0 - kHalo;         // the window's origin
     const size_t plane = (size_t)H * W;
+    // The block's sim: its fields, its factors and its dt.
+    // The block's sim: its offsets, added to every index, and its dt.
+    const size_t vb = sim_offset(2 * plane), fy = sim_offset((size_t)H * S);
+    const size_t fx = sim_offset((size_t)S * W), fa = sim_offset(2 * (size_t)S);
+    if (dts != nullptr) dt = dts[2 * blockIdx.z];
 
     // Stage 0. The velocity window, rows r0.., columns tj0 - U.. (aligned:
     // a 16-byte unit lies wholly inside the grid or wholly outside).
@@ -218,28 +236,28 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
             const int gi = r0 + row % WH, gj = tj0 - U + m * U;
             if (gi < 0 || gi >= H || gj < 0 || gj >= W) continue;
             __pipeline_memcpy_async(win + row * LW + m * U,
-                                    vel + (row / WH) * plane + (size_t)gi * W + gj, 16);
+                                    vel + vb + (row / WH) * plane + (size_t)gi * W + gj, 16);
         }
     } else {
         for (int e = tid; e < 2 * WH * LW; e += kPreThreads) {
             const int x = e % LW, row = e / LW;
             const int gi = r0 + row % WH, gj = tj0 - U + x;
             if (gi < 0 || gi >= H || gj < 0 || gj >= W) continue;
-            win[e] = vel[(row / WH) * plane + (size_t)gi * W + gj];
+            win[e] = vel[vb + (row / WH) * plane + (size_t)gi * W + gj];
         }
     }
     __pipeline_commit();
     for (int e = tid; e < WH * S; e += kPreThreads) {
         const int y = e / S, s = e - y * S, gi = r0 + y;
         if (gi < 0 || gi >= H) continue;
-        const float g = gy[gi * S + s];
-        ga[s * WHP + y] = g * amt[2 * s];
-        ga[(S + s) * WHP + y] = g * amt[2 * s + 1];
+        const float g = gy[fy + gi * S + s];
+        ga[s * WHP + y] = g * amt[fa + 2 * s];
+        ga[(S + s) * WHP + y] = g * amt[fa + 2 * s + 1];
     }
     for (int e = tid; e < S * WW; e += kPreThreads) {
         const int s = e / WW, x = e - s * WW, gj = c0 + x;
         if (gj < 0 || gj >= W) continue;
-        gxs[e] = gx[s * W + gj];
+        gxs[e] = gx[fx + s * W + gj];
     }
     // The splat rows whose amount is not zero, in order: another row adds
     // (gy * 0) * gx = +/-0 to a sum that starts at +0, which changes no bit.
@@ -247,7 +265,7 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
         int n = 0;
         for (int base = 0; base < S; base += 32) {
             const int s = base + tid;
-            const bool on = s < S && (amt[2 * s] != 0.0f || amt[2 * s + 1] != 0.0f);
+            const bool on = s < S && (amt[fa + 2 * s] != 0.0f || amt[fa + 2 * s + 1] != 0.0f);
             const unsigned mask = __ballot_sync(0xffffffffu, on);
             if (on) moving[n + __popc(mask & ((1u << tid) - 1u))] = s;
             n += __popc(mask);
@@ -259,16 +277,17 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
 
     if (r0 >= 0 && c0 >= 0 && r0 + WH <= H && c0 + WW <= W)
         pre_pressure_stages<false, T, TH, TW>(win, curl, bu, bv, ga, gxs, moving, S, cs, dt,
-                                              vel_out, div_out, H, W, ti0, tj0);
+                                              vel_out, div_out, vb, vb / 2, H, W, ti0,
+                                              tj0);
     else
         pre_pressure_stages<true, T, TH, TW>(win, curl, bu, bv, ga, gxs, moving, S, cs, dt,
-                                             vel_out, div_out, H, W, ti0, tj0);
+                                             vel_out, div_out, vb, vb / 2, H, W, ti0, tj0);
 }
 
 template <typename T, int TH, int TW>
 static int launch_pre(const void* vel, const void* gy, const void* gx, const void* amt, int S,
-                      float cs, float dt, void* vel_out, void* div_out, int H, int W,
-                      cudaStream_t stream) {
+                      float cs, float dt, const float* dts, void* vel_out, void* div_out,
+                      int B, int H, int W, cudaStream_t stream) {
     using L = PreTile<T, TH, TW>;
     const auto kernel = pre_pressure_kernel<T, TH, TW>;
     const int smem = L::bytes(S);
@@ -281,9 +300,9 @@ static int launch_pre(const void* vel, const void* gy, const void* gx, const voi
         }
     }
     const int aligned = W % L::U == 0 && reinterpret_cast<size_t>(vel) % 16 == 0;
-    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
+    const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
     kernel<<<grid, kPreThreads, smem, stream>>>(
-        (const T*)vel, (const float*)gy, (const float*)gx, (const float*)amt, S, cs, dt,
+        (const T*)vel, (const float*)gy, (const float*)gx, (const float*)amt, S, cs, dt, dts,
         (T*)vel_out, (T*)div_out, H, W, aligned);
     return (int)cudaGetLastError();
 }
@@ -291,9 +310,10 @@ static int launch_pre(const void* vel, const void* gy, const void* gx, const voi
 // The compiled tiles (TH, TW), in the order of ops/cuda/stencil.py TILES.
 template <typename T>
 static int launch_pre_tiles(int tiles, const void* vel, const void* gy, const void* gx,
-                            const void* amt, int S, float cs, float dt, void* vel_out,
-                            void* div_out, int H, int W, cudaStream_t s) {
-#define PRE_ARGS vel, gy, gx, amt, S, cs, dt, vel_out, div_out, H, W, s
+                            const void* amt, int S, float cs, float dt, const float* dts,
+                            void* vel_out, void* div_out, int B, int H, int W,
+                            cudaStream_t s) {
+#define PRE_ARGS vel, gy, gx, amt, S, cs, dt, dts, vel_out, div_out, B, H, W, s
     switch (tiles) {
         case 0: return launch_pre<T, 32, 64>(PRE_ARGS);
         case 1: return launch_pre<T, 8, 32>(PRE_ARGS);
@@ -302,43 +322,48 @@ static int launch_pre_tiles(int tiles, const void* vel, const void* gy, const vo
 #undef PRE_ARGS
 }
 
-template <typename T>
+template <typename T, typename I>
 __global__ void gradient_subtract_kernel(const T* __restrict__ vel, const T* __restrict__ p,
                                          T* __restrict__ out, int H, int W) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
     const int i = blockIdx.y * blockDim.y + threadIdx.y;
     if (i >= H || j >= W) return;
-    const float pL = to_f32(p[i * W + max(j - 1, 0)]);
-    const float pR = to_f32(p[i * W + min(j + 1, W - 1)]);
-    const float pB = to_f32(p[max(i - 1, 0) * W + j]);
-    const float pT = to_f32(p[min(i + 1, H - 1) * W + j]);
-    out[i * W + j] = from_f32<T>(to_f32(vel[i * W + j]) - (pR - pL));
-    out[H * W + i * W + j] = from_f32<T>(to_f32(vel[H * W + i * W + j]) - (pT - pB));
+    const I hw = (I)H * W, pb = sim_offset(hw), vb = sim_offset(2 * hw);  // the sim's planes
+    const float pL = to_f32(p[pb + i * W + max(j - 1, 0)]);
+    const float pR = to_f32(p[pb + i * W + min(j + 1, W - 1)]);
+    const float pB = to_f32(p[pb + max(i - 1, 0) * W + j]);
+    const float pT = to_f32(p[pb + min(i + 1, H - 1) * W + j]);
+    out[vb + i * W + j] = from_f32<T>(to_f32(vel[vb + i * W + j]) - (pR - pL));
+    out[vb + hw + i * W + j] = from_f32<T>(to_f32(vel[vb + hw + i * W + j]) - (pT - pB));
 }
 
 extern "C" {
 
-// vel (2, H, W) and the outputs in storage type `dtype`; gy (H, S), gx
-// (S, W), amt (S, 2) float32, or null with S = 0 (no splats). `tiles`: the
-// tile of ops/cuda/stencil.py plan. A launch past the block's shared memory
-// (a very large S) is refused and returns its error.
+// B sims: vel (B, 2, H, W) and the outputs in storage type `dtype`; gy
+// (B, H, S), gx (B, S, W), amt (B, S, 2) float32, or null with S = 0 (no
+// splats); dts a (B, 2) float32 table of (clamped dt, decay), or null for
+// the scalar dt of every sim. `tiles`: the tile of ops/cuda/stencil.py plan.
+// A launch past the block's shared memory (a very large S) is refused and
+// returns its error.
 int fluid_pre_pressure(const void* vel, const void* gy, const void* gx, const void* amt, int S,
-                       float cs, float dt, void* vel_out, void* div_out, int H, int W,
-                       int tiles, int dtype, void* stream) {
-    if (S < 0 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+                       float cs, float dt, const void* dts, void* vel_out, void* div_out, int B,
+                       int H, int W, int tiles, int dtype, void* stream) {
+    if (S < 0 || B < 1 || B > kMaxBatch || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     DISPATCH_STORAGE(dtype, T,
-        return launch_pre_tiles<T>(tiles, vel, gy, gx, amt, S, cs, dt, vel_out, div_out, H, W,
-                                   s));
+        return launch_pre_tiles<T>(tiles, vel, gy, gx, amt, S, cs, dt, (const float*)dts,
+                                   vel_out, div_out, B, H, W, s));
     return (int)cudaErrorInvalidValue;
 }
 
-int fluid_gradient_subtract(const void* vel, const void* p, void* out, int H, int W, int dtype,
-                            void* stream) {
-    DISPATCH_STORAGE(dtype, T,
-        gradient_subtract_kernel<T><<<grid_for(H, W), dim3(kBlockX, kBlockY), 0,
-                                      (cudaStream_t)stream>>>(
-            (const T*)vel, (const T*)p, (T*)out, H, W));
+// B sims: vel and out (B, 2, H, W), p (B, H, W).
+int fluid_gradient_subtract(const void* vel, const void* p, void* out, int B, int H, int W,
+                            int dtype, void* stream) {
+    if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+    DISPATCH_STORAGE(dtype, T, DISPATCH_INDEX(wide_batch(B, 2 * (size_t)H * W), I,
+        gradient_subtract_kernel<T, I><<<grid_for(H, W, B), dim3(kBlockX, kBlockY), 0,
+                                         (cudaStream_t)stream>>>(
+            (const T*)vel, (const T*)p, (T*)out, H, W)));
     return (int)cudaGetLastError();
 }
 

@@ -34,15 +34,22 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def state_from_numpy(velocity, dye, pressure, device="cuda") -> FluidState:
     """FluidState on ``device`` from numpy fields (2, H, W), (3, Hd, Wd),
-    (H, W); the storage dtype follows the arrays' (float32, bfloat16 or
-    float16; anything else is stored as float32)."""
+    (H, W), or a batch of them with a leading B (tpufluid.batch's layout);
+    the storage dtype follows the arrays' (float32, bfloat16 or float16;
+    anything else is stored as float32)."""
     device = resolve_device(device)
-    return FluidState(velocity=_tensor(velocity, device), dye=_tensor(dye, device),
-                      pressure=_tensor(pressure, device))
+    v, d, p = (np.asarray(a) for a in (velocity, dye, pressure))
+    lead = v.shape[:-3]
+    if v.ndim not in (3, 4) or v.shape[-3] != 2 or d.shape[:-3] != lead \
+            or p.shape[:-2] != lead or d.ndim != v.ndim:
+        raise ValueError(f"fields {v.shape}, {d.shape}, {p.shape}: expected (2, H, W), "
+                         "(C, Hd, Wd), (H, W), each with the same leading B or none")
+    return FluidState(velocity=_tensor(v, device), dye=_tensor(d, device),
+                      pressure=_tensor(p, device))
 
 
 def state_to_numpy(state: FluidState) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(velocity, dye, pressure) as float32 numpy arrays (exact for every
-    storage dtype)."""
+    storage dtype), one sim's or a batch's."""
     return tuple(t.detach().to(device="cpu", dtype=torch.float32).numpy()
                  for t in (state.velocity, state.dye, state.pressure))

@@ -13,6 +13,12 @@ does both once per source texel and writes the prepared source: one RGB9E5
 word a texel, or the storage values interleaved and padded to 4; the gather
 then reads 4 prepared corners. A source with neither (the velocity) is
 gathered from its planes directly.
+
+Every launch takes one sim or a batch of B sims: the fields, the factors
+and the prepared source lead with B, and dt is a number for every sim or a
+(B, 2) table of (clamped dt, decay) a sim (build.check_dt), its decay
+column made for the ``dissipation`` passed beside it (step.dt_table). The
+plain versions run a batch sim by sim.
 """
 
 from __future__ import annotations
@@ -20,16 +26,16 @@ from __future__ import annotations
 import torch
 
 from tpufluid_torch.ops import advect as A
-from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, check_factors,
-                                           check_storage, ptr, stream)
+from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, batch_factors, check_dt,
+                                           check_factors, check_storage, per_sim, ptr, stream)
 from tpufluid_torch.ops.quant import rgb9e5_pack, rgb9e5_unpack
 from tpufluid_torch.ops.splat import splat_bump
 
 _REPLACES = "tpufluid/ops/pallas/advect.py:301, tpufluid/ops/pallas/advect_hbm.py:108"
 ADVECT = Kernel("advect", "advect", "fluid_advect",
-                [P, I, I, P, I, P, I, I, I, F, F, I, P], replaces=_REPLACES)
+                [P, I, I, P, I, P, I, I, I, I, F, F, P, I, P], replaces=_REPLACES)
 ADVECT_PREPARE = Kernel("advect_prepare", "advect", "fluid_advect_prepare",
-                        [P, P, I, I, I, P, P, P, I, I, I, P], replaces=_REPLACES)
+                        [P, P, I, I, I, I, P, P, P, I, I, I, P], replaces=_REPLACES)
 
 # Source layouts of the gather (csrc/advect.cu Layout): the (C, H, W) planes,
 # (H, W, 4) storage quads, (H, W) RGB9E5 words.
@@ -37,74 +43,101 @@ PLANES, QUADS, WORDS = 0, 1, 2
 
 
 def _check(velocity: torch.Tensor, source: torch.Tensor, quant):
-    if velocity.ndim != 3 or velocity.shape[0] != 2:
-        raise ValueError(f"velocity must be (2, Hs, Ws), got {tuple(velocity.shape)}")
-    if source.ndim != 3 or not 1 <= source.shape[0] <= 3:
-        raise ValueError(f"source must be (C <= 3, H, W), got {tuple(source.shape)}")
+    """(velocity, source) as batches (B, 2, Hs, Ws), (B, C, H, W), single)."""
+    vel, single = as_batch(velocity, 3)
+    src, _ = as_batch(source, 3)
+    if vel.shape[1] != 2:
+        raise ValueError(f"velocity must be (2, Hs, Ws) or (B, 2, Hs, Ws), got "
+                         f"{tuple(velocity.shape)}")
+    if source.ndim != velocity.ndim or src.shape[0] != vel.shape[0] \
+            or not 1 <= src.shape[1] <= 3:
+        raise ValueError(f"source must be (C <= 3, H, W), or (B, C, H, W) beside a "
+                         f"(B, 2, Hs, Ws) velocity, got {tuple(source.shape)}")
     if quant not in (None, "rgb9e5"):
         raise ValueError(f"unknown quant {quant!r}")
-    if quant and (source.shape[0] != 3 or source.dtype != torch.bfloat16):
+    if quant and (src.shape[1] != 3 or source.dtype != torch.bfloat16):
         raise ValueError("rgb9e5 quantizes 3-channel bfloat16 sources only")
+    return vel, src, single
 
 
 def prepare(source: torch.Tensor, splat_factors=None, quant=None) -> torch.Tensor:
     """The prepared source on the card: (H, W) int32 RGB9E5 words with
-    quant="rgb9e5", else (H, W, 4) storage quads (channels, then zeros)."""
+    quant="rgb9e5", else (H, W, 4) storage quads (channels, then zeros);
+    a batch (B, C, H, W) gives (B, H, W) or (B, H, W, 4)."""
     code = check_storage(source)
-    c, h, w = source.shape
-    gy, gx, amt, s = check_factors(splat_factors, source.device, h, w, c)
-    shape, dtype = ((h, w), torch.int32) if quant else ((h, w, 4), source.dtype)
-    prep = torch.empty(shape, dtype=dtype, device=source.device)
-    ADVECT_PREPARE(ptr(source), ptr(prep), c, h, w, ptr(gy), ptr(gx), ptr(amt), s,
+    src, single = as_batch(source, 3)
+    b, c, h, w = src.shape
+    gy, gx, amt, s = check_factors(batch_factors(splat_factors, single), src.device, b, h, w, c)
+    shape, dtype = ((b, h, w), torch.int32) if quant else ((b, h, w, 4), source.dtype)
+    prep = torch.empty(shape, dtype=dtype, device=src.device)
+    ADVECT_PREPARE(ptr(src), ptr(prep), b, c, h, w, ptr(gy), ptr(gx), ptr(amt), s,
                    1 if quant else 0, code, stream())
-    return prep
+    return prep[0] if single else prep
 
 
-def gather(velocity: torch.Tensor, src: torch.Tensor, layout: int, channels: int, dt: float,
+def gather(velocity: torch.Tensor, src: torch.Tensor, layout: int, channels: int, dt,
            dissipation: float) -> torch.Tensor:
     """The gather on the card from ``src`` in ``layout`` (the source's
     planes, or prepare's quads or words) -> (channels, H, W) in the
-    velocity's storage type."""
+    velocity's storage type; a batch (B, 2, Hs, Ws) velocity and its
+    batch of sources give (B, channels, H, W)."""
+    vel, single = as_batch(velocity, 3)
+    b = vel.shape[0]
     if layout == WORDS:
         code = check_storage(velocity)
-        if src.dtype != torch.int32 or src.ndim != 2 or src.device != velocity.device \
-                or not src.is_contiguous():
-            raise ValueError("RGB9E5 words must be a contiguous (H, W) int32 tensor on "
-                             "the velocity's device")
-        h, w = src.shape
+        if src.dtype != torch.int32 or src.ndim != velocity.ndim - 1 \
+                or src.device != velocity.device or not src.is_contiguous():
+            raise ValueError("RGB9E5 words must be a contiguous (H, W) int32 tensor, or "
+                             "(B, H, W) for a batch, on the velocity's device")
+        h, w = src.shape[-2:]
     else:
         code = check_storage(velocity, src)
-        h, w = src.shape[-2:] if layout == PLANES else src.shape[:2]
-    out = torch.empty((channels, h, w), dtype=velocity.dtype, device=velocity.device)
-    ADVECT(ptr(velocity), velocity.shape[1], velocity.shape[2], ptr(src), layout, ptr(out),
-           channels, h, w, float(dt), float(A.decay_factor(dissipation, dt)), code, stream())
-    return out
+        if src.ndim != velocity.ndim:
+            raise ValueError(f"source {tuple(src.shape)} beside velocity "
+                             f"{tuple(velocity.shape)}")
+        h, w = src.shape[-2:] if layout == PLANES else src.shape[-3:-1]
+    if not single and src.shape[0] != b:
+        raise ValueError(f"a batch of {src.shape[0]} sources beside {b} velocities")
+    dt, dts = check_dt(dt, b, vel.device)
+    # The table carries each sim's decay; a scalar dt's is computed here.
+    decay = float(A.decay_factor(dissipation, dt)) if dts.value is None else 0.0
+    out = torch.empty((b, channels, h, w), dtype=velocity.dtype, device=velocity.device)
+    ADVECT(ptr(vel), vel.shape[2], vel.shape[3], ptr(src), layout, ptr(out), b, channels, h,
+           w, dt, decay, dts, code, stream())
+    return out[0] if single else out
 
 
-def advect(velocity: torch.Tensor, source: torch.Tensor, dt: float,
-           dissipation: float, splat_factors=None, quant=None) -> torch.Tensor:
-    """Advect ``source`` (C, H, W) through ``velocity`` (2, Hs, Ws) on the card."""
-    _check(velocity, source, quant)
+def advect(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float,
+           splat_factors=None, quant=None) -> torch.Tensor:
+    """Advect ``source`` (C, H, W) through ``velocity`` (2, Hs, Ws) on the
+    card, or a batch (B, C, H, W) through (B, 2, Hs, Ws)."""
     check_storage(velocity, source)
+    _check(velocity, source, quant)
     if splat_factors is not None or quant:
         src, layout = prepare(source, splat_factors, quant), WORDS if quant else QUADS
     else:
         src, layout = source, PLANES
-    return gather(velocity, src, layout, source.shape[0], dt, dissipation)
+    return gather(velocity, src, layout, source.shape[-3], dt, dissipation)
 
 
-def advect_plain(velocity: torch.Tensor, source: torch.Tensor, dt: float,
-                 dissipation: float, splat_factors=None, quant=None) -> torch.Tensor:
-    """Plain version of advect, same operations and rounding points."""
-    _check(velocity, source, quant)
+def _advect_sim(velocity, source, dt, dissipation, splat_factors, quant):
     if splat_factors is not None:
         source = (source.to(torch.float32) + splat_bump(*splat_factors)).to(source.dtype)
     return A.advect(velocity, source, dt, dissipation, quant=quant)
 
 
-def prepare_plain(source: torch.Tensor, splat_factors=None, quant=None) -> torch.Tensor:
-    """Plain version of prepare: the bump added in float32 and rounded to
-    storage, then packed to RGB9E5 words or laid out as storage quads."""
+def advect_plain(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float,
+                 splat_factors=None, quant=None) -> torch.Tensor:
+    """Plain version of advect, same operations and rounding points; a
+    batch sim by sim, each with its dt (its decay recomputed from
+    ``dissipation`` as the table's was)."""
+    _, _, single = _check(velocity, source, quant)
+    return per_sim(_advect_sim, not single,
+                   (velocity, source, dt, dissipation, splat_factors, quant),
+                   fields=(0, 1), dt_at=2, factors_at=4)
+
+
+def _prepare_sim(source, splat_factors, quant):
     if splat_factors is not None:
         source = (source.to(torch.float32) + splat_bump(*splat_factors)).to(source.dtype)
     if quant:
@@ -114,14 +147,27 @@ def prepare_plain(source: torch.Tensor, splat_factors=None, quant=None) -> torch
     return torch.cat([source, pad]).permute(1, 2, 0).contiguous()
 
 
-def gather_plain(velocity: torch.Tensor, prepared: torch.Tensor, channels: int, dt: float,
-                 dissipation: float) -> torch.Tensor:
-    """Plain version of the gather from a prepared source: its texels decoded
-    to float32 (exactly, as the kernel's loads do), sampled, rounded once to
-    storage (bf16 for RGB9E5 words)."""
+def prepare_plain(source: torch.Tensor, splat_factors=None, quant=None) -> torch.Tensor:
+    """Plain version of prepare: the bump added in float32 and rounded to
+    storage, then packed to RGB9E5 words or laid out as storage quads; a
+    batch sim by sim."""
+    return per_sim(_prepare_sim, source.ndim == 4, (source, splat_factors, quant),
+                   factors_at=1)
+
+
+def _gather_sim(velocity, prepared, channels, dt, dissipation):
     if prepared.dtype == torch.int32:
         src, out_dtype = rgb9e5_unpack(prepared), torch.bfloat16
     else:
         src = prepared[..., :channels].permute(2, 0, 1).to(torch.float32)
         out_dtype = prepared.dtype
     return A.advect(velocity, src, dt, dissipation).to(out_dtype)
+
+
+def gather_plain(velocity: torch.Tensor, prepared: torch.Tensor, channels: int, dt,
+                 dissipation: float) -> torch.Tensor:
+    """Plain version of the gather from a prepared source: its texels decoded
+    to float32 (exactly, as the kernel's loads do), sampled, rounded once to
+    storage (bf16 for RGB9E5 words); a batch sim by sim."""
+    return per_sim(_gather_sim, velocity.ndim == 4,
+                   (velocity, prepared, channels, dt, dissipation), fields=(0, 1), dt_at=3)

@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -201,14 +201,36 @@ def check_storage(*tensors: torch.Tensor) -> int:
     return STORAGE_CODES[t0.dtype]
 
 
-def check_factors(factors, device, h: int, w: int, channels: int):
-    """(gy, gx, amt, S) of optional splat factors for the kernels: float32,
-    contiguous, on ``device``, shaped (h, S), (S, w), (S, channels)."""
+def as_batch(field: torch.Tensor, sim_ndim: int):
+    """(batch, single): ``field`` with a leading batch axis, and whether it
+    was one sim of ``sim_ndim`` dimensions (then a view with B = 1). Every
+    wrapper takes one sim or a batch of B sims in one launch (a launch
+    refuses B outside 1 to 65535, the grid's z axis)."""
+    if field.ndim == sim_ndim:
+        return field[None], True
+    if field.ndim != sim_ndim + 1:
+        raise ValueError(f"expected a field of {sim_ndim} dimensions or a batch of them, "
+                         f"got {tuple(field.shape)}")
+    return field, False
+
+
+def batch_factors(factors, single: bool):
+    """Splat factors of one sim, (h, S), (S, w), (S, C), as a batch of one;
+    a batch's (B, h, S), (B, S, w), (B, S, C) as they are."""
+    if factors is None or not single:
+        return factors
+    return tuple(t[None] for t in factors)
+
+
+def check_factors(factors, device, batch: int, h: int, w: int, channels: int):
+    """(gy, gx, amt, S) of optional splat factors of a batch for the
+    kernels: float32, contiguous, on ``device``, shaped (batch, h, S),
+    (batch, S, w), (batch, S, channels)."""
     if factors is None:
         return None, None, None, 0
     gy, gx, amt = factors
-    s = gy.shape[1]
-    for t, shape in ((gy, (h, s)), (gx, (s, w)), (amt, (s, channels))):
+    s = gy.shape[-1]
+    for t, shape in ((gy, (batch, h, s)), (gx, (batch, s, w)), (amt, (batch, s, channels))):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"splat factor {tuple(t.shape)} {t.dtype}, "
                              f"expected {shape} float32")
@@ -216,3 +238,44 @@ def check_factors(factors, device, h: int, w: int, channels: int):
             raise ValueError("splat factors must be contiguous and on the "
                              "field's device")
     return gy, gx, amt, s
+
+
+def check_dt(dt, batch: int, device) -> Tuple[float, ctypes.c_void_p]:
+    """(scalar dt, table pointer) of a batched launch's dt, in one of two
+    forms: a number, every sim's clamped dt (lock-step: what a single-sim
+    step passes; the pointer is null), or a (batch, 2) float32 table of
+    (clamped dt, decay) a sim, contiguous on ``device``, that step.dt_table
+    computed on the host and copied once (the scalar is then unused).
+    Raises on any other tensor: the kernel never reads one."""
+    if not isinstance(dt, torch.Tensor):
+        return float(dt), ptr(None)
+    if dt.dtype != torch.float32 or tuple(dt.shape) != (batch, 2):
+        raise ValueError(f"dt table {tuple(dt.shape)} {dt.dtype}, expected "
+                         f"({batch}, 2) float32")
+    if dt.device != device or not dt.is_contiguous():
+        raise ValueError(f"dt table must be contiguous and on {device}, got "
+                         f"{dt.device}")
+    return 0.0, ptr(dt)
+
+
+def per_sim(plain, batched: bool, args, fields=(0,), dt_at=None, factors_at=None):
+    """A plain version over a batch: ``plain(*args)`` sim by sim, with sim
+    b's slice of each field (args[i] for i in ``fields``), of its splat
+    factors (args[factors_at]) and its dt (args[dt_at], a number or a
+    (B, 2) table), the results stacked. One sim (``batched`` false) is one
+    call as it is."""
+    if not batched:
+        return plain(*args)
+    outs = []
+    for b in range(args[fields[0]].shape[0]):
+        a = list(args)
+        for i in fields:
+            a[i] = args[i][b]
+        if dt_at is not None and isinstance(args[dt_at], torch.Tensor):
+            a[dt_at] = float(args[dt_at][b, 0])     # the table's clamped dt
+        if factors_at is not None and args[factors_at] is not None:
+            a[factors_at] = tuple(t[b] for t in args[factors_at])
+        outs.append(plain(*a))
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)

@@ -3,7 +3,9 @@
 ``step_cases`` takes a state and a splat batch and lays out every kernel
 call one step makes, in order, each with the inputs the step would give it
 (computed by the plain versions, so the kernel and its plain version see the
-very same tensors); ``render_cases`` does the same for one frame, and
+very same tensors), for one sim or for a batch of B sims in one launch each
+(``batched_step_cases`` on ``random_batch``, in both forms of dt);
+``render_cases`` does the same for one frame, and
 ``floors_cases`` for the three microbenchmark kernels on their own inputs
 (``random_floors_cases`` on random ones). The kernel tests and
 chip_smoke.py compare and time these cases on the card.
@@ -20,11 +22,12 @@ for bfloat16 (8 significant bits), 2^-10 for float16.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tpufluid_torch.batch import step_dt
 from tpufluid_torch.config import FluidConfig
 from tpufluid_torch.ops import floors as _floors
 from tpufluid_torch.ops.cuda import advect as _advect
@@ -86,10 +89,25 @@ _KNEE = 12 + _DIV
 _PRE_PRESSURE = 2 + 4 + (4 + 4 + 3 + _SQRT + 1 + _DIV + 5 + 8) + 4
 
 
+def _step_dts(dt, batch: Optional[int], config: FluidConfig, device):
+    """(velocity's dt, dye's dt) of a step's kernel calls, as the step
+    makes them: the clamped number for one sim or a lock-step batch; for a
+    batch and a (B,) ``dt``, the two (B, 2) tables of batch.step_dt."""
+    if batch is None or np.ndim(dt) == 0:
+        return clamp_dt(dt), clamp_dt(dt)
+    table = step_dt(dt, batch, config, device)
+    return table[0], table[1]
+
+
 def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
-               dt: float = 1.0 / 60.0) -> List[Case]:
-    """Every kernel call of one step from ``state``, in the step's order."""
-    dt = clamp_dt(dt)
+               dt=1.0 / 60.0, tag: str = "") -> List[Case]:
+    """Every kernel call of one step from ``state``, in the step's order:
+    one sim, or a batch of B sims (fields with a leading B, ``splats``
+    (B, S, 8), ``dt`` a number or (B,) per sim), one launch each. ``tag``
+    is added to each label."""
+    batch = state.velocity.shape[0] if state.velocity.ndim == 4 else None
+    n_sims = batch or 1
+    vel_dt, dye_dt = _step_dts(dt, batch, config, state.velocity.device)
     dtype = state.velocity.dtype
     quant = "rgb9e5" if config.DYE_RGB9E5 and dtype == torch.bfloat16 else None
     radius, aspect = config.splat_radius_uv(), config.aspect_ratio
@@ -97,52 +115,95 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
     splats = splats.to(device=state.velocity.device, dtype=torch.float32)
     vf = splat_factors(splats, vh, vw, radius, aspect, slice(SPLAT_DX, SPLAT_DY + 1))
     df = splat_factors(splats, dh, dw, radius, aspect, slice(SPLAT_R, SPLAT_B + 1))
-    n_active = int((splats[:, 7] != 0).sum())
+    n_active = int((splats[..., 7] != 0).sum())   # over every sim
     sim, dye = vh * vw, dh * dw
     iters = config.PRESSURE_ITERATIONS
 
-    vel1, div = _stencil.pre_pressure_plain(state.velocity, config.CURL, dt, vf)
+    vel1, div = _stencil.pre_pressure_plain(state.velocity, config.CURL, vel_dt, vf)
     pressure = _jacobi.jacobi_plain(state.pressure, div, iters, config.PRESSURE)
     vel2 = _stencil.gradient_subtract_plain(vel1, pressure)
-    vel3 = _advect.advect_plain(vel2, vel2, dt, config.VELOCITY_DISSIPATION)
-    dye_out = _advect.advect_plain(vel3, state.dye, dt, config.DENSITY_DISSIPATION, df, quant)
+    vel3 = _advect.advect_plain(vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION)
+    dye_out = _advect.advect_plain(vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df,
+                                   quant)
     return [
-        Case("pre_pressure", "pre_pressure", _stencil.pre_pressure,
-             _stencil.pre_pressure_plain, (state.velocity, config.CURL, dt, vf),
-             _bytes(state.velocity, *vf, vel1, div), sim * (2 * 2 * n_active + _PRE_PRESSURE)),
-        Case("jacobi", "jacobi_chunk", _jacobi.jacobi_pressure, _jacobi.jacobi_plain,
+        Case("pre_pressure" + tag, "pre_pressure", _stencil.pre_pressure,
+             _stencil.pre_pressure_plain, (state.velocity, config.CURL, vel_dt, vf),
+             _bytes(state.velocity, *vf, vel1, div),
+             sim * (2 * 2 * n_active + n_sims * _PRE_PRESSURE)),
+        Case("jacobi" + tag, "jacobi_chunk", _jacobi.jacobi_pressure, _jacobi.jacobi_plain,
              (state.pressure, div, iters, config.PRESSURE),
-             _bytes(state.pressure, div, pressure), sim * 6 * iters),
-        Case("gradient_subtract", "gradient_subtract", _stencil.gradient_subtract,
+             _bytes(state.pressure, div, pressure), n_sims * sim * 6 * iters),
+        Case("gradient_subtract" + tag, "gradient_subtract", _stencil.gradient_subtract,
              _stencil.gradient_subtract_plain, (vel1, pressure),
-             _bytes(vel1, pressure, vel2), sim * 4),
-        Case("advect:velocity", "advect", _advect.advect, _advect.advect_plain,
-             (vel2, vel2, dt, config.VELOCITY_DISSIPATION), _bytes(vel2, vel3),
-             sim * (20 + 2 * 8)),
+             _bytes(vel1, pressure, vel2), n_sims * sim * 4),
+        Case("advect:velocity" + tag, "advect", _advect.advect, _advect.advect_plain,
+             (vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION), _bytes(vel2, vel3),
+             n_sims * sim * (20 + 2 * 8)),
         # The whole function, prepare and gather: the function's bytes.
-        Case("advect:dye", "advect", _advect.advect, _advect.advect_plain,
-             (vel3, state.dye, dt, config.DENSITY_DISSIPATION, df, quant),
+        Case("advect:dye" + tag, "advect", _advect.advect, _advect.advect_plain,
+             (vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df, quant),
              _bytes(vel3, state.dye, *df, dye_out),
-             dye * (34 + 3 * (8 + 2 * n_active) + (40 if quant else 0))),
+             dye * (n_sims * (34 + 3 * 8 + (40 if quant else 0)) + 3 * 2 * n_active)),
     ]
 
 
-def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig) -> List[Case]:
+def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
+               tag: str = "") -> List[Case]:
     """The kernels that run inside one of step_cases' calls, each alone
     against its own plain version: the dye's advect_prepare (inside
-    "advect:dye"), on the step's dye and splat factors. Its bytes are its
-    own: the dye and the factors read, the prepared source written."""
+    "advect:dye"), on the step's dye and splat factors, of one sim or a
+    batch. Its bytes are its own: the dye and the factors read, the
+    prepared source written."""
     dtype = state.dye.dtype
     quant = "rgb9e5" if config.DYE_RGB9E5 and dtype == torch.bfloat16 else None
     dh, dw = state.dye.shape[-2:]
+    n_sims = state.dye.shape[0] if state.dye.ndim == 4 else 1
     splats = splats.to(device=state.dye.device, dtype=torch.float32)
     df = splat_factors(splats, dh, dw, config.splat_radius_uv(), config.aspect_ratio,
                        slice(SPLAT_R, SPLAT_B + 1))
-    n_active = int((splats[:, 7] != 0).sum())
+    n_active = int((splats[..., 7] != 0).sum())
     prepared = _advect.prepare_plain(state.dye, df, quant)
-    return [Case("advect:prepare", "advect_prepare", _advect.prepare, _advect.prepare_plain,
-                 (state.dye, df, quant), _bytes(state.dye, *df, prepared),
-                 dh * dw * (3 * (3 * n_active + 1) + (40 if quant else 0)))]
+    return [Case("advect:prepare" + tag, "advect_prepare", _advect.prepare,
+                 _advect.prepare_plain, (state.dye, df, quant), _bytes(state.dye, *df, prepared),
+                 dh * dw * (3 * (3 * n_active + n_sims) + n_sims * (40 if quant else 0)))]
+
+
+def random_batch(config: FluidConfig, batch: int, seed: int,
+                 device) -> Tuple[FluidState, torch.Tensor]:
+    """A batched state (B leading) and (B, S, 8) splats: sim b is
+    random_state(seed + b), with its own number of active splat rows: none
+    in sim 0, all MAX_SPLATS in sim 1 (where B > 1), 3 b mod (S + 1) in the
+    others, so that the kernels' per-sim lists of active rows differ."""
+    states, rows = [], []
+    n_rows = config.MAX_SPLATS
+    for b in range(batch):
+        state, splats = random_state(config, seed + b, device)
+        n_on = 0 if b == 0 else n_rows if b == 1 else (3 * b) % (n_rows + 1)
+        splats[:, 7] = (torch.arange(n_rows, device=splats.device) < n_on).float()
+        states.append(state)
+        rows.append(splats)
+    fields = (torch.stack([getattr(s, f) for s in states])
+              for f in ("velocity", "dye", "pressure"))
+    return FluidState(*fields), torch.stack(rows)
+
+
+def per_sim_dts(batch: int) -> np.ndarray:
+    """Per-sim dts of a batch, from 1/90 to 1/60 (bench.py's batched config 7)."""
+    return np.linspace(1.0 / 90.0, 1.0 / 60.0, batch).astype(np.float32)
+
+
+def batched_step_cases(config: FluidConfig, batch: int, seed: int, device) -> List[Case]:
+    """Every kernel call of one batched step, the dye's advect_prepare
+    alone too, on random_batch(config, batch, seed), in both forms of dt:
+    lock-step 1/60 (labels ":lockstep") and per sim (per_sim_dts, ":per-sim"),
+    each call one launch for the B sims."""
+    state, splats = random_batch(config, batch, seed, device)
+    cases: List[Case] = []
+    for form, dt in ((":lockstep", 1.0 / 60.0), (":per-sim", per_sim_dts(batch))):
+        tag = f":b{batch}{form}"
+        cases += step_cases(state, splats, config, dt, tag) + part_cases(state, splats, config,
+                                                                         tag)
+    return cases
 
 
 def _blur4_flops(out_hw, prefilter_texels: int) -> int:

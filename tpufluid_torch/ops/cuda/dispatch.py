@@ -5,6 +5,11 @@ failed build or launch) raises.
 
 Counterpart of tpufluid/ops/pallas/dispatch.py:152-284, 287-363, without its
 TPU padding and tiling policy: the kernels read global memory at any shape.
+
+The step's passes take one sim or a batch of B sims (every field with a
+leading B, dt a number or a (B, 2) table a sim): a CUDA batch goes to the
+kernels, B sims in each launch; a CPU batch to the plain versions, sim by
+sim. The frame's kernels take one sim.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ def _routed(kernel, plain):
 
 
 class Passes:
-    """The four passes of one step through one implementation."""
+    """The four passes of one step, of one sim or a batch, through one
+    implementation."""
 
     def __init__(self, pre_pressure, jacobi_pressure, gradient_subtract, advect):
         self.pre_pressure = pre_pressure

@@ -21,6 +21,7 @@ import re
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpufluid_torch.ops import floors as plain
@@ -325,33 +326,79 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
     return kernel_times, other_info
 
 
+# The profiled window's edges: torch.cuda._sleep's kernel, launched on the
+# step's stream just before the first profiled step and just after the last.
+MARKER = "spin_kernel"
+EDGE_STEPS = 3      # steps traced before and after the window, not counted
+
+
+def window_events(events: Iterable[Tuple[str, bool, float, float]]) -> list:
+    """The events ``(name, on_device, start_us, duration_us)`` of a profiled
+    window: the device events that ran between the two MARKER kernels (one
+    stream runs in launch order, so these are the window's launches and no
+    other), and the host events that started between the markers' launches
+    (``profiled window`` record_function range). The profiler can miss
+    device activity near the edges of its trace (once on the H100 at 4096^2:
+    9 of 210 kernel events of a step profile traced from its first launch);
+    the traced steps around the markers keep the window clear of the edges.
+    Raises unless both markers and the range were recorded."""
+    events = list(events)
+    marks = sorted(e[2] for e in events if e[1] and MARKER in e[0])
+    span = [e for e in events if not e[1] and e[0] == "profiled window"]
+    if len(marks) != 2 or len(span) != 1:
+        raise RuntimeError(f"profiled window not found: {len(marks)} marker kernels, "
+                           f"{len(span)} window ranges")
+    lo, hi = span[0][2], span[0][2] + span[0][3]
+    return [e for e in events
+            if (e[1] and marks[0] < e[2] < marks[1] and MARKER not in e[0])
+            or (not e[1] and lo <= e[2] <= hi and e[0] != "profiled window")]
+
+
 def profile_step_kernels(config, state, dt, steps: int = 30, top_other: int = 6) -> tuple:
     """(kernel_times, other) of ``steps`` calls of the real make_step on the
     card from ``state``, after one warm-up step, under torch.profiler (CPU
     and CUDA activities): each kernel's own device time from its events'
-    durations (see attribute_device_events). The caller's state is not
+    durations (see attribute_device_events), over the window between two
+    marker kernels with EDGE_STEPS traced steps on either side
+    (window_events). A batched state (fields with a leading B) runs
+    make_batched_step, each sim its own trace, ``dt`` a number or (B,) per
+    sim; the times are then a batched step's. The caller's state is not
     modified. Raises without a CUDA GPU or a CUDA state, and if the
     profiler records no kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tpufluid_torch.batch import make_batched_step
 
     device = _require_cuda()
     if not state.velocity.is_cuda:
         raise ValueError(f"state on {state.velocity.device}, the profile runs on the GPU")
-    step = make_step(config, device=device)
-    trace = swirl_trace(config, steps, seed=1)
-    batches = torch.as_tensor(trace.batches, dtype=torch.float32, device=device)
+    if state.velocity.ndim == 4:
+        step = make_batched_step(config, device=device)
+        batches = np.stack([swirl_trace(config, steps, seed=1 + i).batches
+                            for i in range(state.velocity.shape[0])], axis=1)
+    else:
+        step = make_step(config, device=device)
+        batches = swirl_trace(config, steps, seed=1).batches
+    batches = torch.as_tensor(batches, dtype=torch.float32, device=device)
     s = step(state, dt, batches[0])
     torch.cuda.synchronize()
-    before = {k: v.launches for k, v in build.KERNELS.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for t in range(steps):
-            s = step(s, dt, batches[t])
+        for t in range(EDGE_STEPS):
+            s = step(s, dt, batches[t % steps])
+        with record_function("profiled window"):
+            torch.cuda._sleep(1)
+            before = {k: v.launches for k, v in build.KERNELS.items()}
+            for t in range(steps):
+                s = step(s, dt, batches[t])
+            launched = {k: v.launches - before[k] for k, v in build.KERNELS.items()}
+            torch.cuda._sleep(1)
+        for t in range(EDGE_STEPS):
+            s = step(s, dt, batches[t % steps])
         torch.cuda.synchronize()
-    launched = {k: v.launches - before[k] for k, v in build.KERNELS.items()}
     events = [(e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
                e.time_range.elapsed_us()) for e in prof.events()]
-    return attribute_device_events(events, launched, steps, top_other)
+    return attribute_device_events(window_events(events), launched, steps, top_other)
 
 
 def frame_breakdown(events: Iterable[Tuple[str, bool, float, float]],

@@ -8,7 +8,8 @@ count and cuts a solve of N sweeps into launches. The warm start
 (p *= PRESSURE) is applied at the first launch's load and not rounded on its
 own; between launches the field goes through float32 scratch and only the
 last launch rounds to storage, so the result equals ``jacobi_plain`` bit for
-bit however the sweeps are cut.
+bit however the sweeps are cut. A launch takes one (H, W) field or a batch
+(B, H, W) of B independent sims; the plain versions run a batch sim by sim.
 """
 
 from __future__ import annotations
@@ -19,11 +20,11 @@ from typing import List, Sequence, Tuple
 import torch
 
 from tpufluid_torch.ops import stencil as S
-from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, check_storage, ptr, sm_count,
-                                           stream)
+from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, check_storage, per_sim,
+                                           ptr, sm_count, stream)
 
 JACOBI_CHUNK = Kernel("jacobi_chunk", "jacobi", "fluid_jacobi_chunk",
-                      [P, I, P, P, I, F, I, I, I, I, I, P],
+                      [P, I, P, P, I, F, I, I, I, I, I, I, P],
                       replaces="tpufluid/ops/pallas/jacobi.py:139")
 
 
@@ -66,16 +67,17 @@ def chunks(iterations: int, sweeps: int) -> List[int]:
     return [sweeps] * full + ([rest] if rest else [])
 
 
-def tiles_for(h: int, w: int, sms: int) -> int:
-    """The geometry of an (h, w) grid on a GPU of ``sms`` SMs: the LARGE
-    tiles where they give at least one block per SM, else the SMALL ones."""
-    return LARGE if TILES[LARGE].blocks(h, w, SWEEPS) >= sms else SMALL
+def tiles_for(h: int, w: int, sms: int, batch: int = 1) -> int:
+    """The geometry of a batch of ``batch`` (h, w) grids on a GPU of ``sms``
+    SMs: the LARGE tiles where their blocks, batch x blocks a grid, give at
+    least one block per SM, else the SMALL ones (both exact)."""
+    return LARGE if batch * TILES[LARGE].blocks(h, w, SWEEPS) >= sms else SMALL
 
 
-def plan(h: int, w: int, iterations: int, sms: int) -> Tuple[int, List[int]]:
-    """(tiles, sweeps of each launch) of a solve on an (h, w) grid on a GPU
-    of ``sms`` SMs: SWEEPS sweeps a launch, the last shorter."""
-    return tiles_for(h, w, sms), chunks(iterations, SWEEPS)
+def plan(h: int, w: int, iterations: int, sms: int, batch: int = 1) -> Tuple[int, List[int]]:
+    """(tiles, sweeps of each launch) of a solve on a batch of (h, w) grids
+    on a GPU of ``sms`` SMs: SWEEPS sweeps a launch, the last shorter."""
+    return tiles_for(h, w, sms, batch), chunks(iterations, SWEEPS)
 
 
 def design_cell_sweeps(h: int, w: int, iterations: int, sms: int) -> int:
@@ -96,56 +98,75 @@ def _warm_start_only(pressure: torch.Tensor, prescale: float) -> torch.Tensor:
     return (pressure.to(torch.float32) * prescale).to(pressure.dtype)
 
 
+def _check_fields(pressure: torch.Tensor, div: torch.Tensor):
+    """(batch view (B, H, W) of the pressure, of the divergence, single)."""
+    if pressure.shape != div.shape:
+        raise ValueError(f"pressure {tuple(pressure.shape)} / div {tuple(div.shape)}")
+    p, single = as_batch(pressure, 2)
+    return p, as_batch(div, 2)[0], single
+
+
 def run_chunks(pressure: torch.Tensor, div: torch.Tensor, prescale: float,
                cut: Sequence[int]) -> torch.Tensor:
     """Launch jacobi_chunk once per entry of ``cut`` (sweeps of that launch)
     on the tiles ``tiles_for`` picks, ping-ponging float32 scratch between the
-    stored input and the stored result."""
-    if pressure.ndim != 2 or pressure.shape != div.shape:
-        raise ValueError(f"pressure {tuple(pressure.shape)} / div {tuple(div.shape)}")
-    code = check_storage(pressure, div)
-    h, w = pressure.shape
-    tiles = tiles_for(h, w, sm_count(pressure.device))
+    stored input and the stored result; one sim or a batch each launch."""
+    p, d, single = _check_fields(pressure, div)
+    code = check_storage(p, d)
+    b, h, w = p.shape
+    tiles = tiles_for(h, w, sm_count(p.device), b)
     check_cut(tiles, cut)
-    out = torch.empty_like(pressure)
-    bufs = [torch.empty((h, w), dtype=torch.float32, device=pressure.device)
+    out = torch.empty_like(p)
+    bufs = [torch.empty((b, h, w), dtype=torch.float32, device=p.device)
             for _ in range(min(len(cut) - 1, 2))]
-    src, src_f32, scale = pressure, 0, float(prescale)
+    src, src_f32, scale = p, 0, float(prescale)
     for n, k in enumerate(cut):
         last = n == len(cut) - 1
         dst = out if last else bufs[n % 2]
-        JACOBI_CHUNK(ptr(src), src_f32, ptr(div), ptr(dst), 0 if last else 1, scale, h, w,
+        JACOBI_CHUNK(ptr(src), src_f32, ptr(d), ptr(dst), 0 if last else 1, scale, b, h, w,
                      k, tiles, code, stream())
         src, src_f32, scale = dst, 1, 1.0
-    return out
+    return out[0] if single else out
 
 
 def jacobi_pressure(pressure: torch.Tensor, div: torch.Tensor, iterations: int,
                     prescale: float = 1.0) -> torch.Tensor:
-    """``iterations`` sweeps on the card, SWEEPS a launch (``plan``)."""
-    if pressure.ndim != 2 or pressure.shape != div.shape:
-        raise ValueError(f"pressure {tuple(pressure.shape)} / div {tuple(div.shape)}")
+    """``iterations`` sweeps on the card, SWEEPS a launch (``plan``), of one
+    sim or a batch."""
+    _check_fields(pressure, div)
     check_storage(pressure, div)
     if iterations == 0:
         return _warm_start_only(pressure, prescale)
     return run_chunks(pressure, div, prescale, chunks(iterations, SWEEPS))
 
 
-def jacobi_plain(pressure: torch.Tensor, div: torch.Tensor, iterations: int,
-                 prescale: float = 1.0) -> torch.Tensor:
-    """Plain version of jacobi_pressure, same operations and rounding."""
+def _jacobi_sim(pressure, div, iterations, prescale):
     if iterations == 0:
         return _warm_start_only(pressure, prescale)
     p = pressure.to(torch.float32) * prescale
     return S.jacobi_pressure(p, div.to(torch.float32), iterations).to(pressure.dtype)
 
 
-def jacobi_chunks_plain(pressure: torch.Tensor, div: torch.Tensor, cut: Sequence[int],
-                        prescale: float = 1.0) -> torch.Tensor:
-    """Plain version of run_chunks: the sweeps of each launch on float32
-    scratch, the warm start at the first load, one rounding at the end."""
+def jacobi_plain(pressure: torch.Tensor, div: torch.Tensor, iterations: int,
+                 prescale: float = 1.0) -> torch.Tensor:
+    """Plain version of jacobi_pressure, same operations and rounding; a
+    batch sim by sim."""
+    return per_sim(_jacobi_sim, pressure.ndim == 3, (pressure, div, iterations, prescale),
+                   fields=(0, 1))
+
+
+def _jacobi_chunks_sim(pressure, div, cut, prescale):
     p = pressure.to(torch.float32) * prescale
     d = div.to(torch.float32)
     for k in cut:
         p = S.jacobi_pressure(p, d, k)
     return p.to(pressure.dtype)
+
+
+def jacobi_chunks_plain(pressure: torch.Tensor, div: torch.Tensor, cut: Sequence[int],
+                        prescale: float = 1.0) -> torch.Tensor:
+    """Plain version of run_chunks: the sweeps of each launch on float32
+    scratch, the warm start at the first load, one rounding at the end; a
+    batch sim by sim."""
+    return per_sim(_jacobi_chunks_sim, pressure.ndim == 3, (pressure, div, cut, prescale),
+                   fields=(0, 1))

@@ -9,6 +9,11 @@ rounds to storage before the curl reads it; the velocity and the divergence
 round once, at the output, the divergence computed from the unrounded
 float32 velocity. gradient_subtract (tpufluid/ops/pallas/stencil.py:218)
 rounds its output only.
+
+Both take one sim or a batch of B sims in one launch (the grid's z axis):
+a batch's fields and factors lead with B, and dt is a number for every sim
+or a (B, 2) table of (clamped dt, decay) a sim (build.check_dt). The plain
+versions run a batch sim by sim, each with its own dt and factors.
 """
 
 from __future__ import annotations
@@ -18,15 +23,16 @@ import dataclasses
 import torch
 
 from tpufluid_torch.ops import stencil as S
-from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, check_factors, check_storage,
+from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, batch_factors,
+                                           check_dt, check_factors, check_storage, per_sim,
                                            ptr, sm_count, stream)
 from tpufluid_torch.ops.splat import splat_bump
 
 PRE_PRESSURE = Kernel("pre_pressure", "stencil", "fluid_pre_pressure",
-                      [P, P, P, P, I, F, F, P, P, I, I, I, I, P],
+                      [P, P, P, P, I, F, F, P, P, P, I, I, I, I, I, P],
                       replaces="tpufluid/ops/pallas/stencil.py:98")
 GRADIENT_SUBTRACT = Kernel("gradient_subtract", "stencil", "fluid_gradient_subtract",
-                           [P, P, P, I, I, I, P],
+                           [P, P, P, I, I, I, I, P],
                            replaces="tpufluid/ops/pallas/stencil.py:218")
 
 HALO = 3          # stencil layers between the bumped velocity and the divergence
@@ -57,47 +63,55 @@ TILES = (Tile(32, 64), Tile(8, 32))
 LARGE, SMALL = 0, 1
 
 
-def plan(h: int, w: int, sms: int) -> int:
-    """The tile of an (h, w) grid on a GPU of ``sms`` SMs: LARGE where it
-    gives every SM a block, else SMALL."""
-    return LARGE if TILES[LARGE].blocks(h, w) >= sms else SMALL
+def plan(h: int, w: int, sms: int, batch: int = 1) -> int:
+    """The tile of a batch of ``batch`` (h, w) grids on a GPU of ``sms``
+    SMs: LARGE where its blocks, batch x blocks a grid, give every SM one,
+    else SMALL. Both tiles are exact, so a sim's result does not depend on
+    the tile its batch gets."""
+    return LARGE if batch * TILES[LARGE].blocks(h, w) >= sms else SMALL
 
 
 def _check_velocity(velocity: torch.Tensor):
-    if velocity.ndim != 3 or velocity.shape[0] != 2:
-        raise ValueError(f"velocity must be (2, H, W), got {tuple(velocity.shape)}")
-    return velocity.shape[1], velocity.shape[2]
+    """(batch view (B, 2, H, W), single) of one sim's or a batch's velocity."""
+    vel, single = as_batch(velocity, 3)
+    if vel.shape[1] != 2:
+        raise ValueError(f"velocity must be (2, H, W) or (B, 2, H, W), got "
+                         f"{tuple(velocity.shape)}")
+    return vel, single
 
 
-def run_tiles(velocity: torch.Tensor, curl_strength: float, dt: float, splat_factors,
-              tiles: int):
+def run_tiles(velocity: torch.Tensor, curl_strength: float, dt, splat_factors, tiles: int):
     """(vel', divergence), both in storage, from one launch of pre_pressure
-    on TILES[tiles]."""
-    h, w = _check_velocity(velocity)
+    on TILES[tiles], for one sim or a batch."""
     code = check_storage(velocity)
+    vel, single = _check_velocity(velocity)
+    b, _, h, w = vel.shape
     if not 0 <= tiles < len(TILES):
         raise ValueError(f"no tile {tiles}: TILES has {len(TILES)}")
-    gy, gx, amt, s = check_factors(splat_factors, velocity.device, h, w, 2)
-    out = torch.empty_like(velocity)
-    div = torch.empty((h, w), dtype=velocity.dtype, device=velocity.device)
-    PRE_PRESSURE(ptr(velocity), ptr(gy), ptr(gx), ptr(amt), s, float(curl_strength), float(dt),
-                 ptr(out), ptr(div), h, w, tiles, code, stream())
-    return out, div
+    gy, gx, amt, s = check_factors(batch_factors(splat_factors, single), vel.device, b, h, w, 2)
+    dt, dts = check_dt(dt, b, vel.device)
+    out = torch.empty_like(vel)
+    div = torch.empty((b, h, w), dtype=vel.dtype, device=vel.device)
+    PRE_PRESSURE(ptr(vel), ptr(gy), ptr(gx), ptr(amt), s, float(curl_strength), dt, dts,
+                 ptr(out), ptr(div), b, h, w, tiles, code, stream())
+    return (out[0], div[0]) if single else (out, div)
 
 
-def pre_pressure(velocity: torch.Tensor, curl_strength: float, dt: float,
-                 splat_factors=None):
-    """(vel', divergence) on the card: one launch on the tile ``plan`` picks."""
-    h, w = _check_velocity(velocity)
+def pre_pressure(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None):
+    """(vel', divergence) on the card, of one sim or a batch: one launch on
+    the tile ``plan`` picks."""
     check_storage(velocity)
+    vel, _ = _check_velocity(velocity)
+    b, _, h, w = vel.shape
     return run_tiles(velocity, curl_strength, dt, splat_factors,
-                     plan(h, w, sm_count(velocity.device)))
+                     plan(h, w, sm_count(vel.device), b))
 
 
 def splat_curl_plain(velocity: torch.Tensor, splat_factors=None):
     """(bumped velocity in storage, float32 curl): the first half of
-    pre_pressure_plain."""
-    _check_velocity(velocity)
+    pre_pressure_plain (one sim)."""
+    if velocity.ndim != 3 or velocity.shape[0] != 2:
+        raise ValueError(f"velocity must be (2, H, W), got {tuple(velocity.shape)}")
     vel = velocity
     if splat_factors is not None:
         vel = (velocity.to(torch.float32) + splat_bump(*splat_factors)).to(velocity.dtype)
@@ -113,25 +127,39 @@ def confine_divergence_plain(velocity: torch.Tensor, curl: torch.Tensor,
     return conf.to(velocity.dtype), S.divergence(conf).to(velocity.dtype)
 
 
-def pre_pressure_plain(velocity: torch.Tensor, curl_strength: float, dt: float,
-                       splat_factors=None):
-    """Plain version of pre_pressure, same operations and rounding points."""
+def _pre_pressure_sim(velocity, curl_strength, dt, splat_factors):
     vel_b, curl = splat_curl_plain(velocity, splat_factors)
     return confine_divergence_plain(vel_b, curl, curl_strength, dt)
 
 
+def pre_pressure_plain(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None):
+    """Plain version of pre_pressure, same operations and rounding points;
+    a batch sim by sim."""
+    return per_sim(_pre_pressure_sim, velocity.ndim == 4,
+                   (velocity, curl_strength, dt, splat_factors), fields=(0,), dt_at=2,
+                   factors_at=3)
+
+
 def gradient_subtract(velocity: torch.Tensor, pressure: torch.Tensor) -> torch.Tensor:
-    """vel - (R - L, T - B) of pressure, on the card."""
-    h, w = _check_velocity(velocity)
-    if tuple(pressure.shape) != (h, w):
-        raise ValueError(f"pressure {tuple(pressure.shape)} != grid {(h, w)}")
+    """vel - (R - L, T - B) of pressure, on the card, of one sim or a batch."""
     code = check_storage(velocity, pressure)
-    out = torch.empty_like(velocity)
-    GRADIENT_SUBTRACT(ptr(velocity), ptr(pressure), ptr(out), h, w, code, stream())
-    return out
+    vel, single = _check_velocity(velocity)
+    b, _, h, w = vel.shape
+    if tuple(pressure.shape) != tuple(velocity.shape[:-3]) + (h, w):
+        raise ValueError(f"pressure {tuple(pressure.shape)} != grid "
+                         f"{tuple(velocity.shape[:-3]) + (h, w)}")
+    out = torch.empty_like(vel)
+    GRADIENT_SUBTRACT(ptr(vel), ptr(pressure), ptr(out), b, h, w, code, stream())
+    return out[0] if single else out
+
+
+def _gradient_subtract_sim(velocity, pressure):
+    return S.gradient_subtract(velocity.to(torch.float32),
+                               pressure.to(torch.float32)).to(velocity.dtype)
 
 
 def gradient_subtract_plain(velocity: torch.Tensor, pressure: torch.Tensor) -> torch.Tensor:
-    """Plain version of gradient_subtract: float32 math, rounded once."""
-    return S.gradient_subtract(velocity.to(torch.float32),
-                               pressure.to(torch.float32)).to(velocity.dtype)
+    """Plain version of gradient_subtract: float32 math, rounded once; a
+    batch sim by sim."""
+    return per_sim(_gradient_subtract_sim, velocity.ndim == 4, (velocity, pressure),
+                   fields=(0, 1))

@@ -25,12 +25,13 @@ SPLAT_COLS = 8
 
 
 def _gaussians(splats: torch.Tensor, h: int, w: int, radius: float, aspect: float):
-    """(gy (S, H), gx (S, W)): the two 1-D gaussians of every splat row."""
+    """(gy (..., S, H), gx (..., S, W)): the two 1-D gaussians of every
+    splat row of an (..., S, 8) batch."""
     dev = splats.device
     u = true_div(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, float(w))
     v = true_div(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, float(h))
-    px = (u[None, :] - splats[:, SPLAT_X][:, None]) * aspect
-    py = v[None, :] - splats[:, SPLAT_Y][:, None]
+    px = (u - splats[..., SPLAT_X, None]) * aspect
+    py = v - splats[..., SPLAT_Y, None]
     gx = torch.exp(true_div(-(px * px), radius))
     gy = torch.exp(true_div(-(py * py), radius))
     return gy, gx
@@ -39,11 +40,13 @@ def _gaussians(splats: torch.Tensor, h: int, w: int, radius: float, aspect: floa
 def splat_factors(splats: torch.Tensor, h: int, w: int, radius: float,
                   aspect: float, amount_cols: slice):
     """Separable factors of the splat batch for fusion into the kernels:
-    (gy (H, S), gx (S, W), amt (S, C)) float32, inactive rows zeroed."""
+    (gy (H, S), gx (S, W), amt (S, C)) float32, inactive rows zeroed. A
+    (B, S, 8) batch of sims gives (B, H, S), (B, S, W), (B, S, C) in one
+    set of ops; elementwise, so each sim's factors are its own bit for bit."""
     splats = splats.to(torch.float32)
     gy, gx = _gaussians(splats, h, w, radius, aspect)
-    amt = splats[:, amount_cols] * splats[:, SPLAT_ACTIVE:SPLAT_ACTIVE + 1]
-    return gy.T.contiguous(), gx.contiguous(), amt.contiguous()
+    amt = splats[..., amount_cols] * splats[..., SPLAT_ACTIVE:SPLAT_ACTIVE + 1]
+    return gy.transpose(-1, -2).contiguous(), gx.contiguous(), amt.contiguous()
 
 
 def splat_bump(gy: torch.Tensor, gx: torch.Tensor, amt: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,13 @@ advection with the dye splat bump fused into the gather.
 Nothing is updated in place: every pass writes fresh tensors from PyTorch's
 caching allocator, which hands the previous step's buffers back once the
 caller drops them, and the state passed in stays valid.
+
+The same step body runs one sim or a batch of B independent sims
+(tpufluid_torch/batch.py): one set of splat factor ops for the batch, then
+the same four passes, each kernel launched once for all B sims. A batch's
+dt is a number (lock-step, like a single sim's, with no copy to the card)
+or a table of each sim's clamped dt and decay, computed on the host in
+float32 (``dt_table``) and copied once.
 """
 
 from __future__ import annotations
@@ -28,9 +35,22 @@ def clamp_dt(dt) -> float:
     return float(np.minimum(np.float32(float(dt)), np.float32(MAX_DT)))
 
 
+def dt_table(dt, dissipations) -> np.ndarray:
+    """(..., len(dissipations), B, 2) float32 of per-sim dts (..., B): for
+    each dissipation k, every sim's (clamped dt, decay 1 + k * dt), computed
+    in numpy float32 exactly as clamp_dt and ops/advect.decay_factor compute
+    them for one sim, so a kernel reading the table never recomputes them."""
+    d = np.minimum(np.asarray(dt, np.float32), np.float32(MAX_DT))
+    cols = [np.stack([d, np.float32(1.0) + np.float32(k) * d], axis=-1) for k in dissipations]
+    return np.ascontiguousarray(np.stack(cols, axis=-3))
+
+
 def _step(state: FluidState, dt, splats, config: FluidConfig,
           passes: dispatch.Passes) -> FluidState:
-    dt = clamp_dt(dt)
+    """One step of one sim or a batch. ``dt``: every sim's clamped dt (a
+    number), or a (2, B, 2) table on the state's device (dt_table of the
+    velocity's and the dye's dissipation)."""
+    vel_dt, dye_dt = (dt[0], dt[1]) if isinstance(dt, torch.Tensor) else (dt, dt)
     splats = torch.as_tensor(splats, dtype=torch.float32, device=state.velocity.device)
     # bf16 dye goes through RGB9E5 before it is sampled (config.DYE_RGB9E5).
     dye_quant = ("rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16
@@ -41,12 +61,12 @@ def _step(state: FluidState, dt, splats, config: FluidConfig,
     dye_factors = splat_factors(splats, dh, dw, radius, aspect, slice(SPLAT_R, SPLAT_B + 1))
     vel_factors = splat_factors(splats, vh, vw, radius, aspect, slice(SPLAT_DX, SPLAT_DY + 1))
 
-    vel, div = passes.pre_pressure(state.velocity, config.CURL, dt,
+    vel, div = passes.pre_pressure(state.velocity, config.CURL, vel_dt,
                                    splat_factors=vel_factors)
     pressure = passes.jacobi_pressure(state.pressure, div, config.PRESSURE_ITERATIONS,
                                       prescale=config.PRESSURE)
-    vel = passes.project_and_self_advect(vel, pressure, dt, config.VELOCITY_DISSIPATION)
-    dye = passes.advect(vel, state.dye, dt, config.DENSITY_DISSIPATION,
+    vel = passes.project_and_self_advect(vel, pressure, vel_dt, config.VELOCITY_DISSIPATION)
+    dye = passes.advect(vel, state.dye, dye_dt, config.DENSITY_DISSIPATION,
                         splat_factors=dye_factors, quant=dye_quant)
     return FluidState(velocity=vel, dye=dye, pressure=pressure)
 
@@ -55,13 +75,13 @@ def fluid_step(state: FluidState, dt, splats, config: FluidConfig) -> FluidState
     """One simulation step. ``dt`` in seconds (a number), ``splats`` a
     (MAX_SPLATS, 8) event batch (rows with active = 0 are no-ops). Runs the
     CUDA kernels on a CUDA state, their plain versions on a CPU state."""
-    return _step(state, dt, splats, config, dispatch.ROUTED)
+    return _step(state, clamp_dt(dt), splats, config, dispatch.ROUTED)
 
 
 def plain_step(state: FluidState, dt, splats, config: FluidConfig) -> FluidState:
     """fluid_step through the kernels' plain versions on any device: the
     reference the kernel step is held to on the card."""
-    return _step(state, dt, splats, config, dispatch.PLAIN)
+    return _step(state, clamp_dt(dt), splats, config, dispatch.PLAIN)
 
 
 def _require(state: FluidState, device: torch.device) -> None:

@@ -1,0 +1,61 @@
+"""Device ms of each single-sim step kernel call on the card, to compare two
+checkouts on one card.
+
+    python3 tpufluid_torch/tools/kernel_times.py TAG [--reps 5]
+
+At the demo's defaults (float32) and at 1024x1024 and 4096x4096 (bfloat16
+with the RGB9E5 dye), on check.random_state (seed 7), times every kernel call
+of one step and the dye's advect_prepare (check.step_cases, part_cases):
+20 calls queued behind a spin kernel, so host launch cost is hidden, the
+median of ``--reps`` such runs. Run as a file, it measures the
+tpufluid_torch that PYTHONPATH names, so one copy of the script times two
+checkouts, in the order parent, change, change, parent:
+
+    cd path/to/other/checkout && PYTHONPATH=. python3 path/to/kernel_times.py parent
+
+Prints one line per call: ``KT TAG config case ms``, and the card's name
+and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+
+import torch
+
+CONFIGS = (("demo", dict(SIM_RESOLUTION=128, DYE_RESOLUTION=1024, CANVAS_WIDTH=1280,
+                         CANVAS_HEIGHT=720, DTYPE="float32")),
+           ("1024", dict(SIM_RESOLUTION=1024, DYE_RESOLUTION=1024, CANVAS_WIDTH=1024,
+                         CANVAS_HEIGHT=1024, DTYPE="bfloat16")),
+           ("4096", dict(SIM_RESOLUTION=4096, DYE_RESOLUTION=4096, CANVAS_WIDTH=4096,
+                         CANVAS_HEIGHT=4096, DTYPE="bfloat16")))
+
+
+def main(argv) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("tag")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times measures a CUDA GPU and none is available")
+    from tpufluid_torch import FluidConfig
+    from tpufluid_torch.ops.cuda import build, check
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+
+    build.build(["stencil", "jacobi", "advect"])
+    rate = spin_rate()
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    for name, overrides in CONFIGS:
+        cfg = FluidConfig(MAX_SPLATS=8, **overrides).validate()
+        state, splats = check.random_state(cfg, 7, "cuda")
+        for case in check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg):
+            ms = sorted(queued_ms(case.run, 20, rate) for _ in range(args.reps))[args.reps // 2]
+            print(f"KT {args.tag} {name} {case.label} {ms:.5f}", flush=True)
+    print(f"kernel times {args.tag} on {gpu}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
