@@ -99,6 +99,27 @@ the card.
    beside each kernel's single-sim ms x B, the idle share, the profiled
    batched step (torch.profiler, 30 steps) and the same rates at B = 1
    beside make_step.
+11. Batched frame phase (tpufluid_torch.batch.make_batched_render and
+   serve_batch.make_batched_tick, the multi-tenant server's frame): at the
+   demo's cross grid with B = 4 in float32 and at serving_256_b16 and
+   serving_1024_b8 (canvas = grid, bloom base 256^2 with 7 mips, sunrays
+   196^2). The batched bloom pyramid and display (check.
+   batched_render_cases, one launch each for the B sims) against their
+   plain versions on a random batch, max abs error 0 required; then, on a
+   batch stepped BATCH_FRAME_WARM steps over each sim's own swirl_trace:
+   one make_batched_render frame (launch counts zeroed before and read
+   after: 1 bloom_pyramid and 1 display) equal to the plain batched render
+   and, sim by sim, to make_render; 3 make_batched_tick ticks with a dt a
+   sim (7 + 2 launches each), each sim's state and uint8 frame equal to
+   make_step_and_render's on it alone. Then aggregate sim-frames/s and
+   sim-ticks/s (B x 200 / wall, one call a frame or tick with a CUDA event
+   after each; the timed ticks lock-step, the server's one clock) with their
+   median and p95 and the idle share (1 - the spin-queued device time of
+   the same call / the median), each batched render kernel's
+   spin-queued ms beside its single-sim launches summed over the B sims,
+   the same frame rate at B = 1 beside make_render, and
+   profile_frame_kernels on the batch (torch.profiler, 30 batched frames:
+   one event of each render kernel a frame).
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
@@ -140,6 +161,8 @@ LONG_HORIZON_OUT = Path("out/long_horizon_4096")
 BATCH_CONFIGS = {"serving_256_b16": (256, 16), "serving_1024_b8": (1024, 8)}
 BATCH_WARM, BATCH_TIMED = 100, 200
 CROSS_GRID_BATCH = 4           # the demo's 128/1024 cross grid, batched
+BATCH_FRAME_WARM = 50          # steps before the batched frames are compared and timed
+PER_FRAME = {"bloom_pyramid": 1, "display": 1}
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -757,6 +780,145 @@ def batched_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
     return out
 
 
+def batched_frame_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
+    """The batched frame and tick (phase 11) at the demo's cross grid with
+    B = 4 and at BATCH_CONFIGS: kernel comparisons, launches, per-sim
+    equality, rates, kernel timing beside single-sim x B, B = 1 beside
+    make_render, and the profiled batched frame."""
+    from tpufluid_torch import (init_batch, make_batched_multi_step, make_batched_render,
+                                make_batched_tick, make_render, make_step_and_render,
+                                stack_states, swirl_trace, unstack_state)
+    from tpufluid_torch.batch import plain_batched_render
+    from tpufluid_torch.ops.cuda import build, floors
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+    from tpufluid_torch.tools.render_rate import call_times
+
+    cells = {"demo_float32:b4": (cfgs["demo_float32"], CROSS_GRID_BATCH)}
+    cells.update({name: (batch_config(res), b) for name, (res, b) in BATCH_CONFIGS.items()})
+    rate = spin_rate()
+    out = {}
+    for name, (cfg, batch) in cells.items():
+        state0, _ = check.random_batch(cfg, batch, seed=7, device=device)
+        check_cases(torch, check, name, check.batched_render_cases(state0, cfg), errors,
+                    exact=True)
+        steps = BATCH_FRAME_WARM + CHECK_STEPS + BATCH_TIMED
+        seq = torch.as_tensor(np.stack([swirl_trace(cfg, steps, seed=42 + i).batches
+                                        for i in range(batch)], axis=1), device=device)
+        dts = check.per_sim_dts(batch)
+        state = make_batched_multi_step(cfg, device=device)(
+            init_batch(cfg, batch, device=device),
+            np.broadcast_to(dts, (BATCH_FRAME_WARM, batch)), seq[:BATCH_FRAME_WARM])
+
+        render = make_batched_render(cfg, device=device)
+        build.reset_launches()
+        frames = render(state)
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+        assert launches == PER_FRAME, (name, launches)
+        assert frames.shape == (batch, 4, cfg.CANVAS_HEIGHT, cfg.CANVAS_WIDTH), frames.shape
+        assert bool(torch.isfinite(frames).all()), "non-finite batched frame"
+        assert torch.equal(frames, plain_batched_render(state, cfg)), (name, "vs plain")
+        single = make_render(cfg, device=device)
+        for i in range(batch):
+            assert torch.equal(frames[i], single(unstack_state(state, i))), (name, i)
+
+        tick, one = make_batched_tick(cfg, device=device), make_step_and_render(cfg, device=device)
+        sims = [unstack_state(state, i) for i in range(batch)]
+        box = [state]
+        tick_launches = {}
+        for t in range(CHECK_STEPS):
+            k = BATCH_FRAME_WARM + t
+            build.reset_launches()
+            box[0], pixels = tick(box[0], dts, seq[k])
+            for kernel, v in build.KERNELS.items():   # the batched tick's alone
+                if v.launches:
+                    tick_launches[kernel] = tick_launches.get(kernel, 0) + v.launches
+            for i in range(batch):
+                sims[i], want = one(sims[i], dts[i], seq[k, i])
+                assert torch.equal(pixels[i], want), (name, t, i, "pixels")
+                for f in ("velocity", "dye", "pressure"):
+                    assert torch.equal(getattr(unstack_state(box[0], i), f),
+                                       getattr(sims[i], f)), (name, t, i, f)
+        want = {**expected_per_step(cfg), **PER_FRAME}
+        assert tick_launches == {k: n * CHECK_STEPS for k, n in want.items()}, tick_launches
+        print(f"batched frame {name}: {batch} sims, dye {tuple(state.dye.shape[-2:])} "
+              f"{cfg.DTYPE} -> {cfg.CANVAS_HEIGHT}x{cfg.CANVAS_WIDTH}: the frame equal to the "
+              f"plain batched render and each sim to make_render on it alone (max abs err 0), "
+              f"launches {launches} a batched frame; {CHECK_STEPS} make_batched_tick ticks, "
+              f"per-sim dt: every sim's state and uint8 frame equal to make_step_and_render's; launches "
+              f"{tick_launches} ({sum(tick_launches.values()) // CHECK_STEPS} a batched tick)")
+
+        build.reset_launches()
+        fps, frame_med, frame_p95 = call_times(lambda k: render(box[0]), BATCH_TIMED)
+        frame_launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+        assert frame_launches == {k: n * BATCH_TIMED for k, n in PER_FRAME.items()}, \
+            frame_launches
+        start = BATCH_FRAME_WARM + CHECK_STEPS
+
+        # The timed ticks, and the device time their idle share is taken
+        # against, run at the server's one clock (the lock-step dt): a
+        # per-sim dt table is copied from the host, which behind the spin
+        # kernel would wait for the spin.
+        def one_tick(k):
+            box[0], _ = tick(box[0], 1.0 / 60.0, seq[start + k])
+
+        build.reset_launches()
+        tps, tick_med, tick_p95 = call_times(one_tick, BATCH_TIMED)
+        tick_timed = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+        assert tick_timed == {k: n * BATCH_TIMED for k, n in want.items()}, tick_timed
+        assert bool(torch.isfinite(box[0].velocity.float()).all()), "batched ticks broke"
+        frame_device = queued_ms(lambda: render(box[0]), 1, rate)
+        tick_device = queued_ms(lambda: tick(box[0], 1.0 / 60.0, seq[start]), 1, rate)
+
+        cases = check.batched_render_cases(box[0], cfg)
+        timing = timing_phase(torch, check, cases)
+        alone = {}
+        for i in range(batch):
+            for k, row in timing_phase(torch, check, check.render_cases(
+                    unstack_state(box[0], i), cfg), False).items():
+                alone[k] = alone.get(k, 0.0) + row["ms"]
+        b1_state = stack_states([unstack_state(box[0], 0)])
+        b1 = call_times(lambda k: render(b1_state), BATCH_TIMED)
+        alone1 = call_times(lambda k: single(unstack_state(box[0], 0)), BATCH_TIMED)
+        profile = floors.profile_frame_kernels(cfg, box[0], PROFILE_FRAMES)
+        for k, row in profile["kernel_events"].items():
+            assert row["events"] == PER_FRAME[k] * PROFILE_FRAMES, (k, row)
+
+        print(f"batched frame {name} on {gpu}: {batch * fps:.1f} sim-frames/s ({batch} x "
+              f"{fps:.1f} batched frames/s over {BATCH_TIMED}), frame median {frame_med:.4f} ms, "
+              f"p95 {frame_p95:.4f} ms, device {frame_device:.4f} ms a batched frame "
+              f"({100 * (1 - frame_device / frame_med):.1f}% idle at the median); "
+              f"{batch * tps:.1f} sim-ticks/s lock-step, tick median {tick_med:.4f} ms, p95 "
+              f"{tick_p95:.4f} ms, device {tick_device:.4f} ms a batched tick "
+              f"({100 * (1 - tick_device / tick_med):.1f}% idle)")
+        for k, row in timing.items():
+            print(f"batched frame {name} {k:14s} spin-queued {row['ms']:.4f} ms for {batch} sims, "
+                  f"single-sim launches on each sim summed {alone[k]:.4f} ms "
+                  f"({alone[k] / batch:.4f} ms x {batch}); bound {row['bound_ms']:.4f} ms "
+                  f"({row['by']}), plain {row['plain_ms']:.4f} ms")
+        print(f"batched frame {name} B=1: {b1[0]:.1f} frames/s (make_batched_render), median "
+              f"{b1[1]:.4f} ms, p95 {b1[2]:.4f} ms; make_render {alone1[0]:.1f} frames/s, median "
+              f"{alone1[1]:.4f} ms, p95 {alone1[2]:.4f} ms")
+        print(f"profile batched frame {name}, torch.profiler over {PROFILE_FRAMES} batched frames: "
+              f"device {profile['frame_device_us']} us a batched frame; " + ", ".join(
+                  f"{k} {row['us']:.4f} us ({row['events']} events = launches), spin-queued "
+                  f"{1e3 * timing[k]['ms']:.4f} us" for k, row in profile["kernel_events"].items())
+              + f"; other device {profile['other_device_us']} us: " + "; ".join(
+                  f"{o['us']} us {o['op'][:40]}" for o in profile["top_other_ops"]))
+        out[name] = {"batch": batch, "launches": launches, "tick_launches": tick_launches,
+                     "sim_frames_per_s": batch * fps, "frame_ms_median": frame_med,
+                     "frame_ms_p95": frame_p95, "frame_device_ms": frame_device,
+                     "sim_ticks_per_s": batch * tps, "tick_ms_median": tick_med,
+                     "tick_ms_p95": tick_p95, "tick_device_ms": tick_device,
+                     "kernels": timing, "single_sim_kernels": alone,
+                     "b1": {"frames_per_s": b1[0], "frame_ms_median": b1[1],
+                            "frame_ms_p95": b1[2]},
+                     "make_render": {"frames_per_s": alone1[0], "frame_ms_median": alone1[1],
+                                     "frame_ms_p95": alone1[2]},
+                     "profile": profile}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -849,6 +1011,7 @@ def main() -> int:
                               report[FLOORS_CONFIG]["kernels"], gpu, device)
     horizon = long_horizon_phase(torch, check, gpu, device, errors)
     batched = batched_phase(torch, check, cfgs, gpu, device, errors)
+    frames = batched_frame_phase(torch, check, cfgs, gpu, device, errors)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -869,7 +1032,7 @@ def main() -> int:
                 per_config["4096_bfloat16_rgb9e5"] = {
                     **{f: row4096.get(f) for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
                     "launches": horizon["launches"].get(k.name, 0)}
-            for c, run in batched.items():
+            for c, run in [*batched.items(), *frames.items()]:   # step, render kernels
                 if k.name in run["kernels"]:
                     per_config[c] = {
                         **{f: run["kernels"][k.name].get(f)
@@ -888,7 +1051,8 @@ def main() -> int:
         {"gpu": gpu, "paths": report, "ptxas": ptxas,
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
          "floors": floors_run,
-         "long_horizon": horizon, "batched": batched, "kernels": kernels}, indent=1,
+         "long_horizon": horizon, "batched": batched, "batched_frames": frames,
+         "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -294,16 +294,16 @@ def test_refused_render_launches_raise(cuda):
     mips = torch.empty(3 * (128 * 227 + 64 * 113), device=cuda)
     before = bloom.BLOOM_PYRAMID.launches
     with pytest.raises(RuntimeError, match="failed to launch"):   # 436 KB of levels in a block
-        bloom.BLOOM_PYRAMID(ptr(base), 256, 455, ptr(mips), ptr(base), sizes, 2, 0, 0.6, 0.0,
-                            0.0, 0.0, 0.8, stream())
+        bloom.BLOOM_PYRAMID(ptr(base), 1, 256, 455, ptr(mips), ptr(base), sizes, 2, 0, 0.6,
+                            0.0, 0.0, 0.0, 0.8, stream())
     with pytest.raises(RuntimeError, match="failed to launch"):   # one mip
-        bloom.BLOOM_PYRAMID(ptr(base), 256, 455, ptr(mips), ptr(base), sizes, 1, 0, 0.6, 0.0,
-                            0.0, 0.0, 0.8, stream())
+        bloom.BLOOM_PYRAMID(ptr(base), 1, 256, 455, ptr(mips), ptr(base), sizes, 1, 0, 0.6,
+                            0.0, 0.0, 0.0, 0.8, stream())
     assert bloom.BLOOM_PYRAMID.launches == before
     dye, out = torch.zeros((3, 64, 64), device=cuda), torch.empty((4, 64, 64), device=cuda)
     for win in ((64, 2000), (0, 64)):
         with pytest.raises(RuntimeError, match="failed to launch"):
-            display.DISPLAY(ptr(dye), 3, 64, 64, 0, ptr(out), 64, 64, 1, 0, 0.0, 0.0, 0.0,
+            display.DISPLAY(ptr(dye), 1, 3, 64, 64, 0, ptr(out), 64, 64, 1, 0, 0.0, 0.0, 0.0,
                             None, 0, 0, None, 0, 0, None, 0, 0, 0.0, 0.0, *win, stream())
     # a dye window past a block's shared memory (a 4096x7282 dye shown at
     # 200x360): the wrapper's launch is refused and raises

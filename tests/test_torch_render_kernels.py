@@ -7,7 +7,9 @@ version bit for bit, with inputs made by numpy from a seed at small sizes.
     large levels grid-wide, every level from the first small one in one
     block's shared memory, back up to it), the levels laid out in one
     scratch buffer (unwritten texels NaN, so a read of one shows), the up
-    stages in place, level `small` written back after the block phase.
+    stages in place, level `small` written back after the block phase; for
+    a batch, the work items of every sim and the block phase a sim at a
+    time (tests/test_torch_batch_render.py).
   * The display: per 16x64 output tile, the tap tables, the dye window from
     the first row's lowest tap to the last row's highest, the column stage
     at the tile's columns for every window row and the row stage at the
@@ -51,85 +53,109 @@ def _lerp(a, b, f):
 
 # ---------------------------------------------------------------- bloom
 
-def _blur_stage(src, s_hw, dst, out, o_hw, knee, scaled, curve, intensity):
-    """blur_texel for every texel t of one stage, from flat planes: src
-    (3 * sh * sw), dst and out (3 * oh * ow); dst may be out."""
+def _blur_stage(src, s_hw, dst, out, o_hw, sims, knee, scaled, curve, intensity):
+    """run_stage for every work item of one stage, from flat planes: src
+    (sims * 3 * sh * sw), dst and out (sims * 3 * oh * ow); dst may be out.
+    Item g, the output's index, is texel g % texels of plane g // texels
+    (sim * 3 + channel); the knee reads the three planes of its sim."""
     (sh, sw), (oh, ow) = s_hw, o_hw
-    t = np.arange(oh * ow)
+    texels = oh * ow
+    g = np.arange(sims * 3 * texels)
+    plane, t = g // texels, g % texels
     i, j = t // ow, t - (t // ow) * ow
     tx, ty = f32(1.0 / sw), f32(1.0 / sh)
     row, col = _axis(i, sh, oh), _axis(j, sw, ow)
     left, right = _axis(j, sw, ow, off=-tx), _axis(j, sw, ow, off=tx)
     below, above = _axis(i, sh, oh, off=-ty), _axis(i, sh, oh, off=ty)
     hw = sh * sw
+    first = plane // 3 * 3
 
-    def fetch(c, y, x):
+    def fetch(y, x):
         at = y * sw + x
-        v = src[c * hw + at]
+        v = src[plane * hw + at]
         if not knee:
             return v
         threshold, c0, c1, c2 = (f32(v_) for v_ in curve)
-        br = np.maximum(np.maximum(src[at], src[hw + at]), src[2 * hw + at])
+        at0 = first * hw + at
+        br = np.maximum(np.maximum(src[at0], src[hw + at0]), src[2 * hw + at0])
         rq = np.minimum(np.maximum(br - c0, f32(0)), c1)
         rq = c2 * rq * rq
         return v * (np.maximum(rq, br - threshold) / np.maximum(br, f32(1e-4)))
 
-    def tap(c, r, q):
-        top = _lerp(fetch(c, r[0], q[0]), fetch(c, r[0], q[1]), q[2])
-        bot = _lerp(fetch(c, r[1], q[0]), fetch(c, r[1], q[1]), q[2])
+    def tap(r, q):
+        top = _lerp(fetch(r[0], q[0]), fetch(r[0], q[1]), q[2])
+        bot = _lerp(fetch(r[1], q[0]), fetch(r[1], q[1]), q[2])
         return _lerp(top, bot, r[2])
 
-    ohw = oh * ow
-    for c in range(3):
-        s = tap(c, row, left)
-        s = s + tap(c, row, right)
-        s = s + tap(c, below, col)
-        s = s + tap(c, above, col)
-        s = s * f32(0.25)
-        if dst is not None:
-            s = dst[c * ohw + t] + s
-        if scaled:
-            s = s * f32(intensity)
-        out[c * ohw + t] = s
+    s = tap(row, left)
+    s = s + tap(row, right)
+    s = s + tap(below, col)
+    s = s + tap(above, col)
+    s = s * f32(0.25)
+    if dst is not None:
+        s = dst[g] + s
+    if scaled:
+        s = s * f32(intensity)
+    out[g] = s
 
 
-def _emulate_pyramid(base, mip_sizes, threshold, soft_knee, intensity, small):
-    """bloom_pyramid_kernel's phases in numpy, level by level."""
-    bh, bw = base.shape[1:]
+def _emulate_pyramid(base, mip_sizes, threshold, soft_knee, intensity, small, blocks=1):
+    """bloom_pyramid_kernel's phases in numpy, level by level, for one sim's
+    base (3, bh, bw) or a batch's (B, 3, bh, bw): the grid-wide stages over
+    the work items of every sim, level k of the batch one (B, 3, h, w) array
+    in the scratch buffer at B times one sim's offset; the block phase a sim
+    at a time, block b of ``blocks`` taking the sims b, b + blocks, ..., in
+    a shared memory of one sim's small levels (NaN again for each sim, so
+    that a read of a level the sim has not written shows)."""
+    batch = base[None] if base.ndim == 3 else base
+    nb, _, bh, bw = batch.shape
     level_hw = [(h, w) for w, h in mip_sizes]
     n = len(level_hw)
     offs = np.cumsum([0] + [3 * h * w for h, w in level_hw])
-    scratch = np.full(offs[-1], np.nan, f32)
-    smem = np.full(offs[-1] - offs[small] if small < n else 0, np.nan, f32)
-    out = np.full(3 * bh * bw, np.nan, f32)
+    scratch = np.full(nb * offs[-1], np.nan, f32)
+    out = np.full(nb * 3 * bh * bw, np.nan, f32)
     curve = (threshold,) + tbloom.knee_curve(threshold, soft_knee)
 
-    def where(k, in_block):
-        """(flat view, (h, w)) of level k: -1 the base, n the output."""
+    def where(k, sim=None, smem=None):
+        """(flat view, (h, w)) of level k (-1 the base, n the output) of
+        every sim, or of sim ``sim``; its small levels from ``smem``."""
+        if smem is not None and small <= k < n:
+            return smem[offs[k] - offs[small]:offs[k + 1] - offs[small]], level_hw[k]
         if k < 0:
-            return base.reshape(-1), (bh, bw)
-        if k >= n:
-            return out, (bh, bw)
-        h, w = level_hw[k]
-        if in_block and k >= small:
-            return smem[offs[k] - offs[small]:offs[k + 1] - offs[small]], (h, w)
-        return scratch[offs[k]:offs[k + 1]], (h, w)
+            every, hw = batch.reshape(-1), (bh, bw)
+        elif k >= n:
+            every, hw = out, (bh, bw)
+        else:
+            every, hw = scratch[nb * offs[k]:nb * offs[k + 1]], level_hw[k]
+        if sim is None:
+            return every, hw
+        one = 3 * hw[0] * hw[1]
+        return every[sim * one:(sim + 1) * one], hw
+
+    def stage(name, k, sim=None, smem=None):
+        sims = nb if sim is None else 1
+        if name == "down":
+            (src, s_hw), (dst, o_hw) = where(k - 1, sim, smem), where(k, sim, smem)
+            _blur_stage(src, s_hw, None, dst, o_hw, sims, k == 0, False, curve, intensity)
+        elif name == "up":
+            (src, s_hw), (m, o_hw) = where(k + 1, sim, smem), where(k, sim, smem)
+            _blur_stage(src, s_hw, m, m, o_hw, sims, False, False, curve, intensity)
+        else:
+            (src, s_hw), (dst, o_hw) = where(0), where(n)
+            _blur_stage(src, s_hw, None, dst, o_hw, sims, False, True, curve, intensity)
 
     for kind, stages in kbloom.stage_plan(n, small):
-        in_block = kind == "block"
-        for name, k in stages:
-            if name == "down":
-                (src, s_hw), (dst, o_hw) = where(k - 1, in_block), where(k, in_block)
-                _blur_stage(src, s_hw, None, dst, o_hw, k == 0, False, curve, intensity)
-            elif name == "up":
-                (src, s_hw), (m, o_hw) = where(k + 1, in_block), where(k, in_block)
-                _blur_stage(src, s_hw, m, m, o_hw, False, False, curve, intensity)
-            else:
-                (src, s_hw), (dst, o_hw) = where(0, False), where(n, False)
-                _blur_stage(src, s_hw, None, dst, o_hw, False, True, curve, intensity)
-        if in_block:
-            scratch[offs[small]:offs[small + 1]] = where(small, True)[0]
-    return out.reshape(3, bh, bw)
+        if kind == "grid":
+            for name, k in stages:
+                stage(name, k)
+            continue
+        for block in range(blocks):
+            for sim in range(block, nb, blocks):
+                smem = np.full(offs[-1] - offs[small], np.nan, f32)
+                for name, k in stages:
+                    stage(name, k, sim, smem)
+                where(small, sim)[0][:] = where(small, sim, smem)[0]
+    return out.reshape(batch.shape if base.ndim == 4 else base.shape)
 
 
 # (bloom resolution, canvas w x h, BLOOM_ITERATIONS): 2, 3 and 7 mips, odd

@@ -4,8 +4,8 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The simulation step runs four kernels (csrc/): the pre-pressure stencil,
 the Jacobi sweeps, the gradient subtract and the advection (with its
 prepare), each for one sim or a batch of B sims in one launch.
-The frame runs two, one launch each: the bloom pyramid and the display
-composite. Every kernel has a plain PyTorch version beside it; a CPU state
+The frame runs two, one launch each, for one sim or a batch: the bloom
+pyramid and the display composite. Every kernel has a plain PyTorch version beside it; a CPU state
 runs those, a CUDA state runs the kernels. The entry points default to
 ``device="cuda"`` and raise without a GPU unless the caller passes
 ``device="cpu"``. The package imports neither JAX nor ``tpufluid``.
@@ -16,17 +16,20 @@ Public API:
     resize_state               — resample into another config's sizes
     fluid_step, make_step, make_multi_step — the simulation step
     init_batch, stack_states, unstack_state, make_batched_step,
-    make_batched_multi_step    — B sims in one set of launches, dt per sim
+    make_batched_multi_step, make_batched_render
+                               — B sims in one set of launches, dt per sim
+    make_batched_tick          — the multi-tenant server's batched tick
     Trace, swirl_trace         — deterministic splat input
     render_frame, make_render, capture_frame — the frame (float32 RGBA)
     frame_u8, tick_body, make_step_and_render — the servers' uint8 frame
 """
 
-from tpufluid_torch.batch import (init_batch, make_batched_multi_step, make_batched_step,
-                                  stack_states, unstack_state)
+from tpufluid_torch.batch import (init_batch, make_batched_multi_step, make_batched_render,
+                                  make_batched_step, stack_states, unstack_state)
 from tpufluid_torch.config import MAX_DT, FluidConfig, get_resolution
 from tpufluid_torch.render import (capture_frame, frame_u8, make_render,
                                    make_step_and_render, render_frame, tick_body)
+from tpufluid_torch.serve_batch import make_batched_tick
 from tpufluid_torch.state import FluidState, init_state, resize_state
 from tpufluid_torch.step import fluid_step, make_multi_step, make_step
 from tpufluid_torch.trace import Trace, swirl_trace
@@ -46,6 +49,8 @@ __all__ = [
     "unstack_state",
     "make_batched_step",
     "make_batched_multi_step",
+    "make_batched_render",
+    "make_batched_tick",
     "Trace",
     "swirl_trace",
     "render_frame",

@@ -1,6 +1,7 @@
-"""Batched serving mode: B independent sims advanced by one set of launches.
+"""Batched serving mode: B independent sims advanced, and rendered, by one
+set of launches.
 
-Counterpart of the single-device half of tpufluid/batch.py (lines 50-141).
+Counterpart of the single-device half of tpufluid/batch.py (lines 50-165).
 There ``jax.vmap`` over ``pallas_call`` adds a leading grid dimension to
 each TPU kernel and dt becomes a (B, 1, 1) operand. Here every step kernel
 takes the batch itself (the grid's z axis is the sim) and dt in one of two
@@ -15,20 +16,25 @@ batched step equals the single-sim step on that sim, with its dt and its
 splats, bit for bit: the kernels run each sim's operations unchanged, and
 the plain versions run a CPU batch sim by sim.
 
-Left out: ``make_batched_render`` (tpufluid/batch.py:146; the bloom's
-cooperative launch fills the card with one sim and needs its own plan for
-B) and the mesh functions (tpufluid/batch.py:168-339).
+A batched frame (``make_batched_render``) is one bloom pyramid launch and
+one display launch for the B sims, with the sunrays' PyTorch ops run once
+on the whole batch and one dither tile for every sim, as the JAX vmap
+broadcasts it; each sim's frame equals render_frame on that sim, bit for
+bit.
+
+Left out: the mesh functions (tpufluid/batch.py:168-339).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from tpufluid_torch.config import FluidConfig
 from tpufluid_torch.ops.cuda import dispatch
+from tpufluid_torch.render import plain_render, render_frame
 from tpufluid_torch.state import FluidState, init_state, resolve_device
 from tpufluid_torch.step import _step, clamp_dt, dt_table
 
@@ -81,10 +87,10 @@ def step_dt(dt, batch: int, config: FluidConfig, device):
 
 def _require_batch(state: FluidState, device: torch.device) -> int:
     if state.velocity.device.type != device.type:
-        raise ValueError(f"state on {state.velocity.device}, step made for {device}")
-    if state.velocity.ndim != 4:
-        raise ValueError(f"a batched step takes a batched state (B, 2, H, W), got velocity "
-                         f"{tuple(state.velocity.shape)}")
+        raise ValueError(f"state on {state.velocity.device}, made for {device}")
+    if state.velocity.ndim != 4 or state.dye.ndim != 4:
+        raise ValueError(f"a batched step or frame takes a batched state (B, 2, H, W), got "
+                         f"velocity {tuple(state.velocity.shape)}")
     return state.velocity.shape[0]
 
 
@@ -143,3 +149,24 @@ def make_batched_multi_step(config: FluidConfig, device="cuda"):
         return state
 
     return multi
+
+
+# A batched frame through the kernels' plain versions on any device, sim by
+# sim: the reference the batched render kernels are held to on the card.
+# plain_render takes a batched state as it is.
+plain_batched_render = plain_render
+
+
+def make_batched_render(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,
+                        to_screen: bool = True, device="cuda"):
+    """render(batched_state, dither=None) -> (B, 4, h, w) float32 frames on
+    ``device`` (default the GPU): one bloom and one display launch for the
+    B sims on the card, their plain versions on the CPU. ``dither`` is one
+    (h, w) tile shared by every sim (tpufluid/batch.py:150-151)."""
+    device = resolve_device(device)
+
+    def render(state: FluidState, dither: Optional[torch.Tensor] = None) -> torch.Tensor:
+        _require_batch(state, device)
+        return render_frame(state, config, out_hw, to_screen, dither)
+
+    return render

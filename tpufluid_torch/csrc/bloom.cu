@@ -37,6 +37,20 @@
 // texels) and runs with block barriers while the other blocks wait at the
 // next grid barrier: 7 grid barriers a frame at both configs instead of 13
 // launch boundaries. Levels live in one float32 scratch buffer, m0 first.
+//
+// A batch of B sims (tpufluid/batch.py's vmap, which adds a batch grid axis
+// to the TPU kernel) is one launch too: the grid cannot grow with B, since a
+// cooperative launch holds only the co-resident blocks. So the grid-wide
+// stages stride over the work items of every sim: level k of the batch is
+// one (B, 3, h, w) array in the scratch buffer, a work item's plane is
+// sim * 3 + channel, and its index is the single-sim index of that plane
+// (only the prefilter adds the first plane of its sim). In the block phase
+// each block takes whole sims, block b the sims b, b + gridDim.x, ..., each
+// in the same shared memory as one sim: one sim's time while B is at most the
+// grid's blocks. Still 7 grid barriers a frame whatever B is; the knee and
+// the intensity are the same for every sim. Indices are int wherever the
+// batch's work items fit (every single-sim launch), else 64-bit
+// (common.cuh DISPATCH_INDEX).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -51,44 +65,48 @@ struct Knee {
 };
 
 struct Level {
-    int h, w, off;   // off: float offset of the level in the scratch buffer
+    int h, w, off;   // off: float offset of the level in one sim's levels
     float tx, ty;    // one texel of this level as a source: 1/w, 1/h
 };
 
 struct Pyramid {
-    const float* base;
-    float* mips;     // every level, m0 first, (3, h, w) each
-    float* out;      // (3, base h, base w)
-    int n, small;    // mips; levels >= small run in one block
+    const float* base;  // (B, 3, bh, bw)
+    float* mips;        // every level, m0 first; level k of the batch (B, 3, h, w) at B * off
+    float* out;         // (B, 3, bh, bw)
+    int batch, n, small;  // sims, mips; levels >= small run in one block
     Level b;
     Level lv[kMaxMips];
     Knee knee;
     float intensity;
 };
 
-// One blur stage: source and output planes (3, h, w), an optional dst added
-// texel for texel (it may be the output), the knee on the source, a scale.
+// One blur stage over `sims` sims: source and output planes (sims * 3, h, w),
+// an optional dst added texel for texel (it may be the output), the knee on
+// the source, a scale.
 struct Stage {
     const float* src;
     Level s;
     const float* dst;
     float* out;
     Level o;
-    int knee, scaled;
+    int sims, knee, scaled;
 };
 
-// Source texel (y, x) of channel c, prefiltered when KNEE.
-template <bool KNEE>
+// Source texel (y, x) of plane `plane` (sim * 3 + channel), prefiltered by
+// the channels of its sim, planes first .. first + 2, when KNEE.
+template <bool KNEE, typename I>
 struct BloomSource {
     const float* src;
-    int h, w, c;
+    int h, w;
+    I plane, first;
     Knee knee;
 
     __device__ __forceinline__ float operator()(int y, int x) const {
-        const int hw = h * w, at = y * w + x;
-        const float v = src[c * hw + at];
+        const I hw = (I)h * w, at = (I)y * w + x;
+        const float v = src[plane * hw + at];
         if (!KNEE) return v;
-        const float r = src[at], g = src[hw + at], b = src[2 * hw + at];
+        const I at0 = first * hw + at;
+        const float r = src[at0], g = src[hw + at0], b = src[2 * hw + at0];
         const float br = fmaxf(fmaxf(r, g), b);
         float rq = fminf(fmaxf(br - knee.curve0, 0.0f), knee.curve1);
         rq = knee.curve2 * rq * rq;
@@ -98,12 +116,12 @@ struct BloomSource {
 };
 
 // One work item: taps [k0, k0 + TAPS) of the 4 of output texel (i, j),
-// channel c (0 row/-tx, 1 row/+tx, 2 -ty/column, 3 +ty/column; offset 0
+// plane `plane` (0 row/-tx, 1 row/+tx, 2 -ty/column, 3 +ty/column; offset 0
 // where the tap has none, as the plain version's center plan). With all 4
 // taps, their sum in ops/bloom.blur4's order; with one, the tap alone.
-template <bool KNEE, int TAPS>
-__device__ __forceinline__ float blur_item(const Stage& st, const Knee& knee, int c, int i, int j,
-                                           int k0) {
+template <bool KNEE, int TAPS, typename I>
+__device__ __forceinline__ float blur_item(const Stage& st, const Knee& knee, I plane, int i,
+                                           int j, int k0) {
     const int sh = st.s.h, sw = st.s.w, oh = st.o.h, ow = st.o.w;
     AxisTap rows[TAPS], cols[TAPS];
     if (TAPS == 4) {
@@ -123,34 +141,34 @@ __device__ __forceinline__ float blur_item(const Stage& st, const Knee& knee, in
         rows[0] = axis_tap(i, sh, oh, 1.0f, oy, false);
         cols[0] = axis_tap(j, sw, ow, 1.0f, ox, false);
     }
-    const BloomSource<KNEE> plane{st.src, sh, sw, c, knee};
-    float s = sample_cols_rows(plane, rows[0], cols[0]);
+    const BloomSource<KNEE, I> src{st.src, sh, sw, plane, KNEE ? plane / 3 * 3 : plane, knee};
+    float s = sample_cols_rows(src, rows[0], cols[0]);
 #pragma unroll
-    for (int k = 1; k < TAPS; ++k) s = s + sample_cols_rows(plane, rows[k], cols[k]);
+    for (int k = 1; k < TAPS; ++k) s = s + sample_cols_rows(src, rows[k], cols[k]);
     return s;
 }
 
-// One stage over work items e = (channel * texels + texel) * (4 / TAPS) +
+// One stage over work items e = (plane * texels + texel) * (4 / TAPS) +
 // tap, from `first` in steps of `stride` (both multiples of 32 apart from
-// the lane, so the taps of one texel's channel sit in neighbouring lanes of
+// the lane, so the taps of one texel's plane sit in neighbouring lanes of
 // one warp, and the loop's condition is the same across a warp). With one
 // tap an item, the first tap's lane sums the 4 by shuffles, in blur4's
-// order.
-template <bool KNEE, int TAPS>
-__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, int first,
-                                          int stride) {
+// order. An item's plane * texels + texel is its output's index.
+template <bool KNEE, int TAPS, typename I>
+__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, I first, I stride) {
     constexpr int kSplit = 4 / TAPS;
-    const int texels = st.o.h * st.o.w, n = 3 * kSplit * texels;
+    const I texels = (I)st.o.h * st.o.w, n = 3 * kSplit * st.sims * texels;
     const int lane = threadIdx.x & 31;
-    for (int e = first; e - lane < n; e += stride) {
+    for (I e = first; e - lane < n; e += stride) {
         const bool valid = e < n;
-        const int g = e / kSplit, k0 = e - g * kSplit, c = g / texels, t = g - c * texels;
+        const I g = e / kSplit, plane = g / texels;
+        const int k0 = (int)(e - g * kSplit), t = (int)(g - plane * texels);
         const bool writes = valid && k0 == 0;
         const float dst = writes && st.dst ? st.dst[g] : 0.0f;
         float s = 0.0f;
         if (valid) {
             const int i = t / st.o.w;
-            s = blur_item<KNEE, TAPS>(st, p.knee, c, i, t - i * st.o.w, k0);
+            s = blur_item<KNEE, TAPS, I>(st, p.knee, plane, i, t - i * st.o.w, k0);
         }
         if (TAPS == 1) {
             const float v1 = __shfl_down_sync(0xffffffffu, s, 1);
@@ -167,148 +185,171 @@ __device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, int
     }
 }
 
-// A stage with one work item a tap and channel (12 a texel) where that
-// takes no more rounds of the threads (`stride`) than one a channel (3 a
-// texel), else one a channel.
-template <bool KNEE>
-__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, int first,
-                                          int stride) {
-    const int items = 3 * st.o.h * st.o.w, rounds = (items + stride - 1) / stride;
+// A stage with one work item a tap and plane (12 a texel of a sim) where
+// that takes no more rounds of the threads (`stride`) than one a plane (3 a
+// texel), else one a plane; the items of every sim of the stage count.
+template <bool KNEE, typename I>
+__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, I first, I stride) {
+    const I items = 3 * st.sims * ((I)st.o.h * st.o.w), rounds = (items + stride - 1) / stride;
     if (4 * items <= rounds * stride)
-        run_stage<KNEE, 1>(st, p, first, stride);
+        run_stage<KNEE, 1, I>(st, p, first, stride);
     else
-        run_stage<KNEE, 4>(st, p, first, stride);
+        run_stage<KNEE, 4, I>(st, p, first, stride);
 }
 
-__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, int first,
-                                          int stride) {
+template <typename I>
+__device__ __forceinline__ void run_stage(const Stage& st, const Pyramid& p, I first, I stride) {
     if (st.knee)
-        run_stage<true>(st, p, first, stride);
+        run_stage<true, I>(st, p, first, stride);
     else
-        run_stage<false>(st, p, first, stride);
-}
-
-// Planes of level k (-1 the base, n the output); levels >= p.small from
-// `smem` where it is given.
-__device__ __forceinline__ float* level_ptr(const Pyramid& p, int k, float* smem) {
-    if (k < 0) return const_cast<float*>(p.base);
-    if (k >= p.n) return p.out;
-    if (smem && k >= p.small) return smem + (p.lv[k].off - p.lv[p.small].off);
-    return p.mips + p.lv[k].off;
+        run_stage<false, I>(st, p, first, stride);
 }
 
 __device__ __forceinline__ Level level(const Pyramid& p, int k) {
     return k < 0 || k >= p.n ? p.b : p.lv[k];
 }
 
-__device__ __forceinline__ Stage down_stage(const Pyramid& p, int k, float* smem) {
-    return Stage{level_ptr(p, k - 1, smem), level(p, k - 1), nullptr, level_ptr(p, k, smem),
-                 p.lv[k], k == 0 ? 1 : 0, 0};
+// Planes of level k (-1 the base, n the output) of every sim (sim < 0), or
+// of sim `sim` alone; its levels >= p.small from `smem` where it is given.
+__device__ __forceinline__ float* level_ptr(const Pyramid& p, int k, float* smem, int sim) {
+    if (smem && k >= p.small && k < p.n) return smem + (p.lv[k].off - p.lv[p.small].off);
+    float* all = k < 0 ? const_cast<float*>(p.base)
+                       : (k >= p.n ? p.out : p.mips + (size_t)p.batch * p.lv[k].off);
+    const Level l = level(p, k);
+    return sim < 0 ? all : all + (size_t)sim * 3 * l.h * l.w;
 }
 
-__device__ __forceinline__ Stage up_stage(const Pyramid& p, int k, float* smem) {
-    float* m = level_ptr(p, k, smem);
-    return Stage{level_ptr(p, k + 1, smem), p.lv[k + 1], m, m, p.lv[k], 0, 0};
+__device__ __forceinline__ Stage down_stage(const Pyramid& p, int k, float* smem, int sim) {
+    return Stage{level_ptr(p, k - 1, smem, sim), level(p, k - 1), nullptr,
+                 level_ptr(p, k, smem, sim), p.lv[k], sim < 0 ? p.batch : 1, k == 0 ? 1 : 0, 0};
+}
+
+__device__ __forceinline__ Stage up_stage(const Pyramid& p, int k, float* smem, int sim) {
+    float* m = level_ptr(p, k, smem, sim);
+    return Stage{level_ptr(p, k + 1, smem, sim), p.lv[k + 1], m, m, p.lv[k],
+                 sim < 0 ? p.batch : 1, 0, 0};
 }
 
 __device__ __forceinline__ Stage final_stage(const Pyramid& p) {
-    return Stage{level_ptr(p, 0, nullptr), p.lv[0], nullptr, p.out, p.b, 0, 1};
+    return Stage{level_ptr(p, 0, nullptr, -1), p.lv[0], nullptr, p.out, p.b, p.batch, 0, 1};
 }
 
-// The small levels in one block: D_small .. D_{n-1}, U_{n-2} .. U_small in
-// shared memory, then level `small` written to the scratch buffer.
+// The small levels, a sim at a time in one block (block b the sims b,
+// b + gridDim.x, ...): D_small .. D_{n-1}, U_{n-2} .. U_small in shared
+// memory, then level `small` of the sim written to the scratch buffer.
+template <typename I>
 __device__ void small_levels(const Pyramid& p, float* smem) {
-    for (int k = p.small; k < p.n; ++k) {
-        run_stage(down_stage(p, k, smem), p, threadIdx.x, blockDim.x);
-        __syncthreads();
+    for (int sim = blockIdx.x; sim < p.batch; sim += gridDim.x) {
+        for (int k = p.small; k < p.n; ++k) {
+            run_stage<I>(down_stage(p, k, smem, sim), p, threadIdx.x, blockDim.x);
+            __syncthreads();
+        }
+        for (int k = p.n - 2; k >= p.small; --k) {
+            run_stage<I>(up_stage(p, k, smem, sim), p, threadIdx.x, blockDim.x);
+            __syncthreads();
+        }
+        const Level& m = p.lv[p.small];
+        float* to = level_ptr(p, p.small, nullptr, sim);
+        for (int t = threadIdx.x; t < 3 * m.h * m.w; t += blockDim.x) to[t] = smem[t];
+        __syncthreads();  // the next sim's stages write the same shared memory
     }
-    for (int k = p.n - 2; k >= p.small; --k) {
-        run_stage(up_stage(p, k, smem), p, threadIdx.x, blockDim.x);
-        __syncthreads();
-    }
-    const Level& m = p.lv[p.small];
-    for (int t = threadIdx.x; t < 3 * m.h * m.w; t += blockDim.x) p.mips[m.off + t] = smem[t];
 }
 
-// The whole pyramid in one cooperative launch. Scratch levels are written
-// and read inside the launch: plain loads, no __restrict__.
+// The whole pyramid of every sim in one cooperative launch. Scratch levels
+// are written and read inside the launch: plain loads, no __restrict__.
+template <typename I>
 __global__ void __launch_bounds__(kBlockThreads, 1) bloom_pyramid_kernel(Pyramid p) {
     extern __shared__ float smem[];
     cg::grid_group grid = cg::this_grid();
-    const int first = (int)grid.thread_rank(), stride = (int)grid.size();
+    const I first = (I)grid.thread_rank(), stride = (I)grid.size();
     const int grid_down = min(p.small, p.n), grid_up = min(p.small, p.n - 1);
     for (int k = 0; k < grid_down; ++k) {
-        run_stage(down_stage(p, k, nullptr), p, first, stride);
+        run_stage<I>(down_stage(p, k, nullptr, -1), p, first, stride);
         grid.sync();
     }
     if (p.small < p.n) {
-        if (blockIdx.x == 0) small_levels(p, smem);
+        small_levels<I>(p, smem);
         grid.sync();
     }
     for (int k = grid_up - 1; k >= 0; --k) {
-        run_stage(up_stage(p, k, nullptr), p, first, stride);
+        run_stage<I>(up_stage(p, k, nullptr, -1), p, first, stride);
         grid.sync();
     }
-    run_stage(final_stage(p), p, first, stride);
+    run_stage<I>(final_stage(p), p, first, stride);
 }
 
-// Shared memory bytes of the small levels, m[small] .. m[n-1].
+// Shared memory bytes of the small levels of one sim, m[small] .. m[n-1].
 static int small_bytes(const int* sizes, int n, int small) {
     long bytes = 0;
     for (int k = small; k < n; ++k) bytes += 3L * sizes[2 * k] * sizes[2 * k + 1] * 4;
     return (int)bytes;
 }
 
+// One cooperative launch of at most the co-resident blocks, and no more
+// than 12 work items of the largest level of every sim need.
+template <typename I>
+static cudaError_t launch(Pyramid& p, int smem, long long texels, cudaStream_t stream) {
+    const auto kernel = bloom_pyramid_kernel<I>;
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024)
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlockThreads, smem);
+    if (err != cudaSuccess) return err;
+    const long long wanted = (12LL * p.batch * texels + kBlockThreads - 1) / kBlockThreads;
+    const int blocks = (int)(wanted < (long long)per_sm * sms ? wanted : (long long)per_sm * sms);
+    if (blocks < 1) return cudaErrorCooperativeLaunchTooLarge;
+    void* args[] = {&p};
+    return cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kBlockThreads), args,
+                                       smem, stream);
+}
+
 extern "C" {
 
-// base (3, bh, bw) float32; mips: the scratch, 3 * sum(h * w) float32; out
-// (3, bh, bw) float32. sizes: n (h, w) pairs on the host, each level at
-// least 1x1; levels >= small run in one block's shared memory. Returns the
-// launch's error: a cooperative launch larger than the card holds at once,
-// or shared memory past the block's limit, is refused.
-int bloom_pyramid(const void* base, int bh, int bw, void* mips, void* out, const int* sizes,
-                  int n, int small, float threshold, float curve0, float curve1, float curve2,
-                  float intensity, void* stream) {
-    if (n < 2 || n > kMaxMips || small < 0 || bh < 1 || bw < 1)
+// base (B, 3, bh, bw) float32; mips: the scratch, B * 3 * sum(h * w)
+// float32; out (B, 3, bh, bw) float32; B in 1..kMaxBatch. sizes: n (h, w)
+// pairs on the host, each level at least 1x1; levels >= small run in one
+// block's shared memory, a sim at a time. Returns the launch's error: a
+// cooperative launch larger than the card holds at once, or shared memory
+// past the block's limit, is refused.
+int bloom_pyramid(const void* base, int batch, int bh, int bw, void* mips, void* out,
+                  const int* sizes, int n, int small, float threshold, float curve0,
+                  float curve1, float curve2, float intensity, void* stream) {
+    if (batch < 1 || batch > kMaxBatch || n < 2 || n > kMaxMips || small < 0 || bh < 1 ||
+        bw < 1)
         return (int)cudaErrorInvalidValue;
     Pyramid p{};
     p.base = (const float*)base;
     p.mips = (float*)mips;
     p.out = (float*)out;
+    p.batch = batch;
     p.n = n;
     p.small = min(small, n);
     p.b = Level{bh, bw, 0, (float)(1.0 / bw), (float)(1.0 / bh)};
     int off = 0;
+    long long texels = (long long)bh * bw;
     for (int k = 0; k < n; ++k) {
         const int h = sizes[2 * k], w = sizes[2 * k + 1];
         if (h < 1 || w < 1) return (int)cudaErrorInvalidValue;
         p.lv[k] = Level{h, w, off, (float)(1.0 / w), (float)(1.0 / h)};
         off += 3 * h * w;
+        if ((long long)h * w > texels) texels = (long long)h * w;
     }
     p.knee = Knee{threshold, curve0, curve1, curve2};
     p.intensity = intensity;
     const int smem = p.small < n ? small_bytes(sizes, n, p.small) : 0;
-    cudaError_t err = cudaSuccess;
-    if (smem > 48 * 1024)
-        err = cudaFuncSetAttribute(bloom_pyramid_kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    int dev = 0, sms = 0, per_sm = 0;
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    // Every index of a launch, items and strides past the last included
+    // (at most 2048 threads an SM), in 32 bits where they fit.
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, bloom_pyramid_kernel,
-                                                            kBlockThreads, smem);
-    if (err != cudaSuccess) {
-        cudaGetLastError();  // clear it, so that it is not reported by a later launch
-        return (int)err;
+    const bool wide = 12LL * batch * texels + 2048LL * sms > (long long)INT_MAX;
+    if (err == cudaSuccess) {
+        DISPATCH_INDEX(wide, I, err = launch<I>(p, smem, texels, (cudaStream_t)stream));
     }
-    int texels = bh * bw;
-    for (int k = 0; k < n; ++k) texels = max(texels, p.lv[k].h * p.lv[k].w);
-    const int blocks = min((12 * texels + kBlockThreads - 1) / kBlockThreads, per_sm * sms);
-    if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    void* args[] = {&p};
-    err = cudaLaunchCooperativeKernel((const void*)bloom_pyramid_kernel, dim3(blocks),
-                                      dim3(kBlockThreads), args, smem, (cudaStream_t)stream);
     if (err != cudaSuccess) {
         cudaGetLastError();  // clear it, so that it is not reported by a later launch
         return (int)err;

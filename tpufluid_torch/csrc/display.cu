@@ -48,6 +48,13 @@
 //     from shared memory; the values, and so the bits, are the per-texel
 //     samples';
 //   * 16-byte stores of each plane where the width is a multiple of 4.
+//
+// A batch of B sims (tpufluid/batch.py's vmap, which adds a batch grid axis
+// to the TPU kernel) is one launch: grid z is the sim, whose dye, bloom,
+// sunrays and output a block offsets by its sim (common.cuh sim_offset, in
+// the launch's index type: int wherever the whole batch fits, as every
+// single-sim launch does). The dither tile and the window's extent are
+// the same for every sim.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -73,11 +80,11 @@ __device__ __forceinline__ float linear_to_gamma(float c) {
 }
 
 struct Extras {
-    const float* bloom;  // (3, bh, bw) or null
+    const float* bloom;  // (B, 3, bh, bw) or null
     int bh, bw;
-    const float* sunrays;  // (sh, sw) or null
+    const float* sunrays;  // (B, sh, sw) or null
     int sh, sw;
-    const float* dither;  // (dh, dw) or null; used only with bloom
+    const float* dither;  // (dh, dw) or null, one for every sim; used only with bloom
     int dh, dw;
     float dsu, dsv;  // dither scales, out_w / dw and out_h / dh
 };
@@ -133,7 +140,7 @@ __device__ __forceinline__ void copy_window(const T* __restrict__ dye, int C, in
     __pipeline_commit();
 }
 
-template <typename T, int C>
+template <typename T, int C, typename I>
 __global__ void __launch_bounds__(kThreads, 4) display_kernel(
         const T* __restrict__ dye, int H, int W, float* __restrict__ out, int oh, int ow,
         int shading, int compose, float tx, float ty, float nz, Extras ex, int win_h,
@@ -177,8 +184,9 @@ __global__ void __launch_bounds__(kThreads, 4) display_kernel(
     const int oy = rows[lo][0].i0, wh = rows[hi][nr - 1].i1 - oy + 1;
     const int ox_tap = cols[lo][0].i0, ww_tap = cols[hi][nq - 1].i1 - ox_tap + 1;
     if (wh > win_h || ww_tap > win_w) __trap();
-    const int unit = copy_unit(dye, W), ox = ox_tap / unit * unit, ww = ox_tap + ww_tap - ox;
-    copy_window(dye, C, H, W, oy, wh, ox, ww, unit, win, win_h, pitch, warp, lane);
+    const T* sim_dye = dye + sim_offset<I>((I)C * H * W);
+    const int unit = copy_unit(sim_dye, W), ox = ox_tap / unit * unit, ww = ox_tap + ww_tap - ox;
+    copy_window(sim_dye, C, H, W, oy, wh, ox, ww, unit, win, win_h, pitch, warp, lane);
 
     // While the window arrives: the part of the composite that does not
     // read the dye, for this thread's 4 texels along its row.
@@ -186,24 +194,28 @@ __global__ void __launch_bounds__(kThreads, 4) display_kernel(
     const bool active = r < nr && qb < nq;
     float rays[kVec], glow[3][kVec];
     if (compose && active) {
+        const float* bloom =
+            ex.bloom ? ex.bloom + sim_offset<I>((I)3 * ex.bh * ex.bw) : nullptr;
+        const float* sunrays =
+            ex.sunrays ? ex.sunrays + sim_offset<I>((I)ex.sh * ex.sw) : nullptr;
 #pragma unroll
         for (int u = 0; u < kVec; ++u) {
             const int q = qb + u;
             float bl[3];
-            if (ex.bloom) {
+            if (bloom) {
 #pragma unroll
                 for (int k = 0; k < 3; ++k)
-                    bl[k] = sample_cols_rows(Plane<float>{ex.bloom + k * ex.bh * ex.bw, ex.bw},
+                    bl[k] = sample_cols_rows(Plane<float>{bloom + k * ex.bh * ex.bw, ex.bw},
                                              xrows[0][r], xcols[0][q]);
             }
-            if (ex.sunrays) {
-                rays[u] = sample_cols_rows(Plane<float>{ex.sunrays, ex.sw}, xrows[1][r],
+            if (sunrays) {
+                rays[u] = sample_cols_rows(Plane<float>{sunrays, ex.sw}, xrows[1][r],
                                            xcols[1][q]);
-                if (ex.bloom)
+                if (bloom)
 #pragma unroll
                     for (int k = 0; k < 3; ++k) bl[k] = bl[k] * rays[u];
             }
-            if (ex.bloom) {
+            if (bloom) {
                 if (ex.dither) {
                     const float noise = sample_cols_rows(Plane<float>{ex.dither, ex.dw},
                                                          xrows[2][r], xcols[2][q]);
@@ -322,6 +334,7 @@ __global__ void __launch_bounds__(kThreads, 4) display_kernel(
     }
 
     const size_t ohw = (size_t)oh * ow, at = (size_t)i * ow + q0 + qb;
+    out += sim_offset<I>((I)planes * oh * ow);
     if (ow % kVec == 0) {
 #pragma unroll
         for (int k = 0; k < C + 1; ++k)
@@ -337,11 +350,11 @@ __global__ void __launch_bounds__(kThreads, 4) display_kernel(
     }
 }
 
-template <typename T, int C>
-static int launch(const void* dye, int H, int W, void* out, int oh, int ow, int shading,
+template <typename T, int C, typename I>
+static int launch(const void* dye, int B, int H, int W, void* out, int oh, int ow, int shading,
                   int compose, float tx, float ty, float nz, const Extras& ex, int win_h,
                   int win_w, cudaStream_t stream) {
-    const auto kernel = display_kernel<T, C>;
+    const auto kernel = display_kernel<T, C, I>;
     const int smem = display_smem_bytes(C, win_h, win_w, shading, sizeof(T));
     if (smem > 48 * 1024) {
         const cudaError_t err =
@@ -351,7 +364,7 @@ static int launch(const void* dye, int H, int W, void* out, int oh, int ow, int 
             return (int)err;
         }
     }
-    const dim3 grid((ow + kTileW - 1) / kTileW, (oh + kTileH - 1) / kTileH);
+    const dim3 grid((ow + kTileW - 1) / kTileW, (oh + kTileH - 1) / kTileH, B);
     kernel<<<grid, kThreads, smem, stream>>>((const T*)dye, H, W, (float*)out, oh, ow, shading,
                                              compose, tx, ty, nz, ex, win_h, win_w);
     return (int)cudaGetLastError();
@@ -359,31 +372,40 @@ static int launch(const void* dye, int H, int W, void* out, int oh, int ow, int 
 
 extern "C" {
 
-// dye (C, H, W) in storage type `dtype`, C in 1..4 (3 with bloom); out
-// float32, (C + 1, oh, ow) with compose = 1, else (C, oh, ow). bloom
-// (3, bh, bw), sunrays (sh, sw) and dither (dh, dw) are float32 or null and
-// read only with compose = 1; the dither only with bloom. win_h x win_w: the
-// largest dye window of a tile (ops/cuda/display.py window); shared memory
-// past the block's limit is refused at the launch.
-int display_frame(const void* dye, int C, int H, int W, int dtype, void* out, int oh, int ow,
-                  int shading, int compose, float tx, float ty, float nz, const void* bloom,
-                  int bh, int bw, const void* sunrays, int sh, int sw, const void* dither,
-                  int dh, int dw, float dsu, float dsv, int win_h, int win_w, void* stream) {
-    if (C < 1 || C > 4 || (compose && bloom && C != 3) || oh < 1 || ow < 1 || win_h < 1 ||
-        win_w < 1)
+// B sims, B in 1..kMaxBatch: dye (B, C, H, W) in storage type `dtype`, C in
+// 1..4 (3 with bloom); out float32, (B, C + 1, oh, ow) with compose = 1, else
+// (B, C, oh, ow). bloom (B, 3, bh, bw), sunrays (B, sh, sw) and dither
+// (dh, dw), one for every sim, are float32 or null and read only with
+// compose = 1; the dither only with bloom. win_h x win_w: the largest dye
+// window of a tile (ops/cuda/display.py window); shared memory past the
+// block's limit is refused at the launch.
+int display_frame(const void* dye, int B, int C, int H, int W, int dtype, void* out, int oh,
+                  int ow, int shading, int compose, float tx, float ty, float nz,
+                  const void* bloom, int bh, int bw, const void* sunrays, int sh, int sw,
+                  const void* dither, int dh, int dw, float dsu, float dsv, int win_h, int win_w,
+                  void* stream) {
+    if (B < 1 || B > kMaxBatch || C < 1 || C > 4 || (compose && bloom && C != 3) || oh < 1 ||
+        ow < 1 || win_h < 1 || win_w < 1)
         return (int)cudaErrorInvalidValue;
     const Extras ex{compose ? (const float*)bloom : nullptr, bh, bw,
                     compose ? (const float*)sunrays : nullptr, sh, sw,
                     compose && bloom ? (const float*)dither : nullptr, dh, dw, dsu, dsv};
     const cudaStream_t s = (cudaStream_t)stream;
-#define DISPLAY_ARGS dye, H, W, out, oh, ow, shading, compose, tx, ty, nz, ex, win_h, win_w, s
+    // The largest element count of one sim's tensors, in 32 bits where the
+    // batch's fits.
+    size_t per_sim = (size_t)(C + 1) * oh * ow;
+    per_sim = per_sim > (size_t)C * H * W ? per_sim : (size_t)C * H * W;
+    per_sim = per_sim > (size_t)3 * bh * bw ? per_sim : (size_t)3 * bh * bw;
+    per_sim = per_sim > (size_t)sh * sw ? per_sim : (size_t)sh * sw;
+#define DISPLAY_ARGS dye, B, H, W, out, oh, ow, shading, compose, tx, ty, nz, ex, win_h, win_w, s
     DISPATCH_STORAGE(dtype, T,
-        switch (C) {
-            case 1: return launch<T, 1>(DISPLAY_ARGS);
-            case 2: return launch<T, 2>(DISPLAY_ARGS);
-            case 3: return launch<T, 3>(DISPLAY_ARGS);
-            default: return launch<T, 4>(DISPLAY_ARGS);
-        });
+        DISPATCH_INDEX(wide_batch(B, per_sim), I,
+            switch (C) {
+                case 1: return launch<T, 1, I>(DISPLAY_ARGS);
+                case 2: return launch<T, 2, I>(DISPLAY_ARGS);
+                case 3: return launch<T, 3, I>(DISPLAY_ARGS);
+                default: return launch<T, 4, I>(DISPLAY_ARGS);
+            }));
 #undef DISPLAY_ARGS
     return (int)cudaErrorInvalidValue;
 }

@@ -29,13 +29,13 @@ def knee_curve(threshold: float, soft_knee: float) -> Tuple[float, float, float]
 
 
 def knee_threshold(c: torch.Tensor, threshold: float, soft_knee: float) -> torch.Tensor:
-    """The prefilter's threshold on already-resampled texels (3, H, W)."""
+    """The prefilter's threshold on already-resampled texels (..., 3, H, W)."""
     curve0, curve1, curve2 = knee_curve(threshold, soft_knee)
-    br = c.amax(dim=0)
+    br = c.amax(dim=-3)
     rq = (br - curve0).clamp(0.0, curve1)
     rq = curve2 * rq * rq
     scale = torch.maximum(rq, br - threshold) / br.clamp_min(1e-4)
-    return c * scale[None]
+    return c * scale.unsqueeze(-3)
 
 
 def bloom_prefilter(dye_rgb: torch.Tensor, out_hw: Tuple[int, int],
@@ -91,8 +91,10 @@ def blur4_stage(src: torch.Tensor, out_hw: Tuple[int, int], dst=None, prefilter=
 def apply_bloom(dye_rgb: torch.Tensor, base_hw: Tuple[int, int],
                 mip_sizes: Sequence[Tuple[int, int]], threshold: float,
                 soft_knee: float, intensity: float) -> torch.Tensor:
-    """Full bloom chain -> (3, base_h, base_w), or zeros when < 2 mips."""
+    """Full bloom chain (..., 3, H, W) -> (..., 3, base_h, base_w), or zeros
+    when < 2 mips."""
     if len(mip_sizes) < 2:
-        return torch.zeros((3,) + tuple(base_hw), dtype=dye_rgb.dtype, device=dye_rgb.device)
+        return torch.zeros(dye_rgb.shape[:-3] + (3,) + tuple(base_hw), dtype=dye_rgb.dtype,
+                           device=dye_rgb.device)
     base = resample_bilinear(dye_rgb, base_hw)
     return pyramid(blur4_stage, base, mip_sizes, threshold, soft_knee, intensity)

@@ -260,17 +260,18 @@ def check_dt(dt, batch: int, device) -> Tuple[float, ctypes.c_void_p]:
 
 def per_sim(plain, batched: bool, args, fields=(0,), dt_at=None, factors_at=None):
     """A plain version over a batch: ``plain(*args)`` sim by sim, with sim
-    b's slice of each field (args[i] for i in ``fields``), of its splat
-    factors (args[factors_at]) and its dt (args[dt_at], a number or a
-    (B, 2) table), the results stacked. One sim (``batched`` false) is one
-    call as it is."""
+    b's slice of each field (args[i] for i in ``fields``, where not None),
+    of its splat factors (args[factors_at]) and its dt (args[dt_at], a
+    number or a (B, 2) table), the results stacked. One sim (``batched``
+    false) is one call as it is."""
     if not batched:
         return plain(*args)
     outs = []
     for b in range(args[fields[0]].shape[0]):
         a = list(args)
         for i in fields:
-            a[i] = args[i][b]
+            if args[i] is not None:
+                a[i] = args[i][b]
         if dt_at is not None and isinstance(args[dt_at], torch.Tensor):
             a[dt_at] = float(args[dt_at][b, 0])     # the table's clamped dt
         if factors_at is not None and args[factors_at] is not None:

@@ -5,7 +5,8 @@ call one step makes, in order, each with the inputs the step would give it
 (computed by the plain versions, so the kernel and its plain version see the
 very same tensors), for one sim or for a batch of B sims in one launch each
 (``batched_step_cases`` on ``random_batch``, in both forms of dt);
-``render_cases`` does the same for one frame, and
+``render_cases`` does the same for one frame (``batched_render_cases`` for
+a frame of B sims, one launch a kernel), and
 ``floors_cases`` for the three microbenchmark kernels on their own inputs
 (``random_floors_cases`` on random ones). The kernel tests and
 chip_smoke.py compare and time these cases on the card.
@@ -253,31 +254,35 @@ def _display_flops(dye_hw, out_hw, c: int, shading: bool, extras, compose: bool)
 
 
 def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bool = True,
-                 compose: bool = True) -> List[Case]:
+                 compose: bool = True, tag: str = "") -> List[Case]:
     """Every kernel call of one frame from ``state`` at ``out_hw`` (default
     the canvas), in the render's order: the bloom pyramid (one call, after
     the base resample, where the config has 2 mips or more), then the
-    display. ``dither=False`` leaves the dither out of the display and
-    ``compose=False`` makes it the shaded center alone: neither is what
-    render_frame calls, both are what the display kernel takes. The
-    pyramid's bytes are its base read and its output written: the mips
-    between are the function's own."""
+    display; of one sim, or of a batch (fields with a leading B) in one
+    launch each, with the work of the B sims. ``dither=False`` leaves the
+    dither out of the display and ``compose=False`` makes it the shaded
+    center alone: neither is what render_frame calls, both are what the
+    display kernel takes. The pyramid's bytes are its base read and its
+    output written: the mips between are the function's own. ``tag`` is
+    added to each label."""
     out_hw = tuple(out_hw or (config.CANVAS_HEIGHT, config.CANVAS_WIDTH))
     dye = state.dye.to(torch.float32)
+    lead = tuple(state.dye.shape[:-3])
+    n_sims = state.dye.shape[0] if lead else 1
     cases: List[Case] = []
     bloom = rays = noise = None
     if config.BLOOM:
         bw, bh = config.bloom_size
         mips = config.bloom_mip_sizes()
         if len(mips) < 2:
-            bloom = torch.zeros((3, bh, bw), dtype=torch.float32, device=dye.device)
+            bloom = torch.zeros(lead + (3, bh, bw), dtype=torch.float32, device=dye.device)
         else:
             base = resample_bilinear(dye, (bh, bw))
             args = (base, mips, config.BLOOM_THRESHOLD, config.BLOOM_SOFT_KNEE,
                     config.BLOOM_INTENSITY)
-            cases.append(Case("bloom_pyramid", "bloom_pyramid", _bloom.bloom_pyramid,
+            cases.append(Case("bloom_pyramid" + tag, "bloom_pyramid", _bloom.bloom_pyramid,
                               _bloom.bloom_pyramid_plain, args, 2 * _bytes(base),
-                              _pyramid_flops((bh, bw), mips)))
+                              n_sims * _pyramid_flops((bh, bw), mips)))
             bloom = _bloom.bloom_pyramid_plain(*args)
         if dither:
             noise = blue_noise(dye.device)
@@ -286,20 +291,31 @@ def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bo
         rays = apply_sunrays(dye, (sh, sw), config.SUNRAYS_WEIGHT)
     if not compose:
         bloom = rays = noise = None
-    c = state.dye.shape[0]
-    n_out = (c + 1 if compose else c) * out_hw[0] * out_hw[1]
+    c = state.dye.shape[-3]
+    n_out = n_sims * (c + 1 if compose else c) * out_hw[0] * out_hw[1]
     extras = {k: tuple(t.shape[-2:]) for k, t in
               (("bloom", bloom), ("sunrays", rays), ("dither", noise)) if t is not None}
     if "bloom" not in extras:
         extras.pop("dither", None)
     cases.append(Case(
-        "display" if compose else "display:base", "display", _display.display,
+        ("display" if compose else "display:base") + tag, "display", _display.display,
         _display.display_plain,
         (state.dye, out_hw, config.SHADING, bloom, rays, noise, compose),
         _bytes(state.dye, bloom, rays, noise if bloom is not None else None) + 4 * n_out,
-        _display_flops(tuple(state.dye.shape[-2:]), out_hw, c, config.SHADING, extras,
-                       compose)))
+        n_sims * _display_flops(tuple(state.dye.shape[-2:]), out_hw, c, config.SHADING,
+                                extras, compose)))
     return cases
+
+
+def batched_render_cases(state: FluidState, config: FluidConfig, out_hw=None,
+                         dither: bool = True, compose: bool = True) -> List[Case]:
+    """render_cases of a batched state (every field with a leading B, as
+    random_batch makes it): the pyramid after its batched base resample and
+    the display, each one launch for the B sims, labelled ":b<B>", with the
+    bytes and operations of the B sims (the dither read once)."""
+    if state.dye.ndim != 4:
+        raise ValueError(f"a batched state leads with B, got dye {tuple(state.dye.shape)}")
+    return render_cases(state, config, out_hw, dither, compose, f":b{state.dye.shape[0]}")
 
 
 # The floors microbenchmarks' default arguments (tpufluid/ops/pallas/

@@ -9,7 +9,8 @@ TPU padding and tiling policy: the kernels read global memory at any shape.
 The step's passes take one sim or a batch of B sims (every field with a
 leading B, dt a number or a (B, 2) table a sim): a CUDA batch goes to the
 kernels, B sims in each launch; a CPU batch to the plain versions, sim by
-sim. The frame's kernels take one sim.
+sim. So do the frame's two kernels: the bloom pyramid and the display take
+one sim or a batch (B leading) in one launch each.
 """
 
 from __future__ import annotations
@@ -71,10 +72,10 @@ project_and_self_advect = ROUTED.project_and_self_advect
 
 
 class RenderPasses:
-    """The two kernels of one frame through one implementation:
-    ``bloom_chain(dye_rgb, base_hw, mip_sizes, threshold, soft_knee,
-    intensity)`` and ``display(dye, out_hw, shading, bloom, sunrays, dither,
-    compose=True)``."""
+    """The two kernels of one frame, of one sim or a batch, through one
+    implementation: ``bloom_chain(dye_rgb, base_hw, mip_sizes, threshold,
+    soft_knee, intensity)`` and ``display(dye, out_hw, shading, bloom,
+    sunrays, dither, compose=True)``, the dither one tile for every sim."""
 
     def __init__(self, bloom_chain, display):
         self.bloom_chain = bloom_chain

@@ -437,13 +437,18 @@ def frame_breakdown(events: Iterable[Tuple[str, bool, float, float]],
 
 def profile_frame_kernels(config, state, frames: int = 30, top_other: int = 8) -> dict:
     """frame_breakdown of ``frames`` calls of the real make_render on the
-    card from ``state``, after one warm-up frame, under torch.profiler (CPU
-    and CUDA activities): the render kernels' own device time a frame from
-    their events, and the rest of the frame's device time by the PyTorch op
-    that launched it (its self device time). Raises without a CUDA GPU or a
-    CUDA state, and if the profiler records no kernel."""
+    card from ``state`` (a batched state renders as a batch: a frame is then
+    one of all B sims), after one warm-up frame, under torch.profiler (CPU
+    and CUDA activities): the render kernels' own device
+    time a frame from their events over the window between two marker
+    kernels with EDGE_STEPS traced frames on either side (window_events; the
+    profiler lost one of 30 pyramid events of a batched frame profile traced
+    from its first launch on the H100), and the rest of the frame's device
+    time by the PyTorch op that launched it (its self device time, averaged
+    over every traced frame). Raises without a CUDA GPU or a CUDA state, and
+    if the profiler records no kernel."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from tpufluid_torch.render import make_render
 
@@ -453,17 +458,25 @@ def profile_frame_kernels(config, state, frames: int = 30, top_other: int = 8) -
     render = make_render(config, device=device)
     render(state)
     torch.cuda.synchronize()
-    before = {k: v.launches for k, v in build.KERNELS.items()}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
+        for _ in range(EDGE_STEPS):
+            render(state)
+        with record_function("profiled window"):
+            torch.cuda._sleep(1)
+            before = {k: v.launches for k, v in build.KERNELS.items()}
+            for _ in range(frames):
+                render(state)
+            launched = {k: v.launches - before[k] for k, v in build.KERNELS.items()}
+            torch.cuda._sleep(1)
+        for _ in range(EDGE_STEPS):
             render(state)
         torch.cuda.synchronize()
-    launched = {k: v.launches - before[k] for k, v in build.KERNELS.items()}
     events = [(e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
                e.time_range.elapsed_us()) for e in prof.events()]
-    ops = [(row.key, float(getattr(row, "self_device_time_total", 0.0)))
+    traced = frames + 2 * EDGE_STEPS
+    ops = [(row.key, float(getattr(row, "self_device_time_total", 0.0)) * frames / traced)
            for row in prof.key_averages() if row.device_type == DeviceType.CPU]
-    return frame_breakdown(events, ops, launched, frames, top_other)
+    return frame_breakdown(window_events(events), ops, launched, frames, top_other)
 
 
 # ---- the report --------------------------------------------------------

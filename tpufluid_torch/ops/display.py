@@ -24,10 +24,11 @@ def linear_to_gamma(color: torch.Tensor) -> torch.Tensor:
 
 
 def channel_norm(x: torch.Tensor) -> torch.Tensor:
-    """sqrt of the sum over channels of x*x, summed from channel 0 in order."""
-    s = x[0] * x[0]
-    for ch in range(1, x.shape[0]):
-        s = s + x[ch] * x[ch]
+    """sqrt of the sum over the channels (axis -3) of x*x, summed from
+    channel 0 in order."""
+    s = x[..., 0, :, :] * x[..., 0, :, :]
+    for ch in range(1, x.shape[-3]):
+        s = s + x[..., ch, :, :] * x[..., ch, :, :]
     return torch.sqrt(s)
 
 
@@ -64,7 +65,7 @@ def shaded_base(dye_rgb: torch.Tensor, out_hw: Tuple[int, int],
     nz2 = float(np.float32(nz) * np.float32(nz))
     inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + nz2)
     diffuse = (nz * inv_len + 0.7).clamp(0.7, 1.0)
-    return c * diffuse[None]
+    return c * diffuse.unsqueeze(-3)
 
 
 def display_composite(
@@ -76,7 +77,9 @@ def display_composite(
     dither_tex: Optional[torch.Tensor],
     base: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """-> (4, h, w) premultiplied RGBA (alpha = max(r,g,b), script.js:608-609).
+    """-> (..., 4, h, w) premultiplied RGBA (alpha = max(r,g,b),
+    script.js:608-609), with the channel axis -3 and any leading axes those
+    of the dye, bloom and sunrays (the dither is one tile for all).
 
     Every source is sampled bilinearly at the display target's texel
     centers (columns, then rows); the dither (64x64, REPEAT) at
@@ -91,9 +94,9 @@ def display_composite(
 
     if sunrays_tex is not None:
         rays = sample_affine(sunrays_tex, out_hw)
-        c = c * rays[None]
+        c = c * rays.unsqueeze(-3)
         if bloom is not None:
-            bloom = bloom * rays[None]
+            bloom = bloom * rays.unsqueeze(-3)
 
     if bloom is not None:
         if dither_tex is not None:
@@ -104,8 +107,8 @@ def display_composite(
         bloom = linear_to_gamma(bloom)
         c = c + bloom
 
-    a = c.amax(dim=0)
-    return torch.cat([c, a[None]], dim=0)
+    a = c.amax(dim=-3)
+    return torch.cat([c, a.unsqueeze(-3)], dim=-3)
 
 
 def checkerboard(out_hw: Tuple[int, int], aspect: float, device=None) -> torch.Tensor:
@@ -120,6 +123,8 @@ def checkerboard(out_hw: Tuple[int, int], aspect: float, device=None) -> torch.T
 
 
 def blend_premultiplied(src_rgba: torch.Tensor, dst_rgba: torch.Tensor) -> torch.Tensor:
-    """GL blendFunc(ONE, ONE_MINUS_SRC_ALPHA): out = src + dst * (1 - src.a)."""
-    a = src_rgba[3:4]
+    """GL blendFunc(ONE, ONE_MINUS_SRC_ALPHA): out = src + dst * (1 - src.a),
+    alpha the fourth channel of axis -3; dst broadcasts (one backdrop for a
+    batch)."""
+    a = src_rgba[..., 3:4, :, :]
     return src_rgba + dst_rgba * (1.0 - a)

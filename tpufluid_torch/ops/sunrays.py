@@ -26,8 +26,9 @@ _EXPOSURE = 0.7
 
 
 def sunrays_mask(dye_rgb: torch.Tensor) -> torch.Tensor:
-    """Mask alpha at dye resolution (sunraysMaskShader, script.js:676-689)."""
-    br = dye_rgb.amax(dim=0)
+    """Mask alpha at dye resolution (sunraysMaskShader, script.js:676-689):
+    (..., 3, H, W) -> (..., H, W), the max over the channel axis -3."""
+    br = dye_rgb.amax(dim=-3)
     return 1.0 - (br * 20.0).clamp_min(0.0).clamp_max(0.8)
 
 

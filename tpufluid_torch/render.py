@@ -10,6 +10,11 @@ On a CUDA state the bloom pyramid (1 launch) and the display composite (1
 launch) run the CUDA kernels; on a CPU state their plain versions. Sunrays, the base resample and the blend are
 PyTorch ops on either device. The output is a float32 (4, H, W) RGBA tensor
 on the state's device; frame_u8 quantizes it to the servers' wire format.
+
+A state whose fields lead with a batch axis of B sims (tpufluid_torch.batch)
+renders as a batch: (B, 4, H, W), one bloom and one display launch for the B
+sims, the sunrays' ops once for all of them, one backdrop broadcast over
+them. Each sim's frame is the single-sim frame of that sim, bit for bit.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ def _render(state: FluidState, config: FluidConfig, out_hw, to_screen: bool, dit
     if config.BLOOM and dither is None:
         dither = blue_noise(device)
 
-    # The display reads the dye in its storage type (its plain version casts).
+    # The display reads the dye in its storage type (its plain version casts);
+    # the backdrop, (4, h, w), broadcasts over a batch in the blend.
     display = passes.display(state.dye, out_hw, config.SHADING, bloom_tex, sunrays_tex,
                              dither if config.BLOOM else None)
 
@@ -79,7 +85,8 @@ def _render(state: FluidState, config: FluidConfig, out_hw, to_screen: bool, dit
 def render_frame(state: FluidState, config: FluidConfig,
                  out_hw: Optional[Tuple[int, int]] = None, to_screen: bool = True,
                  dither: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The full display pipeline -> (4, out_h, out_w) float32 RGBA.
+    """The full display pipeline -> (4, out_h, out_w) float32 RGBA, or
+    (B, 4, out_h, out_w) for a batched state.
 
     to_screen=False is the offscreen-capture path (captureScreenshot,
     script.js:287-299): with TRANSPARENT it skips background and blending.
@@ -126,14 +133,15 @@ def frame_u8(state: FluidState, config: FluidConfig,
              dither_path: Optional[str] = None) -> torch.Tensor:
     """The rendered frame in the servers' wire format, computed on the
     state's device: render + clip01 * 255 quantize (truncating) + vertical
-    flip -> (h, w, 3) uint8, top row first."""
+    flip -> (h, w, 3) uint8, top row first; for a batched state (B, h, w, 3),
+    each sim flipped on its own row axis."""
     if dither_path is not None:
         raise NotImplementedError(
             "dither_path needs io.load_dither, which is not ported yet "
             "(ROADMAP.md Queue 1 #7, headless app and I/O)")
     frame = render_frame(state, config, out_hw=out_hw)
-    rgb = (frame[:3].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-    return torch.flip(rgb.permute(1, 2, 0), dims=(0,)).contiguous()
+    rgb = (frame[..., :3, :, :].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return torch.flip(rgb.movedim(-3, -1), dims=(-3,)).contiguous()
 
 
 def tick_body(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,

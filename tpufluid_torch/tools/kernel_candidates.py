@@ -14,7 +14,9 @@ ops/cuda/jacobi.py tiles_for, leave room for a K-deep halo).
 
 Bloom: the pyramid at the demo's base (256x455, 7 mips) and 1024x1024's
 (256x256, 7 mips), base from numpy (seed 0), in its one cooperative launch
-(the designs it beat are gone; their times are in PERF.md).
+(the designs it beat are gone; their times are in PERF.md), and batched,
+at 1024x1024's base for B = 16, 132, 133 and 264 sims, in its one launch
+for every sim (the plans it beat, too, are gone).
 
 Display: at the demo (f32 dye 1024x1820 -> 720x1280) and 1024x1024 (bf16
 dye), with bloom, sunrays and dither from numpy (seed 0): the composite
@@ -142,6 +144,30 @@ def bloom_rows(rate: float, gpu: str) -> list:
     return rows
 
 
+BLOOM_BATCHES = (16, 132, 133, 264)
+
+
+def bloom_batch_rows(rate: float, gpu: str) -> list:
+    """The batched pyramid at 1024x1024's base in its one launch for every
+    sim (the plans it beat are gone; their times are in PERF.md)."""
+    rng = np.random.default_rng(0)
+    cfg = FluidConfig(**RENDER_CONFIGS[1][1]).validate()
+    rest = (cfg.bloom_mip_sizes(), cfg.BLOOM_THRESHOLD, cfg.BLOOM_SOFT_KNEE,
+            cfg.BLOOM_INTENSITY)
+    bw, bh = cfg.bloom_size
+    rows = []
+    for batch in BLOOM_BATCHES:
+        base = torch.from_numpy((rng.random((batch, 3, bh, bw)) * 2.0).astype(np.float32)).cuda()
+        err = float((bloom.bloom_pyramid(base, *rest)
+                     - bloom.bloom_pyramid_plain(base, *rest)).abs().max())
+        ms = queued_ms(lambda: bloom.bloom_pyramid(base, *rest), 20, rate)
+        rows.append({"kernel": "bloom_pyramid", "grid": f"1024_bfloat16:b{batch}",
+                     "launches": 1, "ms": ms, "max_abs_err": err})
+        print(f"bloom candidate b{batch:<4d} one launch: {ms:.4f} ms, max_abs_err {err:.1e} "
+              f"on {gpu}", flush=True)
+    return rows
+
+
 def display_rows(rate: float, gpu: str) -> list:
     from tpufluid_torch.render import blue_noise
 
@@ -184,7 +210,7 @@ def main(argv=None) -> list:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     rate = spin_rate()
     rows = (stencil_rows(rate, gpu) + jacobi_rows(args.iters, rate, gpu)
-            + bloom_rows(rate, gpu) + display_rows(rate, gpu))
+            + bloom_rows(rate, gpu) + bloom_batch_rows(rate, gpu) + display_rows(rate, gpu))
     sms = sm_count(torch.device("cuda"))
     chosen = {name: jacobi.plan(h, w, args.iters, sms) for name, h, w, _ in GRIDS}
     print(f"jacobi plan on {sms} SMs: {chosen}")

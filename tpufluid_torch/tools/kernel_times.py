@@ -1,13 +1,14 @@
-"""Device ms of each single-sim step kernel call on the card, to compare two
-checkouts on one card.
+"""Device ms of each single-sim step and frame kernel call on the card, to
+compare two checkouts on one card.
 
     python3 tpufluid_torch/tools/kernel_times.py TAG [--reps 5]
 
 At the demo's defaults (float32) and at 1024x1024 and 4096x4096 (bfloat16
 with the RGB9E5 dye), on check.random_state (seed 7), times every kernel call
-of one step and the dye's advect_prepare (check.step_cases, part_cases):
-20 calls queued behind a spin kernel, so host launch cost is hidden, the
-median of ``--reps`` such runs. Run as a file, it measures the
+of one step, the dye's advect_prepare and the frame's bloom pyramid and
+display at the canvas (check.step_cases, part_cases, render_cases): 20 calls
+queued behind a spin kernel, so host launch cost is hidden, the median of
+``--reps`` such runs. Run as a file, it measures the
 tpufluid_torch that PYTHONPATH names, so one copy of the script times two
 checkouts, in the order parent, change, change, parent:
 
@@ -44,14 +45,15 @@ def main(argv) -> None:
     from tpufluid_torch.ops.cuda import build, check
     from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 
-    build.build(["stencil", "jacobi", "advect"])
+    build.build(["stencil", "jacobi", "advect", "bloom", "display"])
     rate = spin_rate()
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     for name, overrides in CONFIGS:
         cfg = FluidConfig(MAX_SPLATS=8, **overrides).validate()
         state, splats = check.random_state(cfg, 7, "cuda")
-        for case in check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg):
+        for case in (check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg)
+                     + check.render_cases(state, cfg)):
             ms = sorted(queued_ms(case.run, 20, rate) for _ in range(args.reps))[args.reps // 2]
             print(f"KT {args.tag} {name} {case.label} {ms:.5f}", flush=True)
     print(f"kernel times {args.tag} on {gpu}")
