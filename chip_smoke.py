@@ -120,6 +120,34 @@ the card.
    the same frame rate at B = 1 beside make_render, and
    profile_frame_kernels on the batch (torch.profiler, 30 batched frames:
    one event of each render kernel a frame).
+12. Sharded phase (tpufluid_torch.parallel, BASELINE.md config #5): the
+   meshes put their shards on the cards torch.cuda.device_count() reports,
+   round robin (on one card all on cuda:0: a line says so). pre_pressure's
+   true-wall form (check.bounded_cases: the walls of a top, bottom, corner,
+   middle and single shard, walls inside the first tile and on each tile's
+   edge) against its plain version in float32, bfloat16 and float16, max abs
+   error 0 required. Then 3 make_sharded_step steps through the kernels
+   against 3 through the plain versions (check.py's tolerances, launches
+   counted: 7 a shard a step, 21 where every phase splits) at demo_float32
+   on a 2x2 mesh, 4096^2 bf16 (RGB9E5) on (4, 1) and on 2x2 with
+   OVERLAP_HALO, and at sharded_16384_bf16_2x2 itself (sim = dye = canvas
+   16384^2, bf16 RGB9E5, 20 sweeps, MAX_SPLATS=8, swirl_trace seed 42,
+   OVERLAP_HALO by default, so on: the kernels on its padded blocks and
+   split bands); there also 3 make_multi_step steps at 16384^2 (launches
+   counted) against plain_step. The sharded step against make_step:
+   demo_float32 2x2 after 4 steps within 4e-4 of each field's scale, and
+   sharded_16384_bf16_2x2 after 3 steps within 1e-2, each with its largest
+   difference and the share of texels that differ. Then, the main path of
+   this phase with the launch counts zeroed just before and read just
+   after: make_sharded_multi_step over 20 steps at sharded_16384_bf16_2x2
+   beside make_multi_step's 20 at 16384^2 on the same card and the sharded
+   step's 20 with OVERLAP_HALO=False (steps/s; the kernels' and the other
+   device time a step under torch.profiler over 3 steps; the idle share),
+   the launches against 84 a sharded step (28 without the split), the
+   bytes the halos moved in one step against overhead_report, and the
+   bounded pre_pressure on a corner shard's padded block (compared inside
+   its walls) beside the unbounded launch on a copy of the same window,
+   its bound and its plain time.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
@@ -163,6 +191,13 @@ BATCH_WARM, BATCH_TIMED = 100, 200
 CROSS_GRID_BATCH = 4           # the demo's 128/1024 cross grid, batched
 BATCH_FRAME_WARM = 50          # steps before the batched frames are compared and timed
 PER_FRAME = {"bloom_pyramid": 1, "display": 1}
+SHARDED_MESH = (2, 2)
+SHARDED_RES = 16384            # sharded_16384_bf16_2x2: BASELINE.md config #5
+SHARDED_CHECK_RES = 4096       # the kernels-against-plain cells
+SHARDED_RATE_STEPS = 20
+SHARDED_PROFILE_STEPS = 3
+SHARDED_16K_BOUND = 1e-2       # of each field's scale after 3 steps: about 2.5 bf16 ulps
+SHARDED_DEMO_BOUND = 4e-4      # tests/test_sharding.py's, after 4 steps
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -919,6 +954,275 @@ def batched_frame_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> d
     return out
 
 
+def sharded_mesh(shape):
+    """A mesh of ``shape`` over the cards there are, round robin."""
+    import torch
+    from tpufluid_torch import make_mesh
+
+    n = torch.cuda.device_count()
+    return make_mesh(devices=[f"cuda:{k % n}" for k in range(shape[0] * shape[1])], shape=shape)
+
+
+def sharded_launches(cfg, shape) -> dict:
+    """Launches of each step kernel in one sharded step of ``cfg`` on a
+    mesh of ``shape``: a step's on every shard, three times over in each
+    phase that splits (an interior band and two strips)."""
+    from tpufluid_torch.parallel import sharded_step as ss
+
+    ny, nx = shape
+    h = cfg.sim_size[1] // ny
+    hd = cfg.dye_size[1] // ny
+
+    def bands(ghost, extent):
+        return 3 if cfg.overlap_halo and extent >= 3 * ghost else 1
+
+    per = expected_per_step(cfg)
+    dye = bands(ss.dye_halo_width(cfg), hd)
+    shard = {"pre_pressure": per["pre_pressure"] * bands(ss._G_STENCIL, h),
+             "jacobi_chunk": per["jacobi_chunk"] * bands(ss._G_JACOBI, h),
+             "gradient_subtract": bands(ss._G_STENCIL, h),
+             "advect": bands(ss._G_VEL, h) + dye, "advect_prepare": dye}
+    return {k: v * ny * nx for k, v in shard.items()}
+
+
+def field_diff(torch, got, want) -> dict:
+    """Per field of two states: the largest difference, the field's scale
+    and the share of texels that differ."""
+    out = {}
+    for f in ("velocity", "dye", "pressure"):
+        g, w = getattr(got, f).float(), getattr(want, f).float()
+        assert g.shape == w.shape, (f, g.shape, w.shape)
+        assert bool(torch.isfinite(g).all()), f"non-finite sharded {f}"
+        out[f] = {"max_abs": float((g - w).abs().max()), "scale": float(w.abs().max()),
+                  "share_differing": float((g != w).float().mean())}
+    return out
+
+
+def sharded_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
+    """Phase 12: the bounded pre_pressure, the sharded step's kernel passes
+    against its plain passes (and, at sharded_16384_bf16_2x2, make_step's
+    against plain_step), the sharded against the unsharded step, and the
+    rates at sharded_16384_bf16_2x2, split and monolithic."""
+    from tpufluid_torch import (init_state, make_multi_step, make_sharded_multi_step,
+                                make_sharded_step, shard_state, swirl_trace)
+    from tpufluid_torch.ops.cuda import build, floors
+    from tpufluid_torch.ops.cuda import stencil as kstencil
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+    from tpufluid_torch.ops.splat import SPLAT_DX, SPLAT_DY, splat_factors
+    from tpufluid_torch.parallel import halo
+    from tpufluid_torch.parallel import sharded_step as ss
+    from tpufluid_torch.parallel.mesh import gather_state
+    from tpufluid_torch.step import plain_step
+
+    mesh = sharded_mesh(SHARDED_MESH)
+    ghosts = (ss._G_STENCIL, ss._GC)   # pre_pressure's padded block
+    print(f"sharded: {torch.cuda.device_count()} card(s); the meshes put their shards on them "
+          f"round robin: the 2x2 mesh's on {[str(d) for r in mesh.devices for d in r]}")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        check_cases(torch, check, f"sharded_{str(dtype)[6:]}",
+                    check.bounded_cases(device, dtype, ghosts, seed=7), errors, exact=True)
+    bounded_err = max(v for (c, k), v in errors.items() if c.startswith("sharded_"))
+
+    def fields(state):
+        return tuple(getattr(state, f) for f in ("velocity", "dye", "pressure"))
+
+    def kernels_vs_plain(name, cfg, shape):
+        m = sharded_mesh(shape)
+        trace = swirl_trace(cfg, CHECK_STEPS, seed=42)
+        step = make_sharded_step(cfg, m)
+        a = shard_state(init_state(cfg, device=device), m)
+        b = shard_state(init_state(cfg, device=device), m)
+        build.reset_launches()
+        for t in range(CHECK_STEPS):
+            a = step(a, trace.dts[t], trace.batches[t])
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+        want = {k: n * CHECK_STEPS for k, n in sharded_launches(cfg, shape).items()}
+        assert launches == want, (name, launches, want)
+        for t in range(CHECK_STEPS):
+            b = ss.plain_sharded_step(b, trace.dts[t], trace.batches[t], cfg)
+        err, tol = check.compare(fields(gather_state(a)), fields(gather_state(b)))
+        print(f"sharded {name} {shape[0]}x{shape[1]}: {CHECK_STEPS} make_sharded_step steps "
+              f"through the kernels vs the plain passes: max_abs_err {err:.3e}  tol {tol:.3e}; "
+              f"launches {launches}")
+        assert err <= tol, (name, err, tol)
+        return {"max_abs_err": err, "tol": tol, "launches": launches}
+
+    out = {"bounded_max_abs_err": bounded_err, "vs_plain": {
+        "demo_float32": kernels_vs_plain("demo_float32", cfgs["demo_float32"], (2, 2)),
+        f"{SHARDED_CHECK_RES}_bfloat16_rgb9e5": kernels_vs_plain(
+            f"{SHARDED_CHECK_RES}_bfloat16_rgb9e5", batch_config(SHARDED_CHECK_RES), (4, 1)),
+        f"{SHARDED_CHECK_RES}_bfloat16_rgb9e5:overlap": kernels_vs_plain(
+            f"{SHARDED_CHECK_RES}_bfloat16_rgb9e5:overlap",
+            dataclasses.replace(batch_config(SHARDED_CHECK_RES), OVERLAP_HALO=True), (2, 2))}}
+
+    def vs_unsharded(name, cfg, steps, bound, plain=False):
+        """The sharded step against make_step; with ``plain``, make_step
+        (launches counted) against plain_step as well."""
+        trace = swirl_trace(cfg, steps, seed=42)
+        build.reset_launches()
+        one = make_multi_step(cfg, device=device)(init_state(cfg, device=device), trace.dts,
+                                                  trace.batches)
+        torch.cuda.synchronize()
+        if plain:
+            launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+            want = {k: n * steps for k, n in expected_per_step(cfg).items()}
+            assert launches == want, (name, launches, want)
+            ref = init_state(cfg, device=device)
+            for t in range(steps):
+                ref = plain_step(ref, trace.dts[t], trace.batches[t], cfg)
+            err, tol = check.compare(fields(one), fields(ref))
+            del ref
+            out[f"unsharded_vs_plain:{name}"] = {"max_abs_err": err, "tol": tol,
+                                                 "launches": launches}
+            print(f"unsharded {name}: {steps} make_multi_step steps through the kernels vs "
+                  f"plain_step: max_abs_err {err:.3e}  tol {tol:.3e}; launches {launches}")
+            assert err <= tol, (name, err, tol)
+        shards = make_sharded_multi_step(cfg, mesh)(
+            shard_state(init_state(cfg, device=device), mesh), trace.dts, trace.batches)
+        diff = field_diff(torch, gather_state(shards), one)
+        print(f"sharded {name} 2x2 vs make_step after {steps} steps: " + "; ".join(
+            f"{f} max abs diff {d['max_abs']:.4e} of scale {d['scale']:.4e} "
+            f"({d['max_abs'] / max(d['scale'], 1e-3):.3e} <= {bound:.0e}), "
+            f"{100 * d['share_differing']:.4f}% of texels differ" for f, d in diff.items()))
+        for f, d in diff.items():
+            assert d["max_abs"] <= bound * max(d["scale"], 1e-3), (name, f, d)
+        return diff, one, shards
+
+    out["demo_vs_unsharded"], _, _ = vs_unsharded("demo_float32", cfgs["demo_float32"], 4,
+                                                  SHARDED_DEMO_BOUND)
+    cfg = batch_config(SHARDED_RES)
+    cell = f"sharded_{SHARDED_RES}_bf16_2x2"
+    # The cell's own shapes (the padded blocks, the split bands, the whole
+    # grid): its kernels against the plain passes, sharded and unsharded.
+    out["vs_plain"][cell] = kernels_vs_plain(cell, cfg, SHARDED_MESH)
+    torch.cuda.empty_cache()
+    diff, one, shards = vs_unsharded(cell, cfg, CHECK_STEPS, SHARDED_16K_BOUND, plain=True)
+    out[f"{SHARDED_RES}_vs_unsharded"] = diff
+    torch.cuda.empty_cache()
+
+    # The rates: 20 steps each, one call, then each one's device time.
+    trace = swirl_trace(cfg, CHECK_STEPS + SHARDED_RATE_STEPS, seed=42)
+    seq = torch.as_tensor(trace.batches[CHECK_STEPS:], device=device)
+    multi, smulti = make_multi_step(cfg, device=device), make_sharded_multi_step(cfg, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = multi(one, 1.0 / 60.0, seq)
+    torch.cuda.synchronize()
+    single_sps = SHARDED_RATE_STEPS / (time.perf_counter() - t0)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    shards = smulti(shards, 1.0 / 60.0, seq)
+    torch.cuda.synchronize()
+    sharded_sps = SHARDED_RATE_STEPS / (time.perf_counter() - t0)
+    launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    want = {k: n * SHARDED_RATE_STEPS for k, n in sharded_launches(cfg, SHARDED_MESH).items()}
+    assert launches == want, (launches, want)
+    # The same steps with the row-halo phases whole (OVERLAP_HALO=False),
+    # from the split run's state after one warm-up step; results dropped.
+    mono_cfg = dataclasses.replace(cfg, OVERLAP_HALO=False)
+    mono_multi = make_sharded_multi_step(mono_cfg, mesh)
+    mono_multi(shards, 1.0 / 60.0, seq[:1])
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    mono = mono_multi(shards, 1.0 / 60.0, seq)
+    torch.cuda.synchronize()
+    mono_sps = SHARDED_RATE_STEPS / (time.perf_counter() - t0)
+    mono_launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    assert mono_launches == {k: n * SHARDED_RATE_STEPS for k, n in
+                             sharded_launches(mono_cfg, SHARDED_MESH).items()}, mono_launches
+    del mono
+    step = make_sharded_step(cfg, mesh)
+    halo.SENT.reset()
+    box = [step(shards, 1.0 / 60.0, seq[0])]
+    sent = halo.SENT.bytes
+    report = ss.overhead_report(cfg, SHARDED_MESH)
+
+    def one_sharded(t):
+        box[0] = step(box[0], 1.0 / 60.0, seq[t])
+
+    mono_step = make_sharded_step(mono_cfg, mesh)
+    mono_box = [box[0]]
+
+    def one_mono(t):
+        mono_box[0] = mono_step(mono_box[0], 1.0 / 60.0, seq[t])
+
+    _, sother = floors.profile_calls(one_sharded, SHARDED_PROFILE_STEPS)
+    _, mother = floors.profile_calls(one_mono, SHARDED_PROFILE_STEPS)
+    _, uother = floors.profile_step_kernels(cfg, one, 1.0 / 60.0, SHARDED_PROFILE_STEPS)
+    rates = {}
+    for name, sps, other in ((f"make_multi_step {SHARDED_RES}^2", single_sps, uother),
+                             ("make_sharded_multi_step 2x2", sharded_sps, sother),
+                             ("make_sharded_multi_step 2x2 OVERLAP_HALO=False", mono_sps,
+                              mother)):
+        kern = sum(r["us"] for r in other["kernel_events"].values()) / 1e3
+        dev = kern + other["other_device_us"] / 1e3
+        rates[name] = {"steps_per_s": sps, "kernels_ms": kern, "other_device_ms":
+                       other["other_device_us"] / 1e3, "idle": 1 - dev * sps / 1e3,
+                       "kernel_events": other["kernel_events"],
+                       "top_other_ops": other["top_other_ops"]}
+        print(f"sharded rate {name} on {gpu}: {sps:.2f} steps/s over {SHARDED_RATE_STEPS} steps "
+              f"(one call, {1e3 / sps:.4f} ms a step); profiler over {SHARDED_PROFILE_STEPS} "
+              f"steps: kernels {kern:.4f} ms + other device "
+              f"{other['other_device_us'] / 1e3:.4f} ms a step, "
+              f"{100 * rates[name]['idle']:.1f}% idle (1 - device / wall); top other: " + "; ".join(
+                  f"{o['us']} us {o['op'][:40]}" for o in other["top_other_ops"][:4]))
+    print(f"sharded rate: all 4 shards on {torch.cuda.device_count()} card(s), so the sharded "
+          f"rate is the cost of sharding on one card, not a multi-card rate; launches "
+          f"{launches} over {SHARDED_RATE_STEPS} sharded steps = "
+          f"{sum(launches.values()) // SHARDED_RATE_STEPS} a step, as expected "
+          f"{ {k: n // SHARDED_RATE_STEPS for k, n in want.items()} } (OVERLAP_HALO=False: "
+          f"{sum(mono_launches.values()) // SHARDED_RATE_STEPS}); halo bytes moved in a "
+          f"step {sent} (all shards) vs overhead_report "
+          f"{report['total_send_bytes_per_step']} a device x 4 = "
+          f"{4 * report['total_send_bytes_per_step']}")
+    out.update(rates=rates, launches=launches, monolithic_launches=mono_launches,
+               halo_bytes=sent, overhead_report=report)
+    del one, shards, box, mono_box
+    torch.cuda.empty_cache()
+
+    # The bounded launch on a corner shard's padded block, beside the
+    # unbounded one on a copy of the same window.
+    h, w = SHARDED_RES // SHARDED_MESH[0], SHARDED_RES // SHARDED_MESH[1]
+    hp, wp = h + 2 * ghosts[0], w + 2 * ghosts[1]
+    gen = torch.Generator(device=device).manual_seed(7)
+    vel = torch.clamp(torch.randn((2, hp, wp), generator=gen, device=device) * 400, -1000,
+                      1000).to(torch.bfloat16)
+    splats = torch.as_tensor(trace.batches[0], device=device)
+    vf = splat_factors(splats, hp, wp, cfg.splat_radius_uv(), cfg.aspect_ratio,
+                       slice(SPLAT_DX, SPLAT_DY + 1), row0=-ss._G_STENCIL, h_total=SHARDED_RES,
+                       col0=-ss._GC, w_total=SHARDED_RES)
+    bounds = check.shard_bounds(h, w, *ghosts)["corner"]
+    r0, c0, wh, ww = kstencil.window(hp, wp, bounds)
+    rows, cols = slice(r0, r0 + wh), slice(c0, c0 + ww)
+    copy = (vel[:, rows, cols].contiguous(), cfg.CURL, 1.0 / 60.0,
+            (vf[0][rows].contiguous(), vf[1][:, cols].contiguous(), vf[2]))
+    # the window's bf16 velocity and float32 factors read, its velocity and
+    # divergence written; the chain's operations and the bump's
+    n_active, n_rows = int((splats[:, 7] != 0).sum()), splats.shape[0]
+    nbytes = 2 * 2 * wh * ww + 4 * n_rows * (wh + ww + 2) + 3 * 2 * wh * ww
+    flops = wh * ww * (2 * 2 * n_active + check._PRE_PRESSURE)
+    args = (vel, cfg.CURL, 1.0 / 60.0, vf, bounds)
+    err, _ = check.compare(*(tuple(t[..., rows, cols] for t in fn(*args))   # the window's
+                             for fn in (kstencil.pre_pressure, kstencil.pre_pressure_plain)))
+    assert err == 0.0, err
+    rate = spin_rate()
+    bounded_ms = queued_ms(lambda: kstencil.pre_pressure(*args), 20, rate)
+    copy_ms = queued_ms(lambda: kstencil.pre_pressure(*copy), 20, rate)
+    plain_ms = queued_ms(lambda: kstencil.pre_pressure_plain(*args), 3, rate)
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations"
+    print(f"time   pre_pressure:bounded corner shard {hp}x{wp} bf16, window {wh}x{ww}: kernel "
+          f"{bounded_ms:.4f} ms, unbounded on a copy of the window {copy_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}, {nbytes} B, {flops} flop); "
+          f"max_abs_err {err:.3e}")
+    out["bounded"] = {"ms": bounded_ms, "window_copy_ms": copy_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "by": by, "bytes": nbytes, "flops": flops,
+                      "launches": launches["pre_pressure"], "max_abs_err": max(err, bounded_err)}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1012,6 +1316,7 @@ def main() -> int:
     horizon = long_horizon_phase(torch, check, gpu, device, errors)
     batched = batched_phase(torch, check, cfgs, gpu, device, errors)
     frames = batched_frame_phase(torch, check, cfgs, gpu, device, errors)
+    sharded = sharded_phase(torch, check, cfgs, gpu, device, errors)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -1045,6 +1350,16 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["by"], "library_ms": row.get("library_ms"), "configs": per_config,
         })
+    # pre_pressure's true-wall form: launched by the sharded step alone.
+    b = sharded["bounded"]
+    kernels.append({
+        "name": "pre_pressure:bounded", "route": "cuda", "source": "tpufluid_torch/csrc/stencil.cu",
+        "replaces": build.KERNELS["pre_pressure"].replaces, "launches": b["launches"],
+        "max_abs_err": b["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["by"], "library_ms": None,
+        "configs": {f"sharded_{SHARDED_RES}_bf16_2x2": {"window_copy_ms": b["window_copy_ms"],
+                                                        "launches": b["launches"]}},
+    })
     out_dir = Path("out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1052,6 +1367,7 @@ def main() -> int:
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
          "floors": floors_run,
          "long_horizon": horizon, "batched": batched, "batched_frames": frames,
+         "sharded": sharded,
          "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

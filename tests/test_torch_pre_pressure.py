@@ -19,6 +19,11 @@ checked to lie inside its buffer.
   stage 3  the confined, clamped velocity on tile+1, in place
   stage 4  the tile's velocity and divergence (-C walls), rounded once
 
+The model also runs the kernel's true-wall form: a window of a larger
+array, each read and write at the window's base plus a window row times the
+array's pitch, the splat factors at the window's rows and columns, held to
+the plain version with the same bounds inside the window.
+
 On the card (skipped without one): the kernel on every tile against its
 plain version bit for bit, its launches, and a refused launch.
 """
@@ -96,8 +101,13 @@ def _ring(ti0, tj0, th, tw, k, h, w):
     return gi[m], gj[m]
 
 
-def _emulate_tile(vel, factors, out, div, ti0, tj0, tile, dtype):
-    _, h, w = vel.shape
+def _emulate_tile(vel, factors, out, div, ti0, tj0, tile, dtype, window):
+    """One block: ``vel`` and ``out`` (2, Hs * Ws), ``div`` (Hs * Ws) flat,
+    addressed as the kernel addresses them; ``window`` (r0w, c0w, h, w)."""
+    r0w, c0w, h, w = window
+    ws = factors[1].shape[1] if factors is not None else None
+    pitch = div.pitch
+    base = r0w * pitch + c0w
     th, tw = tile.th, tile.tw
     u_el = 16 // torch.empty((), dtype=dtype).element_size()
     wh, ww = th + 2 * HALO, tw + 2 * HALO
@@ -110,7 +120,7 @@ def _emulate_tile(vel, factors, out, div, ti0, tj0, tile, dtype):
     win = _Buffer((2, wh, tw + 2 * u_el), (r0, tj0 - u_el))
     rows, cols = r0 + np.arange(wh), tj0 - u_el + np.arange(tw + 2 * u_el)
     ri, ci = np.nonzero(_inside(rows, h))[0], np.nonzero(_inside(cols, w))[0]
-    win.a[np.ix_([0, 1], ri, ci)] = vel[np.ix_([0, 1], rows[ri], cols[ci])]
+    win.a[np.ix_([0, 1], ri, ci)] = vel[:, base + rows[ri][:, None] * pitch + cols[ci]]
     s_rows = 0 if factors is None else factors[2].shape[0]
     ga = np.full((2, s_rows, whp), np.nan, f32)
     gxs = np.full((s_rows, ww), np.nan, f32)
@@ -118,9 +128,10 @@ def _emulate_tile(vel, factors, out, div, ti0, tj0, tile, dtype):
     wci = np.nonzero(_inside(wcols, w))[0]
     if s_rows:
         gy, gx, amt = factors
+        assert gx.shape[1] == ws == pitch
         for c in range(2):
-            ga[c][:, ri] = (gy[rows[ri]] * amt[:, c][None, :]).T
-        gxs[:, wci] = gx[:, wcols[wci]]
+            ga[c][:, ri] = (gy[r0w + rows[ri]] * amt[:, c][None, :]).T
+        gxs[:, wci] = gx[:, c0w + wcols[wci]]
 
     # stage 1: the bump on tile+3, rounded to storage
     bump = _Buffer((2, wh, ww), (r0, c0))
@@ -170,24 +181,35 @@ def _emulate_tile(vel, factors, out, div, ti0, tj0, tile, dtype):
     ru = np.where(gj < w - 1, bu[bump.at(gi, np.minimum(gj + 1, w - 1))], -u)
     bvv = np.where(gi > 0, bv[bump.at(np.maximum(gi - 1, 0), gj)], -v)
     tv = np.where(gi < h - 1, bv[bump.at(np.minimum(gi + 1, h - 1), gj)], -v)
-    out[0, gi, gj] = _round(u, dtype)
-    out[1, gi, gj] = _round(v, dtype)
-    div[gi, gj] = _round(f32(0.5) * (((ru - lu) + tv) - bvv), dtype)
+    o = base + gi * pitch + gj
+    out[0, o] = _round(u, dtype)
+    out[1, o] = _round(v, dtype)
+    div.a[o] = _round(f32(0.5) * (((ru - lu) + tv) - bvv), dtype)
 
 
-def emulate(velocity, factors, tile):
-    """The kernel on ``tile`` over every tile of the grid: (vel', div) as
-    float32 numpy arrays of storage values, NaN where nothing was written."""
+class _Flat:
+    """A flat plane and its row pitch."""
+
+    def __init__(self, hs, ws):
+        self.a = np.full(hs * ws, np.nan, f32)
+        self.pitch = ws
+
+
+def emulate(velocity, factors, tile, true_bounds=None):
+    """The kernel on ``tile`` over every tile of the window of
+    ``true_bounds`` (the whole grid without): (vel', div) as float32 numpy
+    arrays of storage values, NaN where nothing was written."""
     dtype = velocity.dtype
-    vel = velocity.float().numpy()
+    _, hs, ws = velocity.shape
+    vel = velocity.float().numpy().reshape(2, hs * ws)
     fac = None if factors is None else tuple(t.numpy() for t in factors)
-    _, h, w = vel.shape
-    out = np.full((2, h, w), np.nan, f32)
-    div = np.full((h, w), np.nan, f32)
-    for ti0 in range(0, h, tile.th):
-        for tj0 in range(0, w, tile.tw):
-            _emulate_tile(vel, fac, out, div, ti0, tj0, tile, dtype)
-    return out, div
+    window = kstencil.window(hs, ws, true_bounds)
+    out = np.full((2, hs * ws), np.nan, f32)
+    div = _Flat(hs, ws)
+    for ti0 in range(0, window[2], tile.th):
+        for tj0 in range(0, window[3], tile.tw):
+            _emulate_tile(vel, fac, out, div, ti0, tj0, tile, dtype, window)
+    return out.reshape(2, hs, ws), div.a.reshape(hs, ws)
 
 
 @pytest.mark.parametrize("grid", GRIDS, ids=lambda g: f"{g[0]}x{g[1]}")
@@ -200,6 +222,42 @@ def test_tile_structure_equals_plain(grid, tile, dtype, splats):
     got_v, got_d = emulate(vel, factors, tile)
     np.testing.assert_array_equal(got_v, want_v.float().numpy())
     np.testing.assert_array_equal(got_d, want_d.float().numpy())
+
+
+# The walls a shard of a 2x2 mesh of 37x53 blocks sees in its block padded
+# by 16 rows and 64 columns (tpufluid_torch/parallel/sharded_step.py), and
+# walls inside the first tile, on a tile edge and past the array.
+BIG = 1 << 30
+BOUNDS = {
+    "top-left": (16, BIG, 64, BIG),
+    "bottom-right": (-BIG, 16 + 36, -BIG, 64 + 52),
+    "one-shard": (16, 16 + 36, 64, 64 + 52),
+    "sentinels": (-BIG, BIG, -BIG, BIG),
+    "first-tile": (3, 60, 5, 170),
+    "tile-edge": (8, 64, 32, 128),
+}
+
+
+@pytest.mark.parametrize("bounds", sorted(BOUNDS), ids=str)
+@pytest.mark.parametrize("tile", kstencil.TILES, ids=lambda t: f"{t.th}x{t.tw}")
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
+def test_window_structure_equals_plain(bounds, tile, dtype):
+    """The kernel's true-wall form: its tiles on the window of the bounds,
+    read and written through the window's base and the array's pitch,
+    equal the plain version inside the window, and write nothing outside
+    (where the plain version writes NaN)."""
+    vel, factors = _inputs(37 + 32, 53 + 128, dtype, True, seed=3)
+    r0, c0, h, w = kstencil.window(69, 181, BOUNDS[bounds])
+    want_v, want_d = kstencil.pre_pressure_plain(vel, CS, DT, factors, BOUNDS[bounds])
+    got_v, got_d = emulate(vel, factors, tile, BOUNDS[bounds])
+    rows, cols = slice(r0, r0 + h), slice(c0, c0 + w)
+    np.testing.assert_array_equal(got_v[:, rows, cols], want_v[:, rows, cols].float().numpy())
+    np.testing.assert_array_equal(got_d[rows, cols], want_d[rows, cols].float().numpy())
+    inside = np.zeros((69, 181), bool)
+    inside[rows, cols] = True
+    assert np.isnan(got_v[:, ~inside]).all() and np.isnan(got_d[~inside]).all()
+    assert torch.isnan(want_v.float()[:, torch.from_numpy(~inside)]).all()
+    assert torch.isnan(want_d.float()[torch.from_numpy(~inside)]).all()
 
 
 @pytest.mark.parametrize("grid,sms,tile,blocks", [

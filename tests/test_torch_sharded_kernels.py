@@ -1,0 +1,112 @@
+"""pre_pressure's true-wall form and the sharded step on the card.
+
+These tests need an NVIDIA GPU with nvcc (sm_90a); without one every test
+skips with its reason. They import no JAX, so on the card run
+    python -m pytest --noconftest tests/test_torch_sharded_kernels.py -q
+Every comparison is exact (max abs error 0): the kernel on the window of a
+shard's walls (check.bounded_cases, both tiles) against its plain version,
+and the sharded step through the kernels against the sharded step through
+the plain versions on the same card, the shards of a mesh on the cards
+there are, round robin. tests/test_torch_sharding.py holds the sharded
+step to tpufluid's on the CPU.
+"""
+
+import pytest
+import torch
+
+from tpufluid_torch import FluidConfig, init_state, make_sharded_step, shard_state, swirl_trace
+from tpufluid_torch.ops.cuda import build, check
+from tpufluid_torch.ops.cuda import stencil as kstencil
+from tpufluid_torch.parallel.mesh import gather_state, make_mesh
+from tpufluid_torch.parallel.sharded_step import _G_STENCIL, _GC, plain_sharded_step
+
+FIELDS = ("velocity", "dye", "pressure")
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+GHOSTS = (_G_STENCIL, _GC)   # pre_pressure's padded block in the sharded step
+
+
+@pytest.fixture
+def cuda():
+    """The card; skips the test where there is none (decided at run time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _mesh(shape):
+    n = torch.cuda.device_count()
+    return make_mesh(devices=[f"cuda:{k % n}" for k in range(shape[0] * shape[1])],
+                     shape=shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
+def test_bounded_pre_pressure_matches_plain(dtype, cuda):
+    """Every wall of check.shard_bounds on both shard shapes, one launch
+    each, bit-equal to the plain version inside the walls: the unbounded
+    chain on the window (outside, the outputs are unspecified)."""
+    for case in check.bounded_cases(cuda, dtype, GHOSTS, seed=5):
+        before = build.KERNELS["pre_pressure"].launches
+        got = case.run()
+        torch.cuda.synchronize()
+        assert build.KERNELS["pre_pressure"].launches == before + 1, case.label
+        for g, w in zip(got, case.run(plain=True)):
+            assert torch.equal(g, w), (case.label, float((g.float() - w.float()).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
+def test_bounded_tiles_equal_the_window_copy(dtype, cuda):
+    """On either tile, the kernel on a window in place equals the kernel on
+    a contiguous copy of the window and its factors, bit for bit."""
+    for case in check.bounded_cases(cuda, dtype, GHOSTS, seed=6, shards=((96, 160),)):
+        vel, cs, dt, (gy, gx, amt), bounds = case.args
+        r0, c0, h, w = kstencil.window(*vel.shape[-2:], bounds)
+        rows, cols = slice(r0, r0 + h), slice(c0, c0 + w)
+        copy = (vel[:, rows, cols].contiguous(), cs, dt,
+                (gy[rows].contiguous(), gx[:, cols].contiguous(), amt))
+        for n in range(len(kstencil.TILES)):
+            got = kstencil.run_tiles(*case.args[:4], n, bounds)
+            want = kstencil.run_tiles(*copy, n)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0][:, rows, cols], want[0]), (case.label, n)
+            assert torch.equal(got[1][rows, cols], want[1]), (case.label, n)
+
+
+def test_bounds_that_leave_no_texel_raise(cuda):
+    vel = torch.zeros((2, 16, 16), device=cuda)
+    with pytest.raises(ValueError, match="leave no texel"):
+        kstencil.pre_pressure(vel, 30.0, 1 / 60, None, (20, 1 << 30, 0, 15))
+
+
+@pytest.mark.parametrize("name,kw,shape", [
+    ("cross-grid-2x2", dict(SIM_RESOLUTION=64, DYE_RESOLUTION=256, CANVAS_WIDTH=512,
+                            CANVAS_HEIGHT=256), (2, 2)),
+    ("bf16-4x1", dict(SIM_RESOLUTION=256, DYE_RESOLUTION=256, CANVAS_WIDTH=256,
+                      CANVAS_HEIGHT=256, DTYPE="bfloat16"), (4, 1)),
+    ("bf16-overlap-2x2", dict(SIM_RESOLUTION=256, DYE_RESOLUTION=256, CANVAS_WIDTH=256,
+                              CANVAS_HEIGHT=256, DTYPE="bfloat16", OVERLAP_HALO=True), (2, 2)),
+])
+def test_sharded_step_kernels_equal_plain(name, kw, shape, cuda):
+    """Three sharded steps through the kernels equal three through the
+    plain versions on the same card, every shard bit for bit, and the
+    kernels launched on every shard: 7 launches a shard a step, 21 where
+    every phase splits (an interior band and two strips)."""
+    cfg = FluidConfig(MAX_SPLATS=8, **kw).validate()
+    mesh = _mesh(shape)
+    trace = swirl_trace(cfg, 3, seed=4)
+    step = make_sharded_step(cfg, mesh)
+    a = shard_state(init_state(cfg, device=cuda), mesh)
+    b = shard_state(init_state(cfg, device=cuda), mesh)
+    build.reset_launches()
+    for t in range(3):
+        a = step(a, trace.dts[t], trace.batches[t])
+    torch.cuda.synchronize()
+    launches = sum(k.launches for k in build.KERNELS.values())
+    per_shard = 21 if cfg.overlap_halo else 7
+    assert launches == 3 * per_shard * shape[0] * shape[1], launches
+    for t in range(3):
+        b = plain_sharded_step(b, trace.dts[t], trace.batches[t], cfg)
+    ga, gb = gather_state(a), gather_state(b)
+    for f in FIELDS:
+        x, y = getattr(ga, f), getattr(gb, f)
+        assert bool(torch.isfinite(x.float()).all()), (name, f)
+        assert torch.equal(x, y), (name, f, float((x.float() - y.float()).abs().max()))

@@ -19,6 +19,9 @@ Public API:
     make_batched_multi_step, make_batched_render
                                — B sims in one set of launches, dt per sim
     make_batched_tick          — the multi-tenant server's batched tick
+    make_mesh, shard_state, exchange_halo_rows, make_sharded_step,
+    make_sharded_multi_step, sharded_fluid_step
+                               — the sharded step over a mesh of devices
     Trace, swirl_trace         — deterministic splat input
     render_frame, make_render, capture_frame — the frame (float32 RGBA)
     frame_u8, tick_body, make_step_and_render — the servers' uint8 frame
@@ -27,6 +30,8 @@ Public API:
 from tpufluid_torch.batch import (init_batch, make_batched_multi_step, make_batched_render,
                                   make_batched_step, stack_states, unstack_state)
 from tpufluid_torch.config import MAX_DT, FluidConfig, get_resolution
+from tpufluid_torch.parallel import (exchange_halo_rows, make_mesh, make_sharded_multi_step,
+                                     make_sharded_step, shard_state, sharded_fluid_step)
 from tpufluid_torch.render import (capture_frame, frame_u8, make_render,
                                    make_step_and_render, render_frame, tick_body)
 from tpufluid_torch.serve_batch import make_batched_tick
@@ -59,4 +64,10 @@ __all__ = [
     "frame_u8",
     "tick_body",
     "make_step_and_render",
+    "make_mesh",
+    "shard_state",
+    "exchange_halo_rows",
+    "make_sharded_step",
+    "make_sharded_multi_step",
+    "sharded_fluid_step",
 ]

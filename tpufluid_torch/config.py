@@ -2,10 +2,10 @@
 
 Field names and defaults are those of ``tpufluid.config.FluidConfig`` so that
 ``dataclasses.asdict`` of a JAX config builds the same config here
-(``tpufluid_torch.interop.config_from_dict``). Fields that select TPU-only
-machinery (``USE_PALLAS``, ``OVERLAP_HALO``) are kept for that reason and are
-not read by this package: on a CUDA tensor the step always runs the CUDA
-kernels, on a CPU tensor their plain PyTorch versions.
+(``tpufluid_torch.interop.config_from_dict``). ``USE_PALLAS`` selects
+TPU-only machinery and is kept for that reason alone: on a CUDA tensor the
+step always runs the CUDA kernels, on a CPU tensor their plain PyTorch
+versions. ``OVERLAP_HALO`` is read by the sharded step (``overlap_halo``).
 """
 
 from __future__ import annotations
@@ -70,7 +70,28 @@ class FluidConfig:
     # bfloat16 only: the dye source is quantized through shared-exponent
     # RGB9E5 before it is sampled (ops/quant.py); inert for other dtypes.
     DYE_RGB9E5: bool = True
+    # Sharded step only (parallel/sharded_step.py): split each row-halo
+    # phase into an interior band that needs no ghost and two boundary
+    # strips. None takes the default of ``overlap_halo``; True or False
+    # forces it.
     OVERLAP_HALO: Optional[bool] = None
+
+    # The JAX package's split-phase crossover (tpufluid/config.py): on from
+    # this sim extent up, measured there on a TPU, where the split lets the
+    # exchange overlap the interior's compute. Kept so that a config means
+    # the same step in both packages. Here one process runs the phases in
+    # turn on one stream, so the split overlaps nothing; it changes the
+    # copies and the launches (PERF.md times both forms at 16384^2).
+    OVERLAP_CROSSOVER = 8192
+
+    @property
+    def overlap_halo(self) -> bool:
+        """Whether the sharded step splits its row-halo phases: OVERLAP_HALO
+        if set, else on where the shorter sim extent is at least
+        OVERLAP_CROSSOVER."""
+        if self.OVERLAP_HALO is not None:
+            return self.OVERLAP_HALO
+        return min(self.sim_size) >= self.OVERLAP_CROSSOVER
 
     @property
     def dtype(self) -> torch.dtype:

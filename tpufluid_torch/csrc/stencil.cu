@@ -62,6 +62,19 @@
 // computed. The single-sim step is B = 1 with the scalar dt. Sims never read each other, and each sim's blocks run the very
 // operations of a single-sim launch, so every sim equals its own launch bit
 // for bit on either tile.
+//
+// pre_pressure runs on a WINDOW of its arrays: rows r0w .. r0w + H - 1 and
+// columns c0w .. c0w + W - 1 of Hs x Ws planes (the whole planes, where the
+// step calls it). Its tiles, clamps and -C walls are the window's: a shard of
+// the sharded step (tpufluid_torch/parallel) passes its halo-padded block and
+// the grid's true walls inside it (tpufluid/ops/pallas/stencil.py:116-130
+// takes them as four bounds), and the wrapper clips them to the window. Every
+// address is the sim's planes, plus the window's base r0w * Ws + c0w, plus a
+// window row times the pitch Ws; the splat factors are those of the whole
+// planes, read at rows r0w + i and columns c0w + j. No copy of the window is
+// made, and the kernel on a window equals it on a copy of that window bit for
+// bit: nothing outside the window is read into a result. The 16-byte window
+// loads need the pitch, the base and the planes in whole 16-byte units.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -100,7 +113,8 @@ template <bool EDGE, typename T, int TH, int TW>
 __device__ __forceinline__ void pre_pressure_stages(
         const T* win, float* curl, float* bu, float* bv, const float* ga, const float* gxs,
         const int* moving, int S, float cs, float dt, T* __restrict__ vel_out,
-        T* __restrict__ div_out, size_t vb, size_t db, int H, int W, int ti0, int tj0) {
+        T* __restrict__ div_out, size_t vb, size_t db, size_t plane, int pitch, int H, int W,
+        int ti0, int tj0) {
     using L = PreTile<T, TH, TW>;
     constexpr int WH = L::WH, WW = L::WW, WHP = L::WHP, LW = L::LW, U = L::U;
     constexpr int CH = L::CH, CW = L::CW;
@@ -183,7 +197,6 @@ __device__ __forceinline__ void pre_pressure_stages(
     __syncthreads();
 
     // Stage 4. The tile: velocity and divergence (-C reflection at the walls).
-    const size_t plane = (size_t)H * W;
     for (int e = tid; e < TH * TW; e += kPreThreads) {
         const int gi = ti0 + e / TW, gj = tj0 + e % TW;
         if (EDGE && (gi >= H || gj >= W)) continue;
@@ -193,7 +206,7 @@ __device__ __forceinline__ void pre_pressure_stages(
         const float Ru = !EDGE || gj < W - 1 ? bu[at + 1] : -u;
         const float Bv = !EDGE || gi > 0 ? bv[at - WW] : -v;
         const float Tv = !EDGE || gi < H - 1 ? bv[at + WW] : -v;
-        const size_t o = (size_t)gi * W + gj;
+        const size_t o = (size_t)gi * pitch + gj;
         vel_out[vb + o] = from_f32<T>(u);
         vel_out[vb + plane + o] = from_f32<T>(v);
         div_out[db + o] = from_f32<T>(0.5f * (((Ru - Lu) + Tv) - Bv));
@@ -205,8 +218,8 @@ __global__ void __launch_bounds__(kPreThreads)
 pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
                     const float* __restrict__ gx, const float* __restrict__ amt, int S,
                     float cs, float dt, const float* __restrict__ dts,
-                    T* __restrict__ vel_out, T* __restrict__ div_out, int H, int W,
-                    int aligned) {
+                    T* __restrict__ vel_out, T* __restrict__ div_out, int Hs, int Ws,
+                    int r0w, int c0w, int H, int W, int aligned) {
     using L = PreTile<T, TH, TW>;
     constexpr int WH = L::WH, WW = L::WW, WHP = L::WHP, LW = L::LW, U = L::U;
     extern __shared__ __align__(16) unsigned char smem[];
@@ -219,16 +232,19 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
     int* moving = reinterpret_cast<int*>(gxs + S * WW);   // rows that move, then their count
     const int tid = threadIdx.x;
     const int ti0 = blockIdx.y * TH, tj0 = blockIdx.x * TW;
-    const int r0 = ti0 - kHalo, c0 = tj0 - kHalo;         // the window's origin
-    const size_t plane = (size_t)H * W;
-    // The block's sim: its fields, its factors and its dt.
-    // The block's sim: its offsets, added to every index, and its dt.
-    const size_t vb = sim_offset(2 * plane), fy = sim_offset((size_t)H * S);
-    const size_t fx = sim_offset((size_t)S * W), fa = sim_offset(2 * (size_t)S);
+    const int r0 = ti0 - kHalo, c0 = tj0 - kHalo;         // the block's window origin
+    const size_t plane = (size_t)Hs * Ws;
+    // The block's sim: its offsets, added to every index, and its dt. The
+    // fields' offsets start at the window's base.
+    const size_t wbase = (size_t)r0w * Ws + c0w, sp = sim_offset(plane);
+    const size_t vb = 2 * sp + wbase, db = sp + wbase;
+    const size_t fy = sim_offset((size_t)Hs * S) + (size_t)r0w * S;
+    const size_t fx = sim_offset((size_t)S * Ws) + c0w, fa = sim_offset(2 * (size_t)S);
     if (dts != nullptr) dt = dts[2 * blockIdx.z];
 
     // Stage 0. The velocity window, rows r0.., columns tj0 - U.. (aligned:
-    // a 16-byte unit lies wholly inside the grid or wholly outside).
+    // the units start at multiples of U in the planes, and one that starts
+    // inside the window ends inside the planes).
     if (aligned) {
         constexpr int units = LW / U;
         for (int e = tid; e < 2 * WH * units; e += kPreThreads) {
@@ -236,14 +252,14 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
             const int gi = r0 + row % WH, gj = tj0 - U + m * U;
             if (gi < 0 || gi >= H || gj < 0 || gj >= W) continue;
             __pipeline_memcpy_async(win + row * LW + m * U,
-                                    vel + vb + (row / WH) * plane + (size_t)gi * W + gj, 16);
+                                    vel + vb + (row / WH) * plane + (size_t)gi * Ws + gj, 16);
         }
     } else {
         for (int e = tid; e < 2 * WH * LW; e += kPreThreads) {
             const int x = e % LW, row = e / LW;
             const int gi = r0 + row % WH, gj = tj0 - U + x;
             if (gi < 0 || gi >= H || gj < 0 || gj >= W) continue;
-            win[e] = vel[vb + (row / WH) * plane + (size_t)gi * W + gj];
+            win[e] = vel[vb + (row / WH) * plane + (size_t)gi * Ws + gj];
         }
     }
     __pipeline_commit();
@@ -257,7 +273,7 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
     for (int e = tid; e < S * WW; e += kPreThreads) {
         const int s = e / WW, x = e - s * WW, gj = c0 + x;
         if (gj < 0 || gj >= W) continue;
-        gxs[e] = gx[fx + s * W + gj];
+        gxs[e] = gx[fx + s * Ws + gj];
     }
     // The splat rows whose amount is not zero, in order: another row adds
     // (gy * 0) * gx = +/-0 to a sum that starts at +0, which changes no bit.
@@ -277,17 +293,19 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
 
     if (r0 >= 0 && c0 >= 0 && r0 + WH <= H && c0 + WW <= W)
         pre_pressure_stages<false, T, TH, TW>(win, curl, bu, bv, ga, gxs, moving, S, cs, dt,
-                                              vel_out, div_out, vb, vb / 2, H, W, ti0,
+                                              vel_out, div_out, vb, db, plane, Ws, H, W, ti0,
                                               tj0);
     else
         pre_pressure_stages<true, T, TH, TW>(win, curl, bu, bv, ga, gxs, moving, S, cs, dt,
-                                             vel_out, div_out, vb, vb / 2, H, W, ti0, tj0);
+                                             vel_out, div_out, vb, db, plane, Ws, H, W, ti0,
+                                             tj0);
 }
 
 template <typename T, int TH, int TW>
 static int launch_pre(const void* vel, const void* gy, const void* gx, const void* amt, int S,
                       float cs, float dt, const float* dts, void* vel_out, void* div_out,
-                      int B, int H, int W, cudaStream_t stream) {
+                      int B, int Hs, int Ws, int r0w, int c0w, int H, int W,
+                      cudaStream_t stream) {
     using L = PreTile<T, TH, TW>;
     const auto kernel = pre_pressure_kernel<T, TH, TW>;
     const int smem = L::bytes(S);
@@ -299,11 +317,12 @@ static int launch_pre(const void* vel, const void* gy, const void* gx, const voi
             return (int)err;
         }
     }
-    const int aligned = W % L::U == 0 && reinterpret_cast<size_t>(vel) % 16 == 0;
+    const int aligned = Ws % L::U == 0 && c0w % L::U == 0 &&
+                        reinterpret_cast<size_t>(vel) % 16 == 0;
     const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
     kernel<<<grid, kPreThreads, smem, stream>>>(
         (const T*)vel, (const float*)gy, (const float*)gx, (const float*)amt, S, cs, dt, dts,
-        (T*)vel_out, (T*)div_out, H, W, aligned);
+        (T*)vel_out, (T*)div_out, Hs, Ws, r0w, c0w, H, W, aligned);
     return (int)cudaGetLastError();
 }
 
@@ -311,9 +330,9 @@ static int launch_pre(const void* vel, const void* gy, const void* gx, const voi
 template <typename T>
 static int launch_pre_tiles(int tiles, const void* vel, const void* gy, const void* gx,
                             const void* amt, int S, float cs, float dt, const float* dts,
-                            void* vel_out, void* div_out, int B, int H, int W,
-                            cudaStream_t s) {
-#define PRE_ARGS vel, gy, gx, amt, S, cs, dt, dts, vel_out, div_out, B, H, W, s
+                            void* vel_out, void* div_out, int B, int Hs, int Ws, int r0w,
+                            int c0w, int H, int W, cudaStream_t s) {
+#define PRE_ARGS vel, gy, gx, amt, S, cs, dt, dts, vel_out, div_out, B, Hs, Ws, r0w, c0w, H, W, s
     switch (tiles) {
         case 0: return launch_pre<T, 32, 64>(PRE_ARGS);
         case 1: return launch_pre<T, 8, 32>(PRE_ARGS);
@@ -339,20 +358,24 @@ __global__ void gradient_subtract_kernel(const T* __restrict__ vel, const T* __r
 
 extern "C" {
 
-// B sims: vel (B, 2, H, W) and the outputs in storage type `dtype`; gy
-// (B, H, S), gx (B, S, W), amt (B, S, 2) float32, or null with S = 0 (no
+// B sims: vel (B, 2, Hs, Ws) and the outputs in storage type `dtype`; gy
+// (B, Hs, S), gx (B, S, Ws), amt (B, S, 2) float32, or null with S = 0 (no
 // splats); dts a (B, 2) float32 table of (clamped dt, decay), or null for
-// the scalar dt of every sim. `tiles`: the tile of ops/cuda/stencil.py plan.
-// A launch past the block's shared memory (a very large S) is refused and
-// returns its error.
+// the scalar dt of every sim. The kernel writes the H x W window at row
+// r0w, column c0w of the outputs and nothing else. `tiles`: the tile of
+// ops/cuda/stencil.py plan. A launch past the block's shared memory (a very
+// large S) is refused and returns its error.
 int fluid_pre_pressure(const void* vel, const void* gy, const void* gx, const void* amt, int S,
                        float cs, float dt, const void* dts, void* vel_out, void* div_out, int B,
-                       int H, int W, int tiles, int dtype, void* stream) {
-    if (S < 0 || B < 1 || B > kMaxBatch || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+                       int Hs, int Ws, int r0w, int c0w, int H, int W, int tiles, int dtype,
+                       void* stream) {
+    if (S < 0 || B < 1 || B > kMaxBatch || H < 1 || W < 1 || r0w < 0 || c0w < 0 ||
+        r0w + H > Hs || c0w + W > Ws)
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     DISPATCH_STORAGE(dtype, T,
         return launch_pre_tiles<T>(tiles, vel, gy, gx, amt, S, cs, dt, (const float*)dts,
-                                   vel_out, div_out, B, H, W, s));
+                                   vel_out, div_out, B, Hs, Ws, r0w, c0w, H, W, s));
     return (int)cudaErrorInvalidValue;
 }
 

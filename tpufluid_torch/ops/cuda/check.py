@@ -5,6 +5,8 @@ call one step makes, in order, each with the inputs the step would give it
 (computed by the plain versions, so the kernel and its plain version see the
 very same tensors), for one sim or for a batch of B sims in one launch each
 (``batched_step_cases`` on ``random_batch``, in both forms of dt);
+``bounded_cases`` holds pre_pressure's true-wall form on the walls a
+shard of the sharded step sees in its padded block;
 ``render_cases`` does the same for one frame (``batched_render_cases`` for
 a frame of B sims, one launch a kernel), and
 ``floors_cases`` for the three microbenchmark kernels on their own inputs
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from tpufluid_torch.batch import step_dt
-from tpufluid_torch.config import FluidConfig
+from tpufluid_torch.config import _DTYPES, FluidConfig
 from tpufluid_torch.ops import floors as _floors
 from tpufluid_torch.ops.cuda import advect as _advect
 from tpufluid_torch.ops.cuda import bloom as _bloom
@@ -45,6 +47,7 @@ from tpufluid_torch.state import FluidState
 from tpufluid_torch.step import clamp_dt
 
 TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+_DTYPE_NAMES = {v: k for k, v in _DTYPES.items()}
 
 
 @dataclasses.dataclass
@@ -167,6 +170,67 @@ def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
     return [Case("advect:prepare" + tag, "advect_prepare", _advect.prepare,
                  _advect.prepare_plain, (state.dye, df, quant), _bytes(state.dye, *df, prepared),
                  dh * dw * (3 * (3 * n_active + n_sims) + n_sims * (40 if quant else 0)))]
+
+
+def shard_bounds(h: int, w: int, ghost_rows: int, ghost_cols: int) -> dict:
+    """The true walls (row_lo, row_hi, col_lo, col_hi) that pre_pressure
+    gets in the sharded step's padded block of an (h, w) shard (ghosts of
+    ``ghost_rows`` rows and ``ghost_cols`` columns), by the shard's place in
+    the mesh, and walls inside the first tile and on the edges of each tile
+    of stencil.TILES (there the window's origin is a tile's extent)."""
+    g, gc, big = ghost_rows, ghost_cols, _stencil.NO_WALL
+    out = {"top": (g, big, -big, big), "bottom": (-big, g + h - 1, -big, big),
+           "corner": (g, big, gc, big), "corner-bottom-right": (-big, g + h - 1, -big, gc + w - 1),
+           "middle": (-big, big, -big, big), "one-shard": (g, g + h - 1, gc, gc + w - 1),
+           "first-tile": (3, g + h - 5, 5, gc + w - 3)}
+    for t in _stencil.TILES:
+        out[f"tile-edge-{t.th}x{t.tw}"] = (t.th, g + h - 1, t.tw, gc + w - 1)
+    return out
+
+
+# (h, w) of the shards bounded_cases pads: the small tiles' window and the
+# large ones' (stencil.plan on 132 SMs).
+BOUNDED_SHARDS = ((96, 160), (512, 1024))
+
+
+def _in_window(fn: Callable) -> Callable:
+    """fn(velocity, curl, dt, factors, bounds) cropped to the window of the
+    bounds: its outputs outside are unspecified."""
+    def run(velocity, curl_strength, dt, factors, bounds):
+        r0, c0, wh, ww = _stencil.window(*velocity.shape[-2:], bounds)
+        return tuple(t[..., r0:r0 + wh, c0:c0 + ww]
+                     for t in fn(velocity, curl_strength, dt, factors, bounds))
+    return run
+
+
+def bounded_cases(device, dtype: torch.dtype, ghosts: Tuple[int, int], seed: int = 0,
+                  shards=BOUNDED_SHARDS) -> List[Case]:
+    """pre_pressure's true-wall form against its plain version on each
+    shard's padded block (ghosts (rows, columns); random velocity, 8 splat
+    rows, the last inactive), at every wall of shard_bounds; both run the
+    whole block and return the window of the bounds. The bytes and
+    operations are the window's."""
+    cases = []
+    for h, w in shards:
+        hp, wp = h + 2 * ghosts[0], w + 2 * ghosts[1]
+        cfg = FluidConfig(SIM_RESOLUTION=hp, DYE_RESOLUTION=hp, CANVAS_WIDTH=wp,
+                          CANVAS_HEIGHT=hp, MAX_SPLATS=8, DTYPE=_DTYPE_NAMES[dtype]).validate()
+        state, splats = random_state(cfg, seed, device)
+        vf = splat_factors(splats, hp, wp, cfg.splat_radius_uv(), cfg.aspect_ratio,
+                           slice(SPLAT_DX, SPLAT_DY + 1))
+        n_active = int((splats[:, 7] != 0).sum())
+        for name, bounds in shard_bounds(h, w, *ghosts).items():
+            r0, c0, wh, ww = _stencil.window(hp, wp, bounds)
+            # the window's velocity and factors read, its velocity and
+            # divergence written
+            nbytes = _bytes(state.velocity[:, :wh, :ww], vf[0][:wh], vf[1][:, :ww], vf[2]) \
+                + 3 * wh * ww * state.velocity.element_size()
+            cases.append(Case(f"pre_pressure:{name}:{hp}x{wp}", "pre_pressure",
+                              _in_window(_stencil.pre_pressure),
+                              _in_window(_stencil.pre_pressure_plain),
+                              (state.velocity, cfg.CURL, 1.0 / 60.0, vf, bounds), nbytes,
+                              wh * ww * (2 * 2 * n_active + _PRE_PRESSURE)))
+    return cases
 
 
 def random_batch(config: FluidConfig, batch: int, seed: int,

@@ -11,9 +11,17 @@ leading B, dt a number or a (B, 2) table a sim): a CUDA batch goes to the
 kernels, B sims in each launch; a CPU batch to the plain versions, sim by
 sim. So do the frame's two kernels: the bloom pyramid and the display take
 one sim or a batch (B leading) in one launch each.
+
+The sharded step (tpufluid_torch/parallel) runs the same passes on a
+shard's halo-padded blocks: ``pre_pressure(..., true_bounds=...)`` with the
+grid's walls inside the block, and ``advect_same_grid``
+(tpufluid/ops/pallas/dispatch.py:415), the advection with the velocity
+already on the source's grid.
 """
 
 from __future__ import annotations
+
+import math
 
 from tpufluid_torch.ops.cuda import advect as _advect
 from tpufluid_torch.ops.cuda import bloom as _bloom
@@ -45,6 +53,24 @@ class Passes:
         self.gradient_subtract = gradient_subtract
         self.advect = advect
 
+    def advect_same_grid(self, velocity, source, dt, dissipation, max_disp_y, max_disp_x,
+                         splat_factors=None, quant=None):
+        """advect with ``velocity`` (2, H, W) on the source's own grid, in
+        source texels a second. ``max_disp_y`` / ``max_disp_x`` are the
+        caller's bound of a backtrace in source texels (the sharded step
+        sizes its ghosts from it). The JAX package sizes its gather window
+        from them; the port's gathers read the whole array, so a backtrace
+        past them is still gathered right and they size nothing here. They
+        must be finite and non-negative."""
+        for name, bound in (("max_disp_y", max_disp_y), ("max_disp_x", max_disp_x)):
+            if not (math.isfinite(bound) and bound >= 0):
+                raise ValueError(f"{name} must be finite and >= 0, got {bound}")
+        if tuple(velocity.shape[-2:]) != tuple(source.shape[-2:]):
+            raise ValueError(f"velocity {tuple(velocity.shape)} is not on the grid of source "
+                             f"{tuple(source.shape)}")
+        return self.advect(velocity, source, dt, dissipation, splat_factors=splat_factors,
+                           quant=quant)
+
     def project_and_self_advect(self, velocity, pressure, dt, dissipation):
         """(vel - grad p), then self-advection: the projected velocity goes
         through storage before the advection reads it."""
@@ -68,6 +94,7 @@ pre_pressure = ROUTED.pre_pressure
 jacobi_pressure = ROUTED.jacobi_pressure
 gradient_subtract = ROUTED.gradient_subtract
 advect = ROUTED.advect
+advect_same_grid = ROUTED.advect_same_grid
 project_and_self_advect = ROUTED.project_and_self_advect
 
 

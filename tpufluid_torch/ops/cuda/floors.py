@@ -354,20 +354,42 @@ def window_events(events: Iterable[Tuple[str, bool, float, float]]) -> list:
             or (not e[1] and lo <= e[2] <= hi and e[0] != "profiled window")]
 
 
-def profile_step_kernels(config, state, dt, steps: int = 30, top_other: int = 6) -> tuple:
-    """(kernel_times, other) of ``steps`` calls of the real make_step on the
-    card from ``state``, after one warm-up step, under torch.profiler (CPU
-    and CUDA activities): each kernel's own device time from its events'
-    durations (see attribute_device_events), over the window between two
-    marker kernels with EDGE_STEPS traced steps on either side
-    (window_events). A batched state (fields with a leading B) runs
-    make_batched_step, each sim its own trace, ``dt`` a number or (B,) per
-    sim; the times are then a batched step's. The caller's state is not
-    modified. Raises without a CUDA GPU or a CUDA state, and if the
-    profiler records no kernel."""
+def profile_calls(call, calls: int, top_other: int = 6) -> tuple:
+    """attribute_device_events of ``calls`` calls of ``call(t)`` on the card
+    under torch.profiler (CPU and CUDA activities), over the window between
+    two marker kernels with EDGE_STEPS traced calls on either side
+    (window_events); the times are a call's. Raises if the profiler records
+    no kernel, and if a kernel's events differ from its launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for t in range(EDGE_STEPS):
+            call(t % calls)
+        with record_function("profiled window"):
+            torch.cuda._sleep(1)
+            before = {k: v.launches for k, v in build.KERNELS.items()}
+            for t in range(calls):
+                call(t)
+            launched = {k: v.launches - before[k] for k, v in build.KERNELS.items()}
+            torch.cuda._sleep(1)
+        for t in range(EDGE_STEPS):
+            call(t % calls)
+        torch.cuda.synchronize()
+    events = [(e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
+               e.time_range.elapsed_us()) for e in prof.events()]
+    return attribute_device_events(window_events(events), launched, calls, top_other)
+
+
+def profile_step_kernels(config, state, dt, steps: int = 30, top_other: int = 6) -> tuple:
+    """(kernel_times, other) of ``steps`` calls of the real make_step on the
+    card from ``state``, after one warm-up step, under torch.profiler
+    (profile_calls): each kernel's own device time from its events'
+    durations (see attribute_device_events). A batched state (fields with
+    a leading B) runs make_batched_step, each sim its own trace, ``dt`` a
+    number or (B,) per sim; the times are then a batched step's. The
+    caller's state is not modified. Raises without a CUDA GPU or a CUDA
+    state, and if the profiler records no kernel."""
     from tpufluid_torch.batch import make_batched_step
 
     device = _require_cuda()
@@ -381,24 +403,13 @@ def profile_step_kernels(config, state, dt, steps: int = 30, top_other: int = 6)
         step = make_step(config, device=device)
         batches = swirl_trace(config, steps, seed=1).batches
     batches = torch.as_tensor(batches, dtype=torch.float32, device=device)
-    s = step(state, dt, batches[0])
+    box = [step(state, dt, batches[0])]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for t in range(EDGE_STEPS):
-            s = step(s, dt, batches[t % steps])
-        with record_function("profiled window"):
-            torch.cuda._sleep(1)
-            before = {k: v.launches for k, v in build.KERNELS.items()}
-            for t in range(steps):
-                s = step(s, dt, batches[t])
-            launched = {k: v.launches - before[k] for k, v in build.KERNELS.items()}
-            torch.cuda._sleep(1)
-        for t in range(EDGE_STEPS):
-            s = step(s, dt, batches[t % steps])
-        torch.cuda.synchronize()
-    events = [(e.name, e.device_type == DeviceType.CUDA, e.time_range.start,
-               e.time_range.elapsed_us()) for e in prof.events()]
-    return attribute_device_events(window_events(events), launched, steps, top_other)
+
+    def one(t):
+        box[0] = step(box[0], dt, batches[t])
+
+    return profile_calls(one, steps, top_other)
 
 
 def frame_breakdown(events: Iterable[Tuple[str, bool, float, float]],

@@ -14,6 +14,19 @@ Both take one sim or a batch of B sims in one launch (the grid's z axis):
 a batch's fields and factors lead with B, and dt is a number for every sim
 or a (B, 2) table of (clamped dt, decay) a sim (build.check_dt). The plain
 versions run a batch sim by sim, each with its own dt and factors.
+
+pre_pressure's true-wall form, ``true_bounds=(row_lo, row_hi, col_lo,
+col_hi)`` (tpufluid/ops/pallas/stencil.py:335-370): the grid's walls as
+array coordinates, a bound outside the array (+/-NO_WALL) where a shard
+owns no wall. The clamp and the -C reflection act at the walls, and inside
+them the result is the unbounded chain on the WINDOW the bounds cut out,
+clipped to the array: rows max(row_lo, 0) .. min(row_hi, H - 1), columns
+likewise, with the splat factors of those rows and columns. Outside the
+window the outputs are unspecified, as the TPU kernel's are (its caller
+crops them away): the kernel writes nothing there, the plain version NaN,
+so that a caller that reads there shows it. The kernel runs on the window
+in place (its base offset and row pitch); the plain version on a view of
+it.
 """
 
 from __future__ import annotations
@@ -29,13 +42,14 @@ from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, batch_fact
 from tpufluid_torch.ops.splat import splat_bump
 
 PRE_PRESSURE = Kernel("pre_pressure", "stencil", "fluid_pre_pressure",
-                      [P, P, P, P, I, F, F, P, P, P, I, I, I, I, I, P],
+                      [P, P, P, P, I, F, F, P, P, P, I, I, I, I, I, I, I, I, I, P],
                       replaces="tpufluid/ops/pallas/stencil.py:98")
 GRADIENT_SUBTRACT = Kernel("gradient_subtract", "stencil", "fluid_gradient_subtract",
                            [P, P, P, I, I, I, I, P],
                            replaces="tpufluid/ops/pallas/stencil.py:218")
 
 HALO = 3          # stencil layers between the bumped velocity and the divergence
+NO_WALL = 1 << 30  # a true-wall bound where a shard owns no wall
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,31 +94,52 @@ def _check_velocity(velocity: torch.Tensor):
     return vel, single
 
 
-def run_tiles(velocity: torch.Tensor, curl_strength: float, dt, splat_factors, tiles: int):
+def window(h: int, w: int, true_bounds=None):
+    """(r0, c0, wh, ww): the window of an (h, w) array inside the walls
+    ``true_bounds`` (row_lo, row_hi, col_lo, col_hi), clipped to the array;
+    the whole array without bounds. Raises where the window is empty."""
+    if true_bounds is None:
+        return 0, 0, h, w
+    row_lo, row_hi, col_lo, col_hi = (int(x) for x in true_bounds)
+    r0, r1 = max(row_lo, 0), min(row_hi, h - 1)
+    c0, c1 = max(col_lo, 0), min(col_hi, w - 1)
+    if r0 > r1 or c0 > c1:
+        raise ValueError(f"true bounds {tuple(true_bounds)} leave no texel of an "
+                         f"({h}, {w}) array")
+    return r0, c0, r1 - r0 + 1, c1 - c0 + 1
+
+
+def run_tiles(velocity: torch.Tensor, curl_strength: float, dt, splat_factors, tiles: int,
+              true_bounds=None):
     """(vel', divergence), both in storage, from one launch of pre_pressure
-    on TILES[tiles], for one sim or a batch."""
+    on TILES[tiles] over the window of ``true_bounds``, for one sim or a
+    batch; outside the window the outputs are left unwritten."""
     code = check_storage(velocity)
     vel, single = _check_velocity(velocity)
     b, _, h, w = vel.shape
     if not 0 <= tiles < len(TILES):
         raise ValueError(f"no tile {tiles}: TILES has {len(TILES)}")
+    r0, c0, wh, ww = window(h, w, true_bounds)
     gy, gx, amt, s = check_factors(batch_factors(splat_factors, single), vel.device, b, h, w, 2)
     dt, dts = check_dt(dt, b, vel.device)
     out = torch.empty_like(vel)
     div = torch.empty((b, h, w), dtype=vel.dtype, device=vel.device)
     PRE_PRESSURE(ptr(vel), ptr(gy), ptr(gx), ptr(amt), s, float(curl_strength), dt, dts,
-                 ptr(out), ptr(div), b, h, w, tiles, code, stream())
+                 ptr(out), ptr(div), b, h, w, r0, c0, wh, ww, tiles, code, stream())
     return (out[0], div[0]) if single else (out, div)
 
 
-def pre_pressure(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None):
+def pre_pressure(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None,
+                 true_bounds=None):
     """(vel', divergence) on the card, of one sim or a batch: one launch on
-    the tile ``plan`` picks."""
+    the tile ``plan`` picks for the window of ``true_bounds`` (module
+    docstring; None: the whole array)."""
     check_storage(velocity)
     vel, _ = _check_velocity(velocity)
     b, _, h, w = vel.shape
+    _, _, wh, ww = window(h, w, true_bounds)
     return run_tiles(velocity, curl_strength, dt, splat_factors,
-                     plan(h, w, sm_count(vel.device), b))
+                     plan(wh, ww, sm_count(vel.device), b), true_bounds)
 
 
 def splat_curl_plain(velocity: torch.Tensor, splat_factors=None):
@@ -132,12 +167,29 @@ def _pre_pressure_sim(velocity, curl_strength, dt, splat_factors):
     return confine_divergence_plain(vel_b, curl, curl_strength, dt)
 
 
-def pre_pressure_plain(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None):
+def pre_pressure_plain(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None,
+                       true_bounds=None):
     """Plain version of pre_pressure, same operations and rounding points;
-    a batch sim by sim."""
-    return per_sim(_pre_pressure_sim, velocity.ndim == 4,
-                   (velocity, curl_strength, dt, splat_factors), fields=(0,), dt_at=2,
-                   factors_at=3)
+    a batch sim by sim. With ``true_bounds``: the unbounded chain on a view
+    of the window and its factors, placed in NaN."""
+    if true_bounds is None:
+        return per_sim(_pre_pressure_sim, velocity.ndim == 4,
+                       (velocity, curl_strength, dt, splat_factors), fields=(0,), dt_at=2,
+                       factors_at=3)
+    h, w = velocity.shape[-2:]
+    r0, c0, wh, ww = window(h, w, true_bounds)
+    rows, cols = slice(r0, r0 + wh), slice(c0, c0 + ww)
+    factors = None
+    if splat_factors is not None:
+        gy, gx, amt = splat_factors
+        factors = (gy[..., rows, :], gx[..., cols], amt)
+    vel_w, div_w = pre_pressure_plain(velocity[..., rows, cols], curl_strength, dt, factors)
+    vel = torch.full_like(velocity, float("nan"))
+    div = torch.full(velocity.shape[:-3] + (h, w), float("nan"), dtype=velocity.dtype,
+                     device=velocity.device)
+    vel[..., rows, cols] = vel_w
+    div[..., rows, cols] = div_w
+    return vel, div
 
 
 def gradient_subtract(velocity: torch.Tensor, pressure: torch.Tensor) -> torch.Tensor:

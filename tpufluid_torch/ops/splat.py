@@ -24,12 +24,24 @@ SPLAT_R, SPLAT_G, SPLAT_B, SPLAT_ACTIVE = 4, 5, 6, 7
 SPLAT_COLS = 8
 
 
-def _gaussians(splats: torch.Tensor, h: int, w: int, radius: float, aspect: float):
+def _texel_centers(n: int, start: int, total: int, device) -> torch.Tensor:
+    """(i + 0.5) / total of the ``n`` global texels start, start + 1, ...
+    of an axis of ``total`` texels, each index clamped to [0, total - 1]
+    in float32 (the whole axis, start 0, takes no clamp)."""
+    idx = torch.arange(n, dtype=torch.float32, device=device)
+    if (start, total) != (0, n):
+        idx = torch.clamp(idx + start, 0, total - 1)
+    return true_div(idx + 0.5, float(total))
+
+
+def _gaussians(splats: torch.Tensor, h: int, w: int, radius: float, aspect: float,
+               row0: int = 0, h_total=None, col0: int = 0, w_total=None):
     """(gy (..., S, H), gx (..., S, W)): the two 1-D gaussians of every
-    splat row of an (..., S, 8) batch."""
+    splat row of an (..., S, 8) batch, at the global rows and columns of
+    splat_factors."""
     dev = splats.device
-    u = true_div(torch.arange(w, dtype=torch.float32, device=dev) + 0.5, float(w))
-    v = true_div(torch.arange(h, dtype=torch.float32, device=dev) + 0.5, float(h))
+    u = _texel_centers(w, col0, w if w_total is None else w_total, dev)
+    v = _texel_centers(h, row0, h if h_total is None else h_total, dev)
     px = (u - splats[..., SPLAT_X, None]) * aspect
     py = v - splats[..., SPLAT_Y, None]
     gx = torch.exp(true_div(-(px * px), radius))
@@ -38,13 +50,20 @@ def _gaussians(splats: torch.Tensor, h: int, w: int, radius: float, aspect: floa
 
 
 def splat_factors(splats: torch.Tensor, h: int, w: int, radius: float,
-                  aspect: float, amount_cols: slice):
+                  aspect: float, amount_cols: slice, row0: int = 0, h_total=None,
+                  col0: int = 0, w_total=None):
     """Separable factors of the splat batch for fusion into the kernels:
     (gy (H, S), gx (S, W), amt (S, C)) float32, inactive rows zeroed. A
     (B, S, 8) batch of sims gives (B, H, S), (B, S, W), (B, S, C) in one
-    set of ops; elementwise, so each sim's factors are its own bit for bit."""
+    set of ops; elementwise, so each sim's factors are its own bit for bit.
+
+    row0/h_total (and col0/w_total): the factors of the global rows
+    [row0, row0 + h) (columns [col0, col0 + w)) of an (h_total, w_total)
+    grid, a shard's halo-padded block; a row or column outside the grid
+    takes the edge's, as the ghosts a halo exchange replicates there. Rows
+    inside the grid get the bits of the whole grid's factors."""
     splats = splats.to(torch.float32)
-    gy, gx = _gaussians(splats, h, w, radius, aspect)
+    gy, gx = _gaussians(splats, h, w, radius, aspect, row0, h_total, col0, w_total)
     amt = splats[..., amount_cols] * splats[..., SPLAT_ACTIVE:SPLAT_ACTIVE + 1]
     return gy.transpose(-1, -2).contiguous(), gx.contiguous(), amt.contiguous()
 

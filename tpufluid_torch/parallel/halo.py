@@ -1,0 +1,128 @@
+"""Halo exchange between the blocks of a sharded grid, for one controlling
+process.
+
+Counterpart of tpufluid/parallel/halo.py. There, every device runs the same
+body and ``lax.ppermute`` passes a block's edge strips to its mesh
+neighbours; here one process holds the blocks of a row or a column of
+shards (a list in mesh order) and hands each shard the neighbours' strips:
+a slice of the neighbour's block, copied to the shard's device by
+``Tensor.to(device, non_blocking=True)`` (PyTorch orders a copy between two
+cards on both cards' current streams; on one device it is the slice
+itself). Every 5-point stencil needs one ghost row or column from each
+neighbour, the advection's backtrace ``ceil(max|v| dt)`` (bounded by the
+reference's +/-1000 velocity clamp). At the global walls the ghost is the
+edge row or column replicated, the clamp-to-edge of the single-device
+kernels.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+
+class Traffic:
+    """Bytes of the strips that shards received from other shards (the
+    edge replicas at the walls are a shard's own and count nothing)."""
+
+    def __init__(self):
+        self.bytes = 0
+
+    def reset(self) -> None:
+        self.bytes = 0
+
+
+SENT = Traffic()
+
+
+def _first(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
+    return x[..., :k, :] if axis == -2 else x[..., :k]
+
+
+def _last(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
+    return x[..., -k:, :] if axis == -2 else x[..., -k:]
+
+
+def _send(x: torch.Tensor, device: torch.device) -> torch.Tensor:
+    SENT.bytes += x.numel() * x.element_size()
+    return x.to(device, non_blocking=True)
+
+
+def _wall(block: torch.Tensor, own: bool, k: int, axis: int, first: bool,
+          device: torch.device) -> torch.Tensor:
+    """``k`` copies on ``device`` of the wall slice of the wall's ``block``
+    (``own``: the receiving shard's block, so nothing moves)."""
+    edge = _first(block, 1, axis) if first else _last(block, 1, axis)
+    edge = edge if own else _send(edge, device)
+    shape = list(edge.shape)
+    shape[axis] = k
+    return edge.expand(shape)
+
+
+def ghost_strips(blocks: Sequence[torch.Tensor], width: int,
+                 axis: int = -2) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """The two ghost strips of every block of a row or column of shards
+    along ``axis`` (-2 rows, -1 columns), without concatenating them onto
+    the blocks: ``[(ghost_below, ghost_above), ...]`` in mesh order, each
+    ``width`` slices on its block's device.
+
+    ``ghost_below`` of block k holds the slices just before it in global
+    order (block k-1's last ones; the global first slice replicated for
+    block 0), ``ghost_above`` those just after it (block k+1's first ones;
+    the last slice replicated for the last block). The split-phase step
+    computes its interior band without them and assembles thin boundary
+    strips from them; ``exchange_halo`` concatenates them.
+
+    ``width`` may exceed a block's extent (the dye's halo at a large
+    dye/sim ratio): the strips then chain ceil(width / extent) blocks, block
+    k seeing blocks k-1 .. k-hops and k+1 .. k+hops, and a chain that runs
+    past a wall carries the edge-replicated block: clamp-to-edge, as the
+    JAX package's multi-hop ppermute chain gives."""
+    if axis not in (-1, -2):
+        raise ValueError(f"axis must be -2 (rows) or -1 (columns), got {axis}")
+    n = len(blocks)
+    loc = blocks[0].shape[axis]
+    hops = -(-width // loc)
+    out = []
+    for k, x in enumerate(blocks):
+        dev = x.device
+        if hops == 1:
+            below = (_wall(x, True, width, axis, True, dev) if k == 0
+                     else _send(_last(blocks[k - 1], width, axis), dev))
+            above = (_wall(x, True, width, axis, False, dev) if k == n - 1
+                     else _send(_first(blocks[k + 1], width, axis), dev))
+        else:
+            # Hop j brings block k - j (k + j), or past a wall the global
+            # edge slice replicated; only the slices of the strip move.
+            below_parts, above_parts = [], []
+            for j in range(1, hops + 1):
+                take = min(loc, width - (j - 1) * loc)
+                below_parts.append(_send(_last(blocks[k - j], take, axis), dev) if k - j >= 0
+                                   else _wall(blocks[0], k == 0, take, axis, True, dev))
+                above_parts.append(_send(_first(blocks[k + j], take, axis), dev) if k + j < n
+                                   else _wall(blocks[-1], k == n - 1, take, axis, False, dev))
+            below = torch.cat(below_parts[::-1], dim=axis)
+            above = torch.cat(above_parts, dim=axis)
+        out.append((below, above))
+    return out
+
+
+def exchange_halo(blocks: Sequence[torch.Tensor], width: int, axis: int) -> List[torch.Tensor]:
+    """Every block of a row or column of shards padded with ``width`` ghost
+    slices on each side along ``axis`` (-2 rows, -1 columns); see
+    ghost_strips for what the ghosts hold."""
+    return [torch.cat([below, x, above], dim=axis)
+            for x, (below, above) in zip(blocks, ghost_strips(blocks, width, axis))]
+
+
+def exchange_halo_rows(blocks: Sequence[torch.Tensor], width: int) -> List[torch.Tensor]:
+    """Row halo exchange over a column of shards (mesh axis ROW_AXIS):
+    (..., h, W) -> (..., h + 2 width, W) each."""
+    return exchange_halo(blocks, width, -2)
+
+
+def exchange_halo_cols(blocks: Sequence[torch.Tensor], width: int) -> List[torch.Tensor]:
+    """Column halo exchange over a row of shards (mesh axis COL_AXIS):
+    (..., H, w) -> (..., H, w + 2 width) each."""
+    return exchange_halo(blocks, width, -1)
