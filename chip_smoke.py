@@ -149,6 +149,28 @@ the card.
    its walls) beside the unbounded launch on a copy of the same window,
    its bound and its plain time.
 
+13. Packed phase (tpufluid_torch.batch_packed, bench.py --config 7
+   --packed): the lane-packed fleet at serving_256_b16 (16 sims of 256^2,
+   the batched phase's cell, packed) and packed_288_b64 (64 sims of 288^2,
+   the geometry tpufluid/batch_packed.py was built for), bf16 with the
+   RGB9E5 dye, 20 sweeps, MAX_SPLATS=8, each sim its own swirl_trace (seed
+   42 + i). Every packed kernel call of a step (check.packed_step_cases:
+   random sims that differ, the lock-step dt 1/60) against its plain
+   version in float32 and in bf16 (RGB9E5), max abs error 0 required. Then,
+   the launch counts zeroed just before and read just after,
+   make_packed_multi_step over 3 lock-step steps (7 launches a step,
+   whatever B is): unpacked, every field of every sim equal to
+   make_batched_multi_step's (max abs error 0), and the fleet equal to 3
+   plain_packed_step steps (0). Then aggregate sim-steps/s of 200 steps in
+   one call, make_batched_multi_step and make_packed_multi_step on the same
+   sequences in the order batched, packed, packed, batched (the packed runs'
+   launches counted); each packed kernel's spin-queued ms beside its batched
+   form's on the same sims, with its bound and plain ms; the idle share (1 -
+   the packed kernels' device ms / the packed step's wall ms); one batched
+   torch grid_sample call on the dye as the advection's library yardstick;
+   and profile_step_kernels on the packed state (torch.profiler, 30 steps:
+   each kernel's device us a step, events = launches).
+
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
 out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -198,6 +220,10 @@ SHARDED_RATE_STEPS = 20
 SHARDED_PROFILE_STEPS = 3
 SHARDED_16K_BOUND = 1e-2       # of each field's scale after 3 steps: about 2.5 bf16 ulps
 SHARDED_DEMO_BOUND = 4e-4      # tests/test_sharding.py's, after 4 steps
+# The packed fleet's cells: (resolution, sims), bf16 RGB9E5, 20 sweeps.
+PACKED_CONFIGS = {"serving_256_b16": (256, 16), "packed_288_b64": (288, 64)}
+PACKED_MAIN = "packed_288_b64"   # whose numbers the kernels line carries
+PACKED_TIMED = 200
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -359,28 +385,37 @@ def timing_phase(torch, check, cases, verbose: bool = True) -> dict:
     return out
 
 
-def grid_sample_ms(torch, case, rate: float) -> float:
+def grid_sample_ms(torch, case, rate: float, sim_w=None) -> float:
     """Device ms of one torch.nn.functional.grid_sample call that gathers
     the advect:dye case's dye: bilinear, padding_mode="border",
     align_corners=False, the dye's shape and storage type, at the
     coordinates the plain version's backtrace gives. It leaves out the
-    splat bump, the RGB9E5 quantization and the decay. Its inputs are built
-    before the timed window; the port never calls it."""
+    splat bump, the RGB9E5 quantization and the decay. A batch, or a packed
+    fleet of sims ``sim_w`` wide (unpacked first), is one call with the
+    sims on its batch axis. Its inputs are built before the timed window;
+    the port never calls it."""
     from tpufluid_torch.ops.cuda.floors import queued_ms
     from tpufluid_torch.ops.sampling import sample_bilinear, true_div, uv_grid
 
+    from tpufluid_torch.batch_packed import unpack_fleet
+
     vel, dye, dt = case.args[0], case.args[1], case.args[2]
+    if sim_w is not None:
+        vel, dye = (unpack_fleet(t, t.shape[-1] // sim_w) for t in (vel, dye))
+    elif vel.ndim == 3:
+        vel, dye = vel[None], dye[None]
     (h, w), (sh, sw) = dye.shape[-2:], vel.shape[-2:]
     v32 = vel.float()
     u, v = uv_grid(h, w, device=dye.device)
     if (sh, sw) == (h, w):
-        vu, vv = v32[0], v32[1]
+        vu, vv = v32[:, 0], v32[:, 1]
     else:
-        vu, vv = sample_bilinear(v32[0], u, v), sample_bilinear(v32[1], u, v)
+        vu, vv = sample_bilinear(v32[0, 0], u, v), sample_bilinear(v32[0, 1], u, v)
     cu = u - true_div(dt * vu, float(sw))
     cv = v - true_div(dt * vv, float(sh))
-    grid = torch.stack([2.0 * cu - 1.0, 2.0 * cv - 1.0], dim=-1)[None].to(dye.dtype)
-    inp = dye[None].contiguous()
+    grid = torch.stack([2.0 * cu - 1.0, 2.0 * cv - 1.0], dim=-1)
+    grid = grid.expand(dye.shape[0], h, w, 2).to(dye.dtype)
+    inp = dye.contiguous()
     return queued_ms(lambda: torch.nn.functional.grid_sample(
         inp, grid, mode="bilinear", padding_mode="border", align_corners=False), 20, rate)
 
@@ -954,6 +989,126 @@ def batched_frame_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> d
     return out
 
 
+def packed_phase(torch, check, gpu: str, device, errors: dict) -> dict:
+    """Phase 13: the lane-packed fleet at PACKED_CONFIGS: kernel comparisons
+    (f32 and bf16), launches and equality with the batched step and the
+    plain packed step after 3 steps, sim-steps/s packed and batched, each
+    packed kernel's time beside its batched form's, the idle share, the
+    library yardstick and the profiled packed step."""
+    from tpufluid_torch import init_batch, make_batched_multi_step, swirl_trace
+    from tpufluid_torch.batch_packed import (init_packed, make_packed_multi_step,
+                                             plain_packed_step, unpack_state)
+    from tpufluid_torch.ops.cuda import build, floors
+    from tpufluid_torch.ops.cuda.floors import spin_rate
+
+    fields = ("velocity", "dye", "pressure")
+    out = {}
+    for name, (res, batch) in PACKED_CONFIGS.items():
+        cfg = batch_config(res)
+        f32 = dataclasses.replace(cfg, DTYPE="float32", DYE_RGB9E5=False).validate()
+        for label, c in ((f"{name}:packed:float32", f32), (f"{name}:packed", cfg)):
+            check_cases(torch, check, label, check.packed_step_cases(c, batch, seed=7,
+                                                                     device=device),
+                        errors, exact=True)
+        seq = torch.as_tensor(np.stack([swirl_trace(cfg, CHECK_STEPS + PACKED_TIMED,
+                                                    seed=42 + i).batches
+                                        for i in range(batch)], axis=1), device=device)
+        multi = make_packed_multi_step(cfg, batch, device=device)
+        bmulti = make_batched_multi_step(cfg, device=device)
+
+        # The main path: 3 packed steps, the launches counted.
+        build.reset_launches()
+        packed = multi(init_packed(cfg, batch, device=device), 1.0 / 60.0, seq[:CHECK_STEPS])
+        torch.cuda.synchronize()
+        launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+        want = {k: n * CHECK_STEPS for k, n in expected_per_step(cfg).items()}
+        assert launches == want, (name, launches, want)
+        batched = bmulti(init_batch(cfg, batch, device=device), 1.0 / 60.0, seq[:CHECK_STEPS])
+        plain = init_packed(cfg, batch, device=device)
+        for t in range(CHECK_STEPS):
+            plain = plain_packed_step(plain, 1.0 / 60.0, seq[t], cfg, batch)
+        unpacked = unpack_state(packed, batch)
+        vs_batched = max(float((getattr(unpacked, f).float() - getattr(batched, f).float())
+                               .abs().max()) for f in fields)
+        vs_plain = max(float((getattr(packed, f).float() - getattr(plain, f).float())
+                             .abs().max()) for f in fields)
+        print(f"packed {name}: {batch} sims of {res}x{res} bf16 (RGB9E5), {CHECK_STEPS} "
+              f"make_packed_multi_step steps, lock-step 1/60: unpacked vs "
+              f"make_batched_multi_step max abs err {vs_batched:.3e} (every field, every sim); "
+              f"vs plain_packed_step {vs_plain:.3e}; launches {launches} "
+              f"({sum(launches.values()) // CHECK_STEPS} a packed step)")
+        assert vs_batched == 0.0 and vs_plain == 0.0, (name, vs_batched, vs_plain)
+        del plain
+
+        # Rates: batched, packed, packed, batched, 200 steps in one call each.
+        def timed(fn, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = fn(state, 1.0 / 60.0, seq[CHECK_STEPS:])
+            torch.cuda.synchronize()
+            v = state.velocity.float()
+            assert bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0.0, name
+            return batch * PACKED_TIMED / (time.perf_counter() - t0)
+
+        rates = {"batched": [], "packed": []}
+        timed_launches = {}
+        for kind in ("batched", "packed", "packed", "batched"):
+            if kind == "batched":
+                rates[kind].append(timed(bmulti, batched))
+                continue
+            build.reset_launches()
+            rates[kind].append(timed(multi, packed))
+            for k, v in build.KERNELS.items():
+                if v.launches:
+                    timed_launches[k] = timed_launches.get(k, 0) + v.launches
+        assert timed_launches == {k: 2 * n * PACKED_TIMED
+                                  for k, n in expected_per_step(cfg).items()}, timed_launches
+        print(f"packed {name} on {gpu}: sim-steps/s over {PACKED_TIMED} steps in one call, "
+              f"batched / packed / packed / batched: {rates['batched'][0]:.1f} / "
+              f"{rates['packed'][0]:.1f} / {rates['packed'][1]:.1f} / "
+              f"{rates['batched'][1]:.1f}; packed launches {timed_launches} over "
+              f"{2 * PACKED_TIMED} steps")
+
+        pcases = check.packed_step_cases(cfg, batch, 7, device)
+        bcases = [c for c in check.batched_step_cases(cfg, batch, 7, device)
+                  if c.label.endswith(":lockstep")]
+
+        def timing_of(cases):
+            steps = [c for c in cases if c.kernel_name != "advect_prepare"]
+            parts = [c for c in cases if c.kernel_name == "advect_prepare"]
+            return {**timing_phase(torch, check, steps), **timing_phase(torch, check, parts)}
+
+        ptiming, btiming = timing_of(pcases), timing_of(bcases)
+        lib_ms = grid_sample_ms(torch, next(c for c in pcases if c.label.startswith("advect:dye")),
+                                spin_rate(), sim_w=res)
+        ptiming["advect"]["library_ms"] = lib_ms
+        device_ms = sum(r["ms"] for k, r in ptiming.items() if k != "advect_prepare")
+        step_ms = 1e3 * batch / (sum(rates["packed"]) / 2)
+        idle = 1 - device_ms / step_ms
+        kt, other = floors.profile_step_kernels(cfg, packed, 1.0 / 60.0, PROFILE_STEPS)
+        for k, row in other["kernel_events"].items():
+            assert row["events"] == expected_per_step(cfg)[k] * PROFILE_STEPS, (k, row)
+        print(f"packed {name}: kernels' device {device_ms:.4f} ms a packed step (spin-queued), "
+              f"step {step_ms:.4f} ms (one call's mean), {100 * idle:.1f}% idle; grid_sample "
+              f"(library, the fleet's dye as a batch) {lib_ms:.4f} ms")
+        for k, row in ptiming.items():
+            prof = other["kernel_events"].get(k, {}).get("us")
+            print(f"packed {name} {k:18s} spin-queued {row['ms']:.4f} ms packed, "
+                  f"{btiming[k]['ms']:.4f} ms batched ({row['ms'] / btiming[k]['ms']:.3f}x); "
+                  f"bound {row['bound_ms']:.4f} ms ({row['by']}), plain {row['plain_ms']:.4f} "
+                  f"ms; profiler " + (f"{prof:.2f} us a step" if prof is not None
+                                      else "(inside advect)"))
+        out[name] = {"batch": batch, "res": res, "launches": launches,
+                     "timed_launches": timed_launches, "vs_batched_max_abs_err": vs_batched,
+                     "vs_plain_max_abs_err": vs_plain, "sim_steps_per_s": rates,
+                     "kernel_device_ms": device_ms, "step_ms": step_ms, "idle": idle,
+                     "kernels": ptiming, "batched_kernels": btiming,
+                     "profile": {"kernel_times_us": kt, **other}}
+        del packed, batched, unpacked
+        torch.cuda.empty_cache()
+    return out
+
+
 def sharded_mesh(shape):
     """A mesh of ``shape`` over the cards there are, round robin."""
     import torch
@@ -1317,6 +1472,7 @@ def main() -> int:
     batched = batched_phase(torch, check, cfgs, gpu, device, errors)
     frames = batched_frame_phase(torch, check, cfgs, gpu, device, errors)
     sharded = sharded_phase(torch, check, cfgs, gpu, device, errors)
+    packed = packed_phase(torch, check, gpu, device, errors)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -1360,6 +1516,26 @@ def main() -> int:
         "configs": {f"sharded_{SHARDED_RES}_bf16_2x2": {"window_copy_ms": b["window_copy_ms"],
                                                         "launches": b["launches"]}},
     })
+    # The packed forms: launched by the packed fleet alone.
+    main = packed[PACKED_MAIN]
+    for k in build.KERNELS.values():
+        if k.name not in main["kernels"]:
+            continue
+        row = main["kernels"][k.name]
+        kernels.append({
+            "name": f"{k.name}:packed", "route": "cuda",
+            "source": f"tpufluid_torch/csrc/{k.source}.cu", "replaces": k.replaces,
+            "launches": main["launches"][k.name],
+            "max_abs_err": max(e for (c, n), e in errors.items()
+                               if n == k.name and ":packed" in c),
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["by"], "library_ms": row.get("library_ms"),
+            "configs": {c: {"ms": r["kernels"][k.name]["ms"],
+                            "batched_ms": r["batched_kernels"][k.name]["ms"],
+                            "bound_ms": r["kernels"][k.name]["bound_ms"],
+                            "plain_ms": r["kernels"][k.name]["plain_ms"],
+                            "launches": r["launches"][k.name]} for c, r in packed.items()},
+        })
     out_dir = Path("out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1367,7 +1543,7 @@ def main() -> int:
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
          "floors": floors_run,
          "long_horizon": horizon, "batched": batched, "batched_frames": frames,
-         "sharded": sharded,
+         "sharded": sharded, "packed": packed,
          "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -3,7 +3,8 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The simulation step runs four kernels (csrc/): the pre-pressure stencil,
 the Jacobi sweeps, the gradient subtract and the advection (with its
-prepare), each for one sim or a batch of B sims in one launch.
+prepare), each for one sim, a batch of B sims or a lane-packed fleet of B
+sims in one launch.
 The frame runs two, one launch each, for one sim or a batch: the bloom
 pyramid and the display composite. Every kernel has a plain PyTorch version beside it; a CPU state
 runs those, a CUDA state runs the kernels. The entry points default to
@@ -19,6 +20,8 @@ Public API:
     make_batched_multi_step, make_batched_render
                                — B sims in one set of launches, dt per sim
     make_batched_tick          — the multi-tenant server's batched tick
+    batch_packed (module)      — the lane-packed fleet: B sims side by side
+                                 along the rows, (C, H, B*W), lock-step
     make_mesh, shard_state, exchange_halo_rows, make_sharded_step,
     make_sharded_multi_step, sharded_fluid_step
                                — the sharded step over a mesh of devices

@@ -56,6 +56,16 @@
 // scalars; each sim of a batch runs the operations of its own launch, bit
 // for bit.
 //
+// Both kernels also read and write the lane-packed fleet's layout (common.cuh
+// FieldLayout: (C, H, B*W) fields, the sim on grid z, same grid only). The
+// prepare reads the packed source and writes its private prepared source as
+// for a batch, (B, H, W[, 4]); the gather reads the packed velocity (and a
+// packed planes source) and writes the packed output. A thread's backtrace
+// stays in its sim's own float coordinates and clamps to that sim's
+// columns [0, W - 1]: the TPU kernel's per-lane clamp at its sim's walls
+// (tpufluid/ops/pallas/advect.py:450-461), without its packed-column
+// coordinates (:442-447), so a packed sim equals its batched sim bit for bit.
+//
 // Extra bytes of the design, beyond the function's: the prepared source,
 // written once and read back by the gather (mostly from L2). 1024x1024 bf16
 // RGB9E5: 4 B a texel, 4.2 MB written and read. Demo f32: 16 B a texel on
@@ -111,9 +121,9 @@ __device__ __forceinline__ void rgb9e5_unpack(uint32_t w, float* rgb) {
 }
 
 // The C float32 values of source texel `at` (its sim's offset included) in
-// layout LAYOUT.
-template <typename T, int C, int LAYOUT, typename I>
-__device__ __forceinline__ void fetch(const void* src, I at, int hw, float* val) {
+// layout LAYOUT; `hw` is a plane's stride (H * B * W in the packed layout).
+template <typename T, int C, int LAYOUT, typename I, typename S>
+__device__ __forceinline__ void fetch(const void* src, I at, S hw, float* val) {
     if constexpr (LAYOUT == kPlanes) {
 #pragma unroll
         for (int c = 0; c < C; ++c) val[c] = to_f32(static_cast<const T*>(src)[c * hw + at]);
@@ -146,18 +156,19 @@ __device__ __forceinline__ float sample_plane(const T* field, I base, float x, f
 
 constexpr int kPrepareTexels = 2;  // texels a prepare thread, kBlockX apart
 
-template <typename T, int C, bool WORDS, typename I>
+template <typename T, int C, bool WORDS, typename I, bool PACKED>
 __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restrict__ prep, int H,
                                       int W, const float* __restrict__ gy,
                                       const float* __restrict__ gx,
                                       const float* __restrict__ amt, int S) {
     constexpr int TPT = kPrepareTexels;
     const int j0 = blockIdx.x * (kBlockX * TPT) + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    const int i = (PACKED ? blockIdx.z : blockIdx.y) * blockDim.y + threadIdx.y;
     if (i >= H || j0 >= W) return;
     const int hw = H * W;
-    // The block's sim: its offset in each array, added to every index.
-    const I sim = blockIdx.z;
+    // The block's sim: its offset in each array, added to every index
+    // (packed: grid y, packed_grid_for's order).
+    const I sim = PACKED ? blockIdx.y : blockIdx.z;
     const I sb = sim * C * hw, pb = sim * hw, fy = sim * H * S, fx = sim * S * W;
     const I fa = sim * S * C;
     int j[TPT];  // the thread's texels, kBlockX apart; past the edge: the last column
@@ -165,8 +176,14 @@ __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restric
 #pragma unroll
     for (int t = 0; t < TPT; ++t) {
         j[t] = min(j0 + t * kBlockX, W - 1);
+        if constexpr (PACKED) {  // the source (C, H, B*W); the prepared (B, H, W[, 4])
+            const Packed<I> f(H, W, blockIdx.y, gridDim.y);
 #pragma unroll
-        for (int c = 0; c < C; ++c) val[t][c] = to_f32(src[sb + c * hw + i * W + j[t]]);
+            for (int c = 0; c < C; ++c) val[t][c] = to_f32(src[f.at(c, i, j[t])]);
+        } else {
+#pragma unroll
+            for (int c = 0; c < C; ++c) val[t][c] = to_f32(src[sb + c * hw + i * W + j[t]]);
+        }
     }
     if (S > 0) {
         float acc[TPT][C];
@@ -207,27 +224,37 @@ __global__ void advect_prepare_kernel(const T* __restrict__ src, void* __restric
     }
 }
 
-template <typename T, int C, int LAYOUT, bool SAME_GRID, typename I>
+template <typename T, int C, int LAYOUT, bool SAME_GRID, typename I, bool PACKED>
 __global__ void advect_kernel(const T* __restrict__ vel, int hv, int wv,
                               const void* __restrict__ src, T* __restrict__ out, int H, int W,
                               float dt, float decay, const float* __restrict__ dts) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    const int i = (PACKED ? blockIdx.z : blockIdx.y) * blockDim.y + threadIdx.y;
     if (i >= H || j >= W) return;
     const int hw = H * W;
-    // The block's sim: its offsets, added to every index (the source's in
-    // texels for quads and words, in values for planes), its dt and decay.
-    const I sim = blockIdx.z;
+    // The block's sim (packed: grid y, packed_grid_for's order): its
+    // offsets, added to every index (the source's in texels for quads and
+    // words, in values for planes), its dt and decay.
+    const unsigned bz = PACKED ? blockIdx.y : blockIdx.z;
+    const I sim = bz;
     const I vb = sim * 2 * hv * wv, ob = sim * C * hw;
     const I sb = LAYOUT == kPlanes ? ob : sim * hw;
+    // PACKED (same grid only): the velocity, a planes source and the output
+    // are (C, H, B*W); a prepared source stays (B, H, W[, 4]).
+    static_assert(!PACKED || SAME_GRID, "a packed fleet has the velocity on the source's grid");
+    const Packed<I> f(H, W, bz, gridDim.y);
+    const I pitch = f.pitch, plane = f.plane, fb = f.sim;
     if (dts != nullptr) {
-        dt = dts[2 * blockIdx.z];
-        decay = dts[2 * blockIdx.z + 1];
+        dt = dts[2 * bz];
+        decay = dts[2 * bz + 1];
     }
     const float u = ((float)j + 0.5f) / (float)W;
     const float v = ((float)i + 0.5f) / (float)H;
     float vu, vv;
-    if constexpr (SAME_GRID) {
+    if constexpr (PACKED) {
+        vu = to_f32(vel[fb + i * pitch + j]);
+        vv = to_f32(vel[fb + plane + i * pitch + j]);
+    } else if constexpr (SAME_GRID) {
         vu = to_f32(vel[vb + i * W + j]);
         vv = to_f32(vel[vb + hw + i * W + j]);
     } else {
@@ -243,76 +270,105 @@ __global__ void advect_kernel(const T* __restrict__ vel, int hv, int wv,
     const int q0 = min(max((int)x0, 0), W - 1), q1 = min(max((int)x0 + 1, 0), W - 1);
     const int r0 = min(max((int)y0, 0), H - 1), r1 = min(max((int)y0 + 1, 0), H - 1);
     float a[C], b[C], c[C], d[C];  // the lerp's corners
-    fetch<T, C, LAYOUT>(src, sb + r0 * W + q0, hw, a);
-    fetch<T, C, LAYOUT>(src, sb + r0 * W + q1, hw, b);
-    fetch<T, C, LAYOUT>(src, sb + r1 * W + q0, hw, c);
-    fetch<T, C, LAYOUT>(src, sb + r1 * W + q1, hw, d);
+    if constexpr (PACKED && LAYOUT == kPlanes) {
+        fetch<T, C, LAYOUT>(src, fb + r0 * pitch + q0, plane, a);
+        fetch<T, C, LAYOUT>(src, fb + r0 * pitch + q1, plane, b);
+        fetch<T, C, LAYOUT>(src, fb + r1 * pitch + q0, plane, c);
+        fetch<T, C, LAYOUT>(src, fb + r1 * pitch + q1, plane, d);
+    } else {
+        fetch<T, C, LAYOUT>(src, sb + r0 * W + q0, hw, a);
+        fetch<T, C, LAYOUT>(src, sb + r0 * W + q1, hw, b);
+        fetch<T, C, LAYOUT>(src, sb + r1 * W + q0, hw, c);
+        fetch<T, C, LAYOUT>(src, sb + r1 * W + q1, hw, d);
+    }
 #pragma unroll
     for (int k = 0; k < C; ++k) {
         const float top = a[k] + (b[k] - a[k]) * fx;
         const float bot = c[k] + (d[k] - c[k]) * fx;
-        out[ob + k * hw + i * W + j] = from_f32<T>((top + (bot - top) * fy) / decay);
+        const float value = (top + (bot - top) * fy) / decay;
+        if constexpr (PACKED)
+            out[fb + k * plane + i * pitch + j] = from_f32<T>(value);
+        else
+            out[ob + k * hw + i * W + j] = from_f32<T>(value);
     }
 }
 
 template <typename T, int C, bool WORDS>
 static int launch_prepare(const void* src, void* prep, int B, int H, int W, const float* gy,
-                          const float* gx, const float* amt, int S, cudaStream_t stream) {
+                          const float* gx, const float* amt, int S, bool packed,
+                          cudaStream_t stream) {
     constexpr int cols = kBlockX * kPrepareTexels;
     const dim3 grid((W + cols - 1) / cols, (H + kBlockY - 1) / kBlockY, B);
     const size_t most = std::max({(size_t)C * H * W, (size_t)H * S, (size_t)S * W});
     DISPATCH_INDEX(wide_batch(B, most), I,
-        advect_prepare_kernel<T, C, WORDS, I><<<grid, dim3(kBlockX, kBlockY), 0, stream>>>(
-            (const T*)src, prep, H, W, gy, gx, amt, S));
+        if (packed)
+            advect_prepare_kernel<T, C, WORDS, I, true><<<dim3(grid.x, B, grid.y),
+                                                          dim3(kBlockX, kBlockY), 0, stream>>>(
+                (const T*)src, prep, H, W, gy, gx, amt, S);
+        else
+            advect_prepare_kernel<T, C, WORDS, I, false><<<grid, dim3(kBlockX, kBlockY), 0,
+                                                           stream>>>(
+                (const T*)src, prep, H, W, gy, gx, amt, S));
     return (int)cudaGetLastError();
 }
 
 template <typename T, int C, int LAYOUT>
 static int launch_gather(const void* vel, int hv, int wv, const void* src, void* out, int B,
-                         int H, int W, float dt, float decay, const float* dts,
+                         int H, int W, float dt, float decay, const float* dts, bool packed,
                          cudaStream_t stream) {
     const dim3 grid = grid_for(H, W, B), block(kBlockX, kBlockY);
+    const bool same = hv == H && wv == W;
+    if (packed && !same) return (int)cudaErrorInvalidValue;
     DISPATCH_INDEX(wide_batch(B, std::max(2 * (size_t)hv * wv, (size_t)C * H * W)), I,
-        if (hv == H && wv == W)
-            advect_kernel<T, C, LAYOUT, true, I><<<grid, block, 0, stream>>>(
+        if (packed)
+            advect_kernel<T, C, LAYOUT, true, I, true><<<packed_grid_for(H, W, B), block, 0,
+                                                         stream>>>(
+                (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay, dts);
+        else if (same)
+            advect_kernel<T, C, LAYOUT, true, I, false><<<grid, block, 0, stream>>>(
                 (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay, dts);
         else
-            advect_kernel<T, C, LAYOUT, false, I><<<grid, block, 0, stream>>>(
+            advect_kernel<T, C, LAYOUT, false, I, false><<<grid, block, 0, stream>>>(
                 (const T*)vel, hv, wv, src, (T*)out, H, W, dt, decay, dts));
     return (int)cudaGetLastError();
 }
 
 template <typename T, int C>
 static int launch_c(const void* vel, int hv, int wv, const void* src, int layout, void* out,
-                    int B, int H, int W, float dt, float decay, const float* dts,
+                    int B, int H, int W, float dt, float decay, const float* dts, bool packed,
                     cudaStream_t stream) {
     if (layout == kPlanes)
         return launch_gather<T, C, kPlanes>(vel, hv, wv, src, out, B, H, W, dt, decay, dts,
-                                            stream);
+                                            packed, stream);
     if (layout == kQuads)
         return launch_gather<T, C, kQuads>(vel, hv, wv, src, out, B, H, W, dt, decay, dts,
-                                           stream);
+                                           packed, stream);
     return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
 
-// B sims: src (B, C, H, W) storage `dtype` -> prep: (B, H, W) uint32 RGB9E5
+// B sims: src (B, C, H, W) storage `dtype`, or (C, H, B*W) when `fields`
+// is kPacked (common.cuh FieldLayout) -> prep: (B, H, W) uint32 RGB9E5
 // words when words = 1 (bf16, C = 3), else (B, H, W, 4) storage quads. gy
 // (B, H, S), gx (B, S, W), amt (B, S, C) float32 when S > 0.
 int fluid_advect_prepare(const void* src, void* prep, int B, int C, int H, int W,
                          const void* gy, const void* gx, const void* amt, int S, int words,
-                         int dtype, void* stream) {
-    if (B < 1 || B > kMaxBatch || C < 1 || C > 3 || (words && (C != 3 || dtype != kBF16)))
+                         int fields, int dtype, void* stream) {
+    if (B < 1 || B > kMaxBatch || C < 1 || C > 3 || (words && (C != 3 || dtype != kBF16)) ||
+        (fields != kBatched && fields != kPacked))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
     const float *fy = (const float*)gy, *fx = (const float*)gx, *fa = (const float*)amt;
+    const bool pk = fields == kPacked;
     if (words)
-        return launch_prepare<__nv_bfloat16, 3, true>(src, prep, B, H, W, fy, fx, fa, S, s);
+        return launch_prepare<__nv_bfloat16, 3, true>(src, prep, B, H, W, fy, fx, fa, S, pk, s);
     DISPATCH_STORAGE(dtype, T,
-        if (C == 1) return launch_prepare<T, 1, false>(src, prep, B, H, W, fy, fx, fa, S, s);
-        if (C == 2) return launch_prepare<T, 2, false>(src, prep, B, H, W, fy, fx, fa, S, s);
-        return launch_prepare<T, 3, false>(src, prep, B, H, W, fy, fx, fa, S, s));
+        if (C == 1)
+            return launch_prepare<T, 1, false>(src, prep, B, H, W, fy, fx, fa, S, pk, s);
+        if (C == 2)
+            return launch_prepare<T, 2, false>(src, prep, B, H, W, fy, fx, fa, S, pk, s);
+        return launch_prepare<T, 3, false>(src, prep, B, H, W, fy, fx, fa, S, pk, s));
     return (int)cudaErrorInvalidValue;
 }
 
@@ -320,23 +376,28 @@ int fluid_advect_prepare(const void* src, void* prep, int B, int C, int H, int W
 // (B, C, H, W) storage, kQuads (B, H, W, 4) storage, kWords (B, H, W) uint32
 // (bf16, C = 3); out (B, C, H, W). dts: a (B, 2) float32 table of (clamped
 // dt, decay) a sim, or null for the scalars dt and decay of every sim.
+// `fields` kPacked (common.cuh FieldLayout; hv = H and wv = W only): vel
+// (2, H, B*W), a kPlanes source (C, H, B*W) and out (C, H, B*W); a prepared
+// source keeps its (B, H, W[, 4]).
 int fluid_advect(const void* vel, int hv, int wv, const void* src, int layout, void* out, int B,
-                 int C, int H, int W, float dt, float decay, const void* dts, int dtype,
-                 void* stream) {
+                 int C, int H, int W, float dt, float decay, const void* dts, int fields,
+                 int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
     const float* d = (const float*)dts;
-    if (B < 1 || B > kMaxBatch || C < 1 || C > 3) return (int)cudaErrorInvalidValue;
+    if (B < 1 || B > kMaxBatch || C < 1 || C > 3 || (fields != kBatched && fields != kPacked))
+        return (int)cudaErrorInvalidValue;
+    const bool pk = fields == kPacked;
     if (layout == kWords) {
         if (C != 3 || dtype != kBF16) return (int)cudaErrorInvalidValue;
         return launch_gather<__nv_bfloat16, 3, kWords>(vel, hv, wv, src, out, B, H, W, dt,
-                                                       decay, d, s);
+                                                       decay, d, pk, s);
     }
     DISPATCH_STORAGE(dtype, T,
         if (C == 1)
-            return launch_c<T, 1>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, s);
+            return launch_c<T, 1>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, pk, s);
         if (C == 2)
-            return launch_c<T, 2>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, s);
-        return launch_c<T, 3>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, s));
+            return launch_c<T, 2>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, pk, s);
+        return launch_c<T, 3>(vel, hv, wv, src, layout, out, B, H, W, dt, decay, d, pk, s));
     return (int)cudaErrorInvalidValue;
 }
 

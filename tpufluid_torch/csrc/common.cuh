@@ -97,6 +97,42 @@ __device__ __forceinline__ I sim_offset(I per_sim) {
     return off;
 }
 
+// Field layouts of a batch of B sims, each C planes of H x W (ops/cuda/
+// build.py BATCHED, PACKED). Element (b, c, i, j) of a batched field
+// (B, C, H, W) is at b*C*H*W + c*H*W + i*W + j; of a packed field
+// (C, H, B*W), the lane-packed fleet's sims side by side along the rows
+// (tpufluid/batch_packed.py), at b*W + c*H*B*W + i*B*W + j. Both are
+// b*S_sim + c*S_plane + i*P + j. A kernel takes the layout as a template
+// parameter, so its batched instances compile as before. A packed launch
+// keeps a sim's blocks apart (the tiled kernels' sim on grid z, the
+// one-thread-a-texel ones' on grid y: packed_grid_for), and a block's (i, j)
+// are its sim's own: its clamps and walls are the sim's, as the TPU kernels'
+// wall every sim_w columns puts them.
+enum FieldLayout { kBatched = 0, kPacked = 1 };
+
+// The strides of a packed field for sim b of B, in index type I: `sim` =
+// b*W, `pitch` = B*W, `plane` = H*B*W. DISPATCH_INDEX counts a packed
+// field's whole extent, C*H*B*W, as it counts a batched one's.
+template <typename I>
+struct Packed {
+    I sim, pitch, plane;
+    __device__ __forceinline__ Packed(int H, int W, unsigned b, unsigned B)
+        : sim((I)b * W), pitch((I)B * W), plane((I)H * pitch) {}
+    __device__ __forceinline__ I at(int c, int i, int j) const {
+        return sim + c * plane + i * pitch + j;
+    }
+};
+
+// The grid of a one-thread-a-texel launch (grid_for) in the packed layout:
+// (columns, sim, rows), so that the blocks that run at once hold the same
+// rows of every sim, a contiguous span of the fleet's rows, as a batched
+// launch's hold one sim's contiguous rows. Grid z (rows) is then a block's
+// row strip and grid y its sim.
+inline dim3 packed_grid_for(int h, int w, int sims) {
+    const dim3 g = grid_for(h, w);
+    return dim3(g.x, sims, g.y);
+}
+
 // One axis of a separable affine bilinear sample (ops/sampling.py
 // affine_axis_plan) for output index k: p = ((k + 0.5) / n_out) * scale + off,
 // x = p * n_in - 0.5, corners floor(x) and +1 clamped to [0, n_in - 1] (or

@@ -41,9 +41,16 @@
 // counterpart of jax.vmap over the TPU kernel; the single-sim solve is
 // B = 1. A sim's blocks run the operations of a single-sim launch, so each
 // sim equals its own solve bit for bit.
+// The lane-packed fleet's layout (common.cuh FieldLayout: (H, B*W), the sims
+// side by side along the rows, the sim on grid z) changes only the strides:
+// a block's region lies in one sim, so its clamps are that sim's walls, the
+// TPU kernel's wall every sim_w columns (tpufluid/ops/pallas/jacobi.py:
+// 181-209), and no region straddles two sims. The float32 scratch between
+// the launches of a packed solve is packed too.
 #include "common.cuh"
 
-template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB, typename I>
+template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB, typename I,
+          bool PACKED>
 __global__ void __launch_bounds__(RW * NY, MINB)
 jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut* __restrict__ out,
                     float prescale, int H, int W, int K) {
@@ -55,7 +62,8 @@ jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut*
     const int c0 = blockIdx.x * (RW - 2 * K) - K;
     const int gj = c0 + tx;
     const int cj = min(max(gj, 0), W - 1);
-    const I col = sim_offset((I)H * W) + cj;  // the column in the block's sim
+    // The column in the block's sim; packed, rows of the fleet's pitch B*W.
+    const I col = PACKED ? sim_offset((I)W) + cj : sim_offset((I)H * W) + cj;
     // Region columns of the left and right neighbours: clamped at the grid's
     // edge, then into the region (a region-edge cell is outside the valid
     // part after its first sweep).
@@ -66,7 +74,8 @@ jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut*
     float v[R], d[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) {
-        const I at = min(max(r0 + row0 + k, 0), H - 1) * W + col;
+        const int r = min(max(r0 + row0 + k, 0), H - 1);
+        const I at = PACKED ? r * ((I)gridDim.z * W) + col : r * W + col;
         v[k] = to_f32(p[at]) * prescale;
         d[k] = to_f32(div[at]);
     }
@@ -95,22 +104,28 @@ jacobi_chunk_kernel(const TIn* __restrict__ p, const TD* __restrict__ div, TOut*
     }
 
     const bool col_out = tx >= K && tx < RW - K && gj < W;
-    const I col_at = sim_offset((I)H * W) + gj;  // formed anew after the sweeps
+    // formed anew after the sweeps
+    const I col_at = PACKED ? sim_offset((I)W) + gj : sim_offset((I)H * W) + gj;
 #pragma unroll
     for (int k = 0; k < R; ++k) {
         const int lr = row0 + k, gi = r0 + lr;
-        if (col_out && lr >= K && lr < RH - K && gi < H)
-            out[gi * W + col_at] = from_f32<TOut>(v[k]);
+        if (col_out && lr >= K && lr < RH - K && gi < H) {
+            if constexpr (PACKED)
+                out[gi * ((I)gridDim.z * W) + col_at] = from_f32<TOut>(v[k]);
+            else
+                out[gi * W + col_at] = from_f32<TOut>(v[k]);
+        }
     }
 }
 
-template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB, typename I>
+template <typename TIn, typename TOut, typename TD, int RW, int NY, int R, int MINB, typename I,
+          bool PACKED>
 static int launch(const void* p, const void* div, void* out, float prescale, int B, int H, int W,
                   int K, cudaStream_t stream) {
     constexpr int RH = NY * R;
     if (K < 1 || RH - 2 * K < 1 || RW - 2 * K < 1 || B < 1 || B > kMaxBatch)
         return (int)cudaErrorInvalidValue;
-    auto kernel = jacobi_chunk_kernel<TIn, TOut, TD, RW, NY, R, MINB, I>;
+    auto kernel = jacobi_chunk_kernel<TIn, TOut, TD, RW, NY, R, MINB, I, PACKED>;
     const size_t smem = 2 * RH * RW * sizeof(float);
     static bool configured = false;  // per instance: the attribute is set once
     if (!configured) {
@@ -127,40 +142,50 @@ static int launch(const void* p, const void* div, void* out, float prescale, int
 
 // The compiled geometries: (RW, NY, R, blocks an SM must hold), in the
 // order of ops/cuda/jacobi.py TILES; I the index type (common.cuh).
-template <typename TIn, typename TOut, typename TD>
+template <typename TIn, typename TOut, typename TD, bool PACKED>
 static int launch_tiles(int tiles, const void* p, const void* div, void* out, float prescale,
                         int B, int H, int W, int K, cudaStream_t s) {
     DISPATCH_INDEX(wide_batch(B, (size_t)H * W), I,
         switch (tiles) {
             case 0:
-                return launch<TIn, TOut, TD, 128, 4, 16, 2, I>(p, div, out, prescale, B, H, W,
-                                                               K, s);
+                return launch<TIn, TOut, TD, 128, 4, 16, 2, I, PACKED>(p, div, out, prescale, B,
+                                                                       H, W, K, s);
             case 1:
-                return launch<TIn, TOut, TD, 64, 4, 8, 1, I>(p, div, out, prescale, B, H, W, K,
-                                                             s);
+                return launch<TIn, TOut, TD, 64, 4, 8, 1, I, PACKED>(p, div, out, prescale, B, H,
+                                                                     W, K, s);
             default: return (int)cudaErrorInvalidValue;
         });
     return (int)cudaErrorInvalidValue;
 }
 
+template <typename TIn, typename TOut, typename TD>
+static int launch_layout(int layout, int tiles, const void* p, const void* div, void* out,
+                         float prescale, int B, int H, int W, int K, cudaStream_t s) {
+    if (layout == kPacked)
+        return launch_tiles<TIn, TOut, TD, true>(tiles, p, div, out, prescale, B, H, W, K, s);
+    if (layout == kBatched)
+        return launch_tiles<TIn, TOut, TD, false>(tiles, p, div, out, prescale, B, H, W, K, s);
+    return (int)cudaErrorInvalidValue;
+}
+
 extern "C" {
 
-// K sweeps of B (H, W) fields, (B, H, W) each buffer, in one launch on
-// geometry `tiles`. p_f32 / out_f32: 1 when that buffer is a float32
-// scratch buffer, 0 when it holds the storage type `dtype` (which the
-// divergence always does).
+// K sweeps of B (H, W) fields, (B, H, W) each buffer, or (H, B*W) in the
+// packed layout (the float32 scratch too), in one launch on geometry
+// `tiles`. p_f32 / out_f32: 1 when that buffer is a float32 scratch buffer,
+// 0 when it holds the storage type `dtype` (which the divergence always
+// does).
 int fluid_jacobi_chunk(const void* p, int p_f32, const void* div, void* out, int out_f32,
-                       float prescale, int B, int H, int W, int K, int tiles, int dtype,
-                       void* stream) {
+                       float prescale, int B, int H, int W, int K, int tiles, int layout,
+                       int dtype, void* stream) {
     cudaStream_t s = (cudaStream_t)stream;
+#define CHUNK_ARGS layout, tiles, p, div, out, prescale, B, H, W, K, s
     DISPATCH_STORAGE(dtype, T,
-        if (p_f32 && out_f32)
-            return launch_tiles<float, float, T>(tiles, p, div, out, prescale, B, H, W, K, s);
-        if (p_f32)
-            return launch_tiles<float, T, T>(tiles, p, div, out, prescale, B, H, W, K, s);
-        if (out_f32)
-            return launch_tiles<T, float, T>(tiles, p, div, out, prescale, B, H, W, K, s);
-        return launch_tiles<T, T, T>(tiles, p, div, out, prescale, B, H, W, K, s));
+        if (p_f32 && out_f32) return launch_layout<float, float, T>(CHUNK_ARGS);
+        if (p_f32) return launch_layout<float, T, T>(CHUNK_ARGS);
+        if (out_f32) return launch_layout<T, float, T>(CHUNK_ARGS);
+        return launch_layout<T, T, T>(CHUNK_ARGS));
+#undef CHUNK_ARGS
     return (int)cudaErrorInvalidValue;
 }
 

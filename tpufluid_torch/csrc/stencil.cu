@@ -75,6 +75,17 @@
 // made, and the kernel on a window equals it on a copy of that window bit for
 // bit: nothing outside the window is read into a result. The 16-byte window
 // loads need the pitch, the base and the planes in whole 16-byte units.
+//
+// Both kernels also take the lane-packed fleet's layout (tpufluid/
+// batch_packed.py; common.cuh FieldLayout): B sims side by side along the
+// rows of (C, H, B*W) fields, the sim on grid z as in a batch. A packed sim
+// is pre_pressure's window at column b*W of the fleet's planes (pitch B*W,
+// plane H*B*W), with its own splat factors, (B, H, S), (B, S, W), (B, S, 2);
+// the gradient subtract forms the same strides. A block's clamps and -C
+// walls are then its sim's: the TPU kernels' walls every sim_w columns
+// (stencil.py:121-126, :238-241). The window loads of a packed sim are
+// whole 16-byte units where W is (W * itemsize a multiple of 16); other
+// widths take the element loads, with the same result.
 #include <cuda_pipeline.h>
 
 #include "common.cuh"
@@ -213,7 +224,7 @@ __device__ __forceinline__ void pre_pressure_stages(
     }
 }
 
-template <typename T, int TH, int TW>
+template <typename T, int TH, int TW, bool PACKED>
 __global__ void __launch_bounds__(kPreThreads)
 pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
                     const float* __restrict__ gx, const float* __restrict__ amt, int S,
@@ -235,11 +246,20 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
     const int r0 = ti0 - kHalo, c0 = tj0 - kHalo;         // the block's window origin
     const size_t plane = (size_t)Hs * Ws;
     // The block's sim: its offsets, added to every index, and its dt. The
-    // fields' offsets start at the window's base.
-    const size_t wbase = (size_t)r0w * Ws + c0w, sp = sim_offset(plane);
-    const size_t vb = 2 * sp + wbase, db = sp + wbase;
+    // fields' offsets start at the window's base. PACKED: the planes are
+    // the fleet's (Hs = H, Ws = B*W) and the sim is the window at column
+    // b*W; its column factors are (B, S, W).
+    size_t vb, db;
+    if constexpr (PACKED) {
+        vb = db = sim_offset((size_t)W);
+    } else {
+        const size_t wbase = (size_t)r0w * Ws + c0w, sp = sim_offset(plane);
+        vb = 2 * sp + wbase;
+        db = sp + wbase;
+    }
+    const int fpitch = PACKED ? W : Ws;  // a row of the column factors
     const size_t fy = sim_offset((size_t)Hs * S) + (size_t)r0w * S;
-    const size_t fx = sim_offset((size_t)S * Ws) + c0w, fa = sim_offset(2 * (size_t)S);
+    const size_t fx = sim_offset((size_t)S * fpitch) + c0w, fa = sim_offset(2 * (size_t)S);
     if (dts != nullptr) dt = dts[2 * blockIdx.z];
 
     // Stage 0. The velocity window, rows r0.., columns tj0 - U.. (aligned:
@@ -273,7 +293,7 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
     for (int e = tid; e < S * WW; e += kPreThreads) {
         const int s = e / WW, x = e - s * WW, gj = c0 + x;
         if (gj < 0 || gj >= W) continue;
-        gxs[e] = gx[fx + s * Ws + gj];
+        gxs[e] = gx[fx + s * fpitch + gj];
     }
     // The splat rows whose amount is not zero, in order: another row adds
     // (gy * 0) * gx = +/-0 to a sum that starts at +0, which changes no bit.
@@ -301,13 +321,13 @@ pre_pressure_kernel(const T* __restrict__ vel, const float* __restrict__ gy,
                                              tj0);
 }
 
-template <typename T, int TH, int TW>
+template <typename T, int TH, int TW, bool PACKED>
 static int launch_pre(const void* vel, const void* gy, const void* gx, const void* amt, int S,
                       float cs, float dt, const float* dts, void* vel_out, void* div_out,
                       int B, int Hs, int Ws, int r0w, int c0w, int H, int W,
                       cudaStream_t stream) {
     using L = PreTile<T, TH, TW>;
-    const auto kernel = pre_pressure_kernel<T, TH, TW>;
+    const auto kernel = pre_pressure_kernel<T, TH, TW, PACKED>;
     const int smem = L::bytes(S);
     if (smem > 48 * 1024) {
         const cudaError_t err =
@@ -317,7 +337,9 @@ static int launch_pre(const void* vel, const void* gy, const void* gx, const voi
             return (int)err;
         }
     }
-    const int aligned = Ws % L::U == 0 && c0w % L::U == 0 &&
+    // Packed, a sim's window starts at column b*W: its units are whole
+    // where W is (c0w is 0).
+    const int aligned = Ws % L::U == 0 && c0w % L::U == 0 && (!PACKED || W % L::U == 0) &&
                         reinterpret_cast<size_t>(vel) % 16 == 0;
     const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
     kernel<<<grid, kPreThreads, smem, stream>>>(
@@ -327,26 +349,37 @@ static int launch_pre(const void* vel, const void* gy, const void* gx, const voi
 }
 
 // The compiled tiles (TH, TW), in the order of ops/cuda/stencil.py TILES.
-template <typename T>
+template <typename T, bool PACKED>
 static int launch_pre_tiles(int tiles, const void* vel, const void* gy, const void* gx,
                             const void* amt, int S, float cs, float dt, const float* dts,
                             void* vel_out, void* div_out, int B, int Hs, int Ws, int r0w,
                             int c0w, int H, int W, cudaStream_t s) {
 #define PRE_ARGS vel, gy, gx, amt, S, cs, dt, dts, vel_out, div_out, B, Hs, Ws, r0w, c0w, H, W, s
     switch (tiles) {
-        case 0: return launch_pre<T, 32, 64>(PRE_ARGS);
-        case 1: return launch_pre<T, 8, 32>(PRE_ARGS);
+        case 0: return launch_pre<T, 32, 64, PACKED>(PRE_ARGS);
+        case 1: return launch_pre<T, 8, 32, PACKED>(PRE_ARGS);
         default: return (int)cudaErrorInvalidValue;
     }
 #undef PRE_ARGS
 }
 
-template <typename T, typename I>
+template <typename T, typename I, bool PACKED>
 __global__ void gradient_subtract_kernel(const T* __restrict__ vel, const T* __restrict__ p,
                                          T* __restrict__ out, int H, int W) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const int i = blockIdx.y * blockDim.y + threadIdx.y;
+    const int i = (PACKED ? blockIdx.z : blockIdx.y) * blockDim.y + threadIdx.y;
     if (i >= H || j >= W) return;
+    if constexpr (PACKED) {  // p (H, B*W), vel and out (2, H, B*W): one sim offset and pitch
+        const Packed<I> f(H, W, blockIdx.y, gridDim.y);  // packed_grid_for
+        const float pL = to_f32(p[f.at(0, i, max(j - 1, 0))]);
+        const float pR = to_f32(p[f.at(0, i, min(j + 1, W - 1))]);
+        const float pB = to_f32(p[f.at(0, max(i - 1, 0), j)]);
+        const float pT = to_f32(p[f.at(0, min(i + 1, H - 1), j)]);
+        const I at = f.at(0, i, j);
+        out[at] = from_f32<T>(to_f32(vel[at]) - (pR - pL));
+        out[at + f.plane] = from_f32<T>(to_f32(vel[at + f.plane]) - (pT - pB));
+        return;
+    }
     const I hw = (I)H * W, pb = sim_offset(hw), vb = sim_offset(2 * hw);  // the sim's planes
     const float pL = to_f32(p[pb + i * W + max(j - 1, 0)]);
     const float pR = to_f32(p[pb + i * W + min(j + 1, W - 1)]);
@@ -364,29 +397,45 @@ extern "C" {
 // the scalar dt of every sim. The kernel writes the H x W window at row
 // r0w, column c0w of the outputs and nothing else. `tiles`: the tile of
 // ops/cuda/stencil.py plan. A launch past the block's shared memory (a very
-// large S) is refused and returns its error.
+// large S) is refused and returns its error. The packed layout: vel and
+// the velocity out (2, H, B*W), the divergence (H, B*W), gx (B, S, W), with
+// Hs = H, Ws = B*W and the window the whole sim (r0w = c0w = 0).
 int fluid_pre_pressure(const void* vel, const void* gy, const void* gx, const void* amt, int S,
                        float cs, float dt, const void* dts, void* vel_out, void* div_out, int B,
-                       int Hs, int Ws, int r0w, int c0w, int H, int W, int tiles, int dtype,
-                       void* stream) {
+                       int Hs, int Ws, int r0w, int c0w, int H, int W, int tiles, int layout,
+                       int dtype, void* stream) {
     if (S < 0 || B < 1 || B > kMaxBatch || H < 1 || W < 1 || r0w < 0 || c0w < 0 ||
         r0w + H > Hs || c0w + W > Ws)
         return (int)cudaErrorInvalidValue;
+    if (layout == kPacked && (Hs != H || Ws != B * W || r0w != 0 || c0w != 0))
+        return (int)cudaErrorInvalidValue;
+    if (layout != kBatched && layout != kPacked) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
+    const float* d = (const float*)dts;
     DISPATCH_STORAGE(dtype, T,
-        return launch_pre_tiles<T>(tiles, vel, gy, gx, amt, S, cs, dt, (const float*)dts,
-                                   vel_out, div_out, B, Hs, Ws, r0w, c0w, H, W, s));
+        if (layout == kPacked)
+            return launch_pre_tiles<T, true>(tiles, vel, gy, gx, amt, S, cs, dt, d, vel_out,
+                                             div_out, B, Hs, Ws, r0w, c0w, H, W, s);
+        return launch_pre_tiles<T, false>(tiles, vel, gy, gx, amt, S, cs, dt, d, vel_out,
+                                          div_out, B, Hs, Ws, r0w, c0w, H, W, s));
     return (int)cudaErrorInvalidValue;
 }
 
-// B sims: vel and out (B, 2, H, W), p (B, H, W).
+// B sims: vel and out (B, 2, H, W), p (B, H, W); in the packed layout vel
+// and out (2, H, B*W), p (H, B*W).
 int fluid_gradient_subtract(const void* vel, const void* p, void* out, int B, int H, int W,
-                            int dtype, void* stream) {
-    if (B < 1 || B > kMaxBatch) return (int)cudaErrorInvalidValue;
+                            int layout, int dtype, void* stream) {
+    if (B < 1 || B > kMaxBatch || (layout != kBatched && layout != kPacked))
+        return (int)cudaErrorInvalidValue;
+    const dim3 grid = grid_for(H, W, B), block(kBlockX, kBlockY);
+    const cudaStream_t s = (cudaStream_t)stream;
     DISPATCH_STORAGE(dtype, T, DISPATCH_INDEX(wide_batch(B, 2 * (size_t)H * W), I,
-        gradient_subtract_kernel<T, I><<<grid_for(H, W, B), dim3(kBlockX, kBlockY), 0,
-                                         (cudaStream_t)stream>>>(
-            (const T*)vel, (const T*)p, (T*)out, H, W)));
+        if (layout == kPacked)
+            gradient_subtract_kernel<T, I, true><<<packed_grid_for(H, W, B), block, 0, s>>>(
+                (const T*)vel, (const T*)p, (T*)out, H, W);
+        else
+            gradient_subtract_kernel<T, I, false><<<grid, block, 0, s>>>(
+                (const T*)vel, (const T*)p, (T*)out, H, W)));
     return (int)cudaGetLastError();
 }
 

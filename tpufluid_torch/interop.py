@@ -35,8 +35,10 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def state_from_numpy(velocity, dye, pressure, device="cuda") -> FluidState:
     """FluidState on ``device`` from numpy fields (2, H, W), (3, Hd, Wd),
     (H, W), or a batch of them with a leading B (tpufluid.batch's layout);
-    the storage dtype follows the arrays' (float32, bfloat16 or float16;
-    anything else is stored as float32)."""
+    a lane-packed fleet's (C, H, B*W) fields (tpufluid.batch_packed) cross
+    as one sim's do, and batch_packed.unpack_state splits them. The storage
+    dtype follows the arrays' (float32, bfloat16 or float16; anything else
+    is stored as float32)."""
     device = resolve_device(device)
     v, d, p = (np.asarray(a) for a in (velocity, dye, pressure))
     lead = v.shape[:-3]

@@ -40,6 +40,11 @@ SOURCES = ("stencil", "jacobi", "advect", "bloom", "display", "floors")
 # Storage type codes of csrc/common.cuh.
 STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+# Field layouts of csrc/common.cuh FieldLayout: B sims as (B, C, H, W), or
+# side by side along the rows as (C, H, B*W) (the lane-packed fleet).
+BATCHED, PACKED = 0, 1
+MAX_BATCH = 65535   # csrc/common.cuh kMaxBatch: the grid's z axis
+
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 _lock = threading.Lock()
@@ -212,6 +217,35 @@ def as_batch(field: torch.Tensor, sim_ndim: int):
         raise ValueError(f"expected a field of {sim_ndim} dimensions or a batch of them, "
                          f"got {tuple(field.shape)}")
     return field, False
+
+
+def pack_fleet(x: torch.Tensor) -> torch.Tensor:
+    """(B, ..., H, W) -> (..., H, B*W), contiguous: packed column b*W + j
+    holds sim b's column j (tpufluid/batch_packed.py:51)."""
+    b, h, w = x.shape[0], x.shape[-2], x.shape[-1]
+    return torch.movedim(x, 0, -2).reshape(*x.shape[1:-2], h, b * w).contiguous()
+
+
+def unpack_fleet(x: torch.Tensor, batch: int) -> torch.Tensor:
+    """(..., H, B*W) -> (B, ..., H, W), contiguous: the inverse of
+    pack_fleet."""
+    h, wp = x.shape[-2], x.shape[-1]
+    if batch < 1 or wp % batch:
+        raise ValueError(f"a packed width of {wp} holds no whole {batch} sims")
+    return torch.movedim(x.reshape(*x.shape[:-2], h, batch, wp // batch), -2, 0).contiguous()
+
+
+def packed_batch(field: torch.Tensor, sim_ndim: int, sim_w: int) -> int:
+    """B of a packed field, (..., H, B*sim_w) with ``sim_ndim`` dimensions
+    (those of one sim). Raises unless its width is whole sims; a launch
+    refuses B outside 1 to 65535."""
+    if field.ndim != sim_ndim:
+        raise ValueError(f"a packed field has {sim_ndim} dimensions, (..., H, B*W), got "
+                         f"{tuple(field.shape)}")
+    w = field.shape[-1]
+    if sim_w < 1 or w < sim_w or w % sim_w:
+        raise ValueError(f"a packed width of {w} is not a whole number of sims {sim_w} wide")
+    return w // sim_w
 
 
 def batch_factors(factors, single: bool):

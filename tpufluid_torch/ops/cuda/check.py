@@ -4,7 +4,8 @@
 call one step makes, in order, each with the inputs the step would give it
 (computed by the plain versions, so the kernel and its plain version see the
 very same tensors), for one sim or for a batch of B sims in one launch each
-(``batched_step_cases`` on ``random_batch``, in both forms of dt);
+(``batched_step_cases`` on ``random_batch``, in both forms of dt), or for
+a lane-packed fleet of them (``packed_step_cases``);
 ``bounded_cases`` holds pre_pressure's true-wall form on the walls a
 shard of the sharded step sees in its padded block;
 ``render_cases`` does the same for one frame (``batched_render_cases`` for
@@ -25,12 +26,14 @@ for bfloat16 (8 significant bits), 2^-10 for float16.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpufluid_torch.batch import step_dt
+from tpufluid_torch.batch_packed import pack_state
 from tpufluid_torch.config import _DTYPES, FluidConfig
 from tpufluid_torch.ops import floors as _floors
 from tpufluid_torch.ops.cuda import advect as _advect
@@ -103,48 +106,63 @@ def _step_dts(dt, batch: Optional[int], config: FluidConfig, device):
     return table[0], table[1]
 
 
+def _layout(fn: Callable, sim_w: Optional[int]) -> Callable:
+    """``fn`` as it is, or bound to a packed fleet of sims ``sim_w`` wide."""
+    return fn if sim_w is None else functools.partial(fn, sim_w=sim_w)
+
+
 def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
-               dt=1.0 / 60.0, tag: str = "") -> List[Case]:
+               dt=1.0 / 60.0, tag: str = "", sim_w: Optional[int] = None) -> List[Case]:
     """Every kernel call of one step from ``state``, in the step's order:
     one sim, or a batch of B sims (fields with a leading B, ``splats``
-    (B, S, 8), ``dt`` a number or (B,) per sim), one launch each. ``tag``
-    is added to each label."""
-    batch = state.velocity.shape[0] if state.velocity.ndim == 4 else None
+    (B, S, 8), ``dt`` a number or (B,) per sim), or with ``sim_w`` a packed
+    fleet of B sims that wide (fields (C, H, B*sim_w)), one launch each.
+    ``tag`` is added to each label."""
+    if sim_w is not None:
+        batch = state.velocity.shape[-1] // sim_w
+    else:
+        batch = state.velocity.shape[0] if state.velocity.ndim == 4 else None
     n_sims = batch or 1
     vel_dt, dye_dt = _step_dts(dt, batch, config, state.velocity.device)
     dtype = state.velocity.dtype
     quant = "rgb9e5" if config.DYE_RGB9E5 and dtype == torch.bfloat16 else None
     radius, aspect = config.splat_radius_uv(), config.aspect_ratio
     (vh, vw), (dh, dw) = state.velocity.shape[-2:], state.dye.shape[-2:]
+    if sim_w is not None:
+        vw = dw = sim_w
     splats = splats.to(device=state.velocity.device, dtype=torch.float32)
     vf = splat_factors(splats, vh, vw, radius, aspect, slice(SPLAT_DX, SPLAT_DY + 1))
     df = splat_factors(splats, dh, dw, radius, aspect, slice(SPLAT_R, SPLAT_B + 1))
     n_active = int((splats[..., 7] != 0).sum())   # over every sim
     sim, dye = vh * vw, dh * dw
     iters = config.PRESSURE_ITERATIONS
+    pre, pre_plain = (_layout(f, sim_w) for f in (_stencil.pre_pressure,
+                                                  _stencil.pre_pressure_plain))
+    jac, jac_plain = (_layout(f, sim_w) for f in (_jacobi.jacobi_pressure, _jacobi.jacobi_plain))
+    gs, gs_plain = (_layout(f, sim_w) for f in (_stencil.gradient_subtract,
+                                                _stencil.gradient_subtract_plain))
+    adv, adv_plain = (_layout(f, sim_w) for f in (_advect.advect, _advect.advect_plain))
 
-    vel1, div = _stencil.pre_pressure_plain(state.velocity, config.CURL, vel_dt, vf)
-    pressure = _jacobi.jacobi_plain(state.pressure, div, iters, config.PRESSURE)
-    vel2 = _stencil.gradient_subtract_plain(vel1, pressure)
-    vel3 = _advect.advect_plain(vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION)
-    dye_out = _advect.advect_plain(vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df,
-                                   quant)
+    vel1, div = pre_plain(state.velocity, config.CURL, vel_dt, vf)
+    pressure = jac_plain(state.pressure, div, iters, config.PRESSURE)
+    vel2 = gs_plain(vel1, pressure)
+    vel3 = adv_plain(vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION)
+    dye_out = adv_plain(vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df, quant)
     return [
-        Case("pre_pressure" + tag, "pre_pressure", _stencil.pre_pressure,
-             _stencil.pre_pressure_plain, (state.velocity, config.CURL, vel_dt, vf),
+        Case("pre_pressure" + tag, "pre_pressure", pre, pre_plain,
+             (state.velocity, config.CURL, vel_dt, vf),
              _bytes(state.velocity, *vf, vel1, div),
              sim * (2 * 2 * n_active + n_sims * _PRE_PRESSURE)),
-        Case("jacobi" + tag, "jacobi_chunk", _jacobi.jacobi_pressure, _jacobi.jacobi_plain,
+        Case("jacobi" + tag, "jacobi_chunk", jac, jac_plain,
              (state.pressure, div, iters, config.PRESSURE),
              _bytes(state.pressure, div, pressure), n_sims * sim * 6 * iters),
-        Case("gradient_subtract" + tag, "gradient_subtract", _stencil.gradient_subtract,
-             _stencil.gradient_subtract_plain, (vel1, pressure),
+        Case("gradient_subtract" + tag, "gradient_subtract", gs, gs_plain, (vel1, pressure),
              _bytes(vel1, pressure, vel2), n_sims * sim * 4),
-        Case("advect:velocity" + tag, "advect", _advect.advect, _advect.advect_plain,
+        Case("advect:velocity" + tag, "advect", adv, adv_plain,
              (vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION), _bytes(vel2, vel3),
              n_sims * sim * (20 + 2 * 8)),
         # The whole function, prepare and gather: the function's bytes.
-        Case("advect:dye" + tag, "advect", _advect.advect, _advect.advect_plain,
+        Case("advect:dye" + tag, "advect", adv, adv_plain,
              (vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df, quant),
              _bytes(vel3, state.dye, *df, dye_out),
              dye * (n_sims * (34 + 3 * 8 + (40 if quant else 0)) + 3 * 2 * n_active)),
@@ -152,23 +170,27 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
 
 
 def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
-               tag: str = "") -> List[Case]:
+               tag: str = "", sim_w: Optional[int] = None) -> List[Case]:
     """The kernels that run inside one of step_cases' calls, each alone
     against its own plain version: the dye's advect_prepare (inside
-    "advect:dye"), on the step's dye and splat factors, of one sim or a
-    batch. Its bytes are its own: the dye and the factors read, the
-    prepared source written."""
+    "advect:dye"), on the step's dye and splat factors, of one sim, a
+    batch or a packed fleet of sims ``sim_w`` wide. Its bytes are its own:
+    the dye and the factors read, the prepared source written."""
     dtype = state.dye.dtype
     quant = "rgb9e5" if config.DYE_RGB9E5 and dtype == torch.bfloat16 else None
     dh, dw = state.dye.shape[-2:]
-    n_sims = state.dye.shape[0] if state.dye.ndim == 4 else 1
+    if sim_w is not None:
+        n_sims, dw = dw // sim_w, sim_w
+    else:
+        n_sims = state.dye.shape[0] if state.dye.ndim == 4 else 1
     splats = splats.to(device=state.dye.device, dtype=torch.float32)
     df = splat_factors(splats, dh, dw, config.splat_radius_uv(), config.aspect_ratio,
                        slice(SPLAT_R, SPLAT_B + 1))
     n_active = int((splats[..., 7] != 0).sum())
-    prepared = _advect.prepare_plain(state.dye, df, quant)
-    return [Case("advect:prepare" + tag, "advect_prepare", _advect.prepare,
-                 _advect.prepare_plain, (state.dye, df, quant), _bytes(state.dye, *df, prepared),
+    prep, prep_plain = (_layout(f, sim_w) for f in (_advect.prepare, _advect.prepare_plain))
+    prepared = prep_plain(state.dye, df, quant)
+    return [Case("advect:prepare" + tag, "advect_prepare", prep, prep_plain,
+                 (state.dye, df, quant), _bytes(state.dye, *df, prepared),
                  dh * dw * (3 * (3 * n_active + n_sims) + n_sims * (40 if quant else 0)))]
 
 
@@ -269,6 +291,19 @@ def batched_step_cases(config: FluidConfig, batch: int, seed: int, device) -> Li
         cases += step_cases(state, splats, config, dt, tag) + part_cases(state, splats, config,
                                                                          tag)
     return cases
+
+
+def packed_step_cases(config: FluidConfig, batch: int, seed: int, device) -> List[Case]:
+    """Every kernel call of one packed fleet step, the dye's advect_prepare
+    alone too, on random_batch(config, batch, seed) packed (sims that
+    differ, with different numbers of active splat rows), at the packed
+    step's lock-step dt of 1/60, each call one launch for the fleet: the
+    same sims and the same work as batched_step_cases' lock-step calls,
+    labelled ":packed:b<B>:lockstep"."""
+    state, splats = random_batch(config, batch, seed, device)
+    packed, sim_w, tag = pack_state(state), config.sim_size[0], f":packed:b{batch}:lockstep"
+    return (step_cases(packed, splats, config, 1.0 / 60.0, tag, sim_w)
+            + part_cases(packed, splats, config, tag, sim_w))
 
 
 def _blur4_flops(out_hw, prefilter_texels: int) -> int:

@@ -12,6 +12,11 @@ kernels, B sims in each launch; a CPU batch to the plain versions, sim by
 sim. So do the frame's two kernels: the bloom pyramid and the display take
 one sim or a batch (B leading) in one launch each.
 
+The lane-packed fleet (tpufluid_torch/batch_packed.py) has its own pair,
+``packed(sim_w)`` routed and ``packed(sim_w, plain=True)``: the same four
+passes with every field (C, H, B*sim_w), each kernel launched once for the
+fleet, a CUDA fleet to the kernels and a CPU fleet to the plain versions.
+
 The sharded step (tpufluid_torch/parallel) runs the same passes on a
 shard's halo-padded blocks: ``pre_pressure(..., true_bounds=...)`` with the
 grid's walls inside the block, and ``advect_same_grid``
@@ -21,6 +26,7 @@ already on the source's grid.
 
 from __future__ import annotations
 
+import functools
 import math
 
 from tpufluid_torch.ops.cuda import advect as _advect
@@ -45,13 +51,19 @@ def _routed(kernel, plain):
 
 class Passes:
     """The four passes of one step, of one sim or a batch, through one
-    implementation."""
+    implementation; or of a packed fleet of sims ``sim_w`` wide."""
 
-    def __init__(self, pre_pressure, jacobi_pressure, gradient_subtract, advect):
+    def __init__(self, pre_pressure, jacobi_pressure, gradient_subtract, advect, sim_w=None):
         self.pre_pressure = pre_pressure
         self.jacobi_pressure = jacobi_pressure
         self.gradient_subtract = gradient_subtract
         self.advect = advect
+        self.sim_w = sim_w
+
+    def grid(self, field):
+        """(H, W) of one sim of ``field``."""
+        h, w = field.shape[-2:]
+        return (h, w) if self.sim_w is None else (h, self.sim_w)
 
     def advect_same_grid(self, velocity, source, dt, dissipation, max_disp_y, max_disp_x,
                          splat_factors=None, quant=None):
@@ -89,6 +101,21 @@ ROUTED = Passes(
 # The plain versions on any device: the reference the kernels are held to.
 PLAIN = Passes(_stencil.pre_pressure_plain, _jacobi.jacobi_plain,
                _stencil.gradient_subtract_plain, _advect.advect_plain)
+
+
+
+@functools.lru_cache(maxsize=None)
+def packed(sim_w: int, plain: bool = False) -> Passes:
+    """The passes of a packed fleet of sims ``sim_w`` wide (fields (C, H,
+    B*sim_w)): routed, or the plain versions on any device with ``plain``."""
+    if plain:
+        fns = (_stencil.pre_pressure_plain, _jacobi.jacobi_plain,
+               _stencil.gradient_subtract_plain, _advect.advect_plain)
+    else:
+        fns = (ROUTED.pre_pressure, ROUTED.jacobi_pressure, ROUTED.gradient_subtract,
+               ROUTED.advect)
+    return Passes(*(functools.partial(f, sim_w=sim_w) for f in fns), sim_w=sim_w)
+
 
 pre_pressure = ROUTED.pre_pressure
 jacobi_pressure = ROUTED.jacobi_pressure

@@ -387,18 +387,25 @@ def profile_step_kernels(config, state, dt, steps: int = 30, top_other: int = 6)
     (profile_calls): each kernel's own device time from its events'
     durations (see attribute_device_events). A batched state (fields with
     a leading B) runs make_batched_step, each sim its own trace, ``dt`` a
-    number or (B,) per sim; the times are then a batched step's. The
-    caller's state is not modified. Raises without a CUDA GPU or a CUDA
-    state, and if the profiler records no kernel."""
+    number or (B,) per sim; the times are then a batched step's. A packed
+    fleet's state (fields (C, H, B*W), W the config's sim width, B > 1)
+    runs make_packed_step the same way, ``dt`` a number. The caller's state
+    is not modified. Raises without a CUDA GPU or a CUDA state, and if the
+    profiler records no kernel."""
     from tpufluid_torch.batch import make_batched_step
+    from tpufluid_torch.batch_packed import make_packed_step
 
     device = _require_cuda()
     if not state.velocity.is_cuda:
         raise ValueError(f"state on {state.velocity.device}, the profile runs on the GPU")
-    if state.velocity.ndim == 4:
-        step = make_batched_step(config, device=device)
+    sim_w = config.sim_size[0]
+    packed = state.velocity.ndim == 3 and state.velocity.shape[-1] != sim_w
+    if state.velocity.ndim == 4 or packed:
+        n = state.velocity.shape[-1] // sim_w if packed else state.velocity.shape[0]
+        step = (make_packed_step(config, n, device=device) if packed
+                else make_batched_step(config, device=device))
         batches = np.stack([swirl_trace(config, steps, seed=1 + i).batches
-                            for i in range(state.velocity.shape[0])], axis=1)
+                            for i in range(n)], axis=1)
     else:
         step = make_step(config, device=device)
         batches = swirl_trace(config, steps, seed=1).batches

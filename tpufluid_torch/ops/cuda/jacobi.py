@@ -9,7 +9,11 @@ count and cuts a solve of N sweeps into launches. The warm start
 own; between launches the field goes through float32 scratch and only the
 last launch rounds to storage, so the result equals ``jacobi_plain`` bit for
 bit however the sweeps are cut. A launch takes one (H, W) field or a batch
-(B, H, W) of B independent sims; the plain versions run a batch sim by sim.
+(B, H, W) of B independent sims, or the lane-packed fleet's (H, B*W) with
+``sim_w=W`` (tpufluid/batch_packed.py): each block's region lies in one
+sim, whose walls clamp it (the TPU kernel's sim_w walls,
+tpufluid/ops/pallas/jacobi.py:181-209). The plain versions run a batch sim
+by sim, and a packed fleet unpacked as a batch.
 """
 
 from __future__ import annotations
@@ -20,11 +24,12 @@ from typing import List, Sequence, Tuple
 import torch
 
 from tpufluid_torch.ops import stencil as S
-from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, check_storage, per_sim,
-                                           ptr, sm_count, stream)
+from tpufluid_torch.ops.cuda.build import (BATCHED, PACKED, F, I, P, Kernel, as_batch,
+                                           check_storage, pack_fleet, packed_batch, per_sim,
+                                           ptr, sm_count, stream, unpack_fleet)
 
 JACOBI_CHUNK = Kernel("jacobi_chunk", "jacobi", "fluid_jacobi_chunk",
-                      [P, I, P, P, I, F, I, I, I, I, I, I, P],
+                      [P, I, P, P, I, F, I, I, I, I, I, I, I, P],
                       replaces="tpufluid/ops/pallas/jacobi.py:139")
 
 
@@ -98,46 +103,56 @@ def _warm_start_only(pressure: torch.Tensor, prescale: float) -> torch.Tensor:
     return (pressure.to(torch.float32) * prescale).to(pressure.dtype)
 
 
-def _check_fields(pressure: torch.Tensor, div: torch.Tensor):
-    """(batch view (B, H, W) of the pressure, of the divergence, single)."""
+def _check_fields(pressure: torch.Tensor, div: torch.Tensor, sim_w=None):
+    """(batch view (B, H, W) of the pressure, of the divergence, single);
+    with ``sim_w``, (the packed fields, B, single = False)."""
     if pressure.shape != div.shape:
         raise ValueError(f"pressure {tuple(pressure.shape)} / div {tuple(div.shape)}")
+    if sim_w is not None:
+        return pressure, div, packed_batch(pressure, 2, sim_w)
     p, single = as_batch(pressure, 2)
     return p, as_batch(div, 2)[0], single
 
 
 def run_chunks(pressure: torch.Tensor, div: torch.Tensor, prescale: float,
-               cut: Sequence[int]) -> torch.Tensor:
+               cut: Sequence[int], sim_w=None) -> torch.Tensor:
     """Launch jacobi_chunk once per entry of ``cut`` (sweeps of that launch)
     on the tiles ``tiles_for`` picks, ping-ponging float32 scratch between the
-    stored input and the stored result; one sim or a batch each launch."""
-    p, d, single = _check_fields(pressure, div)
-    code = check_storage(p, d)
-    b, h, w = p.shape
+    stored input and the stored result; one sim, a batch or a packed fleet
+    of sims ``sim_w`` wide ((H, B*sim_w), its scratch packed too) each
+    launch."""
+    code = check_storage(pressure, div)
+    if sim_w is None:
+        p, d, single = _check_fields(pressure, div)
+        b, h, w = p.shape
+        layout = BATCHED
+    else:
+        p, d, b = _check_fields(pressure, div, sim_w)
+        single, (h, w), layout = False, (p.shape[0], sim_w), PACKED
     tiles = tiles_for(h, w, sm_count(p.device), b)
     check_cut(tiles, cut)
     out = torch.empty_like(p)
-    bufs = [torch.empty((b, h, w), dtype=torch.float32, device=p.device)
+    bufs = [torch.empty(p.shape, dtype=torch.float32, device=p.device)
             for _ in range(min(len(cut) - 1, 2))]
     src, src_f32, scale = p, 0, float(prescale)
     for n, k in enumerate(cut):
         last = n == len(cut) - 1
         dst = out if last else bufs[n % 2]
         JACOBI_CHUNK(ptr(src), src_f32, ptr(d), ptr(dst), 0 if last else 1, scale, b, h, w,
-                     k, tiles, code, stream())
+                     k, tiles, layout, code, stream())
         src, src_f32, scale = dst, 1, 1.0
     return out[0] if single else out
 
 
 def jacobi_pressure(pressure: torch.Tensor, div: torch.Tensor, iterations: int,
-                    prescale: float = 1.0) -> torch.Tensor:
+                    prescale: float = 1.0, sim_w=None) -> torch.Tensor:
     """``iterations`` sweeps on the card, SWEEPS a launch (``plan``), of one
-    sim or a batch."""
-    _check_fields(pressure, div)
+    sim, a batch or a packed fleet of sims ``sim_w`` wide."""
+    _check_fields(pressure, div, sim_w)
     check_storage(pressure, div)
     if iterations == 0:
         return _warm_start_only(pressure, prescale)
-    return run_chunks(pressure, div, prescale, chunks(iterations, SWEEPS))
+    return run_chunks(pressure, div, prescale, chunks(iterations, SWEEPS), sim_w)
 
 
 def _jacobi_sim(pressure, div, iterations, prescale):
@@ -148,9 +163,13 @@ def _jacobi_sim(pressure, div, iterations, prescale):
 
 
 def jacobi_plain(pressure: torch.Tensor, div: torch.Tensor, iterations: int,
-                 prescale: float = 1.0) -> torch.Tensor:
+                 prescale: float = 1.0, sim_w=None) -> torch.Tensor:
     """Plain version of jacobi_pressure, same operations and rounding; a
-    batch sim by sim."""
+    batch sim by sim; a packed fleet unpacked, run as a batch, packed."""
+    if sim_w is not None:
+        _, _, b = _check_fields(pressure, div, sim_w)
+        return pack_fleet(jacobi_plain(unpack_fleet(pressure, b), unpack_fleet(div, b),
+                                       iterations, prescale))
     return per_sim(_jacobi_sim, pressure.ndim == 3, (pressure, div, iterations, prescale),
                    fields=(0, 1))
 
@@ -164,9 +183,13 @@ def _jacobi_chunks_sim(pressure, div, cut, prescale):
 
 
 def jacobi_chunks_plain(pressure: torch.Tensor, div: torch.Tensor, cut: Sequence[int],
-                        prescale: float = 1.0) -> torch.Tensor:
+                        prescale: float = 1.0, sim_w=None) -> torch.Tensor:
     """Plain version of run_chunks: the sweeps of each launch on float32
     scratch, the warm start at the first load, one rounding at the end; a
-    batch sim by sim."""
+    batch sim by sim; a packed fleet unpacked, run as a batch, packed."""
+    if sim_w is not None:
+        _, _, b = _check_fields(pressure, div, sim_w)
+        return pack_fleet(jacobi_chunks_plain(unpack_fleet(pressure, b), unpack_fleet(div, b),
+                                              cut, prescale))
     return per_sim(_jacobi_chunks_sim, pressure.ndim == 3, (pressure, div, cut, prescale),
                    fields=(0, 1))

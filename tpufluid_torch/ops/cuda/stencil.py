@@ -15,6 +15,15 @@ a batch's fields and factors lead with B, and dt is a number for every sim
 or a (B, 2) table of (clamped dt, decay) a sim (build.check_dt). The plain
 versions run a batch sim by sim, each with its own dt and factors.
 
+Both also take the lane-packed fleet (tpufluid/batch_packed.py), ``sim_w=``
+the width of a sim: B sims side by side along the rows, velocity
+(2, H, B*sim_w), pressure and divergence (H, B*sim_w), the splat factors
+per sim as a batch's, (B, H, S), (B, S, sim_w), (B, S, 2). One launch takes
+the fleet, each sim with its own walls (the TPU kernels' sim_w walls,
+tpufluid/ops/pallas/stencil.py:121-126, :238-241); the plain versions
+unpack the fleet, run it as a batch and pack the result, so a packed sim
+equals its batched sim bit for bit.
+
 pre_pressure's true-wall form, ``true_bounds=(row_lo, row_hi, col_lo,
 col_hi)`` (tpufluid/ops/pallas/stencil.py:335-370): the grid's walls as
 array coordinates, a bound outside the array (+/-NO_WALL) where a shard
@@ -36,16 +45,17 @@ import dataclasses
 import torch
 
 from tpufluid_torch.ops import stencil as S
-from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, batch_factors,
-                                           check_dt, check_factors, check_storage, per_sim,
-                                           ptr, sm_count, stream)
+from tpufluid_torch.ops.cuda.build import (BATCHED, PACKED, F, I, P, Kernel, as_batch,
+                                           batch_factors, check_dt, check_factors,
+                                           check_storage, pack_fleet, packed_batch, per_sim,
+                                           ptr, sm_count, stream, unpack_fleet)
 from tpufluid_torch.ops.splat import splat_bump
 
 PRE_PRESSURE = Kernel("pre_pressure", "stencil", "fluid_pre_pressure",
-                      [P, P, P, P, I, F, F, P, P, P, I, I, I, I, I, I, I, I, I, P],
+                      [P, P, P, P, I, F, F, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
                       replaces="tpufluid/ops/pallas/stencil.py:98")
 GRADIENT_SUBTRACT = Kernel("gradient_subtract", "stencil", "fluid_gradient_subtract",
-                           [P, P, P, I, I, I, I, P],
+                           [P, P, P, I, I, I, I, I, P],
                            replaces="tpufluid/ops/pallas/stencil.py:218")
 
 HALO = 3          # stencil layers between the bumped velocity and the divergence
@@ -94,6 +104,14 @@ def _check_velocity(velocity: torch.Tensor):
     return vel, single
 
 
+def _packed_velocity(velocity: torch.Tensor, sim_w: int):
+    """(B, H) of a packed fleet's velocity (2, H, B*sim_w)."""
+    b = packed_batch(velocity, 3, sim_w)
+    if velocity.shape[0] != 2:
+        raise ValueError(f"a packed velocity is (2, H, B*W), got {tuple(velocity.shape)}")
+    return b, velocity.shape[1]
+
+
 def window(h: int, w: int, true_bounds=None):
     """(r0, c0, wh, ww): the window of an (h, w) array inside the walls
     ``true_bounds`` (row_lo, row_hi, col_lo, col_hi), clipped to the array;
@@ -110,36 +128,52 @@ def window(h: int, w: int, true_bounds=None):
 
 
 def run_tiles(velocity: torch.Tensor, curl_strength: float, dt, splat_factors, tiles: int,
-              true_bounds=None):
+              true_bounds=None, sim_w=None):
     """(vel', divergence), both in storage, from one launch of pre_pressure
     on TILES[tiles] over the window of ``true_bounds``, for one sim or a
-    batch; outside the window the outputs are left unwritten."""
+    batch; outside the window the outputs are left unwritten. ``sim_w``: a
+    packed fleet, velocity (2, H, B*sim_w) and divergence (H, B*sim_w), the
+    factors (B, H, S), (B, S, sim_w), (B, S, 2)."""
     code = check_storage(velocity)
-    vel, single = _check_velocity(velocity)
-    b, _, h, w = vel.shape
     if not 0 <= tiles < len(TILES):
         raise ValueError(f"no tile {tiles}: TILES has {len(TILES)}")
-    r0, c0, wh, ww = window(h, w, true_bounds)
-    gy, gx, amt, s = check_factors(batch_factors(splat_factors, single), vel.device, b, h, w, 2)
+    if sim_w is not None:
+        if true_bounds is not None:
+            raise ValueError("a packed fleet's walls are its sims': no true bounds")
+        b, h = _packed_velocity(velocity, sim_w)
+        vel, single, w, layout = velocity, False, b * sim_w, PACKED
+        r0, c0, wh, ww = 0, 0, h, sim_w      # each sim the window at column b * sim_w
+        factor_w = sim_w
+    else:
+        vel, single = _check_velocity(velocity)
+        b, _, h, w = vel.shape
+        layout, factor_w = BATCHED, w
+        r0, c0, wh, ww = window(h, w, true_bounds)
+    gy, gx, amt, s = check_factors(batch_factors(splat_factors, single), vel.device, b, h,
+                                   factor_w, 2)
     dt, dts = check_dt(dt, b, vel.device)
     out = torch.empty_like(vel)
-    div = torch.empty((b, h, w), dtype=vel.dtype, device=vel.device)
+    div = torch.empty(vel.shape[:-3] + vel.shape[-2:], dtype=vel.dtype, device=vel.device)
     PRE_PRESSURE(ptr(vel), ptr(gy), ptr(gx), ptr(amt), s, float(curl_strength), dt, dts,
-                 ptr(out), ptr(div), b, h, w, r0, c0, wh, ww, tiles, code, stream())
+                 ptr(out), ptr(div), b, h, w, r0, c0, wh, ww, tiles, layout, code, stream())
     return (out[0], div[0]) if single else (out, div)
 
 
 def pre_pressure(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None,
-                 true_bounds=None):
-    """(vel', divergence) on the card, of one sim or a batch: one launch on
-    the tile ``plan`` picks for the window of ``true_bounds`` (module
-    docstring; None: the whole array)."""
+                 true_bounds=None, sim_w=None):
+    """(vel', divergence) on the card, of one sim, a batch or a packed fleet
+    of sims ``sim_w`` wide: one launch on the tile ``plan`` picks for the
+    window of ``true_bounds`` (module docstring; None: the whole array)."""
     check_storage(velocity)
-    vel, _ = _check_velocity(velocity)
-    b, _, h, w = vel.shape
-    _, _, wh, ww = window(h, w, true_bounds)
+    if sim_w is not None:
+        b, h = _packed_velocity(velocity, sim_w)
+        wh, ww = h, sim_w
+    else:
+        vel, _ = _check_velocity(velocity)
+        b, _, h, w = vel.shape
+        _, _, wh, ww = window(h, w, true_bounds)
     return run_tiles(velocity, curl_strength, dt, splat_factors,
-                     plan(wh, ww, sm_count(vel.device), b), true_bounds)
+                     plan(wh, ww, sm_count(velocity.device), b), true_bounds, sim_w)
 
 
 def splat_curl_plain(velocity: torch.Tensor, splat_factors=None):
@@ -168,10 +202,18 @@ def _pre_pressure_sim(velocity, curl_strength, dt, splat_factors):
 
 
 def pre_pressure_plain(velocity: torch.Tensor, curl_strength: float, dt, splat_factors=None,
-                       true_bounds=None):
+                       true_bounds=None, sim_w=None):
     """Plain version of pre_pressure, same operations and rounding points;
     a batch sim by sim. With ``true_bounds``: the unbounded chain on a view
-    of the window and its factors, placed in NaN."""
+    of the window and its factors, placed in NaN. With ``sim_w``: the
+    packed fleet unpacked, run as a batch, packed again."""
+    if sim_w is not None:
+        if true_bounds is not None:
+            raise ValueError("a packed fleet's walls are its sims': no true bounds")
+        b, _ = _packed_velocity(velocity, sim_w)
+        vel, div = pre_pressure_plain(unpack_fleet(velocity, b), curl_strength, dt,
+                                      splat_factors)
+        return pack_fleet(vel), pack_fleet(div)
     if true_bounds is None:
         return per_sim(_pre_pressure_sim, velocity.ndim == 4,
                        (velocity, curl_strength, dt, splat_factors), fields=(0,), dt_at=2,
@@ -192,16 +234,23 @@ def pre_pressure_plain(velocity: torch.Tensor, curl_strength: float, dt, splat_f
     return vel, div
 
 
-def gradient_subtract(velocity: torch.Tensor, pressure: torch.Tensor) -> torch.Tensor:
-    """vel - (R - L, T - B) of pressure, on the card, of one sim or a batch."""
+def gradient_subtract(velocity: torch.Tensor, pressure: torch.Tensor,
+                      sim_w=None) -> torch.Tensor:
+    """vel - (R - L, T - B) of pressure, on the card, of one sim, a batch or
+    a packed fleet of sims ``sim_w`` wide (velocity (2, H, B*sim_w),
+    pressure (H, B*sim_w))."""
     code = check_storage(velocity, pressure)
-    vel, single = _check_velocity(velocity)
-    b, _, h, w = vel.shape
-    if tuple(pressure.shape) != tuple(velocity.shape[:-3]) + (h, w):
-        raise ValueError(f"pressure {tuple(pressure.shape)} != grid "
-                         f"{tuple(velocity.shape[:-3]) + (h, w)}")
+    if sim_w is not None:
+        (b, h), w = _packed_velocity(velocity, sim_w), sim_w
+        vel, single, layout = velocity, False, PACKED
+    else:
+        vel, single = _check_velocity(velocity)
+        (b, _, h, w), layout = vel.shape, BATCHED
+    grid = tuple(velocity.shape[:-3] + velocity.shape[-2:])
+    if tuple(pressure.shape) != grid:
+        raise ValueError(f"pressure {tuple(pressure.shape)} != grid {grid}")
     out = torch.empty_like(vel)
-    GRADIENT_SUBTRACT(ptr(vel), ptr(pressure), ptr(out), b, h, w, code, stream())
+    GRADIENT_SUBTRACT(ptr(vel), ptr(pressure), ptr(out), b, h, w, layout, code, stream())
     return out[0] if single else out
 
 
@@ -210,8 +259,13 @@ def _gradient_subtract_sim(velocity, pressure):
                                pressure.to(torch.float32)).to(velocity.dtype)
 
 
-def gradient_subtract_plain(velocity: torch.Tensor, pressure: torch.Tensor) -> torch.Tensor:
+def gradient_subtract_plain(velocity: torch.Tensor, pressure: torch.Tensor,
+                            sim_w=None) -> torch.Tensor:
     """Plain version of gradient_subtract: float32 math, rounded once; a
-    batch sim by sim."""
+    batch sim by sim; a packed fleet unpacked, run as a batch, packed."""
+    if sim_w is not None:
+        b, _ = _packed_velocity(velocity, sim_w)
+        return pack_fleet(gradient_subtract_plain(unpack_fleet(velocity, b),
+                                                  unpack_fleet(pressure, b)))
     return per_sim(_gradient_subtract_sim, velocity.ndim == 4, (velocity, pressure),
                    fields=(0, 1))

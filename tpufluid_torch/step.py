@@ -14,7 +14,9 @@ The same step body runs one sim or a batch of B independent sims
 the same four passes, each kernel launched once for all B sims. A batch's
 dt is a number (lock-step, like a single sim's, with no copy to the card)
 or a table of each sim's clamped dt and decay, computed on the host in
-float32 (``dt_table``) and copied once.
+float32 (``dt_table``) and copied once. So does a lane-packed fleet
+(tpufluid_torch/batch_packed.py): its fields (C, H, B*W) through the packed
+passes (dispatch.packed), its splat factors per sim as a batch's.
 """
 
 from __future__ import annotations
@@ -56,8 +58,8 @@ def _step(state: FluidState, dt, splats, config: FluidConfig,
     dye_quant = ("rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16
                  else None)
     radius, aspect = config.splat_radius_uv(), config.aspect_ratio
-    dh, dw = state.dye.shape[-2:]
-    vh, vw = state.velocity.shape[-2:]
+    dh, dw = passes.grid(state.dye)
+    vh, vw = passes.grid(state.velocity)
     dye_factors = splat_factors(splats, dh, dw, radius, aspect, slice(SPLAT_R, SPLAT_B + 1))
     vel_factors = splat_factors(splats, vh, vw, radius, aspect, slice(SPLAT_DX, SPLAT_DY + 1))
 
