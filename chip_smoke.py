@@ -11,13 +11,13 @@ the card.
    frame, spills) of every pre_pressure, gradient_subtract, advect,
    jacobi_chunk, bloom_pyramid and display instance and names any with a
    stack frame or spills.
-2. Kernel phase: every kernel call of a step (check.step_cases) and the
-   dye's advect_prepare alone (check.part_cases) against its plain PyTorch
+2. Kernel phase: every kernel call of a step (check.step_cases: the
+   dye's is advect_dye) against its plain PyTorch
    version on the same inputs, at the main path's shapes — demo default
    (sim 128x228, dye 1024x1820) and 1024x1024 — in float32, bfloat16 with
    and without RGB9E5, and float16. Prints each max error beside its
-   tolerance and fails past it; pre_pressure must equal its plain version
-   bit for bit (max abs error 0).
+   tolerance and fails past it; pre_pressure and advect_dye must equal
+   their plain versions bit for bit (max abs error 0).
 3. Path phase: the port's make_multi_step over a swirl_trace, 300 steps
    each: the demo default in float32 and 1024x1024 in bfloat16 (RGB9E5 on).
    Launch counts are zeroed just before each run and read just after; each
@@ -31,10 +31,12 @@ the card.
    queued behind a spin kernel, so host launch cost is hidden) beside its
    plain version's time and its bound: max(bytes / 3.35 TB/s,
    float32 operations / 67 TFLOP/s), the H100 SXM's published peaks; the
-   dye's advect_prepare alone the same way; one torch grid_sample call on
-   the dye (bilinear, border, the dye's shape and storage type, on the
-   backtraced coordinates) as the advection's library yardstick; last the
-   host time of the step's Python layers under cProfile.
+   share of advect_dye's tiles whose window fits its shared memory on that
+   state (advect.dye_window_plan); one torch grid_sample call on the dye
+   and one on the velocity (bilinear, border, the source's shape and
+   storage type, on the backtraced coordinates: check.grid_sample_ms) as
+   the two advection kernels' library yardsticks; last the host time of
+   the step's Python layers under cProfile.
 5. Render kernel phase: every kernel call of a frame (check.render_cases:
    the whole bloom pyramid, one launch, and the display) against its plain
    version, with max abs error 0 required,
@@ -91,7 +93,7 @@ the card.
    per sim linspace(1/90, 1/60, B)), max abs error 0 required; the same at
    the demo's cross grid (128/1024) with B = 4. Then make_batched_multi_step
    over each sim's own swirl_trace (seed 42 + i), per-sim dts: launch counts
-   zeroed before and read after 3 steps (7 launches a batched step), each
+   zeroed before and read after 3 steps (6 launches a batched step), each
    sim equal bit for bit to make_step on that sim alone and the batch to
    the plain batched step; then 100 warm-up and 200 timed steps, lock-step
    and per sim (aggregate sim-steps/s), the batched step's median and p95
@@ -110,7 +112,7 @@ the card.
    one make_batched_render frame (launch counts zeroed before and read
    after: 1 bloom_pyramid and 1 display) equal to the plain batched render
    and, sim by sim, to make_render; 3 make_batched_tick ticks with a dt a
-   sim (7 + 2 launches each), each sim's state and uint8 frame equal to
+   sim (6 + 2 launches each), each sim's state and uint8 frame equal to
    make_step_and_render's on it alone. Then aggregate sim-frames/s and
    sim-ticks/s (B x 200 / wall, one call a frame or tick with a CUDA event
    after each; the timed ticks lock-step, the server's one clock) with their
@@ -126,9 +128,13 @@ the card.
    true-wall form (check.bounded_cases: the walls of a top, bottom, corner,
    middle and single shard, walls inside the first tile and on each tile's
    edge) against its plain version in float32, bfloat16 and float16, max abs
-   error 0 required. Then 3 make_sharded_step steps through the kernels
+   error 0 required, and advect_dye with the float32 velocity the sharded
+   step gives a 16-bit dye (check.f32_velocity_dye_cases at the demo's
+   geometry in bf16, RGB9E5 and not: the coarse velocity and the velocity
+   resampled on the dye's grid), max abs error 0 required. Then 3
+   make_sharded_step steps through the kernels
    against 3 through the plain versions (check.py's tolerances, launches
-   counted: 7 a shard a step, 21 where every phase splits) at demo_float32
+   counted: 6 a shard a step, 18 where every phase splits) at demo_float32
    on a 2x2 mesh, 4096^2 bf16 (RGB9E5) on (4, 1) and on 2x2 with
    OVERLAP_HALO, and at sharded_16384_bf16_2x2 itself (sim = dye = canvas
    16384^2, bf16 RGB9E5, 20 sweeps, MAX_SPLATS=8, swirl_trace seed 42,
@@ -143,7 +149,7 @@ the card.
    beside make_multi_step's 20 at 16384^2 on the same card and the sharded
    step's 20 with OVERLAP_HALO=False (steps/s; the kernels' and the other
    device time a step under torch.profiler over 3 steps; the idle share),
-   the launches against 84 a sharded step (28 without the split), the
+   the launches against 72 a sharded step (24 without the split), the
    bytes the halos moved in one step against overhead_report, and the
    bounded pre_pressure on a corner shard's padded block (compared inside
    its walls) beside the unbounded launch on a copy of the same window,
@@ -158,7 +164,7 @@ the card.
    random sims that differ, the lock-step dt 1/60) against its plain
    version in float32 and in bf16 (RGB9E5), max abs error 0 required. Then,
    the launch counts zeroed just before and read just after,
-   make_packed_multi_step over 3 lock-step steps (7 launches a step,
+   make_packed_multi_step over 3 lock-step steps (6 launches a step,
    whatever B is): unpacked, every field of every sim equal to
    make_batched_multi_step's (max abs error 0), and the fleet equal to 3
    plain_packed_step steps (0). Then aggregate sim-steps/s of 200 steps in
@@ -204,7 +210,7 @@ PROFILE_STEPS = 30                        # profile_step_kernels' default
 PROFILE_FRAMES = 30                       # profile_frame_kernels' default
 LONG_HORIZON_STEPS = 1500
 JACOBI_SWEEPS_A_LAUNCH = 10    # the chunk kernel's design: a solve of N sweeps is ceil(N / 10)
-EXACT_KERNELS = ("pre_pressure",)   # step kernels held to max abs error 0
+EXACT_KERNELS = ("pre_pressure", "advect_dye")   # step kernels held to max abs error 0
 LONG_HORIZON_OUT = Path("out/long_horizon_4096")
 # The batched serving cells (bench.py config 7 at --serve-res 256 and 1024):
 # (resolution, sims); each sim replays its own swirl_trace(seed 42 + i).
@@ -237,11 +243,11 @@ def gpu_line() -> str:
 
 def expected_per_step(cfg) -> dict:
     """Launches of each step kernel in one step of ``cfg``: the Jacobi
-    solve in launches of JACOBI_SWEEPS_A_LAUNCH sweeps, the dye's prepare
-    and the two gathers."""
+    solve in launches of JACOBI_SWEEPS_A_LAUNCH sweeps, the velocity's
+    gather and the dye's kernel."""
     return {"pre_pressure": 1,
             "jacobi_chunk": math.ceil(cfg.PRESSURE_ITERATIONS / JACOBI_SWEEPS_A_LAUNCH),
-            "gradient_subtract": 1, "advect": 2, "advect_prepare": 1}
+            "gradient_subtract": 1, "advect": 1, "advect_dye": 1}
 
 
 def ptxas_report(build) -> list:
@@ -297,9 +303,7 @@ def kernel_phase(torch, check, cfgs, device) -> dict:
     errors = {}
     for name, cfg in cfgs.items():
         state, splats = check.random_state(cfg, seed=7, device=device)
-        check_cases(torch, check, name,
-                    check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg),
-                    errors)
+        check_cases(torch, check, name, check.step_cases(state, splats, cfg), errors)
     return errors
 
 
@@ -383,41 +387,6 @@ def timing_phase(torch, check, cases, verbose: bool = True) -> dict:
         if by == "operations":
             row["by"] = by
     return out
-
-
-def grid_sample_ms(torch, case, rate: float, sim_w=None) -> float:
-    """Device ms of one torch.nn.functional.grid_sample call that gathers
-    the advect:dye case's dye: bilinear, padding_mode="border",
-    align_corners=False, the dye's shape and storage type, at the
-    coordinates the plain version's backtrace gives. It leaves out the
-    splat bump, the RGB9E5 quantization and the decay. A batch, or a packed
-    fleet of sims ``sim_w`` wide (unpacked first), is one call with the
-    sims on its batch axis. Its inputs are built before the timed window;
-    the port never calls it."""
-    from tpufluid_torch.ops.cuda.floors import queued_ms
-    from tpufluid_torch.ops.sampling import sample_bilinear, true_div, uv_grid
-
-    from tpufluid_torch.batch_packed import unpack_fleet
-
-    vel, dye, dt = case.args[0], case.args[1], case.args[2]
-    if sim_w is not None:
-        vel, dye = (unpack_fleet(t, t.shape[-1] // sim_w) for t in (vel, dye))
-    elif vel.ndim == 3:
-        vel, dye = vel[None], dye[None]
-    (h, w), (sh, sw) = dye.shape[-2:], vel.shape[-2:]
-    v32 = vel.float()
-    u, v = uv_grid(h, w, device=dye.device)
-    if (sh, sw) == (h, w):
-        vu, vv = v32[:, 0], v32[:, 1]
-    else:
-        vu, vv = sample_bilinear(v32[0, 0], u, v), sample_bilinear(v32[0, 1], u, v)
-    cu = u - true_div(dt * vu, float(sw))
-    cv = v - true_div(dt * vv, float(sh))
-    grid = torch.stack([2.0 * cu - 1.0, 2.0 * cv - 1.0], dim=-1)
-    grid = grid.expand(dye.shape[0], h, w, 2).to(dye.dtype)
-    inp = dye.contiguous()
-    return queued_ms(lambda: torch.nn.functional.grid_sample(
-        inp, grid, mode="bilinear", padding_mode="border", align_corners=False), 20, rate)
 
 
 def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
@@ -639,8 +608,6 @@ def floors_phase(torch, check, cfg, run, step_timing: dict, gpu: str, device) ->
         print(f"profile {name:20s} {row['events'] // PROFILE_STEPS:3d} a step "
               f"({row['events']} events = launches)  profiler {row['us']:.4f} us  "
               f"spin-queued {1e3 * step_timing[name]['ms']:.4f} us")
-    print("profile: advect's spin-queued time is the function's (both gathers and the "
-          "dye's advect_prepare); its profiler time is the two gathers alone")
     print(f"profile other device {other['other_device_us']} us a step, CUDA runtime calls "
           f"on the host {other['cuda_runtime_host_us']} us; top other: "
           + "; ".join(f"{o['us']} us {o['op'][:60]}" for o in other["top_other_ops"]))
@@ -680,9 +647,8 @@ def long_horizon_phase(torch, check, gpu: str, device, errors: dict) -> dict:
     name = "4096_bfloat16_rgb9e5"
     state, splats = check.random_state(cfg, seed=7, device=device)
     cases = check.step_cases(state, splats, cfg)
-    parts = check.part_cases(state, splats, cfg)
-    check_cases(torch, check, name, cases + parts, errors)
-    timing = {**timing_phase(torch, check, cases), **timing_phase(torch, check, parts)}
+    check_cases(torch, check, name, cases, errors)
+    timing = timing_phase(torch, check, cases)
     _, other = floors.profile_step_kernels(cfg, state, 1.0 / 60.0, PROFILE_STEPS)
     print(f"profile {name} on {gpu}, torch.profiler over {PROFILE_STEPS} steps from a random "
           f"state, each kernel's device time a step beside its spin-queued time:")
@@ -806,14 +772,13 @@ def batched_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
         state0, splats0 = check.random_batch(cfg, batch, seed=7, device=device)
         cases = check.step_cases(state0, splats0, cfg, check.per_sim_dts(batch), ":batched")
         timing = timing_phase(torch, check, cases)
-        parts = timing_phase(torch, check, check.part_cases(state0, splats0, cfg, ":batched"))
         # Each sim's kernels launched on it alone, summed over the B sims.
         single = {}
         for i in range(batch):
             sim = unstack_state(state0, i)
             dt = float(check.per_sim_dts(batch)[i])
-            for k, row in timing_phase(torch, check, check.step_cases(sim, splats0[i], cfg, dt)
-                                       + check.part_cases(sim, splats0[i], cfg), False).items():
+            for k, row in timing_phase(torch, check, check.step_cases(sim, splats0[i], cfg, dt),
+                                       False).items():
                 single[k] = single.get(k, 0.0) + row["ms"]
         device_ms = sum(r["ms"] for r in timing.values())
         kt, other = floors.profile_step_kernels(cfg, state0, check.per_sim_dts(batch),
@@ -834,7 +799,7 @@ def batched_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
               f"batched step over {PROFILE_STEPS} steps; " + ", ".join(
                   f"{k} {row['events'] // PROFILE_STEPS} launches {row['us']:.2f} us"
                   for k, row in other["kernel_events"].items()))
-        for k, row in {**timing, **parts}.items():
+        for k, row in timing.items():
             print(f"batched {name} {k:18s} spin-queued {row['ms']:.4f} ms for {batch} sims, "
                   f"single-sim launches on each sim summed {single[k]:.4f} ms "
                   f"({single[k] / batch:.4f} ms x {batch}); bound {row['bound_ms']:.4f} "
@@ -845,7 +810,7 @@ def batched_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
               f"median {alone['step_ms_median']:.4f} ms, p95 {alone['step_ms_p95']:.4f} ms")
         out[name] = {"batch": batch, "res": res, "launches": launches, "lockstep": lock,
                      "per_sim": per, "kernel_device_ms": device_ms,
-                     "kernels": {**timing, **parts}, "single_sim_kernels": single,
+                     "kernels": timing, "single_sim_kernels": single,
                      "profile": {"kernel_times_us": kt, **other}, "b1": b1, "make_step": alone}
     return out
 
@@ -1073,16 +1038,11 @@ def packed_phase(torch, check, gpu: str, device, errors: dict) -> dict:
         bcases = [c for c in check.batched_step_cases(cfg, batch, 7, device)
                   if c.label.endswith(":lockstep")]
 
-        def timing_of(cases):
-            steps = [c for c in cases if c.kernel_name != "advect_prepare"]
-            parts = [c for c in cases if c.kernel_name == "advect_prepare"]
-            return {**timing_phase(torch, check, steps), **timing_phase(torch, check, parts)}
-
-        ptiming, btiming = timing_of(pcases), timing_of(bcases)
-        lib_ms = grid_sample_ms(torch, next(c for c in pcases if c.label.startswith("advect:dye")),
-                                spin_rate(), sim_w=res)
-        ptiming["advect"]["library_ms"] = lib_ms
-        device_ms = sum(r["ms"] for k, r in ptiming.items() if k != "advect_prepare")
+        ptiming, btiming = (timing_phase(torch, check, c) for c in (pcases, bcases))
+        lib_ms = check.grid_sample_ms(next(c for c in pcases if c.label.startswith("advect:dye")),
+                                      spin_rate(), sim_w=res)
+        ptiming["advect_dye"]["library_ms"] = lib_ms
+        device_ms = sum(r["ms"] for r in ptiming.values())
         step_ms = 1e3 * batch / (sum(rates["packed"]) / 2)
         idle = 1 - device_ms / step_ms
         kt, other = floors.profile_step_kernels(cfg, packed, 1.0 / 60.0, PROFILE_STEPS)
@@ -1096,8 +1056,7 @@ def packed_phase(torch, check, gpu: str, device, errors: dict) -> dict:
             print(f"packed {name} {k:18s} spin-queued {row['ms']:.4f} ms packed, "
                   f"{btiming[k]['ms']:.4f} ms batched ({row['ms'] / btiming[k]['ms']:.3f}x); "
                   f"bound {row['bound_ms']:.4f} ms ({row['by']}), plain {row['plain_ms']:.4f} "
-                  f"ms; profiler " + (f"{prof:.2f} us a step" if prof is not None
-                                      else "(inside advect)"))
+                  f"ms; profiler {prof:.2f} us a step")
         out[name] = {"batch": batch, "res": res, "launches": launches,
                      "timed_launches": timed_launches, "vs_batched_max_abs_err": vs_batched,
                      "vs_plain_max_abs_err": vs_plain, "sim_steps_per_s": rates,
@@ -1136,7 +1095,7 @@ def sharded_launches(cfg, shape) -> dict:
     shard = {"pre_pressure": per["pre_pressure"] * bands(ss._G_STENCIL, h),
              "jacobi_chunk": per["jacobi_chunk"] * bands(ss._G_JACOBI, h),
              "gradient_subtract": bands(ss._G_STENCIL, h),
-             "advect": bands(ss._G_VEL, h) + dye, "advect_prepare": dye}
+             "advect": bands(ss._G_VEL, h), "advect_dye": dye}
     return {k: v * ny * nx for k, v in shard.items()}
 
 
@@ -1177,6 +1136,10 @@ def sharded_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
         check_cases(torch, check, f"sharded_{str(dtype)[6:]}",
                     check.bounded_cases(device, dtype, ghosts, seed=7), errors, exact=True)
     bounded_err = max(v for (c, k), v in errors.items() if c.startswith("sharded_"))
+    for name in ("demo_bfloat16_rgb9e5", "demo_bfloat16"):
+        check_cases(torch, check, f"{name}:f32-velocity",
+                    check.f32_velocity_dye_cases(cfgs[name], seed=7, device=device), errors,
+                    exact=True)
 
     def fields(state):
         return tuple(getattr(state, f) for f in ("velocity", "dye", "pressure"))
@@ -1384,7 +1347,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    from tpufluid_torch.ops.cuda import build, check
+    from tpufluid_torch.ops.cuda import advect, build, check
     from tpufluid_torch.ops.cuda.floors import spin_rate
 
     device = torch.device("cuda")
@@ -1427,13 +1390,19 @@ def main() -> int:
         splats = torch.as_tensor(run["splats"])
         cases = check.step_cases(run["state"], splats, cfg)
         timing = timing_phase(torch, check, cases)
-        parts = timing_phase(torch, check, check.part_cases(run["state"], splats, cfg))
-        lib_ms = grid_sample_ms(torch, next(c for c in cases if c.label == "advect:dye"),
-                                spin_rate())
-        timing["advect"]["library_ms"] = lib_ms
-        print(f"time   grid_sample (library, dye in {cfg.dtype}) {lib_ms:.4f} ms: bilinear, "
-              "border, no splat bump, no RGB9E5, no decay")
-        device_total = sum(r["ms"] for r in timing.values())   # parts are inside it
+        dye_case = next(c for c in cases if c.label == "advect:dye")
+        share = advect.dye_window_plan(*dye_case.args)["share"]
+        timing["advect_dye"]["fit_share"] = share
+        for label, k in (("advect:velocity", "advect"), ("advect:dye", "advect_dye")):
+            lib_ms = check.grid_sample_ms(next(c for c in cases if c.label == label),
+                                          spin_rate())
+            timing[k]["library_ms"] = lib_ms
+            print(f"time   grid_sample (library, {label[7:]} in {cfg.dtype}) {lib_ms:.4f} ms: "
+                  "bilinear, border, no splat bump, no RGB9E5, no decay")
+        print(f"time   advect_dye windows on the path's final state: {100 * share:.1f}% of "
+              f"its {advect.DYE_TILE[0]}x{advect.DYE_TILE[1]} tiles fit {advect.DYE_SMEM} "
+              "bytes of shared memory")
+        device_total = sum(r["ms"] for r in timing.values())
         step_ms = 1e3 / run["steps_per_s"]
         print(f"path {name}: step {step_ms:.4f} ms, kernels' device time "
               f"{device_total:.4f} ms ({100 * (1 - device_total / step_ms):.1f}% idle); "
@@ -1462,7 +1431,7 @@ def main() -> int:
                         "kernel_device_ms": device_total,
                         "launches": {**run["launches"], **rend["launches"]},
                         "step_err": run["step_err"],
-                        "kernels": {**timing, **parts, **rend["kernels"]},
+                        "kernels": {**timing, **rend["kernels"]},
                         "render": {k: v for k, v in rend.items()
                                    if k not in ("kernels", "launches")}}
 

@@ -8,6 +8,10 @@ JAX package, with inputs made by numpy from a seed at small sizes.
     tpufluid.ops.quant.rgb9e5_pack bit for bit; the whole decomposed
     advection stays within tests/test_torch_ops.py's tolerances of the JAX
     oracle (1e-5 of the scale in float32, 0.02 of it in 16-bit storage).
+    The dye kernel's windowed design, emulated in plain torch (each tile's
+    window of advect.dye_window_plan prepared alone, its texels gathered in
+    window coordinates), equals advect_plain bit for bit in every form the
+    kernel takes, every texel's corners inside its tile's window.
   * Jacobi: a solve cut into launches of K sweeps through float32 scratch
     equals one run of N sweeps bit for bit; a numpy transliteration of
     jacobi_chunk_kernel's tiles, halos and clamps equals
@@ -25,9 +29,13 @@ import torch
 from tpufluid.ops import quant as jquant
 from tpufluid.ops.advect import advect as jax_advect
 from tpufluid.ops.pallas import dispatch as jdispatch
+from tpufluid_torch.ops import advect as advect_ops
 from tpufluid_torch.ops import splat as tsplat
 from tpufluid_torch.ops.cuda import advect as kadvect
 from tpufluid_torch.ops.cuda import build
+from tpufluid_torch.ops.cuda import build as kbuild
+from tpufluid_torch.ops.quant import rgb9e5_unpack
+from tpufluid_torch.ops.sampling import true_div
 from tpufluid_torch.ops.cuda import jacobi as kjacobi
 
 H, W = 48, 72          # the tests' sim grid (sim 48, canvas 192x128)
@@ -152,11 +160,183 @@ def test_prepared_advection_matches_jax(grid, bump, quant, dtype, rng):
 def test_advect_kernels_refuse_cpu_tensors(rng):
     vel, src, factors = _advect_inputs(rng, "cross", True, "bfloat16")
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        kadvect.prepare(_t(src, "bfloat16"), factors, "rgb9e5")
+        kadvect.advect(_t(vel, "bfloat16"), _t(src, "bfloat16"), float(DT), 1.0, factors,
+                       "rgb9e5")
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
-        kadvect.advect(_t(vel, "bfloat16"), _t(src, "bfloat16"), float(DT), 1.0, factors)
-    assert {"advect", "advect_prepare"} <= set(build.KERNELS)
-    assert build.KERNELS["advect_prepare"].replaces == build.KERNELS["advect"].replaces
+        kadvect.advect(_t(vel), _t(src, "bfloat16"), float(DT), 1.0, factors)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kadvect.advect(_t(vel, "bfloat16"), _t(vel, "bfloat16"), float(DT), 1.0)
+    assert {"advect", "advect_dye"} <= set(build.KERNELS)
+    assert "advect_prepare" not in build.KERNELS
+    assert build.KERNELS["advect_dye"].replaces == build.KERNELS["advect"].replaces
+
+
+def test_dye_velocity_types_are_checked(rng):
+    """A dye call takes a velocity of the dye's storage type or, beside a
+    16-bit dye, float32; the velocity's gather takes one type; both raise
+    before any launch."""
+    vel, src, factors = _advect_inputs(rng, "cross", True, "bfloat16")
+    meta = torch.device("meta")
+    v16, s16 = (torch.empty(t.shape, dtype=torch.bfloat16, device=meta) for t in (vel, src))
+    with pytest.raises(ValueError, match="float32"):
+        kadvect._check_dye_storage(v16.to(torch.float16), s16, packed=False)
+    with pytest.raises(ValueError, match="float32"):
+        kadvect._check_dye_storage(v16, s16.to(torch.float32), packed=False)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kadvect._check_dye_storage(v16.to(torch.float32), s16, packed=False)
+    with pytest.raises(ValueError, match="mixed kernel inputs|expected a CUDA tensor"):
+        kadvect._check_dye_storage(v16.to(torch.float32), s16, packed=True)
+    # the plain version takes the float32 velocity as it is, no cast
+    v32, s = _t(vel), _t(src, "bfloat16")
+    got = kadvect.advect_plain(v32, s, float(DT), 1.0, factors, "rgb9e5")
+    rounded = kadvect.advect_plain(v32.to(torch.bfloat16), s, float(DT), 1.0, factors,
+                                   "rgb9e5")
+    assert got.dtype == torch.bfloat16 and not torch.equal(got, rounded)
+
+
+# ---------------------------------------------------------------- the dye's windows
+
+def _smooth_velocity(h, w, scale=300.0):
+    """A swirl: smooth across any tile, as a flow's velocity is."""
+    y, x = np.meshgrid(np.linspace(-1, 1, h), np.linspace(-1, 1, w), indexing="ij")
+    return (np.stack([-y, x]) * scale * np.exp(-(x * x + y * y))).astype(np.float32)
+
+
+def _windowed_sim(velocity, source, dt, dissipation, factors, quant):
+    """advect_dye's design, one sim, in plain torch: per DYE_TILE tile,
+    prepare_plain on its window alone (the source and the splat factors of
+    the box's rows and columns), then each texel's 4 corners read in window
+    coordinates, lerped in the plain order, divided by the decay, rounded
+    once. Asserts that every corner lies in its tile's window."""
+    plan = kadvect.dye_window_plan(velocity, source, dt, dissipation, factors, quant)
+    c, h, w = source.shape
+    r0, r1, q0, q1 = plan["corners"]
+    fy, fx = plan["weights"]
+    th, tw = kadvect.DYE_TILE
+    decay = float(advect_ops.decay_factor(dissipation, dt))
+    out = torch.empty((c, h, w), dtype=torch.float32)
+    for ty, tx in np.ndindex(*plan["box"].shape[:2]):
+        lo_r, hi_r, lo_q, hi_q = plan["box"][ty, tx].tolist()
+        tile = (slice(ty * th, (ty + 1) * th), slice(tx * tw, (tx + 1) * tw))
+        for r in (r0, r1):
+            assert lo_r <= int(r[tile].min()) and int(r[tile].max()) <= hi_r
+        for q in (q0, q1):
+            assert lo_q <= int(q[tile].min()) and int(q[tile].max()) <= hi_q
+        rows, cols = slice(lo_r, hi_r + 1), slice(lo_q, hi_q + 1)
+        wf = None if factors is None else (factors[0][rows], factors[1][:, cols], factors[2])
+        prep = kadvect.prepare_plain(source[:, rows, cols], wf, quant)
+        vals = rgb9e5_unpack(prep) if quant else prep[..., :c].permute(2, 0, 1).float()
+
+        def corner(r, q):
+            return vals[:, r[tile] - lo_r, q[tile] - lo_q]
+
+        a, b, cc, d = corner(r0, q0), corner(r0, q1), corner(r1, q0), corner(r1, q1)
+        top = a + (b - a) * fx[tile]
+        bot = cc + (d - cc) * fx[tile]
+        out[(slice(None),) + tile] = true_div(top + (bot - top) * fy[tile], decay)
+    return out.to(source.dtype), plan
+
+
+def _windowed(velocity, source, dt, dissipation, factors=None, quant=None, sim_w=None):
+    """_windowed_sim over a batch (dt a number or a (B, 2) table) or a
+    packed fleet; also the plan's share of tiles that fit."""
+    if sim_w is not None:
+        b = source.shape[-1] // sim_w
+        out, share = _windowed(kbuild.unpack_fleet(velocity, b), kbuild.unpack_fleet(source, b),
+                               dt, dissipation, factors, quant)
+        return kbuild.pack_fleet(out), share
+    if source.ndim == 3:
+        out, plan = _windowed_sim(velocity, source, dt, dissipation, factors, quant)
+        return out, plan["share"]
+    outs, shares = [], []
+    for k in range(source.shape[0]):
+        d = float(dt[k, 0]) if isinstance(dt, torch.Tensor) else dt
+        f = None if factors is None else tuple(t[k] for t in factors)
+        out, plan = _windowed_sim(velocity[k], source[k], d, dissipation, f, quant)
+        outs.append(out)
+        shares.append(plan["share"])
+    return torch.stack(outs), float(np.mean(shares))
+
+
+DYE_CASES = [(g, b, q, d) for g, b, q, d in CASES if b or q]
+
+
+@pytest.mark.parametrize("grid,bump,quant,dtype", DYE_CASES)
+def test_windowed_dye_equals_advect_plain(grid, bump, quant, dtype, rng):
+    """One sim, same grid and cross grid, f32, f16 and bf16 with and without
+    RGB9E5: the windowed design gives advect_plain's bits, on a swirl (whose
+    windows all fit) and on N(0, 400) noise (whose windows span up to 33
+    texels more than the tile each way)."""
+    vel, src, factors = _advect_inputs(rng, grid, bump, dtype)
+    for v in (_smooth_velocity(H, W), vel):
+        vt, s = _t(v, dtype), _t(src, dtype)
+        got, share = _windowed(vt, s, float(DT), 1.0, factors, quant)
+        want = kadvect.advect_plain(vt, s, float(DT), 1.0, splat_factors=factors, quant=quant)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert share == 1.0 or v is vel
+
+
+@pytest.mark.parametrize("grid", ["same", "cross"])
+def test_windowed_dye_with_a_float32_velocity(grid, rng):
+    """A float32 velocity beside a bf16 RGB9E5 dye (the sharded step's):
+    advect_plain's bits, the velocity never rounded to storage."""
+    vel, src, factors = _advect_inputs(rng, grid, True, "bfloat16")
+    for v in (_smooth_velocity(H, W), vel):
+        vt, s = _t(v), _t(src, "bfloat16")
+        got, _ = _windowed(vt, s, float(DT), 1.0, factors, "rgb9e5")
+        assert torch.equal(got, kadvect.advect_plain(vt, s, float(DT), 1.0, factors, "rgb9e5"))
+
+
+@pytest.mark.parametrize("dtype,quant", [("float32", None), ("bfloat16", "rgb9e5"),
+                                         ("float16", None)])
+def test_windowed_dye_batched_and_packed(dtype, quant, rng):
+    """A batch of 3 cross-grid sims with a (B, 2) dt table, and a packed
+    fleet of 3 same-grid sims at the lock-step dt: advect_plain's bits."""
+    from tpufluid_torch.step import dt_table
+
+    b = 3
+    table = torch.from_numpy(dt_table(np.array([1 / 90, 1 / 75, 1 / 60], np.float32),
+                                      [1.0])[0])
+    vel = np.stack([_velocity(rng) for _ in range(b)])
+    vel[1] = _smooth_velocity(H, W)
+    src = rng.random((b, 3, HD, WD)).astype(np.float32) * 1.5
+    splats = torch.from_numpy(np.stack([_splats(rng) for _ in range(b)]))
+    factors = tsplat.splat_factors(splats, HD, WD, RADIUS, ASPECT, slice(4, 7))
+    v, s = _t(vel, dtype), _t(src, dtype)
+    got, _ = _windowed(v, s, table, 1.0, factors, quant)
+    assert torch.equal(got, kadvect.advect_plain(v, s, table, 1.0, factors, quant))
+    # packed: the sims side by side, each its own walls
+    factors = tsplat.splat_factors(splats, H, W, RADIUS, ASPECT, slice(4, 7))
+    v = kbuild.pack_fleet(_t(vel, dtype))
+    s = kbuild.pack_fleet(_t(src[..., :H, :W], dtype))
+    got, _ = _windowed(v, s, float(DT), 1.0, factors, quant, sim_w=W)
+    want = kadvect.advect_plain(v, s, float(DT), 1.0, factors, quant, sim_w=W)
+    assert torch.equal(got, want)
+
+
+def test_dye_window_plan_counts_the_kernels_budget(rng):
+    """The window's bytes as csrc/advect.cu counts them, and the plan's
+    tiles: with no displacement, a 32 x 32 tile reads its own texels and at
+    most one more each way (the backtrace's rounding can put a texel's
+    floor one below it)."""
+    assert kadvect.dye_window_bytes(17, 65, 3, 2, "rgb9e5", 8, 2) == 4 * 8 * 4 \
+        + 4 * 2 * (17 * 3 + 65) + 17 * 65 * 4
+    assert kadvect.dye_window_bytes(17, 65, 3, 4, None, 0, 0) == 17 * 65 * 12
+    assert kadvect.DYE_TILE == (32, 32)
+    still = torch.zeros((2, 40, 150))
+    plan = kadvect.dye_window_plan(still, torch.zeros((3, 40, 150)), float(DT), 1.0)
+    assert tuple(plan["box"].shape) == (2, 5, 4) and plan["share"] == 1.0
+    for ty, tx in np.ndindex(2, 5):
+        r0, r1, q0, q1 = plan["box"][ty, tx].tolist()
+        assert 32 * ty - 1 <= r0 <= 32 * ty and min(32 * ty + 31, 39) <= r1 <= 32 * ty + 32
+        assert 32 * tx - 1 <= q0 <= 32 * tx and min(32 * tx + 31, 149) <= q1 <= 32 * tx + 32
+    assert plan["box"][1, 4].tolist()[1::2] == [39, 149]     # the ragged corner, clamped
+    # windows past the budget: +/-1000 texels a second of noise in f32
+    # reach 17 texels beyond the tile, 66 x 66 texels of 12 bytes; the
+    # narrow tile at the grid's right edge clamps its window
+    plan = kadvect.dye_window_plan(_t(_velocity(rng, 1e4, HD, WD)),
+                                   _t(rng.random((3, HD, WD))), float(DT), 1.0)
+    assert not plan["fits"][1, 1:4].any() and plan["fits"][0, 4]
 
 
 # ---------------------------------------------------------------- Jacobi

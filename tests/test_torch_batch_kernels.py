@@ -33,8 +33,8 @@ CONFIGS = {
                  CANVAS_HEIGHT=64, MAX_SPLATS=8),
 }
 DTYPES = [("float32", False), ("bfloat16", True), ("bfloat16", False), ("float16", False)]
-PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 2, "gradient_subtract": 1, "advect": 2,
-            "advect_prepare": 1}
+PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 2, "gradient_subtract": 1, "advect": 1,
+            "advect_dye": 1}
 
 
 @pytest.fixture
@@ -155,6 +155,8 @@ def test_batched_steps_equal_single_steps(size, dtype, rgb9e5, cuda):
 
 
 def test_batched_step_launches_seven_whatever_b(cuda):
+    """The batched step's launches whatever B is: the test keeps its name
+    from when they were seven; since the dye's kernel they are six."""
     cfg = _cfg("small")
     for b in (1, 5):
         state = stack_states([check.random_state(cfg, i, cuda)[0] for i in range(b)])
@@ -163,7 +165,7 @@ def test_batched_step_launches_seven_whatever_b(cuda):
         make_batched_step(cfg)(state, np.full(b, 1 / 60), splats)
         torch.cuda.synchronize()
         assert {k: v.launches for k, v in build.KERNELS.items() if v.launches} == PER_STEP
-        assert sum(PER_STEP.values()) == 7
+        assert sum(PER_STEP.values()) == 6
 
 
 def test_bad_dt_table_raises(cuda):
@@ -215,7 +217,7 @@ def test_wide_batches_take_64_bit_offsets(cuda):
                lambda b: jacobi.jacobi_pressure(p[b], d[b], 20, 0.8), n)
     del p, d
     torch.cuda.empty_cache()
-    n = big // (3 * h * w) + 1                       # advect_prepare and advect: 3 B H W > 2^31
+    n = big // (3 * h * w) + 1                       # advect_dye and advect: 3 B H W > 2^31
     vel, dye = rand(n, 2, h, w), rand(n, 3, h, w).abs_()
     check_ends(lambda: advect.advect(vel, dye, 1 / 60, 1.0, None, "rgb9e5"),
                lambda b: advect.advect(vel[b], dye[b], 1 / 60, 1.0, None, "rgb9e5"), n)

@@ -176,18 +176,17 @@ def test_jacobi_cell_sweeps_hand_counts():
 def test_design_overhead_hand_counts():
     """The kernels' work beyond the function's on the H100 SXM's 132 SMs:
     1024^2 bf16 runs 2 launches of 240 tiles of 64x128 cells x 10 sweeps
-    (the function: 1024^2 x 20), and writes and reads a 4-byte RGB9E5 word
-    a dye texel; the demo's
-    128x228 grid runs 2 launches of 66 tiles of 32x64 x 10 sweeps, and its
-    float32 dye 16-byte quads on 1024x1820. floor_table carries it as is."""
+    (the function: 1024^2 x 20); the demo's 128x228 grid runs 2 launches of
+    66 tiles of 32x64 x 10 sweeps. The dye's windows stay in shared memory:
+    no prepared source in device memory. floor_table carries it as is."""
     d = fk.design_overhead(_square(1024), 132)
     assert d == {"jacobi_launches": 2, "jacobi_design_cell_sweeps": 2 * 240 * 64 * 128 * 10,
-                 "jacobi_overcompute": 1.875, "dye_prepared_bytes": 2 * 4 * 1024 * 1024}
+                 "jacobi_overcompute": 1.875}
     d = fk.design_overhead(T.FluidConfig(DTYPE="float32").validate(), 132)
     assert d["jacobi_launches"] == 2
     assert d["jacobi_design_cell_sweeps"] == 2 * 66 * 32 * 64 * 10
     assert d["jacobi_overcompute"] == round(2 * 66 * 32 * 64 * 10 / (128 * 228 * 20), 3)
-    assert d["dye_prepared_bytes"] == 2 * 16 * 1024 * 1820
+    assert "dye_prepared_bytes" not in d
     assert fk.design_overhead(_square(64, iters=0), 132)["jacobi_overcompute"] is None
     other = {"other_device_us": 0.0, "cuda_runtime_host_us": 0.0, "top_other_ops": [],
              "kernel_events": {}}
@@ -235,10 +234,10 @@ def _events(steps):
     names += [("void jacobi_chunk_kernel<float, float, float, 128, 4, 16, false>"
                "(float const*)", 5.0)] * 2
     names += [("void gradient_subtract_kernel<float>(float const*)", 1.0),
-              ("void advect_kernel<float, 2, 0, true>(float const*, int)", 4.0),
-              ("void advect_prepare_kernel<float, 3, false>(float const*, int)", 2.0),
+              ("void advect_kernel<float, 2, true, int, false>(float const*, int)", 4.0),
               ("Memcpy HtoD (Pageable -> Device)", 0.25),
-              ("void advect_kernel<float, 3, 1, false>(float const*, int)", 6.0)]
+              ("void advect_dye_kernel<float, 3, false, false, float, int, false>"
+               "(float const*, int)", 8.0)]
     for _ in range(steps):
         for name, dur in names:
             ev.append((name, True, t, dur))
@@ -250,7 +249,7 @@ def _events(steps):
 
 def test_attribute_device_events():
     launched = {"pre_pressure": 3, "jacobi_chunk": 6,
-                "gradient_subtract": 3, "advect": 6, "advect_prepare": 3, "display": 0}
+                "gradient_subtract": 3, "advect": 3, "advect_dye": 3, "display": 0}
     # any order in, stream order used
     ev = _events(3)[::-1]
     kt, other = fk.attribute_device_events(ev, launched, steps=3, top_other=1)
@@ -259,19 +258,21 @@ def test_attribute_device_events():
     assert other["other_device_us"] == 1.8            # 1.5 + 0.25 a step
     assert other["top_other_ops"] == [
         {"op": "void at::native::vectorized_elementwise_kernel<4, float>(int)", "us": 1.5}]
-    assert other["cuda_runtime_host_us"] == 5.0 * 9    # the sync is not counted
+    assert other["cuda_runtime_host_us"] == 5.0 * 8    # the sync is not counted
     assert other["kernel_events"]["jacobi_chunk"] == {"events": 6, "us": 10.0}
-    assert other["kernel_events"]["advect_prepare"] == {"events": 3, "us": 2.0}
+    assert other["kernel_events"]["advect_dye"] == {"events": 3, "us": 8.0}
+    assert other["kernel_events"]["advect"] == {"events": 3, "us": 4.0}
     with pytest.raises(AssertionError, match="jacobi_chunk"):
         fk.attribute_device_events(ev, {**launched, "jacobi_chunk": 5}, steps=3)
-    # the dye's gather is the advect launch after the prepare, wherever the
-    # velocity's gather stands on the stream
+    # the dye's kernel is the dye's, wherever the velocity's gather stands
+    # on the stream
     moved = [e for e in _events(1) if "advect_kernel<float, 2" not in e[0]]
-    moved.append(("void advect_kernel<float, 2, 0, true>(float const*, int)", True, 1e4, 4.0))
+    moved.append(("void advect_kernel<float, 2, true, int, false>(float const*, int)", True,
+                  1e4, 4.0))
     kt1, _ = fk.attribute_device_events(moved, {**launched, "pre_pressure": 1,
                                                 "jacobi_chunk": 2,
-                                                "gradient_subtract": 1, "advect": 2,
-                                                "advect_prepare": 1}, steps=1)
+                                                "gradient_subtract": 1, "advect": 1,
+                                                "advect_dye": 1}, steps=1)
     assert (kt1["velocity_gather"], kt1["dye_gather"]) == (4.0, 8.0)
     with pytest.raises(RuntimeError, match="no CUDA kernel event"):
         fk.attribute_device_events([("Memcpy HtoD", True, 0.0, 1.0),
@@ -335,8 +336,8 @@ def test_port_kernel_names():
     assert fk.port_kernel("floor_sweep_kernel(float const*, float const*)") == "floor_sweep"
     assert fk.port_kernel("void jacobi_chunk_kernel<float, __half, __half, 128, 4, 16, "
                           "false>(float const*)") == "jacobi_chunk"
-    assert fk.port_kernel("void advect_prepare_kernel<__nv_bfloat16, 3, true>(int)") \
-        == "advect_prepare"
+    assert fk.port_kernel("void advect_dye_kernel<__nv_bfloat16, 3, true, false, float, int, "
+                          "false>(int)") == "advect_dye"
     assert fk.port_kernel("void at::native::vectorized_elementwise_kernel<4>(int)") is None
     assert fk.port_kernel("Memset (Device)") is None
     assert fk.port_kernel("void unknown_kernel<float>(float)") is None

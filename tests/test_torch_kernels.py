@@ -43,7 +43,7 @@ def cuda():
 def test_kernels_match_plain(size, dtype, rgb9e5, cuda):
     cfg = FluidConfig(DTYPE=dtype, DYE_RGB9E5=rgb9e5, **CONFIGS[size]).validate()
     state, splats = check.random_state(cfg, seed=11, device=cuda)
-    for case in check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg):
+    for case in check.step_cases(state, splats, cfg):
         before = build.KERNELS[case.kernel_name].launches
         err, tol = check.compare(case.run(), case.run(plain=True))
         torch.cuda.synchronize()
@@ -111,8 +111,9 @@ def test_advect_far_backtraces_match_plain(dye_hw, splats, dtype, quant, cuda):
     ratio): backtraces of ~130 dye texels, far past any tile, clamped at the
     grid's edge. With and without a splat bump, RGB9E5 on and off, a width
     that fills no row of threads evenly: bit-equal to advect_plain; one
-    prepare launch where there is a bump or RGB9E5; the prepare and the
-    gather each bit-equal to its plain version."""
+    advect_dye launch where there is a bump or RGB9E5 (its windows past the
+    budget: each corner prepared from device memory), else one advect
+    launch."""
     gen = np.random.default_rng(21)
     vel = np.clip(gen.standard_normal((2, 32, 56)) * 3000, -1000, 1000).astype(np.float32)
     dye = (gen.random((3,) + dye_hw) * 1.5).astype(np.float32)
@@ -126,27 +127,72 @@ def test_advect_far_backtraces_match_plain(dye_hw, splats, dtype, quant, cuda):
         rows[:-1, 7] = 1.0
         factors = splat_factors(torch.from_numpy(rows).to(cuda), *dye_hw, 0.0025, 1.75,
                                 slice(4, 7))
-    before = (advect.ADVECT.launches, advect.ADVECT_PREPARE.launches)
+    before = (advect.ADVECT.launches, advect.ADVECT_DYE.launches)
     got = advect.advect(v, s, 1 / 60, 1.0, splat_factors=factors, quant=quant)
     torch.cuda.synchronize()
-    prepares = 1 if (factors is not None or quant) else 0
+    dye = 1 if (factors is not None or quant) else 0
     assert (advect.ADVECT.launches - before[0],
-            advect.ADVECT_PREPARE.launches - before[1]) == (1, prepares)
+            advect.ADVECT_DYE.launches - before[1]) == (1 - dye, dye)
     want = advect.advect_plain(v, s, 1 / 60, 1.0, splat_factors=factors, quant=quant)
     assert float((got.float() - want.float()).abs().max()) == 0.0
-    # the velocity's self-advection at +/-1000: no prepare
-    before = advect.ADVECT_PREPARE.launches
+    if dye:
+        assert advect.dye_window_plan(v, s, 1 / 60, 1.0, factors, quant)["share"] < 0.5
+    # the velocity's self-advection at +/-1000: the gather
+    before = (advect.ADVECT.launches, advect.ADVECT_DYE.launches)
     got = advect.advect(v, v, 1 / 60, 0.2)
-    assert advect.ADVECT_PREPARE.launches == before
+    assert (advect.ADVECT.launches, advect.ADVECT_DYE.launches) == (before[0] + 1, before[1])
     assert torch.equal(got, advect.advect_plain(v, v, 1 / 60, 0.2))
-    prepared = advect.prepare_plain(s, factors, quant)
-    layout = advect.WORDS if quant else advect.QUADS
-    err, _ = check.compare(advect.prepare(s, factors, quant), prepared)
-    assert err == 0.0
-    got = advect.gather(v, prepared, layout, 3, 1 / 60, 1.0)
-    assert torch.equal(got, advect.gather_plain(v, prepared, 3, 1 / 60, 1.0))
-    got = advect.gather(v, s, advect.PLANES, 3, 1 / 60, 1.0)
-    assert torch.equal(got, advect.advect_plain(v, s, 1 / 60, 1.0))
+
+
+def _swirl(h, w, scale):
+    """A swirl velocity (2, h, w) float32: smooth across any tile."""
+    y, x = torch.meshgrid(torch.linspace(-1, 1, h), torch.linspace(-1, 1, w), indexing="ij")
+    return torch.stack([-y, x]) * scale * torch.exp(-(x * x + y * y))
+
+
+@pytest.mark.parametrize("velocity", ["swirl", "noise", "half"])
+@pytest.mark.parametrize("vel_f32", [False, True], ids=["vel-storage", "vel-f32"])
+@pytest.mark.parametrize("grid", ["same", "cross"])
+@pytest.mark.parametrize("dtype,quant", [(torch.float32, None), (torch.bfloat16, "rgb9e5"),
+                                         (torch.bfloat16, None), (torch.float16, None)],
+                         ids=["float32", "bfloat16-rgb9e5", "bfloat16", "float16"])
+def test_advect_dye_windows_match_plain(dtype, quant, grid, vel_f32, velocity, cuda):
+    """advect_dye's two paths, alone and mixed in one launch: a swirl
+    (every tile's window staged in shared memory), noise (backtraces of
+    up to ~130 dye texels: most windows past the budget, each corner
+    prepared from device memory) and a swirl with noise in its top half
+    (both), same grid and 8x cross grid, the velocity
+    in storage or float32 beside a 16-bit dye, on a 250 x 437 dye that fills
+    no tile evenly: bit-equal to advect_plain, one launch."""
+    if vel_f32 and dtype == torch.float32:
+        pytest.skip("a float32 dye's velocity is float32 already")
+    h, w = 250, 437
+    vh, vw = (h, w) if grid == "same" else (32, 56)
+    gen = np.random.default_rng(5)
+    vel = _swirl(vh, vw, 300.0 if grid == "cross" else 60.0)
+    reach = 1000.0 if grid == "cross" else 8000.0
+    noise = torch.from_numpy(np.clip(gen.standard_normal((2, vh, vw)) * 3 * reach, -reach,
+                                     reach).astype(np.float32))
+    if velocity == "noise":
+        vel = noise
+    elif velocity == "half":
+        vel[:, :vh // 2] = noise[:, :vh // 2]
+    v = vel.to(cuda, torch.float32 if vel_f32 else dtype)
+    s = torch.from_numpy(gen.random((3, h, w), dtype=np.float32) * 1.5).to(cuda, dtype)
+    rows = np.zeros((8, 8), np.float32)
+    rows[:, 0:2] = gen.random((8, 2))
+    rows[:, 4:7] = gen.random((8, 3)) * 1.5
+    rows[:-1, 7] = 1.0
+    factors = splat_factors(torch.from_numpy(rows).to(cuda), h, w, 0.0025, 1.75, slice(4, 7))
+    share = advect.dye_window_plan(v, s, 1 / 60, 1.0, factors, quant)["share"]
+    assert {"swirl": share == 1.0, "noise": share < 0.3, "half": 0.3 < share < 1.0}[velocity]
+    before = (advect.ADVECT.launches, advect.ADVECT_DYE.launches)
+    got = advect.advect(v, s, 1 / 60, 1.0, splat_factors=factors, quant=quant)
+    torch.cuda.synchronize()
+    assert (advect.ADVECT.launches, advect.ADVECT_DYE.launches) == (before[0], before[1] + 1)
+    want = advect.advect_plain(v, s, 1 / 60, 1.0, splat_factors=factors, quant=quant)
+    assert got.dtype == dtype and torch.equal(got, want), (
+        float((got.float() - want.float()).abs().max()), share)
 
 
 def test_kernel_rejects_cpu_and_bad_dtype(cuda):
@@ -353,7 +399,7 @@ def test_profile_counts_every_launch(cuda):
     times, other = floors.profile_step_kernels(cfg, state, 1 / 60, steps=3)
     events = {k: v["events"] for k, v in other["kernel_events"].items()}
     chunks = math.ceil(cfg.PRESSURE_ITERATIONS / 10)  # the chunk kernel's 10 sweeps a launch
-    assert events == {"advect": 6, "advect_prepare": 3, "gradient_subtract": 3,
+    assert events == {"advect": 3, "advect_dye": 3, "gradient_subtract": 3,
                       "jacobi_chunk": 3 * chunks, "pre_pressure": 3}
     assert set(times) == {"velocity_gather", "dye_gather", "jacobi", "stencil",
                           "gradient_subtract"}

@@ -349,8 +349,7 @@ def test_packed_kernel_cases_follow_the_packed_step():
     state, splats = check.random_batch(cfg, 3, seed=9, device="cpu")
     cases = check.packed_step_cases(cfg, 3, seed=9, device="cpu")
     assert [c.kernel_name for c in cases] == [
-        "pre_pressure", "jacobi_chunk", "gradient_subtract", "advect", "advect",
-        "advect_prepare"]
+        "pre_pressure", "jacobi_chunk", "gradient_subtract", "advect", "advect_dye"]
     assert all(c.label.endswith(":packed:b3:lockstep") for c in cases)
     want = bp.plain_packed_step(bp.pack_state(state), 1 / 60, splats, cfg, 3)
     np.testing.assert_array_equal(cases[1].run(plain=True).float().numpy(),

@@ -36,8 +36,8 @@ CONFIGS = {
                       CANVAS_HEIGHT=720, MAX_SPLATS=8),
 }
 DTYPES = [("float32", False), ("bfloat16", True), ("bfloat16", False), ("float16", False)]
-PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 2, "gradient_subtract": 1, "advect": 2,
-            "advect_prepare": 1}
+PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 2, "gradient_subtract": 1, "advect": 1,
+            "advect_dye": 1}
 
 
 @pytest.fixture
@@ -94,8 +94,7 @@ def test_packed_kernels_equal_batched_kernels(dtype, cuda):
                           check.batched_step_cases(cfg, 16, 3, cuda)):
         assert case.label == twin.label.replace(":b16", ":packed:b16"), case.label
         got, want = case.run(), twin.run()
-        if case.kernel_name != "advect_prepare":   # the prepared source is batched
-            want = tuple(map(pack_fleet, want)) if isinstance(want, tuple) else pack_fleet(want)
+        want = tuple(map(pack_fleet, want)) if isinstance(want, tuple) else pack_fleet(want)
         _equal(got, want, case.label)
     vf = check.splat_factors(splats, h, w, cfg.splat_radius_uv(), cfg.aspect_ratio,
                              slice(2, 4))
@@ -140,7 +139,7 @@ def test_packed_steps_equal_batched_steps(size, dtype, rgb9e5, cuda):
 @pytest.mark.parametrize("dtype,size", [("float16", "same"), ("float32", "cross")])
 def test_unsupported_geometry_steps_through_the_batched_kernels(dtype, size, cuda):
     """float16 and the demo's cross grid are not packed_supported: a packed
-    step unpacks, runs the batched kernels on the card (7 launches) and
+    step unpacks, runs the batched kernels on the card (6 launches) and
     packs, equal to the batched step."""
     base = CONFIGS["same"] if size == "same" else dict(CONFIGS["same"], DYE_RESOLUTION=128)
     cfg = FluidConfig(DTYPE=dtype, **base).validate()
@@ -179,8 +178,9 @@ def test_refused_packed_launch_raises(cuda):
 def test_wide_packed_fleets_take_64_bit_offsets(cuda):
     """Packed fields with more than 2^31 values (DISPATCH_INDEX counts the
     fleet's C*H*B*W): the first and the last sim of the packed gradient
-    subtract, Jacobi solve and velocity self-advection each equal their own
-    single-sim launch (the 32-bit path) bit for bit. bf16 at 1024^2."""
+    subtract, Jacobi solve, velocity self-advection and dye advection each
+    equal their own single-sim launch (the 32-bit path) bit for bit. bf16
+    at 1024^2."""
     h = w = 1024
     big = 2 ** 31
 
@@ -203,7 +203,12 @@ def test_wide_packed_fleets_take_64_bit_offsets(cuda):
                lambda b: stencil.gradient_subtract(sim(vel, b), sim(p, b)), n)
     check_ends(lambda: advect.advect(vel, vel, 1 / 60, 0.2, sim_w=w),
                lambda b: advect.advect(sim(vel, b), sim(vel, b), 1 / 60, 0.2), n)
-    del vel, p
+    del p
+    dye = rand(3, h, n * w).abs_()                   # 3 H B W > 2^31
+    check_ends(lambda: advect.advect(vel, dye, 1 / 60, 1.0, None, "rgb9e5", sim_w=w),
+               lambda b: advect.advect(sim(vel, b), sim(dye, b), 1 / 60, 1.0, None, "rgb9e5"),
+               n)
+    del vel, dye
     torch.cuda.empty_cache()
     n = big // (h * w) + 1                           # H B W > 2^31
     p, d = rand(h, n * w), rand(h, n * w)

@@ -113,7 +113,7 @@ def test_frame_u8_matches_jax():
     jcfg, cfg = _cfgs()
     s, ts = _states(jcfg, seed=5)
     _u8_close(T.frame_u8(ts, cfg, out_hw=(60, 90)), jax_frame_u8(s, jcfg, out_hw=(60, 90)))
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         T.frame_u8(ts, cfg, dither_path="dither.png")
 
 

@@ -5,6 +5,8 @@ skips with its reason. They import no JAX, so on the card run
     python -m pytest --noconftest tests/test_torch_sharded_kernels.py -q
 Every comparison is exact (max abs error 0): the kernel on the window of a
 shard's walls (check.bounded_cases, both tiles) against its plain version,
+the dye kernel with the sharded step's float32 velocity beside a 16-bit dye
+against advect_plain,
 and the sharded step through the kernels against the sharded step through
 the plain versions on the same card, the shards of a mesh on the cards
 there are, round robin. tests/test_torch_sharding.py holds the sharded
@@ -53,6 +55,28 @@ def test_bounded_pre_pressure_matches_plain(dtype, cuda):
             assert torch.equal(g, w), (case.label, float((g.float() - w.float()).abs().max()))
 
 
+@pytest.mark.parametrize("dtype,rgb9e5", [("bfloat16", True), ("bfloat16", False),
+                                          ("float16", False)])
+@pytest.mark.parametrize("grid", ["demo", "ragged"])
+def test_dye_with_a_float32_velocity_matches_plain(grid, dtype, rgb9e5, cuda):
+    """advect_dye with the float32 velocity the sharded step gives a 16-bit
+    dye (check.f32_velocity_dye_cases: the coarse velocity, and the
+    velocity resampled on the dye's grid), one launch each, bit-equal to
+    advect_plain, at the demo's geometry and a ragged one."""
+    kw = (dict(SIM_RESOLUTION=128, DYE_RESOLUTION=1024, CANVAS_WIDTH=1280, CANVAS_HEIGHT=720)
+          if grid == "demo" else dict(SIM_RESOLUTION=37, DYE_RESOLUTION=131,
+                                      CANVAS_WIDTH=1280, CANVAS_HEIGHT=720))
+    cfg = FluidConfig(DTYPE=dtype, DYE_RGB9E5=rgb9e5, MAX_SPLATS=8, **kw).validate()
+    for case in check.f32_velocity_dye_cases(cfg, seed=3, device=cuda):
+        assert case.args[0].dtype == torch.float32 and case.args[1].dtype == cfg.dtype
+        before = build.KERNELS["advect_dye"].launches
+        got = case.run()
+        torch.cuda.synchronize()
+        assert build.KERNELS["advect_dye"].launches == before + 1, case.label
+        want = case.run(plain=True)
+        assert torch.equal(got, want), (case.label, float((got.float() - want.float()).abs().max()))
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
 def test_bounded_tiles_equal_the_window_copy(dtype, cuda):
     """On either tile, the kernel on a window in place equals the kernel on
@@ -88,7 +112,7 @@ def test_bounds_that_leave_no_texel_raise(cuda):
 def test_sharded_step_kernels_equal_plain(name, kw, shape, cuda):
     """Three sharded steps through the kernels equal three through the
     plain versions on the same card, every shard bit for bit, and the
-    kernels launched on every shard: 7 launches a shard a step, 21 where
+    kernels launched on every shard: 6 launches a shard a step, 18 where
     every phase splits (an interior band and two strips)."""
     cfg = FluidConfig(MAX_SPLATS=8, **kw).validate()
     mesh = _mesh(shape)
@@ -101,7 +125,7 @@ def test_sharded_step_kernels_equal_plain(name, kw, shape, cuda):
         a = step(a, trace.dts[t], trace.batches[t])
     torch.cuda.synchronize()
     launches = sum(k.launches for k in build.KERNELS.values())
-    per_shard = 21 if cfg.overlap_halo else 7
+    per_shard = 18 if cfg.overlap_halo else 6
     assert launches == 3 * per_shard * shape[0] * shape[1], launches
     for t in range(3):
         b = plain_sharded_step(b, trace.dts[t], trace.batches[t], cfg)

@@ -337,6 +337,24 @@ def test_sharded_step_matches_single_device(shape):
         assert _rel(a, b) < 4e-4, (f, _rel(a, b))
 
 
+@pytest.mark.parametrize("shape", [(4, 2), (2, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_16bit_dye_reads_a_float32_velocity(shape):
+    """bfloat16 with the RGB9E5 dye on a cross grid (sim 32 / dye 128): the
+    velocity each shard resamples on its dye block stays float32, as JAX's
+    does, so after one step the sharded dye is within 2e-3 of the scale of
+    the single-device dye. Rounding that velocity to storage puts it 5.3e-3
+    away."""
+    cfg = _tcfg(_jcfg(SIM_RESOLUTION=32, DYE_RESOLUTION=128, DTYPE="bfloat16"))
+    assert cfg.DYE_RGB9E5
+    trace = T.swirl_trace(cfg, 1, seed=17)
+    mesh = _tmesh(shape)
+    one = T.make_step(cfg, device="cpu")(T.init_state(cfg, device="cpu"), DT, trace.batches[0])
+    shards = T.make_sharded_step(cfg, mesh)(T.shard_state(T.init_state(cfg, device="cpu"), mesh),
+                                            DT, trace.batches[0])
+    got, want = gather_state(shards).dye.float().numpy(), one.dye.float().numpy()
+    assert _rel(got, want) < 2e-3, _rel(got, want)
+
+
 def test_sharded_multi_step_equals_stepwise():
     cfg = _tcfg(_jcfg(**GRIDS["dye2x"]))
     trace = T.swirl_trace(cfg, 5, seed=13)

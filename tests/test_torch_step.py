@@ -177,7 +177,7 @@ def test_kernel_cases_follow_the_step():
         state, splats = check.random_state(cfg, seed=5, device="cpu")
         cases = check.step_cases(state, splats, cfg)
         assert [c.kernel_name for c in cases] == [
-            "pre_pressure", "jacobi_chunk", "gradient_subtract", "advect", "advect"]
+            "pre_pressure", "jacobi_chunk", "gradient_subtract", "advect", "advect_dye"]
         want = T.fluid_step(state, 1 / 60, splats, cfg)
         np.testing.assert_array_equal(cases[1].run(plain=True).float().numpy(),
                                       want.pressure.float().numpy())

@@ -39,10 +39,20 @@ def advect(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float,
     src = source.to(torch.float32)
     if quant == "rgb9e5":
         src = rgb9e5_roundtrip(src)
+    coord_u, coord_v = backtrace(velocity, src.shape[-2], src.shape[-1], dt)
+    result = sample_bilinear(src, coord_u, coord_v)
+    dt = float(np.float32(dt))
+    return true_div(result, float(decay_factor(dissipation, dt))).to(out_dtype)
+
+
+def backtrace(velocity: torch.Tensor, h: int, w: int, dt):
+    """(coord_u, coord_v), float32 (h, w): where each texel center of an
+    (h, w) target grid backtraces to through ``velocity`` (2, Hs, Ws), in
+    uv. The velocity is taken in float32, sampled bilinearly at the
+    target's texel centers where the grids differ."""
     vel = velocity.to(torch.float32)
-    h, w = src.shape[-2], src.shape[-1]
     sh, sw = vel.shape[-2], vel.shape[-1]
-    u, v = uv_grid(h, w, device=src.device)
+    u, v = uv_grid(h, w, device=vel.device)
 
     if (sh, sw) == (h, w):
         vel_u, vel_v = vel[0], vel[1]
@@ -51,7 +61,4 @@ def advect(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float,
         vel_v = sample_bilinear(vel[1], u, v)
 
     dt = float(np.float32(dt))
-    coord_u = u - true_div(dt * vel_u, float(sw))
-    coord_v = v - true_div(dt * vel_v, float(sh))
-    result = sample_bilinear(src, coord_u, coord_v)
-    return true_div(result, float(decay_factor(dissipation, dt))).to(out_dtype)
+    return u - true_div(dt * vel_u, float(sw)), v - true_div(dt * vel_v, float(sh))

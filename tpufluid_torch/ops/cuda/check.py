@@ -7,7 +7,9 @@ very same tensors), for one sim or for a batch of B sims in one launch each
 (``batched_step_cases`` on ``random_batch``, in both forms of dt), or for
 a lane-packed fleet of them (``packed_step_cases``);
 ``bounded_cases`` holds pre_pressure's true-wall form on the walls a
-shard of the sharded step sees in its padded block;
+shard of the sharded step sees in its padded block, and
+``f32_velocity_dye_cases`` the dye kernel with the float32 velocity the
+sharded step gives a 16-bit dye;
 ``render_cases`` does the same for one frame (``batched_render_cases`` for
 a frame of B sims, one launch a kernel), and
 ``floors_cases`` for the three microbenchmark kernels on their own inputs
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from tpufluid_torch.batch import step_dt
-from tpufluid_torch.batch_packed import pack_state
+from tpufluid_torch.batch_packed import pack_state, unpack_fleet
 from tpufluid_torch.config import _DTYPES, FluidConfig
 from tpufluid_torch.ops import floors as _floors
 from tpufluid_torch.ops.cuda import advect as _advect
@@ -161,37 +163,13 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
         Case("advect:velocity" + tag, "advect", adv, adv_plain,
              (vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION), _bytes(vel2, vel3),
              n_sims * sim * (20 + 2 * 8)),
-        # The whole function, prepare and gather: the function's bytes.
-        Case("advect:dye" + tag, "advect", adv, adv_plain,
+        # The function's bytes: the velocity, the dye and the factors read
+        # once, the dye written once.
+        Case("advect:dye" + tag, "advect_dye", adv, adv_plain,
              (vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df, quant),
              _bytes(vel3, state.dye, *df, dye_out),
              dye * (n_sims * (34 + 3 * 8 + (40 if quant else 0)) + 3 * 2 * n_active)),
     ]
-
-
-def part_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
-               tag: str = "", sim_w: Optional[int] = None) -> List[Case]:
-    """The kernels that run inside one of step_cases' calls, each alone
-    against its own plain version: the dye's advect_prepare (inside
-    "advect:dye"), on the step's dye and splat factors, of one sim, a
-    batch or a packed fleet of sims ``sim_w`` wide. Its bytes are its own:
-    the dye and the factors read, the prepared source written."""
-    dtype = state.dye.dtype
-    quant = "rgb9e5" if config.DYE_RGB9E5 and dtype == torch.bfloat16 else None
-    dh, dw = state.dye.shape[-2:]
-    if sim_w is not None:
-        n_sims, dw = dw // sim_w, sim_w
-    else:
-        n_sims = state.dye.shape[0] if state.dye.ndim == 4 else 1
-    splats = splats.to(device=state.dye.device, dtype=torch.float32)
-    df = splat_factors(splats, dh, dw, config.splat_radius_uv(), config.aspect_ratio,
-                       slice(SPLAT_R, SPLAT_B + 1))
-    n_active = int((splats[..., 7] != 0).sum())
-    prep, prep_plain = (_layout(f, sim_w) for f in (_advect.prepare, _advect.prepare_plain))
-    prepared = prep_plain(state.dye, df, quant)
-    return [Case("advect:prepare" + tag, "advect_prepare", prep, prep_plain,
-                 (state.dye, df, quant), _bytes(state.dye, *df, prepared),
-                 dh * dw * (3 * (3 * n_active + n_sims) + n_sims * (40 if quant else 0)))]
 
 
 def shard_bounds(h: int, w: int, ghost_rows: int, ghost_cols: int) -> dict:
@@ -280,30 +258,78 @@ def per_sim_dts(batch: int) -> np.ndarray:
 
 
 def batched_step_cases(config: FluidConfig, batch: int, seed: int, device) -> List[Case]:
-    """Every kernel call of one batched step, the dye's advect_prepare
-    alone too, on random_batch(config, batch, seed), in both forms of dt:
-    lock-step 1/60 (labels ":lockstep") and per sim (per_sim_dts, ":per-sim"),
-    each call one launch for the B sims."""
+    """Every kernel call of one batched step on random_batch(config, batch,
+    seed), in both forms of dt: lock-step 1/60 (labels ":lockstep") and per
+    sim (per_sim_dts, ":per-sim"), each call one launch for the B sims."""
     state, splats = random_batch(config, batch, seed, device)
     cases: List[Case] = []
     for form, dt in ((":lockstep", 1.0 / 60.0), (":per-sim", per_sim_dts(batch))):
-        tag = f":b{batch}{form}"
-        cases += step_cases(state, splats, config, dt, tag) + part_cases(state, splats, config,
-                                                                         tag)
+        cases += step_cases(state, splats, config, dt, f":b{batch}{form}")
     return cases
 
 
 def packed_step_cases(config: FluidConfig, batch: int, seed: int, device) -> List[Case]:
-    """Every kernel call of one packed fleet step, the dye's advect_prepare
-    alone too, on random_batch(config, batch, seed) packed (sims that
-    differ, with different numbers of active splat rows), at the packed
-    step's lock-step dt of 1/60, each call one launch for the fleet: the
-    same sims and the same work as batched_step_cases' lock-step calls,
-    labelled ":packed:b<B>:lockstep"."""
+    """Every kernel call of one packed fleet step on random_batch(config,
+    batch, seed) packed (sims that differ, with different numbers of active
+    splat rows), at the packed step's lock-step dt of 1/60, each call one
+    launch for the fleet: the same sims and the same work as
+    batched_step_cases' lock-step calls, labelled ":packed:b<B>:lockstep"."""
     state, splats = random_batch(config, batch, seed, device)
     packed, sim_w, tag = pack_state(state), config.sim_size[0], f":packed:b{batch}:lockstep"
-    return (step_cases(packed, splats, config, 1.0 / 60.0, tag, sim_w)
-            + part_cases(packed, splats, config, tag, sim_w))
+    return step_cases(packed, splats, config, 1.0 / 60.0, tag, sim_w)
+
+
+def f32_velocity_dye_cases(config: FluidConfig, seed: int, device) -> List[Case]:
+    """The dye kernel with a float32 velocity beside ``config``'s 16-bit
+    dye, on random_state(config, seed): on the sim grid (the velocity of
+    the step's dye call, taken in float32) and on the dye's grid (that
+    velocity resampled there, in dye texels a second: what the sharded
+    step gives each shard's dye, never rounded to storage), labelled
+    "advect:dye:f32-velocity:<grid>"."""
+    state, splats = random_state(config, seed, device)
+    quant = "rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16 else None
+    (vh, vw), (dh, dw) = state.velocity.shape[-2:], state.dye.shape[-2:]
+    df = splat_factors(splats.to(device=device), dh, dw, config.splat_radius_uv(),
+                       config.aspect_ratio, slice(SPLAT_R, SPLAT_B + 1))
+    coarse = state.velocity.to(torch.float32)
+    fine = resample_bilinear(coarse, (dh, dw))
+    fine = torch.stack([fine[0] * (dw / vw), fine[1] * (dh / vh)]).contiguous()
+    n_active = int((splats[..., 7] != 0).sum())
+    dt = clamp_dt(1.0 / 60.0)
+    cases = []
+    for grid, vel in (("sim-grid", coarse), ("dye-grid", fine)):
+        args = (vel, state.dye, dt, config.DENSITY_DISSIPATION, df, quant)
+        cases.append(Case(f"advect:dye:f32-velocity:{grid}", "advect_dye", _advect.advect,
+                          _advect.advect_plain, args,
+                          _bytes(vel, state.dye, *df, state.dye),
+                          dh * dw * (34 + 3 * 8 + (40 if quant else 0) + 3 * 2 * n_active)))
+    return cases
+
+
+def grid_sample_ms(case: Case, rate: float, sim_w: Optional[int] = None) -> float:
+    """Device ms of one torch.nn.functional.grid_sample call that gathers
+    an advect case's source: bilinear, padding_mode="border",
+    align_corners=False, the source's shape and storage type, at the
+    coordinates the plain version's backtrace gives. It leaves out the
+    splat bump, the RGB9E5 quantization and the decay. A batch, or a packed
+    fleet of sims ``sim_w`` wide (unpacked first), is one call with the
+    sims on its batch axis. Its inputs are built before the timed window;
+    the port never calls it: it is the advection's library yardstick."""
+    from tpufluid_torch.ops.advect import backtrace
+    from tpufluid_torch.ops.cuda.floors import queued_ms
+
+    vel, src, dt = case.args[0], case.args[1], case.args[2]
+    if sim_w is not None:
+        vel, src = (unpack_fleet(t, t.shape[-1] // sim_w) for t in (vel, src))
+    elif vel.ndim == 3:
+        vel, src = vel[None], src[None]
+    h, w = src.shape[-2:]
+    dts = dt[:, 0].tolist() if isinstance(dt, torch.Tensor) else [dt] * src.shape[0]
+    grid = torch.stack([torch.stack(backtrace(v, h, w, d), dim=-1) for v, d in zip(vel, dts)])
+    grid = (2.0 * grid - 1.0).to(src.dtype)
+    inp = src.contiguous()
+    return queued_ms(lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="border", align_corners=False), 20, rate)
 
 
 def _blur4_flops(out_hw, prefilter_texels: int) -> int:

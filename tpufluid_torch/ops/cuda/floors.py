@@ -200,9 +200,9 @@ def gather_rows_per_step(config, velocity, dt) -> List[Tuple[float, int, int]]:
     The function's gather, whatever implements it: the 4 bilinear corners
     of every source channel for every target texel, and where the velocity
     lies on a coarser grid than the target (the demo's dye) the 4 corners of
-    its 2 channels as well; words / 128 = rows. (csrc/advect.cu loads one
-    prepared word or quad per dye corner; its prepare pass is reported
-    apart, floor_report's "design".) Every texel gathers the same, so unlike
+    its 2 channels as well; words / 128 = rows. (csrc/advect.cu's dye
+    kernel reads its corners from a window in shared memory where the
+    window fits.) Every texel gathers the same, so unlike
     the TPU model (tile-picked trips over a displacement window,
     floors.py:232) the count depends on neither ``velocity`` nor ``dt``:
     they are taken for the signature's sake."""
@@ -226,22 +226,18 @@ def jacobi_cell_sweeps(config) -> int:
 
 
 def design_overhead(config, sms: int) -> dict:
-    """What the port's kernels compute and move beyond the function's work
-    per step on a GPU of ``sms`` SMs: the Jacobi chunk kernel's cell-sweeps
-    (halos and the last tiles' padding) over the function's, and its
-    launches; the bytes the dye's prepared source adds, written once and
-    read once."""
+    """What the port's kernels compute beyond the function's work per step
+    on a GPU of ``sms`` SMs: the Jacobi chunk kernel's cell-sweeps (halos
+    and the last tiles' padding) over the function's, and its launches.
+    (The dye's windows are staged in shared memory: they add no bytes of
+    device memory beyond the halos' second reads, which depend on the
+    velocity: advect.dye_window_plan.)"""
     sw, sh = config.sim_size
-    dw, dh = config.dye_size
     iters = config.PRESSURE_ITERATIONS
-    quant = config.DYE_RGB9E5 and config.dtype == torch.bfloat16
-    itemsize = torch.empty((), dtype=config.dtype).element_size()
-    prepared = dw * dh * (4 if quant else 4 * itemsize)
     design = _jacobi.design_cell_sweeps(sh, sw, iters, sms)
     return {"jacobi_launches": len(_jacobi.plan(sh, sw, iters, sms)[1]),
             "jacobi_design_cell_sweeps": design,
-            "jacobi_overcompute": round(design / (sw * sh * iters), 3) if iters else None,
-            "dye_prepared_bytes": 2 * prepared}
+            "jacobi_overcompute": round(design / (sw * sh * iters), 3) if iters else None}
 
 
 # ---- profiled step -----------------------------------------------------
@@ -267,10 +263,8 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
     """(kernel_times, other) in microseconds per step from profiler events
     ``(name, on_device, start_us, duration_us)`` of ``steps`` steps.
 
-    kernel_times: velocity_gather and dye_gather (an advect launch that
-    follows an advect_prepare on the device is the dye's gather, and the
-    prepare counts with it; any other advect launch gathers the velocity),
-    jacobi (the chunks), stencil (pre_pressure) and
+    kernel_times: velocity_gather (the advect launches) and dye_gather
+    (advect_dye), jacobi (the chunks), stencil (pre_pressure) and
     gradient_subtract. other: the device time of every other device event
     (PyTorch's own kernels, copies, fills), its ``top_other`` largest names,
     ``cuda_runtime_host_us``: the host time of the CUDA runtime calls the
@@ -285,19 +279,12 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
         raise RuntimeError("the profiler recorded no CUDA kernel event")
     ours: Dict[str, List[float]] = {}
     other: Dict[str, float] = {}
-    gathers: Dict[str, float] = {"velocity_gather": 0.0, "dye_gather": 0.0}
-    prev = None
     for name, _, _, dur in device:
         k = port_kernel(name)
         if k is None:
             other[name] = other.get(name, 0.0) + dur
             continue
         ours.setdefault(k, []).append(dur)
-        if k == "advect_prepare" or (k == "advect" and prev == "advect_prepare"):
-            gathers["dye_gather"] += dur
-        elif k == "advect":
-            gathers["velocity_gather"] += dur
-        prev = k
     counts = {k: len(v) for k, v in ours.items()}
     wrong = {k: (counts.get(k, 0), n) for k, n in launched.items() if counts.get(k, 0) != n}
     if wrong:
@@ -309,8 +296,8 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
         return sum(sum(ours.get(n, [])) for n in names) / steps
 
     kernel_times = {
-        "velocity_gather": gathers["velocity_gather"] / steps,
-        "dye_gather": gathers["dye_gather"] / steps,
+        "velocity_gather": per_step("advect"),
+        "dye_gather": per_step("advect_dye"),
         "jacobi": per_step("jacobi_chunk"),
         "stencil": per_step("pre_pressure"),
         "gradient_subtract": per_step("gradient_subtract"),

@@ -23,22 +23,28 @@ def true_div(a: torch.Tensor, b) -> torch.Tensor:
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
-def sample_bilinear(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Sample ``tex`` (..., H, W) at uv coords with LINEAR + CLAMP_TO_EDGE:
-    st = uv * size - 0.5; corners at floor(st) and +1, each clamped to
-    [0, N-1]; bilinear mix by fract(st). Returns shape (..., *u.shape)."""
-    h, w = tex.shape[-2], tex.shape[-1]
+def bilinear_taps(h: int, w: int, u: torch.Tensor, v: torch.Tensor):
+    """The taps of a LINEAR + CLAMP_TO_EDGE sample of an (h, w) texture at
+    uv: st = uv * size - 0.5, corner rows (iy0, iy1) and columns (ix0, ix1)
+    at floor(st) and +1, each clamped to [0, N-1] (int64), and the lerp
+    weights (fy, fx) = fract(st) in uv's dtype."""
     x = u * w - 0.5
     y = v * h - 0.5
     x0 = torch.floor(x)
     y0 = torch.floor(y)
-    fx = (x - x0).to(tex.dtype)
-    fy = (y - y0).to(tex.dtype)
-
     ix0 = x0.long().clamp(0, w - 1)
     ix1 = (x0.long() + 1).clamp(0, w - 1)
     iy0 = y0.long().clamp(0, h - 1)
     iy1 = (y0.long() + 1).clamp(0, h - 1)
+    return iy0, iy1, ix0, ix1, y - y0, x - x0
+
+
+def sample_bilinear(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Sample ``tex`` (..., H, W) at uv coords with LINEAR + CLAMP_TO_EDGE:
+    st = uv * size - 0.5; corners at floor(st) and +1, each clamped to
+    [0, N-1]; bilinear mix by fract(st). Returns shape (..., *u.shape)."""
+    iy0, iy1, ix0, ix1, fy, fx = bilinear_taps(tex.shape[-2], tex.shape[-1], u, v)
+    fx, fy = fx.to(tex.dtype), fy.to(tex.dtype)
 
     a = tex[..., iy0, ix0]
     b = tex[..., iy0, ix1]

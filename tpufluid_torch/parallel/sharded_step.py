@@ -434,8 +434,9 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
     if not same_grid:
         # The velocity resampled on each shard at its padded dye block's
         # global texel centres (clamped: the reference's clamp-to-edge
-        # sample), in dye texels a second. The kernels read a velocity in
-        # the dye's storage type, so it rounds to storage (exact in f32).
+        # sample), in dye texels a second, kept in float32 as JAX keeps it
+        # (tpufluid/parallel/sharded_step.py:594-596): the dye kernel reads
+        # a float32 velocity beside a 16-bit dye.
         gvr = vel_resample_pad(config)
         gvrc = gvr if nx > 1 else 0
         vel_small = _exch2d(vel, gvr, gvrc)
@@ -454,7 +455,7 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
 
         def vel_on_dye(v_small, rows, cols):
             vd = _sample_2d(v_small.to(torch.float32), rows, cols)
-            return torch.stack([vd[0] * (dw / sw), vd[1] * (dh_g / sh_g)]).to(v_small.dtype)
+            return torch.stack([vd[0] * (dw / sw), vd[1] * (dh_g / sh_g)])
 
     if overlap and hd_loc >= 3 * gd:
         dc = _colpad(dye, gdc)

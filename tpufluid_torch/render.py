@@ -138,7 +138,7 @@ def frame_u8(state: FluidState, config: FluidConfig,
     if dither_path is not None:
         raise NotImplementedError(
             "dither_path needs io.load_dither, which is not ported yet "
-            "(ROADMAP.md Queue 1 #7, headless app and I/O)")
+            "(ROADMAP.md Queue 1 #8, headless app and I/O)")
     frame = render_frame(state, config, out_hw=out_hw)
     rgb = (frame[..., :3, :, :].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
     return torch.flip(rgb.movedim(-3, -1), dims=(-3,)).contiguous()

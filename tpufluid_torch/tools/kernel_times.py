@@ -5,22 +5,30 @@ checkouts on one card.
 
 At the demo's defaults (float32) and at 1024x1024 and 4096x4096 (bfloat16
 with the RGB9E5 dye), on check.random_state (seed 7), times every kernel call
-of one step, the dye's advect_prepare and the frame's bloom pyramid and
-display at the canvas (check.step_cases, part_cases, render_cases); at the
-serving cells serving_256_b16 (16 sims of 256^2) and packed_288_b64 (64 of
-288^2), bf16 RGB9E5, every kernel call of a lock-step batched step
-(check.batched_step_cases, labels ":b<B>:lockstep") and of a packed fleet
-step on the same sims (check.packed_step_cases, ":packed:b<B>:lockstep",
-where the checkout has them). Each time is 20 calls queued behind a spin
-kernel, so host launch cost is hidden, the median of ``--reps`` such runs.
-Run as a file, it measures the
-tpufluid_torch that PYTHONPATH names, so one copy of the script times two
-checkouts, in the order parent, change, change, parent:
+of one step (check.step_cases; a checkout with check.part_cases, the dye's
+prepare alone too) and the frame's bloom pyramid and display at the canvas
+(render_cases); at the serving cells serving_256_b16 (16 sims of 256^2) and
+packed_288_b64 (64 of 288^2), bf16 RGB9E5, every kernel call of a
+lock-step batched step (check.batched_step_cases, labels ":b<B>:lockstep")
+and of a packed fleet step on the same sims (check.packed_step_cases,
+":packed:b<B>:lockstep"). Then, at every config, the dye's advection on a
+flow state, labelled ":flow": the state after FLOW_STEPS steps of
+swirl_trace (seed 42, a fleet's sim i seed 42 + i) through the kernel step
+(make_multi_step, make_batched_multi_step; the packed rows on the same sims
+packed), with the trace's last splat batch. Each time is 20 calls queued
+behind a spin kernel, so host launch cost is hidden, the median of
+``--reps`` such runs. Run as a file, it measures the tpufluid_torch that
+PYTHONPATH names, so one copy of the script times two checkouts, in the
+order parent, change, change, parent:
 
     cd path/to/other/checkout && PYTHONPATH=. python3 path/to/kernel_times.py parent
 
-Prints one line per call: ``KT TAG config case ms``, and the card's name
-and power limit.
+Prints one line per call: ``KT TAG config case ms``; where the checkout has
+them, ``KT TAG config grid_sample:case ms`` (one torch grid_sample call on
+each advection case's source, check.grid_sample_ms: the library yardstick)
+and ``FIT TAG config case share`` (the share of the dye kernel's tiles
+whose window fits its shared memory, advect.dye_window_plan); and the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import argparse
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 CONFIGS = (("demo", dict(SIM_RESOLUTION=128, DYE_RESOLUTION=1024, CANVAS_WIDTH=1280,
@@ -39,23 +48,55 @@ CONFIGS = (("demo", dict(SIM_RESOLUTION=128, DYE_RESOLUTION=1024, CANVAS_WIDTH=1
                          CANVAS_HEIGHT=4096, DTYPE="bfloat16")))
 # The fleets: (resolution, sims), bf16 with the RGB9E5 dye, 20 sweeps.
 FLEETS = {"serving_256_b16": (256, 16), "packed_288_b64": (288, 64)}
+FLOW_STEPS = 100
+
+
+def config(name, FluidConfig):
+    if name in FLEETS:
+        res = FLEETS[name][0]
+        return FluidConfig(SIM_RESOLUTION=res, DYE_RESOLUTION=res, CANVAS_WIDTH=res,
+                           CANVAS_HEIGHT=res, PRESSURE_ITERATIONS=20, MAX_SPLATS=8,
+                           DTYPE="bfloat16", DYE_RGB9E5=True).validate()
+    return FluidConfig(MAX_SPLATS=8, **dict(CONFIGS)[name]).validate()
 
 
 def cases(name, check, FluidConfig) -> list:
-    """The kernel calls timed at config ``name``."""
+    """The kernel calls timed at config ``name`` on random states."""
+    cfg = config(name, FluidConfig)
     if name in FLEETS:
-        res, batch = FLEETS[name]
-        cfg = FluidConfig(SIM_RESOLUTION=res, DYE_RESOLUTION=res, CANVAS_WIDTH=res,
-                          CANVAS_HEIGHT=res, PRESSURE_ITERATIONS=20, MAX_SPLATS=8,
-                          DTYPE="bfloat16", DYE_RGB9E5=True).validate()
+        batch = FLEETS[name][1]
         out = check.batched_step_cases(cfg, batch, 7, "cuda")
         if hasattr(check, "packed_step_cases"):
             out += check.packed_step_cases(cfg, batch, 7, "cuda")
         return [c for c in out if c.label.endswith(":lockstep")]
-    cfg = FluidConfig(MAX_SPLATS=8, **dict(CONFIGS)[name]).validate()
     state, splats = check.random_state(cfg, 7, "cuda")
-    return (check.step_cases(state, splats, cfg) + check.part_cases(state, splats, cfg)
-            + check.render_cases(state, cfg))
+    out = check.step_cases(state, splats, cfg)
+    if hasattr(check, "part_cases"):
+        out += check.part_cases(state, splats, cfg)
+    return out + check.render_cases(state, cfg)
+
+
+def flow_cases(name, check, FluidConfig) -> list:
+    """The dye's advection at config ``name`` on its flow state (batched,
+    then packed, for a fleet), labelled ":flow"."""
+    import tpufluid_torch as T
+
+    cfg = config(name, FluidConfig)
+    if name not in FLEETS:
+        trace = T.swirl_trace(cfg, FLOW_STEPS, seed=42)
+        state = T.make_multi_step(cfg)(T.init_state(cfg), trace.dts, trace.batches)
+        return [c for c in check.step_cases(state, torch.as_tensor(trace.batches[-1]), cfg,
+                                            tag=":flow") if c.label.startswith("advect:dye")]
+    from tpufluid_torch.batch_packed import pack_state
+
+    res, batch = FLEETS[name]
+    seq = torch.as_tensor(np.stack([T.swirl_trace(cfg, FLOW_STEPS, seed=42 + i).batches
+                                    for i in range(batch)], axis=1), device="cuda")
+    state = T.make_batched_multi_step(cfg)(T.init_batch(cfg, batch), 1.0 / 60.0, seq)
+    out = check.step_cases(state, seq[-1], cfg, 1.0 / 60.0, f":b{batch}:lockstep:flow")
+    out += check.step_cases(pack_state(state), seq[-1], cfg, 1.0 / 60.0,
+                            f":packed:b{batch}:lockstep:flow", sim_w=res)
+    return [c for c in out if c.label.startswith("advect:dye")]
 
 
 def main(argv) -> None:
@@ -68,7 +109,7 @@ def main(argv) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times measures a CUDA GPU and none is available")
     from tpufluid_torch import FluidConfig
-    from tpufluid_torch.ops.cuda import build, check
+    from tpufluid_torch.ops.cuda import advect, build, check
     from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 
     build.build(["stencil", "jacobi", "advect", "bloom", "display"])
@@ -76,9 +117,19 @@ def main(argv) -> None:
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     for name in args.configs.split(","):
-        for case in cases(name, check, FluidConfig):
+        for case in cases(name, check, FluidConfig) + flow_cases(name, check, FluidConfig):
             ms = sorted(queued_ms(case.run, 20, rate) for _ in range(args.reps))[args.reps // 2]
             print(f"KT {args.tag} {name} {case.label} {ms:.5f}", flush=True)
+            if not case.label.startswith("advect:"):
+                continue
+            sim_w = FLEETS[name][0] if ":packed" in case.label else None
+            if hasattr(check, "grid_sample_ms"):
+                lib = sorted(check.grid_sample_ms(case, rate, sim_w)
+                             for _ in range(args.reps))[args.reps // 2]
+                print(f"KT {args.tag} {name} grid_sample:{case.label} {lib:.5f}", flush=True)
+            if case.label.startswith("advect:dye") and hasattr(advect, "dye_window_plan"):
+                plan = advect.dye_window_plan(*case.args, sim_w=sim_w)
+                print(f"FIT {args.tag} {name} {case.label} {plan['share']:.4f}", flush=True)
         torch.cuda.empty_cache()
     print(f"kernel times {args.tag} on {gpu}")
 

@@ -5,12 +5,11 @@
 Builds csrc/stencil.cu, jacobi.cu and advect.cu of each checkout with its
 own build.py (into that checkout's _build/), reads each library's
 ``nvcc -Xptxas=-v`` log and pairs the kernel instances by their demangled
-name. An instance of the change whose last template argument is the field
-layout ``false`` (batched, csrc/common.cuh FieldLayout) is paired with the
-parent's instance without it. Prints one line per pair that differs in
-registers, stack frame or spills, one line per instance that only the
-change has (the packed ones), and a summary; exits 1 if a pair differs.
-Needs nvcc (the CUDA toolkit) and c++filt.
+name (parent_names: a parent may name an instance otherwise). Prints one
+line per pair that differs in registers, stack frame or spills, one line
+per instance that only one side has (the kernels a change adds or
+removes), and a summary; exits 1 if a pair differs or if no instance
+pairs. Needs nvcc (the CUDA toolkit) and c++filt.
 """
 
 from __future__ import annotations
@@ -53,27 +52,42 @@ def batched_name(name: str) -> str:
     return re.sub(r", false>\(", ">(", name, count=1)
 
 
+def parent_names(name: str):
+    """The names a parent may give a change's instance: its own; without
+    the trailing field layout (batched_name: a parent before the packed
+    layout); and for the velocity's gather, with the source layout planes
+    (0) as its third template argument (a parent whose dye gather read a
+    prepared source)."""
+    yield name
+    yield batched_name(name)
+    yield re.sub(r"^void advect_kernel<([^,]+), (\d), ", r"void advect_kernel<\1, \2, 0, ",
+                 name, count=1)
+
+
 def main(argv) -> int:
     if len(argv) != 2:
         raise SystemExit(__doc__)
     parent, change = (report(d) for d in argv)
-    differ = paired = 0
+    differ = 0
+    matched = set()
     for name, row in sorted(change.items()):
-        old = parent.get(batched_name(name))
-        if old is None:
+        key = next((n for n in parent_names(name) if n in parent), None)
+        if key is None:
             print(f"only in the change: {name[:110]}: " + ", ".join(
                 f"{f} {row.get(f)}" for f in FIELDS))
             continue
-        paired += 1
+        matched.add(key)
+        old = parent[key]
         if any(old.get(f) != row.get(f) for f in FIELDS):
             differ += 1
             print(f"differs: {name[:110]}: " + ", ".join(
                 f"{f} {old.get(f)} -> {row.get(f)}" for f in FIELDS))
-    unpaired = len(parent) - paired
-    print(f"ptxas compare: {paired} instances paired, {differ} differ in registers, stack "
-          f"or spills; {len(change) - paired} only in the change, {unpaired} only in the "
-          "parent")
-    return 1 if differ or unpaired else 0
+    for name in sorted(set(parent) - matched):
+        print(f"only in the parent: {name[:110]}")
+    print(f"ptxas compare: {len(matched)} instances paired, {differ} differ in registers, "
+          f"stack or spills; {len(change) - len(matched)} only in the change, "
+          f"{len(parent) - len(matched)} only in the parent")
+    return 1 if differ or not matched else 0
 
 
 if __name__ == "__main__":
