@@ -177,6 +177,25 @@ the card.
    and profile_step_kernels on the packed state (torch.profiler, 30 steps:
    each kernel's device us a step, events = launches).
 
+14. App and server phase (the port's user-facing entry points, at their
+   defaults). tpufluid_torch.app.main at the demo geometry (f32,
+   MAX_SPLATS 16): a straight run of 600 steps with checkpoints every 300,
+   metrics every 60, 3 PNG frames, a GIF and a capture; a run resumed from
+   its step-300 checkpoint, whose step-600 checkpoint must equal the
+   straight run's bit for bit; a run with no output, the app's loop rate.
+   Each prints the app's own steps/s line; the launch counts, zeroed
+   before each run, must be 6 a step and 2 a frame. Then FluidServer
+   (sim 128, dye 512, 640x360) on the card with its sim thread and a
+   ThreadingHTTPServer on 127.0.0.1: drag and burst events, /frame until
+   200 frames were served (the tick's ms median and p95, the JPEG encode's,
+   frames/s, paced near 60 by MAX_DT), /stats, /config, /screenshot.png,
+   /trace.npz; paused, /checkpoint.npz, which resumes a second server whose
+   state must equal the checkpointed one (0); a live POST /config to
+   bfloat16 and dye 256. Last the resumed server's own ticks, in turn with
+   no HTTP traffic: 20 counted (8 launches a tick, timed), and one whose
+   frame is held to the plain render of the state it leaves (phase 6's
+   bound; 0).
+
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
 out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -230,6 +249,12 @@ SHARDED_DEMO_BOUND = 4e-4      # tests/test_sharding.py's, after 4 steps
 PACKED_CONFIGS = {"serving_256_b16": (256, 16), "packed_288_b64": (288, 64)}
 PACKED_MAIN = "packed_288_b64"   # whose numbers the kernels line carries
 PACKED_TIMED = 200
+APP_OUT = Path("out/chip_smoke_app")
+APP_STEPS = 600                # the straight run; resumed from its checkpoint at half
+APP_RENDER_EVERY = 200         # the straight run's frames (3) and one capture
+SERVER_FRAMES = 200            # frames the HTTP phase serves
+SERVER_TICKS = 20              # the resumed server's counted ticks
+SERVER_DYE_SWITCH = 256        # the live /config switch's dye resolution
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -1341,6 +1366,264 @@ def sharded_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
     return out
 
 
+def app_run(argv) -> str:
+    """tpufluid_torch.app.main(argv) with its standard output captured;
+    returns the app's steps/s line."""
+    import io
+
+    from tpufluid_torch import app
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        app.main(argv)
+    return next(line for line in buf.getvalue().splitlines() if line.endswith("steps/s"))
+
+
+def app_phase(torch, gpu: str, device) -> dict:
+    """Phase 14, the app: tpufluid_torch.app.main at its defaults (the demo
+    geometry, f32), a straight run of APP_STEPS with checkpoints, metrics,
+    a few frames, a GIF and a capture; a run resumed from its first
+    checkpoint, whose final checkpoint must equal the straight run's bit
+    for bit; a run with no output for the app's own loop rate. Launches
+    counted for each run."""
+    import shutil
+
+    from tpufluid_torch.app import build_argparser
+    from tpufluid_torch.checkpoint import load_state
+    from tpufluid_torch.io import load_png
+    from tpufluid_torch.ops.cuda import build
+
+    shutil.rmtree(APP_OUT, ignore_errors=True)
+    straight, resumed, bare = (APP_OUT / n for n in ("straight", "resumed", "bare"))
+    half = APP_STEPS // 2
+    args = ["--steps", str(APP_STEPS), "--ckpt-every", str(half), "--metrics-every", "60"]
+    frames = APP_STEPS // APP_RENDER_EVERY
+    runs = {}
+    for name, argv, steps, renders in (
+            ("straight", [*args, "--out", str(straight), "--render-every", str(APP_RENDER_EVERY),
+                          "--gif", "run.gif", "--capture", str(APP_OUT / "capture.png")],
+             APP_STEPS, frames + 1),
+            ("resumed", [*args, "--out", str(resumed),
+                         "--resume", str(straight / f"ckpt_{half:06d}.npz")], half, 0),
+            ("bare", ["--steps", str(APP_STEPS), "--metrics-every", "0", "--out", str(bare)],
+             APP_STEPS, 0)):
+        build.reset_launches()
+        line = app_run(argv)
+        launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+        runs[name] = {"line": line, "launches": launches}
+        print(f"app {name}: {line}; launches {launches} on {gpu}")
+        if name == "straight":
+            _, cfg, _, _ = load_state(straight / f"ckpt_{half:06d}.npz", device=device)
+        want = {k: n * steps for k, n in expected_per_step(cfg).items() if n}
+        want.update({k: n * renders for k, n in PER_FRAME.items() if n * renders})
+        assert launches == want, (name, launches, want)
+
+    a, _, sa, _ = load_state(straight / f"ckpt_{APP_STEPS:06d}.npz", device=device)
+    b, _, sb, _ = load_state(resumed / f"ckpt_{APP_STEPS:06d}.npz", device=device)
+    assert sa == sb == APP_STEPS
+    err = {f: float((getattr(a, f).float() - getattr(b, f).float()).abs().max())
+           for f in ("velocity", "dye", "pressure")}
+    equal = all(torch.equal(getattr(a, f), getattr(b, f)) for f in err)
+    print(f"app resumed from step {half} vs the straight run at step {APP_STEPS} on {gpu}: "
+          f"max abs err {err}, bit-equal {equal}")
+    assert equal, err
+    assert all(bool(torch.isfinite(getattr(a, f)).all()) for f in err) and \
+        float(a.dye.max()) > 0, "the app's state is not finite or has no dye"
+    recs = [json.loads(line) for line in (straight / "metrics.jsonl").read_text().splitlines()]
+    assert len(recs) == APP_STEPS // 60 and all(r["nonfinite"] == 0 for r in recs)
+    pngs = sorted(straight.glob("frame_*.png"))
+    assert len(pngs) == frames and (straight / "run.gif").exists()
+    cap = load_png(str(APP_OUT / "capture.png"))
+    assert cap.shape[0] == 4 and float(cap[:3].max()) > 0.05, "capture is all background"
+    defaults = build_argparser().parse_args([])
+    return {"runs": runs, "resume_err": err, "metrics": recs[-1],
+            "frames": [p.name for p in pngs], "capture_shape": list(cap.shape),
+            "defaults": {k: getattr(defaults, k) for k in ("sim_res", "dye_res", "canvas",
+                                                            "dtype", "jacobi_iters")}}
+
+
+def server_phase(torch, check, gpu: str, device) -> dict:
+    """Phase 14, the server: FluidServer at the server's defaults on the
+    card with its sim thread and an HTTP server on 127.0.0.1; pointer
+    events; /frame until SERVER_FRAMES frames were served (tick ms, encode
+    ms, frames/s); /stats, /config, /screenshot.png, /trace.npz and, paused,
+    /checkpoint.npz, which must resume a second server on the saved state
+    bit for bit; a live /config switch to bfloat16 and another dye grid.
+    Then the resumed server's own ticks: SERVER_TICKS counted (8 launches a
+    tick) and one held against the plain render of the state it left."""
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from PIL import Image
+
+    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.render import plain_render, render_frame
+    from tpufluid_torch.server import (MAX_DT, FluidServer, build_argparser,
+                                       config_from_args, make_handler)
+
+    cfg = config_from_args(build_argparser().parse_args([]))
+    server = FluidServer(cfg, seed=0, device=device)
+    tick_ms, encode_ms = [], []
+
+    def timed(fn, out):
+        def call(*a):
+            t = time.perf_counter()
+            r = fn(*a)
+            out.append(1e3 * (time.perf_counter() - t))
+            return r
+        return call
+
+    server.advance = timed(server.advance, tick_ms)
+    server.encode = timed(server.encode, encode_ms)
+    sim = threading.Thread(target=server.run, daemon=True)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(server))
+    web = threading.Thread(target=httpd.serve_forever, daemon=True)
+    sim.start()
+    web.start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=30) as r:
+            assert r.status == 200, (path, r.status)
+            return r.read()
+
+    def post(path, body):
+        req = urllib.request.Request(url + path, data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read()
+
+    def steps():
+        return json.loads(get("/stats"))["steps"]
+
+    def wait_steps(n, limit_s=60.0):
+        t_end = time.time() + limit_s
+        while steps() < n:
+            assert time.time() < t_end, f"the sim loop did not reach {n} steps"
+            time.sleep(0.01)
+
+    try:
+        wait_steps(1)
+        assert post("/events", [{"k": "down", "x": 0.3, "y": 0.5}, {"k": "burst"}])[0] == 204
+        tick_ms.clear()
+        encode_ms.clear()
+        s0, t0, served, k = steps(), time.perf_counter(), 0, 0
+        while steps() < s0 + SERVER_FRAMES:
+            assert get("/frame")[:2] == b"\xff\xd8"
+            served += 1
+            k += 1
+            x = 0.5 + 0.3 * math.cos(k / 20)
+            y = 0.5 + 0.3 * math.sin(k / 10)
+            assert post("/events", [{"k": "move", "x": x, "y": y}])[0] == 204
+            assert time.perf_counter() - t0 < 60, "frames stopped"
+        wall = time.perf_counter() - t0
+        produced = steps() - s0
+        fps = produced / wall
+        ticks = sorted(tick_ms)
+        encodes = sorted(encode_ms)
+
+        def med_p95(v):
+            return v[len(v) // 2], v[math.ceil(0.95 * len(v)) - 1]
+
+        stats = json.loads(get("/stats"))
+        config = json.loads(get("/config"))
+        assert config["SIM_RESOLUTION"] == cfg.SIM_RESOLUTION and stats["paused"] is False
+        png = get("/screenshot.png")
+        shot = Image.open(io.BytesIO(png))
+        cw, ch = cfg.capture_size
+        assert png[:8] == b"\x89PNG\r\n\x1a\n" and shot.size == (cw, ch), shot.size
+        trace = np.load(io.BytesIO(get("/trace.npz")))
+        assert trace["batches"].shape[1:] == (cfg.MAX_SPLATS, 8)
+        assert trace["batches"][:, :, 7].sum() > 0 and (trace["dts"] <= np.float32(MAX_DT)).all()
+
+        # Paused, the state holds still: the checkpoint is of this state.
+        post("/events", [{"k": "pause", "v": True}])
+        wait_steps(steps() + 2)
+        ckpt = get("/checkpoint.npz")
+        with server.lock:
+            saved = {f: getattr(server.state, f).clone() for f in ("velocity", "dye", "pressure")}
+        post("/events", [{"k": "up"}, {"k": "pause", "v": False}])
+        path = APP_OUT / "server_session.npz"
+        path.write_bytes(ckpt)
+
+        status, body = post("/config", {"DYE_RESOLUTION": SERVER_DYE_SWITCH, "DTYPE": "bfloat16"})
+        assert status == 200 and json.loads(body)["DTYPE"] == "bfloat16"
+        wait_steps(steps() + 10)
+        with server.lock:
+            dye = server.state.dye
+            assert dye.dtype == torch.bfloat16 and dye.shape[-2:] == (
+                server.config.dye_size[1], server.config.dye_size[0]), dye.shape
+            assert bool(torch.isfinite(dye.float()).all())
+    finally:
+        server.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        sim.join(timeout=30)
+    assert not sim.is_alive(), "the sim thread did not stop"
+
+    resumed = FluidServer(cfg, seed=0, resume=str(path), device=device)
+    resumed_at = resumed.steps_done
+    resume_err = {f: float((getattr(resumed._resume_state, f).float() - saved[f].float())
+                           .abs().max()) for f in saved}
+    equal = all(torch.equal(getattr(resumed._resume_state, f), saved[f]) for f in saved)
+    assert equal and resumed.config == cfg and 0 in resumed.tracer.pointers, resume_err
+
+    # The resumed server's loop runs, then stops; its own ticks are counted.
+    run2 = threading.Thread(target=resumed.run, daemon=True)
+    run2.start()
+    t_end = time.time() + 30
+    while resumed.steps_done < 5:
+        assert time.time() < t_end, "the resumed server did not tick"
+        time.sleep(0.01)
+    resumed.stop()
+    run2.join(timeout=30)
+    assert not run2.is_alive()
+    resumed.tracer.feed("down", pid=1, x=100.0, y=100.0)
+    build.reset_launches()
+    direct_ms = []
+    for k in range(SERVER_TICKS):
+        resumed.tracer.feed("move", pid=1, x=100.0 + 5 * k, y=100.0 + 2 * k)
+        t = time.perf_counter()
+        resumed.advance(MAX_DT)
+        direct_ms.append(1e3 * (time.perf_counter() - t))
+    launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    want = {k: n * SERVER_TICKS for k, n in {**expected_per_step(cfg), **PER_FRAME}.items() if n}
+    assert launches == want, (launches, want)
+
+    frame = resumed.advance(MAX_DT)
+    state = resumed.state
+    plain = plain_render(state, cfg)
+    err, tol = check.compare(render_frame(state, cfg), plain)
+    rgb = (plain[:3].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    plain_u8 = torch.flip(rgb.movedim(0, -1), dims=(0,)).cpu().numpy()
+    u8_err = int(np.abs(frame.astype(np.int32) - plain_u8.astype(np.int32)).max())
+    assert frame.shape == (cfg.CANVAS_HEIGHT, cfg.CANVAS_WIDTH, 3) and frame.dtype == np.uint8
+    assert err <= tol, f"server tick frame vs plain render: {err} > {tol}"
+
+    (tm, tp), (em, ep) = med_p95(ticks), med_p95(encodes)
+    print(f"server {cfg.SIM_RESOLUTION}/{cfg.DYE_RESOLUTION} {cfg.CANVAS_WIDTH}x"
+          f"{cfg.CANVAS_HEIGHT} on {gpu}: {produced} frames in {wall:.3f} s = {fps:.1f} "
+          f"frames/s served ({served} /frame fetches, paced at MAX_DT); tick ms median "
+          f"{tm:.4f} p95 {tp:.4f} over {len(ticks)} ticks; JPEG encode ms median {em:.4f} "
+          f"p95 {ep:.4f}")
+    print(f"server on {gpu}: /stats {stats}, /config ok, /screenshot.png {shot.size}, /trace.npz "
+          f"{trace['batches'].shape[0]} steps, /checkpoint.npz {len(ckpt)} bytes resumed at "
+          f"step {resumed_at}: max abs err {resume_err}; "
+          f"/config DYE_RESOLUTION {SERVER_DYE_SWITCH} + bfloat16 live")
+    dm, dp = med_p95(sorted(direct_ms))
+    print(f"server ticks on {gpu}: launches {launches} ({SERVER_TICKS} ticks, "
+          f"{sum(launches.values()) // SERVER_TICKS} a tick, called in turn with no HTTP "
+          f"traffic: tick ms median {dm:.4f} p95 {dp:.4f}); tick frame vs "
+          f"plain render max abs err {err:.3e} tol {tol:.3e} (uint8 max diff {u8_err})")
+    return {"frames_per_s": fps, "frames": produced, "wall_s": wall, "fetches": served,
+            "tick_ms_median": tm, "tick_ms_p95": tp, "direct_tick_ms_median": dm,
+            "direct_tick_ms_p95": dp, "encode_ms_median": em,
+            "encode_ms_p95": ep, "resume_err": resume_err, "launches": launches,
+            "frame_err": err, "frame_tol": tol, "frame_u8_err": u8_err,
+            "checkpoint_bytes": len(ckpt)}
+
+
 def main() -> int:
     import torch
 
@@ -1442,6 +1725,8 @@ def main() -> int:
     frames = batched_frame_phase(torch, check, cfgs, gpu, device, errors)
     sharded = sharded_phase(torch, check, cfgs, gpu, device, errors)
     packed = packed_phase(torch, check, gpu, device, errors)
+    app_server = {"app": app_phase(torch, gpu, device),
+                  "server": server_phase(torch, check, gpu, device)}
 
     kernels = []
     for k in build.KERNELS.values():
@@ -1512,7 +1797,7 @@ def main() -> int:
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
          "floors": floors_run,
          "long_horizon": horizon, "batched": batched, "batched_frames": frames,
-         "sharded": sharded, "packed": packed,
+         "sharded": sharded, "packed": packed, "app_server": app_server,
          "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -109,12 +109,22 @@ def test_capture_and_dither_match_jax():
            jax_render(s, jcfg, dither=jnp.asarray(dither)))
 
 
-def test_frame_u8_matches_jax():
+def test_frame_u8_matches_jax(tmp_path):
+    """frame_u8, also with a dither PNG (dither_path, read by io.load_dither
+    in both packages) in place of the blue noise."""
+    from PIL import Image
+
     jcfg, cfg = _cfgs()
     s, ts = _states(jcfg, seed=5)
     _u8_close(T.frame_u8(ts, cfg, out_hw=(60, 90)), jax_frame_u8(s, jcfg, out_hw=(60, 90)))
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        T.frame_u8(ts, cfg, dither_path="dither.png")
+    # a dim dye, where the frame does not saturate and the dither shows
+    s.dye, ts.dye = s.dye * 0.05, ts.dye * 0.05
+    path = str(tmp_path / "dither.png")
+    Image.fromarray(np.random.default_rng(6).integers(0, 256, (32, 48, 3), dtype=np.uint8),
+                    "RGB").save(path)
+    got = T.frame_u8(ts, cfg, out_hw=(60, 90), dither_path=path)
+    _u8_close(got, jax_frame_u8(s, jcfg, out_hw=(60, 90), dither_path=path))
+    assert not torch.equal(got, T.frame_u8(ts, cfg, out_hw=(60, 90)))
 
 
 def test_tick_body_matches_jax():

@@ -1,10 +1,10 @@
 """tpufluid_torch — the stable-fluids simulator of ``tpufluid`` in PyTorch,
 with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
-The simulation step runs four kernels (csrc/): the pre-pressure stencil,
-the Jacobi sweeps, the gradient subtract and the advection (with its
-prepare), each for one sim, a batch of B sims or a lane-packed fleet of B
-sims in one launch.
+The simulation step runs four kernel families (csrc/): the pre-pressure
+stencil, the Jacobi sweeps, the gradient subtract and the advection (the
+velocity's gather and the dye's windowed gather, one launch each), for one
+sim, a batch of B sims or a lane-packed fleet of B sims in one launch.
 The frame runs two, one launch each, for one sim or a batch: the bloom
 pyramid and the display composite. Every kernel has a plain PyTorch version beside it; a CPU state
 runs those, a CUDA state runs the kernels. The entry points default to
@@ -16,6 +16,7 @@ Public API:
     FluidState, init_state     — fields and their allocation
     resize_state               — resample into another config's sizes
     fluid_step, make_step, make_multi_step — the simulation step
+    apply_splats               — a splat batch as PyTorch ops (reference splat())
     init_batch, stack_states, unstack_state, make_batched_step,
     make_batched_multi_step, make_batched_render
                                — B sims in one set of launches, dt per sim
@@ -25,9 +26,15 @@ Public API:
     make_mesh, shard_state, exchange_halo_rows, make_sharded_step,
     make_sharded_multi_step, sharded_fluid_step
                                — the sharded step over a mesh of devices
-    Trace, swirl_trace         — deterministic splat input
+    Pointer, PointerTracer, generate_color, random_splats, Trace,
+    swirl_trace                — deterministic splat input, record and replay
     render_frame, make_render, capture_frame — the frame (float32 RGBA)
     frame_u8, tick_body, make_step_and_render — the servers' uint8 frame
+    io, checkpoint (modules)   — PNG / GIF / dither I/O; .npz checkpoints
+                                 that load in either package
+    app, server (modules)      — the headless app (python -m
+                                 tpufluid_torch.app) and the interactive
+                                 server (python -m tpufluid_torch.server)
 """
 
 from tpufluid_torch.batch import (init_batch, make_batched_multi_step, make_batched_render,
@@ -39,8 +46,9 @@ from tpufluid_torch.render import (capture_frame, frame_u8, make_render,
                                    make_step_and_render, render_frame, tick_body)
 from tpufluid_torch.serve_batch import make_batched_tick
 from tpufluid_torch.state import FluidState, init_state, resize_state
-from tpufluid_torch.step import fluid_step, make_multi_step, make_step
-from tpufluid_torch.trace import Trace, swirl_trace
+from tpufluid_torch.step import apply_splats, fluid_step, make_multi_step, make_step
+from tpufluid_torch.trace import (Pointer, PointerTracer, Trace, generate_color, random_splats,
+                                  swirl_trace)
 
 __all__ = [
     "MAX_DT",
@@ -52,6 +60,7 @@ __all__ = [
     "fluid_step",
     "make_step",
     "make_multi_step",
+    "apply_splats",
     "init_batch",
     "stack_states",
     "unstack_state",
@@ -59,6 +68,10 @@ __all__ = [
     "make_batched_multi_step",
     "make_batched_render",
     "make_batched_tick",
+    "Pointer",
+    "PointerTracer",
+    "generate_color",
+    "random_splats",
     "Trace",
     "swirl_trace",
     "render_frame",

@@ -166,3 +166,15 @@ def get_resolution(resolution: int, canvas_w: int, canvas_h: int) -> Tuple[int, 
     if canvas_w > canvas_h:
         return (hi, lo)
     return (lo, hi)
+
+
+# The demo's degraded configs, as presets.
+def mobile_config(**overrides) -> FluidConfig:
+    """Mobile preset: dye 1024 -> 512."""
+    return FluidConfig(DYE_RESOLUTION=512, **overrides)
+
+
+def low_capability_config(**overrides) -> FluidConfig:
+    """No-linear-filtering preset: dye 512, shading, bloom and sunrays off."""
+    return FluidConfig(DYE_RESOLUTION=512, SHADING=False, BLOOM=False,
+                       SUNRAYS=False, **overrides)

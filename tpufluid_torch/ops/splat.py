@@ -101,3 +101,16 @@ def apply_splat_batch(velocity: torch.Tensor, dye: torch.Tensor,
     velocity = _splat_sum(velocity, splats, vamt, radius, aspect)
     dye = _splat_sum(dye, splats, camt, radius, aspect)
     return velocity, dye
+
+
+def make_splat_array(events, max_splats: int) -> torch.Tensor:
+    """Pack a list of (x, y, dx, dy, (r, g, b)) into the (max_splats, 8)
+    float32 batch a step takes, on the CPU; more events than rows raise."""
+    import numpy as np
+
+    if len(events) > max_splats:
+        raise ValueError(f"{len(events)} splat events > MAX_SPLATS={max_splats}")
+    out = np.zeros((max_splats, SPLAT_COLS), dtype=np.float32)
+    for i, (x, y, dx, dy, color) in enumerate(events):
+        out[i] = [x, y, dx, dy, color[0], color[1], color[2], 1.0]
+    return torch.from_numpy(out)

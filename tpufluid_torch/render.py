@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpufluid_torch.config import FluidConfig
+from tpufluid_torch.io import load_dither
 from tpufluid_torch.ops.cuda import dispatch
 from tpufluid_torch.ops.display import blend_premultiplied, checkerboard
 from tpufluid_torch.ops.sunrays import apply_sunrays
@@ -128,41 +129,57 @@ def capture_frame(state: FluidState, config: FluidConfig,
     return render_frame(state, config, out_hw=(ch, cw), to_screen=False, dither=dither)
 
 
+def load_dither_tensor(path: Optional[str], device) -> Optional[torch.Tensor]:
+    """io.load_dither's (h, w) float32 texture as a tensor on ``device``,
+    or None for no path."""
+    if path is None:
+        return None
+    return torch.from_numpy(load_dither(path)).to(device)
+
+
+def _quantize(frame: torch.Tensor) -> torch.Tensor:
+    rgb = (frame[..., :3, :, :].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+    return torch.flip(rgb.movedim(-3, -1), dims=(-3,)).contiguous()
+
+
 def frame_u8(state: FluidState, config: FluidConfig,
              out_hw: Optional[Tuple[int, int]] = None,
              dither_path: Optional[str] = None) -> torch.Tensor:
     """The rendered frame in the servers' wire format, computed on the
     state's device: render + clip01 * 255 quantize (truncating) + vertical
     flip -> (h, w, 3) uint8, top row first; for a batched state (B, h, w, 3),
-    each sim flipped on its own row axis."""
-    if dither_path is not None:
-        raise NotImplementedError(
-            "dither_path needs io.load_dither, which is not ported yet "
-            "(ROADMAP.md Queue 1 #8, headless app and I/O)")
-    frame = render_frame(state, config, out_hw=out_hw)
-    rgb = (frame[..., :3, :, :].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-    return torch.flip(rgb.movedim(-3, -1), dims=(-3,)).contiguous()
+    each sim flipped on its own row axis. ``dither_path``: a dither PNG
+    (io.load_dither) in place of the built-in blue noise, read on every
+    call; make_step_and_render reads it once."""
+    dither = load_dither_tensor(dither_path, state.dye.device)
+    return _quantize(render_frame(state, config, out_hw=out_hw, dither=dither))
+
+
+def _tick_body(config: FluidConfig, out_hw, dither: Optional[torch.Tensor]):
+    def tick(state: FluidState, dt, splats):
+        state = fluid_step(state, dt, splats, config)
+        d = None if dither is None else dither.to(state.dye.device)
+        return state, _quantize(render_frame(state, config, out_hw=out_hw, dither=d))
+
+    return tick
 
 
 def tick_body(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,
               dither_path: Optional[str] = None):
     """The per-frame body, step + render + uint8 quantize + flip:
-    tick(state, dt, splats) -> (state, (h, w, 3) uint8 frame)."""
-
-    def tick(state: FluidState, dt, splats):
-        state = fluid_step(state, dt, splats, config)
-        return state, frame_u8(state, config, out_hw=out_hw, dither_path=dither_path)
-
-    return tick
+    tick(state, dt, splats) -> (state, (h, w, 3) uint8 frame). The dither
+    PNG, if any, is read once, here."""
+    return _tick_body(config, out_hw, load_dither_tensor(dither_path, "cpu"))
 
 
 def make_step_and_render(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,
                          dither_path: Optional[str] = None, device="cuda"):
     """tick(state, dt, splats) -> (state, frame_u8) on ``device`` (default
     the GPU): one simulation step and its frame, as an interactive server
-    issues them."""
+    issues them. The dither PNG, if any, is read and copied to ``device``
+    once, here, not every tick."""
     device = resolve_device(device)
-    body = tick_body(config, out_hw, dither_path)
+    body = _tick_body(config, out_hw, load_dither_tensor(dither_path, device))
 
     def tick(state: FluidState, dt, splats):
         _require(state, device)

@@ -7,6 +7,7 @@ Layout is channels-first (C, H, W), as in the JAX package: row i is the
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Tuple
 
 import torch
@@ -44,6 +45,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def device_from_env() -> torch.device:
+    """The command-line entry points' device: the GPU, or the CPU where the
+    environment sets TPUFLUID_DEVICE=cpu (the JAX CLI's own switch). No
+    other path leads to the CPU."""
+    if os.environ.get("TPUFLUID_DEVICE", "").lower() == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; set TPUFLUID_DEVICE=cpu to "
+                           "run the plain versions on the CPU")
+    return torch.device("cuda")
+
+
 def init_state(config: FluidConfig, device="cuda") -> FluidState:
     """Zeroed fields per config (reference initFramebuffers)."""
     device = resolve_device(device)
@@ -77,3 +90,9 @@ def resize_state(state: FluidState, config: FluidConfig) -> FluidState:
         dye=maybe(state.dye, dh, dw),
         pressure=torch.zeros((sh, sw), dtype=dt, device=state.pressure.device),
     )
+
+
+def state_bytes(state: FluidState) -> int:
+    """Bytes the fields hold on their device."""
+    return sum(t.numel() * t.element_size()
+               for t in (state.velocity, state.dye, state.pressure))

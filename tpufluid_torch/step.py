@@ -27,7 +27,7 @@ import torch
 from tpufluid_torch.config import MAX_DT, FluidConfig
 from tpufluid_torch.ops.cuda import dispatch
 from tpufluid_torch.ops.splat import (SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R,
-                                      splat_factors)
+                                      apply_splat_batch, splat_factors)
 from tpufluid_torch.state import FluidState, resolve_device
 
 
@@ -71,6 +71,17 @@ def _step(state: FluidState, dt, splats, config: FluidConfig,
     dye = passes.advect(vel, state.dye, dye_dt, config.DENSITY_DISSIPATION,
                         splat_factors=dye_factors, quant=dye_quant)
     return FluidState(velocity=vel, dye=dye, pressure=pressure)
+
+
+def apply_splats(state: FluidState, splats, config: FluidConfig) -> FluidState:
+    """Inject a (MAX_SPLATS, 8) batch of impulses into the velocity and the
+    dye (the reference's splat()), as PyTorch ops on the state's device; the
+    pressure is kept. The step fuses the same bumps into its kernels."""
+    splats = torch.as_tensor(splats, dtype=torch.float32, device=state.velocity.device)
+    velocity, dye = apply_splat_batch(state.velocity, state.dye, splats,
+                                      radius=config.splat_radius_uv(),
+                                      aspect=config.aspect_ratio)
+    return FluidState(velocity=velocity, dye=dye, pressure=state.pressure)
 
 
 def fluid_step(state: FluidState, dt, splats, config: FluidConfig) -> FluidState:

@@ -156,6 +156,31 @@ class PointerTracer:
         else:
             raise ValueError(f"unknown event kind {kind!r}")
 
+    def state_dict(self) -> dict:
+        """JSON-serializable snapshot of the whole input-side session state:
+        both RNG cursors (bursts, color cycling), the color-cycle timer,
+        every pointer's state machine, the pending bursts and the spill —
+        everything ``drain_step`` reads. The dict is tpufluid.trace's, so a
+        session saved by either package resumes in the other."""
+        return {
+            "rng": self.rng.bit_generator.state,
+            "cycler_rng": self.cycler.rng.bit_generator.state,
+            "cycler_timer": self.cycler.timer,
+            "pointers": {str(pid): dataclasses.asdict(p)
+                         for pid, p in self.pointers.items()},
+            "splat_stack": list(self.splat_stack),
+            "spill": [[x, y, dx, dy, list(c)] for (x, y, dx, dy, c) in self._spill],
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.rng.bit_generator.state = d["rng"]
+        self.cycler.rng.bit_generator.state = d["cycler_rng"]
+        self.cycler.timer = float(d["cycler_timer"])
+        self.pointers = {int(pid): Pointer(**{**pd, "color": tuple(pd["color"])})
+                         for pid, pd in d["pointers"].items()}
+        self.splat_stack = [int(n) for n in d["splat_stack"]]
+        self._spill = [(e[0], e[1], e[2], e[3], tuple(e[4])) for e in d["spill"]]
+
     def drain_step(self, dt: float) -> List[Tuple]:
         """applyInputs: pop one burst and drain moved pointers. A burst larger
         than the MAX_SPLATS rows of one batch spills into later steps
@@ -229,6 +254,12 @@ class Trace:
             for j, (x, y, dx, dy, color) in enumerate(events):
                 out[i, j] = [x, y, dx, dy, color[0], color[1], color[2], 1.0]
         return cls(out, dt)
+
+
+def generate_color(rng: np.random.Generator) -> Tuple[float, float, float]:
+    """The reference's generateColor: a random hue at full saturation and
+    value, times 0.15 (utils/color.generate_color_np)."""
+    return generate_color_np(rng)
 
 
 def swirl_trace(config: FluidConfig, num_steps: int, dt: float = 1.0 / 60.0,
