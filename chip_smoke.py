@@ -196,6 +196,26 @@ the card.
    frame is held to the plain render of the state it leaves (phase 6's
    bound; 0).
 
+15. Fleet server phase (tpufluid_torch.serve_batch, the multi-tenant
+   server). a. make_tick_program at fleet_256_b16 (16 sessions of 256²,
+   bf16 RGB9E5, each its own swirl_trace) for 'scalar', 'vector' (dt
+   linspace(1/90, 1/60)) and K = 4 (speeds linspace(0.5, 4.0)): each
+   equal to its plain passes on the card (0), each sim of the K = 4 tick
+   equal to its iterated make_step_and_render ticks (0), 8, 8 and 26
+   launches a tick (counted again over 200 timed ticks each: ticks/s,
+   sim-ticks/s, median, p95), the kernels' spin-queued device time a tick
+   and the idle share. b. 5 sessions in a padded 8 driven by hand: pad rows
+   exactly 0 after 50 ticks, evicted rows exactly 0 after resize_fleet(2)'s
+   zero tail, then the swap and resize_fleet(5). c. BatchFluidServer at its
+   CLI defaults with its sim thread and an HTTP server on 127.0.0.1: every
+   endpoint, speeds 0.25 and 2.5 (the per-sim program, then K = 3),
+   /sessions 4 -> 6 -> 3, a paused /checkpoint.npz resuming a second
+   server whose state equals the checkpointed one (0); steps served a
+   second, tick ms with and without HTTP traffic, JPEG encode ms. d.
+   tpufluid_torch/tools/serve_soak.py in process for 45 s (its default
+   600 s, cut for time) at the CLI geometry: its p99s beside its bars,
+   every bar must hold.
+
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
 out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -255,6 +275,18 @@ APP_RENDER_EVERY = 200         # the straight run's frames (3) and one capture
 SERVER_FRAMES = 200            # frames the HTTP phase serves
 SERVER_TICKS = 20              # the resumed server's counted ticks
 SERVER_DYE_SWITCH = 256        # the live /config switch's dye resolution
+# Phase 15, the fleet server. fleet_256_b16: serving_256_b16's geometry
+# (16 sims of 256², bf16 RGB9E5, 20 sweeps, MAX_SPLATS 8, swirl_trace seed
+# 42 + i) through make_tick_program; the server's own cell is its CLI
+# defaults (tpufluid_torch.serve_batch.build_argparser).
+FLEET_CELL, FLEET_RES, FLEET_SESSIONS = "fleet_256_b16", 256, 16
+FLEET_K = 4                    # speeds linspace(0.5, 4.0, 16) at MAX_DT
+FLEET_WARM, FLEET_TIMED = 50, 200
+FLEET_PAD_TICKS = 50           # 15b: 5 sessions in a padded 8
+FLEET_SERVE_S = 4.0            # 15c: each traffic mode's seconds
+FLEET_DASH_PERIOD_S = 0.1      # 15c: the dashboard page's frame poll (setInterval 100)
+FLEET_DIRECT_TICKS = 100       # 15c: the resumed fleet's ticks, no traffic
+FLEET_SOAK_S = 45.0            # 15d: tools/serve_soak.py's 600 s, cut for time
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -1523,9 +1555,6 @@ def server_phase(torch, check, gpu: str, device) -> dict:
         ticks = sorted(tick_ms)
         encodes = sorted(encode_ms)
 
-        def med_p95(v):
-            return v[len(v) // 2], v[math.ceil(0.95 * len(v)) - 1]
-
         stats = json.loads(get("/stats"))
         config = json.loads(get("/config"))
         assert config["SIM_RESOLUTION"] == cfg.SIM_RESOLUTION and stats["paused"] is False
@@ -1622,6 +1651,461 @@ def server_phase(torch, check, gpu: str, device) -> dict:
             "encode_ms_p95": ep, "resume_err": resume_err, "launches": launches,
             "frame_err": err, "frame_tol": tol, "frame_u8_err": u8_err,
             "checkpoint_bytes": len(ckpt)}
+
+
+def med_p95(values) -> tuple:
+    """(median, nearest-rank 95th percentile) of ``values``."""
+    v = sorted(values)
+    return v[len(v) // 2], v[math.ceil(0.95 * len(v)) - 1]
+
+
+def launch_counts() -> dict:
+    from tpufluid_torch.ops.cuda import build
+
+    return {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+
+
+def fleet_programs_phase(torch, check, gpu: str, device) -> dict:
+    """Phase 15a: make_tick_program at fleet_256_b16 for 'scalar', 'vector'
+    and K = FLEET_K from a running fleet: each against the same program
+    through the plain passes on the card (0), each sim of the K-substep tick
+    against its iterated make_step_and_render ticks (0), launches a tick;
+    then FLEET_TIMED ticks of each (ticks/s, sim-ticks/s, median, p95, the
+    launches counted) and the kernels' spin-queued device time a tick."""
+    from tpufluid_torch import (init_batch, make_batched_multi_step, make_step_and_render,
+                                swirl_trace, unstack_state)
+    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.serve_batch import MAX_DT, make_tick_program
+    from tpufluid_torch.tools.render_rate import call_times
+
+    cfg = batch_config(FLEET_RES)
+    b = FLEET_SESSIONS
+    seq = np.stack([swirl_trace(cfg, FLEET_WARM + 1 + FLEET_TIMED, seed=42 + i).batches
+                    for i in range(b)], axis=1)
+    state = make_batched_multi_step(cfg, device=device)(init_batch(cfg, b, device=device),
+                                                        1.0 / 60.0, seq[:FLEET_WARM])
+    speeds = np.linspace(0.5, 4.0, b).astype(np.float32)
+    t_total = (np.float32(MAX_DT) * speeds).astype(np.float32)
+    n_sub = np.maximum(np.ceil(t_total / MAX_DT - 1e-9), 1.0).astype(np.int64)
+    sub = (t_total / n_sub).astype(np.float32)
+    assert int(n_sub.max()) == FLEET_K
+    dts = {"scalar": np.float32(1.0 / 60.0), "vector": check.per_sim_dts(b),
+           FLEET_K: np.where(np.arange(FLEET_K)[:, None] < n_sub[None, :], sub[None, :],
+                             0.0).astype(np.float32)}
+    per_step = expected_per_step(cfg)
+    splats = seq[FLEET_WARM]
+    out, launches_timed = {}, {}
+    for kind, dt in dts.items():
+        k = kind if isinstance(kind, int) else 1
+        want = {n: c * k for n, c in per_step.items()}
+        want.update(PER_FRAME)
+        prog = make_tick_program(cfg, b, kind)
+        build.reset_launches()
+        got, frames = prog(state, dt, splats)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        assert launches == want, (kind, launches, want)
+        pstate, pframes = make_tick_program(cfg, b, kind, plain=True)(state, dt, splats)
+        err = max([float((getattr(got, f).float() - getattr(pstate, f).float()).abs().max())
+                   for f in ("velocity", "dye", "pressure")]
+                  + [float((frames.int() - pframes.int()).abs().max())])
+        assert err == 0.0 and all(torch.equal(getattr(got, f), getattr(pstate, f))
+                                  for f in ("velocity", "dye", "pressure")), (kind, err)
+        assert torch.equal(frames, pframes), kind
+        iter_err = None
+        if k > 1:
+            single = make_step_and_render(cfg, device=device)
+            iter_err = 0.0
+            for i in range(b):
+                s = unstack_state(state, i)
+                for j in range(int(n_sub[i])):
+                    s, frame = single(s, sub[i], splats[i] if j == 0 else
+                                      np.zeros_like(splats[i]))
+                for f in ("velocity", "dye", "pressure"):
+                    g = getattr(unstack_state(got, i), f)
+                    iter_err = max(iter_err, float((g.float() - getattr(s, f).float())
+                                                   .abs().max()))
+                    assert torch.equal(g, getattr(s, f)), (kind, i, f)
+                assert torch.equal(frames[i], frame), (kind, i, "frame")
+        box = [got]
+
+        def one(t):
+            box[0], _ = prog(box[0], dt, seq[FLEET_WARM + 1 + t])
+
+        build.reset_launches()
+        tps, median, p95 = call_times(one, FLEET_TIMED)
+        timed = launch_counts()
+        assert timed == {n: c * FLEET_TIMED for n, c in want.items()}, (kind, timed)
+        for n, c in timed.items():
+            launches_timed[n] = launches_timed.get(n, 0) + c
+        v = box[0].velocity.float()
+        assert bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0.0, "fleet broke"
+        sim_steps = int(n_sub.sum()) if k > 1 else b
+        print(f"fleet {FLEET_CELL} {kind!s:6} on {gpu}: program vs its plain passes max abs err "
+              f"{err:.3e}" + (f"; each sim vs its iterated make_step_and_render ticks "
+                              f"{iter_err:.3e}" if k > 1 else "")
+              + f"; launches {launches} ({sum(launches.values())} a tick); {FLEET_TIMED} ticks: "
+              f"{tps:.1f} ticks/s, {b * tps:.1f} sim-ticks/s, {sim_steps * tps:.1f} sim-steps/s, "
+              f"tick median {median:.4f} ms, p95 {p95:.4f} ms")
+        out[str(kind)] = {"launches": launches, "err": err, "iter_err": iter_err,
+                          "ticks_per_s": tps, "sim_ticks_per_s": b * tps,
+                          "sim_steps_per_s": sim_steps * tps, "tick_ms_median": median,
+                          "tick_ms_p95": p95}
+    # The kernels' spin-queued device time of one tick's calls, on the timed
+    # fleet's state with per-sim dts (check.py's cases, each against its
+    # plain version): the step's K times, the frame's once.
+    splats_dev = torch.as_tensor(seq[-1], device=device)
+    cases = (check.step_cases(box[0], splats_dev, cfg, check.per_sim_dts(b), ":fleet")
+             + check.batched_render_cases(box[0], cfg))
+    timing = timing_phase(torch, check, cases, verbose=False)
+    step_ms = sum(r["ms"] for n, r in timing.items() if n in per_step)
+    frame_ms = sum(r["ms"] for n, r in timing.items() if n in PER_FRAME)
+    for kind, row in out.items():
+        k = int(kind) if kind.isdigit() else 1
+        row["kernel_device_ms"] = k * step_ms + frame_ms
+        row["idle"] = 1.0 - row["kernel_device_ms"] / row["tick_ms_median"]
+        print(f"fleet {FLEET_CELL} {kind:6} kernels' device {row['kernel_device_ms']:.4f} ms a "
+              f"tick ({k} x step {step_ms:.4f} + frame {frame_ms:.4f}, spin-queued), "
+              f"{100 * row['idle']:.1f}% idle at the median")
+    print(f"fleet {FLEET_CELL} kernels: " + "; ".join(
+        f"{n} {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}, plain {r['plain_ms']:.4f})"
+        for n, r in timing.items()))
+    return {"programs": out, "kernels": timing, "launches": launches_timed}
+
+
+def drain_reconciler(srv, until=None) -> None:
+    """Run the server's reconciler tasks in this thread until there is none
+    left, or until after the task ``until``."""
+    while True:
+        with srv.lock:
+            task = srv._next_task()
+        if task is None:
+            return
+        srv._run_task(task)
+        if task == until:
+            return
+
+
+def fleet_padding_phase(torch, gpu: str, device) -> dict:
+    """Phase 15b: a fleet of 5 in a padded 8 at fleet_256_b16's geometry,
+    driven by hand (the reconciler's tasks, then _tick): after
+    FLEET_PAD_TICKS ticks rows 5-7 are exactly 0; resize_fleet(2): after
+    the zero tail rows 2-7 are exactly 0; then the swap to 2, and
+    resize_fleet(5): rows 2-4 start from 0, rows 5-7 stay 0."""
+    from tpufluid_torch.serve_batch import MAX_DT, BatchFluidServer
+
+    srv = BatchFluidServer(batch_config(FLEET_RES), sessions=5, seed=3, prewarm="off",
+                           device=device)
+    fields = ("velocity", "dye", "pressure")
+
+    def zero(rows):
+        return all(bool((getattr(srv.state, f)[rows] == 0).all()) for f in fields)
+
+    drain_reconciler(srv)
+    assert srv._pb == 8 and srv._live_rows == 5
+    for t in range(FLEET_PAD_TICKS):
+        srv.tracers[t % 5].feed("burst", n=2)
+        assert srv._tick(MAX_DT)
+    torch.cuda.synchronize()
+    moved = all(float(srv.state.dye[i].float().abs().max()) > 0 for i in range(5))
+    assert zero(slice(5, 8)) and moved, "pad rows not zero, or a live row did not move"
+    srv.resize_fleet(2)
+    assert srv._gen == 1 and not srv._tail_clean
+    drain_reconciler(srv, until=("zero_tail",))
+    assert srv._tail_clean and srv._pb == 8 and zero(slice(2, 8)), "evicted rows not zero"
+    drain_reconciler(srv)
+    assert srv._pb == 2 and srv.state.velocity.shape[0] == 2
+    for _ in range(3):
+        assert srv._tick(MAX_DT)
+    srv.resize_fleet(5)
+    drain_reconciler(srv)
+    assert srv._pb == 8 and srv._live_rows == 5 and zero(slice(2, 8))
+    for _ in range(5):
+        assert srv._tick(MAX_DT)
+    torch.cuda.synchronize()
+    assert zero(slice(5, 8)), "pad rows not zero after the regrow"
+    print(f"fleet padding on {gpu}: 5 sessions in a padded 8, {FLEET_PAD_TICKS} ticks: rows 5-7 "
+          "exactly 0; resize_fleet(2): after the zero tail rows 2-7 exactly 0, swapped to 2; "
+          "resize_fleet(5): rows 2-7 exactly 0 at activation, rows 5-7 after 5 ticks")
+    srv.stop()
+    return {"ok": True, "gen": srv._gen}
+
+
+@contextlib.contextmanager
+def counted_programs(counts: dict):
+    """Count each (pb, kind) program's calls while the block runs: the
+    reconciler makes programs through serve_batch.make_tick_program."""
+    from tpufluid_torch import serve_batch
+
+    made = serve_batch.make_tick_program
+
+    def counting(config, pb, kind, plain=False):
+        prog = made(config, pb, kind, plain)
+
+        def run(*a):
+            counts[(pb, kind)] = counts.get((pb, kind), 0) + 1
+            return prog(*a)
+        return run
+
+    serve_batch.make_tick_program = counting
+    try:
+        yield
+    finally:
+        serve_batch.make_tick_program = made
+
+
+def fleet_server_phase(torch, gpu: str, device) -> dict:
+    """Phase 15c: BatchFluidServer at its CLI defaults on the card with its
+    sim thread and an HTTP server on 127.0.0.1: every endpoint, speeds 0.25
+    and 2.5 (the per-sim program, then K = 3), /sessions 4 -> 6 -> 3 (padded
+    4 -> 8 -> 4), paused /checkpoint.npz resuming a second server whose
+    state equals the checkpointed one (0). Steps served a second under
+    traffic, the tick's ms with and without HTTP traffic, the JPEG encode."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.serve_batch import (MAX_DT, BatchFluidServer, build_argparser,
+                                            config_from_args, make_handler)
+
+    args = build_argparser().parse_args([])
+    cfg = config_from_args(args)
+    calls = {}
+    tick_ms, encode_ms = [], []
+    with counted_programs(calls):
+        srv = BatchFluidServer(cfg, sessions=args.sessions, seed=args.seed,
+                               quality=args.quality, prewarm=args.prewarm, device=device)
+        real_tick, real_encode = srv._tick, srv._encode
+
+        def timed_tick(dt):
+            t = time.perf_counter()
+            ran = real_tick(dt)
+            if ran:
+                tick_ms.append(1e3 * (time.perf_counter() - t))
+            return ran
+
+        def timed_encode(arr):
+            t = time.perf_counter()
+            data = real_encode(arr)
+            encode_ms.append(1e3 * (time.perf_counter() - t))
+            return data
+
+        srv._tick, srv._encode = timed_tick, timed_encode
+        build.reset_launches()
+        sim = threading.Thread(target=srv.run, daemon=True)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(srv))
+        web = threading.Thread(target=httpd.serve_forever, daemon=True)
+        sim.start()
+        web.start()
+        url = f"http://127.0.0.1:{httpd.server_port}"
+
+        def get(path, status=200):
+            try:
+                with urllib.request.urlopen(url + path, timeout=30) as r:
+                    assert r.status == status, (path, r.status)
+                    return r.read()
+            except urllib.error.HTTPError as e:
+                assert e.code == status, (path, e.code, status)
+                return b""
+
+        def post(path, body, status=204):
+            req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                         method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    assert r.status == status, (path, r.status)
+            except urllib.error.HTTPError as e:
+                assert e.code == status, (path, body, e.code, status)
+
+        def stats():
+            return json.loads(get("/stats"))
+
+        def wait(pred, what, limit_s=30.0):
+            t_end = time.time() + limit_s
+            while True:
+                st = stats()
+                assert st["error"] is None, st["error"]
+                if pred(st):
+                    return st
+                assert time.time() < t_end, f"{what}: {st}"
+                time.sleep(0.02)
+
+        try:
+            wait(lambda s: s["steps"] > 0, "first tick", 120.0)
+            assert b"sessions" in get("/")
+            for sid in range(args.sessions):
+                assert get(f"/frame?sid={sid}")[:2] == b"\xff\xd8"
+            post("/events?sid=0", [{"k": "down", "x": 0.3, "y": 0.5}, {"k": "burst", "n": 9}])
+            post("/events?sid=1", [{"k": "burst", "n": 12}])
+            traffic = {}
+            for mode, period in (("back-to-back", 0.0), ("dashboard", FLEET_DASH_PERIOD_S)):
+                # back-to-back: one client fetching a frame and posting an
+                # event with no pause; dashboard: the page's cadence, every
+                # session's frame and one event for each every 100 ms.
+                tick_ms.clear()
+                encode_ms.clear()
+                s0, t0, k = stats()["steps"], time.perf_counter(), 0
+                while time.perf_counter() - t0 < FLEET_SERVE_S:
+                    t_round = time.perf_counter()
+                    for sid in range(args.sessions):
+                        assert get(f"/frame?sid={sid}")[:2] == b"\xff\xd8"
+                        x, y = 0.5 + 0.3 * math.cos(k / 20), 0.5 + 0.3 * math.sin(k / 10)
+                        post(f"/events?sid={sid}", [{"k": "move", "x": x, "y": y}])
+                        k += 2
+                    left = period - (time.perf_counter() - t_round)
+                    if left > 0:
+                        time.sleep(left)
+                wall = time.perf_counter() - t0
+                traffic[mode] = {"steps_per_s": (stats()["steps"] - s0) / wall, "wall_s": wall,
+                                 "requests": k, "ticks": list(tick_ms),
+                                 "encodes": list(encode_ms)}
+
+            post("/events?sid=0", [{"k": "up"}])
+            post("/events?sid=2", [{"k": "speed", "v": 0.25}])
+            wait(lambda s: "(4, 'vector')" in s["programs"] and s["speeds"][2] == 0.25,
+                 "per-sim program")
+            v0 = calls.get((4, "vector"), 0)
+            wait(lambda s: calls.get((4, "vector"), 0) > v0 + 5, "per-sim ticks")
+            post("/events?sid=3", [{"k": "speed", "v": 2.5}])
+            st = wait(lambda s: s["substeps"] == 3, "K = 3 substeps")
+            assert calls.get((4, 3), 0) > 0
+            for sid in (2, 3):
+                post(f"/events?sid={sid}", [{"k": "speed", "v": 1.0}])
+            wait(lambda s: s["substeps"] == 1 and s["speeds"] == [1.0] * 4, "back to 1x")
+            post("/events?sid=9", [{"k": "burst"}], status=400)
+            for lit in ("NaN", "Infinity"):
+                req = urllib.request.Request(url + "/events?sid=0", method="POST",
+                                             data=f'[{{"k": "speed", "v": {lit}}}]'.encode())
+                try:
+                    urllib.request.urlopen(req, timeout=30)
+                    raise AssertionError(f"speed {lit} accepted")
+                except urllib.error.HTTPError as e:
+                    assert e.code == 400, (lit, e.code)
+
+            post("/sessions", {"n": 6})
+            wait(lambda s: s["padded_batch"] == 8 and s["live_rows"] == 6, "grow to 6")
+            t_end = time.time() + 30
+            while True:
+                try:
+                    with urllib.request.urlopen(url + "/frame?sid=5", timeout=30) as r:
+                        assert r.read()[:2] == b"\xff\xd8"
+                        break
+                except urllib.error.HTTPError as e:
+                    assert e.code == 503 and time.time() < t_end, e.code
+                    time.sleep(0.02)
+            post("/sessions", {"n": 3})
+            wait(lambda s: s["padded_batch"] == 4 and s["live_rows"] == 3, "shrink to 3")
+            get("/frame?sid=4", status=404)
+            post("/sessions", {"n": 0}, status=400)
+            post("/sessions", {"n": 2.5}, status=400)
+            gen = srv._gen
+
+            post("/events?sid=0", [{"k": "pause", "v": True}])
+            still, t_end = -1, time.time() + 10
+            while stats()["steps"] != still:   # the tick in flight lands
+                assert time.time() < t_end, "the paused fleet still ticks"
+                still = stats()["steps"]
+                time.sleep(0.2)
+            ckpt = get("/checkpoint.npz")
+            assert srv._fleet_and_state()
+            try:
+                saved = {f: getattr(srv.state, f)[:srv.sessions].clone()
+                         for f in ("velocity", "dye", "pressure")}
+                speeds, sessions = srv.speeds.copy(), srv.sessions
+            finally:
+                srv._release_both()
+            assert stats()["steps"] == still, "the paused fleet ticked"
+            post("/events?sid=0", [{"k": "pause", "v": False}])
+            final = wait(lambda s: s["steps"] > still + 3, "unpaused")
+        finally:
+            srv.stop()
+            httpd.shutdown()
+            httpd.server_close()
+            sim.join(timeout=30)
+        assert not sim.is_alive(), "the sim thread did not stop"
+    launches = launch_counts()
+    for n in (*expected_per_step(cfg), *PER_FRAME):
+        assert launches.get(n, 0) > 0, (n, launches)
+
+    path = APP_OUT / "fleet.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(ckpt)
+    resumed = BatchFluidServer(cfg, resume=str(path), device=device)
+    resume_err = {f: float((getattr(resumed.state, f)[:sessions].float() - saved[f].float())
+                           .abs().max()) for f in saved}
+    assert resumed.sessions == sessions == 3 and resumed._pb == 4
+    assert all(torch.equal(getattr(resumed.state, f)[:sessions], saved[f]) for f in saved), \
+        resume_err
+    assert np.array_equal(resumed.speeds, speeds)
+    # The resumed fleet's own ticks, called in turn with no HTTP traffic.
+    drain_reconciler(resumed)
+    for _ in range(10):
+        resumed._tick(MAX_DT)
+    build.reset_launches()
+    direct = []
+    for _ in range(FLEET_DIRECT_TICKS):
+        t = time.perf_counter()
+        assert resumed._tick(MAX_DT)
+        direct.append(1e3 * (time.perf_counter() - t))
+    direct_launches = launch_counts()
+    want = {n: c * FLEET_DIRECT_TICKS for n, c in {**expected_per_step(cfg), **PER_FRAME}.items()}
+    assert direct_launches == want, (direct_launches, want)
+    resumed.stop()
+
+    dm, dp = med_p95(direct)
+    for mode, t in traffic.items():
+        t["tick_ms_median"], t["tick_ms_p95"] = med_p95(t.pop("ticks"))
+        t["encode_ms_median"], t["encode_ms_p95"] = med_p95(t.pop("encodes"))
+        print(f"fleet server {args.sessions} x {cfg.SIM_RESOLUTION}/{cfg.DYE_RESOLUTION} "
+              f"{cfg.CANVAS_WIDTH}x{cfg.CANVAS_HEIGHT} {cfg.DTYPE} on {gpu}, {mode} HTTP "
+              f"traffic: {t['steps_per_s']:.1f} steps/s served over {t['wall_s']:.2f} s "
+              f"({t['requests']} /frame fetches and event posts; paced at MAX_DT); tick ms "
+              f"median {t['tick_ms_median']:.4f} p95 {t['tick_ms_p95']:.4f}; JPEG encode ms "
+              f"median {t['encode_ms_median']:.4f} p95 {t['encode_ms_p95']:.4f}")
+    print(f"fleet server on {gpu}, no HTTP traffic (the resumed fleet, {FLEET_DIRECT_TICKS} "
+          f"ticks in turn): tick ms median {dm:.4f} p95 {dp:.4f}")
+    print(f"fleet server on {gpu}: /, /frame, /stats, drag and burst events, speed 0.25 (per-sim "
+          f"program ticks {calls.get((4, 'vector'), 0)}) and 2.5 (substeps {st['substeps']}, "
+          f"K = 3 ticks {calls.get((4, 3), 0)}), bad sid and NaN speed 400, /sessions 4 -> 6 -> 3 "
+          f"(padded 4 -> 8 -> 4, generation {gen}), sid 4 404, /checkpoint.npz {len(ckpt)} bytes "
+          f"resumed: max abs err {resume_err}; launches {launches} over {final['steps']} steps; "
+          f"the resumed fleet's ticks {direct_launches} ({FLEET_DIRECT_TICKS} ticks, 8 a tick)")
+    return {"traffic": traffic, "direct_tick_ms_median": dm, "direct_tick_ms_p95": dp,
+            "resume_err": resume_err, "launches": launches, "program_calls":
+            {str(key): n for key, n in calls.items()}, "checkpoint_bytes": len(ckpt)}
+
+
+def fleet_soak_phase(gpu: str, device) -> dict:
+    """Phase 15d: tpufluid_torch.tools.serve_soak in process for
+    FLEET_SOAK_S at the server's CLI geometry (sessions 3, max-resize 5);
+    its p99s beside its bars; any bar or correctness field that fails
+    fails the run."""
+    from tpufluid_torch.serve_batch import build_argparser, config_from_args
+    from tpufluid_torch.tools.serve_soak import SLO_MS, soak, verdict
+
+    cfg = config_from_args(build_argparser().parse_args([]))
+    summary = soak(cfg, FLEET_SOAK_S, sessions=3, max_resize=5, seed=0, device=device)
+    summary["slo_violations"], summary["ok"] = verdict(summary)
+    lat = summary["latency_ms"]
+    print(f"fleet soak {FLEET_SOAK_S:.0f} s (tools/serve_soak.py's default 600 s, cut for time) "
+          f"at {cfg.SIM_RESOLUTION}/{cfg.DYE_RESOLUTION} {cfg.CANVAS_WIDTH}x{cfg.CANVAS_HEIGHT} "
+          f"on {gpu}: {summary['steps_during_soak']} steps, " + "; ".join(
+              f"{k} n {lat[k]['n']} p50 {lat[k]['p50']} p99 {lat[k]['p99']} max {lat[k]['max']} ms "
+              f"(bar p99 <= {SLO_MS[k]:.0f})" for k in SLO_MS)
+          + f"; failures {summary['n_failures']}, violations {summary['slo_violations']}, ok "
+          f"{summary['ok']}")
+    assert summary["ok"], summary
+    return summary
+
+
+def fleet_phase(torch, check, gpu: str, device) -> dict:
+    """Phase 15, the multi-tenant fleet server: 15a-15d."""
+    return {"programs": fleet_programs_phase(torch, check, gpu, device),
+            "padding": fleet_padding_phase(torch, gpu, device),
+            "server": fleet_server_phase(torch, gpu, device),
+            "soak": fleet_soak_phase(gpu, device)}
 
 
 def main() -> int:
@@ -1727,6 +2211,7 @@ def main() -> int:
     packed = packed_phase(torch, check, gpu, device, errors)
     app_server = {"app": app_phase(torch, gpu, device),
                   "server": server_phase(torch, check, gpu, device)}
+    fleet = fleet_phase(torch, check, gpu, device)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -1754,6 +2239,14 @@ def main() -> int:
                            for f in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
                         "single_sim_ms": run["single_sim_kernels"][k.name],
                         "launches": run["launches"].get(k.name, 0)}
+            fk = fleet["programs"]["kernels"]
+            if k.name in fk:   # the fleet's timed ticks, all three programs
+                per_config[FLEET_CELL] = {
+                    **{f: fk[k.name].get(f) for f in ("ms", "plain_ms", "bound_ms",
+                                                      "max_abs_err")},
+                    "launches": fleet["programs"]["launches"].get(k.name, 0)}
+                per_config["fleet_server_default"] = {
+                    "launches": fleet["server"]["launches"].get(k.name, 0)}
         kernels.append({
             "name": k.name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
             "replaces": k.replaces, "launches": launches, "max_abs_err": err,
@@ -1797,7 +2290,7 @@ def main() -> int:
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
          "floors": floors_run,
          "long_horizon": horizon, "batched": batched, "batched_frames": frames,
-         "sharded": sharded, "packed": packed, "app_server": app_server,
+         "sharded": sharded, "packed": packed, "app_server": app_server, "fleet": fleet,
          "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))

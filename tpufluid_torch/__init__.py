@@ -20,7 +20,11 @@ Public API:
     init_batch, stack_states, unstack_state, make_batched_step,
     make_batched_multi_step, make_batched_render
                                — B sims in one set of launches, dt per sim
-    make_batched_tick          — the multi-tenant server's batched tick
+    make_batched_tick, make_substepped_tick, make_tick_program,
+    BatchFluidServer           — the multi-tenant fleet server: its batched
+                                 tick, the K-substep fast-forward tick, the
+                                 per-(padded batch, kind) programs and the
+                                 server (python -m tpufluid_torch.serve_batch)
     batch_packed (module)      — the lane-packed fleet: B sims side by side
                                  along the rows, (C, H, B*W), lock-step
     make_mesh, shard_state, exchange_halo_rows, make_sharded_step,
@@ -44,7 +48,8 @@ from tpufluid_torch.parallel import (exchange_halo_rows, make_mesh, make_sharded
                                      make_sharded_step, shard_state, sharded_fluid_step)
 from tpufluid_torch.render import (capture_frame, frame_u8, make_render,
                                    make_step_and_render, render_frame, tick_body)
-from tpufluid_torch.serve_batch import make_batched_tick
+from tpufluid_torch.serve_batch import (BatchFluidServer, make_batched_tick, make_substepped_tick,
+                                       make_tick_program)
 from tpufluid_torch.state import FluidState, init_state, resize_state
 from tpufluid_torch.step import apply_splats, fluid_step, make_multi_step, make_step
 from tpufluid_torch.trace import (Pointer, PointerTracer, Trace, generate_color, random_splats,
@@ -68,6 +73,9 @@ __all__ = [
     "make_batched_multi_step",
     "make_batched_render",
     "make_batched_tick",
+    "make_substepped_tick",
+    "make_tick_program",
+    "BatchFluidServer",
     "Pointer",
     "PointerTracer",
     "generate_color",
