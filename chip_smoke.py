@@ -216,6 +216,37 @@ the card.
    600 s, cut for time) at the CLI geometry: its p99s beside its bars,
    every bar must hold.
 
+16. Batch-mesh phase (tpufluid_torch.batch's mesh half, serve_batch's
+   make_batch_sharded_substepped_tick, dryrun, parallel.auto, the drift
+   tool), every mesh on the cards there are, round robin. a. Batch DP at
+   fleet_256_b16 on a (4, 1) mesh: 200 make_batch_sharded_multi_step steps
+   lock-step and per sim, each equal to make_batched_multi_step (0), 24
+   launches a step, no halo byte; the K = 4 make_batch_sharded_substepped_tick
+   (speeds as 15a's), state and frames equal to make_substepped_tick (0),
+   104 launches; sim-steps/s and sim-ticks/s beside the unsharded calls' in
+   the same run, each with its idle share (torch.profiler over 3 calls). b.
+   The two new kernel forms against their plain versions, max abs error 0
+   (check.batched_bounded_cases in f32, bf16, f16; batched_f32_velocity_dye_cases
+   at the demo in bf16 RGB9E5, bf16, f16), with times beside bounds; then
+   make_batch_spatial_multi_step at the demo's cross grid in f32 and bf16
+   RGB9E5 on (2, 2, 2) and (4, 2, 1) (2 sims a group, per-sim dts, 4 steps)
+   and at 256/512 f32 with every phase split on (2, 2, 1): through the
+   kernels against the plain passes (0, launches counted), each sim against
+   its single-sim sharded step on its group's mesh (0), the batch against
+   make_batched_multi_step: each unsharded sim equal to make_multi_step (0),
+   so the difference is the sharded step's own, held under 1e-2 (f32) or
+   0.08 (bf16) and printed beside phase 12's bound (which phase 12 holds on
+   its one trace). c. sharded_16384_bf16_2x2 with 2 tenants a group on
+   (2, 2, 2), 3 steps, per-sim dts: each sim against its single-sim sharded
+   step (0), the batch against make_batched_multi_step as in b (under
+   0.08, beside phase 12's 1e-2), sim-steps/s (then again from the state
+   reached, with torch.profiler's device time over 3 steps) beside phase
+   12's sharded rate, the launches of a step (2 x a sharded step's) and the
+   peak memory; then the batched true-wall pre_pressure on a corner shard's
+   padded block, timed. d. dryrun_multichip(8), and
+   make_auto_sharded_step against make_step over 5 steps at demo_float32
+   (0). e. tools/fidelity_drift.run() at its defaults: every summary finite.
+
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
 out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -287,6 +318,21 @@ FLEET_SERVE_S = 4.0            # 15c: each traffic mode's seconds
 FLEET_DASH_PERIOD_S = 0.1      # 15c: the dashboard page's frame poll (setInterval 100)
 FLEET_DIRECT_TICKS = 100       # 15c: the resumed fleet's ticks, no traffic
 FLEET_SOAK_S = 45.0            # 15d: tools/serve_soak.py's 600 s, cut for time
+# Phase 16, the batch-mesh modes.
+DP_MESH = (4, 1)               # 16a: fleet_256_b16's 16 sims, 4 a slice
+DP_STEPS, DP_WARM = 200, 10
+DP_TICKS = 50
+BS_MESHES = ((2, 2, 2), (4, 2, 1))   # 16b: the demo's cross grid, 2 sims a group
+BS_STEPS = 4
+# 16b, c against the unsharded batch: each field's departure over its scale
+# is held under a fault bound (a halo or wall fault moves whole texels) and
+# printed beside phase 12's bound, which phase 12 holds on its one trace.
+BS_F32_FAULT_BOUND = 1e-2
+BS_BF16_FAULT_BOUND = 0.08     # tests/test_torch_sharding.py's bf16 class
+BS_SPLIT, BS_SPLIT_MESH = (256, 512), (2, 2, 1)   # 16b: every phase split (OVERLAP_HALO=True)
+BS_FULL_MESH, BS_FULL_PER_GROUP, BS_FULL_STEPS = (2, 2, 2), 2, 3   # 16c at 16384^2
+DRYRUN_DEVICES = 8
+AUTO_STEPS = 5
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -2108,6 +2154,501 @@ def fleet_phase(torch, check, gpu: str, device) -> dict:
             "soak": fleet_soak_phase(gpu, device)}
 
 
+def bs_mesh(shape):
+    """A batch x spatial mesh of ``shape`` over the cards there are, round
+    robin."""
+    import torch
+    from tpufluid_torch import make_batch_spatial_mesh
+
+    n = torch.cuda.device_count()
+    return make_batch_spatial_mesh(shape, [f"cuda:{k % n}" for k in range(math.prod(shape))])
+
+
+def states_equal(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("velocity", "dye", "pressure"))
+
+
+def device_share(other, wall_ms: float) -> tuple:
+    """(kernels' ms, other device ms, idle share) of one call from
+    floors.profile_calls' ``other`` beside the call's wall ms."""
+    kern = sum(r["us"] for r in other["kernel_events"].values()) / 1e3
+    dev = kern + other["other_device_us"] / 1e3
+    return kern, other["other_device_us"] / 1e3, 1.0 - dev / wall_ms
+
+
+def batch_dp_phase(torch, check, gpu: str, device) -> dict:
+    """Phase 16a: batch DP at fleet_256_b16 on a DP_MESH mesh: 200 steps
+    lock-step and per sim, and the K = FLEET_K substepped tick, each equal
+    to the unsharded batch (frames included), launches counted, no halo
+    byte; sim-steps/s and sim-ticks/s beside the unsharded path's, each
+    with its idle share."""
+    from tpufluid_torch import (gather_batch, init_batch, make_batch_sharded_multi_step,
+                                make_batch_sharded_substepped_tick, make_batched_multi_step,
+                                make_substepped_tick, shard_batch, swirl_trace)
+    from tpufluid_torch.ops.cuda import build, floors
+    from tpufluid_torch.parallel import halo
+    from tpufluid_torch.serve_batch import MAX_DT
+    from tpufluid_torch.tools.render_rate import call_times
+
+    cfg = batch_config(FLEET_RES)
+    b = FLEET_SESSIONS
+    mesh = sharded_mesh(DP_MESH)
+    n = mesh.size
+    seq = np.stack([swirl_trace(cfg, DP_STEPS, seed=42 + i).batches for i in range(b)], axis=1)
+    per_step = expected_per_step(cfg)
+    unsharded, dp = make_batched_multi_step(cfg, device=device), make_batch_sharded_multi_step(
+        cfg, mesh)
+    # Untimed first calls: a shape's first steps in a process pay one-time costs.
+    unsharded(init_batch(cfg, b, device=device), 1.0 / 60.0, seq[:DP_WARM])
+    dp(shard_batch(init_batch(cfg, b, device=device), mesh), 1.0 / 60.0, seq[:DP_WARM])
+    out, warm = {}, None
+    for kind, dt in (("lock-step", 1.0 / 60.0),
+                     ("per-sim", np.broadcast_to(check.per_sim_dts(b), (DP_STEPS, b)))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = unsharded(init_batch(cfg, b, device=device), dt, seq)
+        torch.cuda.synchronize()
+        un_s = time.perf_counter() - t0
+        start = shard_batch(init_batch(cfg, b, device=device), mesh)
+        halo.SENT.reset()
+        build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = dp(start, dt, seq)
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t0
+        launches = launch_counts()
+        assert launches == {k: c * n * DP_STEPS for k, c in per_step.items()}, (kind, launches)
+        assert halo.SENT.bytes == 0, halo.SENT.bytes
+        assert all(s.velocity.device == d for s, d in zip(got, mesh.flat))
+        assert states_equal(torch, gather_batch(got, device), want), kind
+        one_dt = dt if np.ndim(dt) == 0 else dt[:1]
+        box, ubox = [got], [want]
+
+        def dp_one(t):
+            box[0] = dp(box[0], one_dt, seq[t:t + 1])
+
+        def un_one(t):
+            ubox[0] = unsharded(ubox[0], one_dt, seq[t:t + 1])
+
+        _, dother = floors.profile_calls(dp_one, SHARDED_PROFILE_STEPS)
+        _, uother = floors.profile_calls(un_one, SHARDED_PROFILE_STEPS)
+        row = {}
+        for name, secs, other in (("unsharded", un_s, uother), ("dp", dp_s, dother)):
+            kern, odev, idle = device_share(other, 1e3 * secs / DP_STEPS)
+            row[name] = {"sim_steps_per_s": b * DP_STEPS / secs,
+                         "step_ms": 1e3 * secs / DP_STEPS, "kernels_ms": kern,
+                         "other_device_ms": odev, "idle": idle}
+        row["launches"] = launches
+        print(f"batch-dp {FLEET_CELL} {DP_MESH[0]}x{DP_MESH[1]} {kind} on {gpu}: {DP_STEPS} "
+              f"make_batch_sharded_multi_step steps equal to make_batched_multi_step (max abs "
+              f"err 0); halo bytes {halo.SENT.bytes}; launches {launches} "
+              f"({sum(launches.values()) // DP_STEPS} a step); " + "; ".join(
+                  f"{name} {r['sim_steps_per_s']:.1f} sim-steps/s ({r['step_ms']:.4f} ms a "
+                  f"step; kernels {r['kernels_ms']:.4f} + other device "
+                  f"{r['other_device_ms']:.4f} ms, {100 * r['idle']:.1f}% idle)"
+                  for name, r in row.items() if name != "launches"))
+        out[kind] = row
+        warm = want
+        del got, box
+
+    # The K-substep tick from the per-sim run's state (speeds as 15a's).
+    speeds = np.linspace(0.5, 4.0, b).astype(np.float32)
+    t_total = (np.float32(MAX_DT) * speeds).astype(np.float32)
+    n_sub = np.maximum(np.ceil(t_total / MAX_DT - 1e-9), 1.0).astype(np.int64)
+    sub = (t_total / n_sub).astype(np.float32)
+    kdts = np.where(np.arange(FLEET_K)[:, None] < n_sub[None, :], sub[None, :], 0.0
+                    ).astype(np.float32)
+    tick, dp_tick = make_substepped_tick(cfg, device=device), \
+        make_batch_sharded_substepped_tick(cfg, mesh)
+    want, want_frames = tick(warm, kdts, seq[-1])
+    halo.SENT.reset()
+    build.reset_launches()
+    got, frames = dp_tick(shard_batch(warm, mesh), kdts, seq[-1])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    per_tick = {k: c * FLEET_K * n for k, c in per_step.items()}
+    per_tick.update({k: c * n for k, c in PER_FRAME.items()})
+    assert launches == per_tick, launches
+    assert halo.SENT.bytes == 0
+    assert states_equal(torch, gather_batch(got, device), want)
+    assert frames.device == mesh.flat[0] and torch.equal(frames, want_frames)
+    ubox, box = [want], [got]
+
+    def un_tick(t):
+        ubox[0], _ = tick(ubox[0], kdts, seq[t])
+
+    def dp_tick_one(t):
+        box[0], _ = dp_tick(box[0], kdts, seq[t])
+
+    ticks = {}
+    for name, fn in (("unsharded", un_tick), ("dp", dp_tick_one)):
+        tps, median, p95 = call_times(fn, DP_TICKS)
+        _, other = floors.profile_calls(fn, SHARDED_PROFILE_STEPS)
+        kern, odev, idle = device_share(other, median)
+        ticks[name] = {"ticks_per_s": tps, "sim_ticks_per_s": b * tps,
+                       "sim_steps_per_s": int(n_sub.sum()) * tps, "tick_ms_median": median,
+                       "tick_ms_p95": p95, "kernels_ms": kern, "other_device_ms": odev,
+                       "idle": idle}
+    print(f"batch-dp {FLEET_CELL} {DP_MESH[0]}x{DP_MESH[1]} K={FLEET_K} tick on {gpu}: state and "
+          f"frames equal to make_substepped_tick (max abs err 0); halo bytes 0; launches "
+          f"{launches} ({sum(launches.values())} a tick); {DP_TICKS} ticks: " + "; ".join(
+              f"{name} {r['sim_ticks_per_s']:.1f} sim-ticks/s, median {r['tick_ms_median']:.4f} "
+              f"ms, p95 {r['tick_ms_p95']:.4f} ms, kernels {r['kernels_ms']:.4f} + other "
+              f"device {r['other_device_ms']:.4f} ms, {100 * r['idle']:.1f}% idle at the median"
+              for name, r in ticks.items()))
+    out["tick"] = {"launches": launches, **ticks}
+    return out
+
+
+def unsharded_departure(torch, got_sims, truth, cfg, dts, seq, steps: int, device,
+                        phase12_bound: float, fault_bound: float) -> dict:
+    """The batch x spatial batch against the unsharded batch ``truth``
+    (make_batched_multi_step), each field's largest difference over its
+    scale. Since each sim equals its single-sim sharded step, this is the
+    sharded step's own departure from make_step, sim by sim, once each sim
+    of ``truth`` equals make_multi_step on it alone (checked here, 0).
+    Held under ``fault_bound`` (a halo or wall fault moves whole texels:
+    an error of the order of the scale); printed beside phase 12's bound,
+    which phase 12 holds on its one trace (seed 42, dt 1/60); None where
+    phase 12 has no bound for the cell. ``got_sims(i, f)``: sim i's field
+    f of the batch x spatial result."""
+    from tpufluid_torch import init_state, make_multi_step, unstack_state
+
+    multi = make_multi_step(cfg, device=device)
+    fields = ("velocity", "dye", "pressure")
+    scale = {f: max(float(getattr(truth, f).float().abs().max()), 1e-3) for f in fields}
+    rel = {f: 0.0 for f in fields}
+    per_sim = []
+    for i in range(truth.velocity.shape[0]):
+        ref = multi(init_state(cfg, device=device), dts[:, i], seq[:steps, i])
+        mine = unstack_state(truth, i)
+        assert all(torch.equal(getattr(mine, f), getattr(ref, f)) for f in fields), i
+        del ref
+        sim = {}
+        for f in fields:
+            g = got_sims(i, f)
+            assert bool(torch.isfinite(g.float()).all()), (i, f)
+            sim[f] = float((g.float() - getattr(mine, f).float()).abs().max()) / scale[f]
+            rel[f] = max(rel[f], sim[f])
+        per_sim.append(sim)
+    for f in fields:
+        assert rel[f] <= fault_bound, (f, rel[f], fault_bound)
+    within = None if phase12_bound is None else all(v <= phase12_bound for v in rel.values())
+    return {"rel": rel, "per_sim": per_sim, "phase12_bound": phase12_bound,
+            "within_phase12_bound": within}
+
+
+def phase12_note(dep: dict) -> str:
+    if dep["phase12_bound"] is None:
+        return "phase 12 has no bound for this cell"
+    return (f"phase 12's {dep['phase12_bound']:.0e} "
+            f"{'held' if dep['within_phase12_bound'] else 'exceeded'}")
+
+
+def batch_spatial_run(torch, check, name: str, cfg, shape, phase12_bound,
+                      fault_bound: float, gpu: str, device) -> dict:
+    """Phase 16b's comparisons on one (nb, ny, nx) mesh: BS_STEPS steps of
+    2 nb sims with per-sim dts through the kernels (launches counted)
+    against the plain passes (0), each sim against its single-sim sharded
+    step on its group's mesh (0), the batch against the unsharded
+    make_batched_multi_step (unsharded_departure)."""
+    from tpufluid_torch import (gather_batch_spatial, init_batch, init_state,
+                                make_batch_spatial_multi_step, make_batched_multi_step,
+                                make_sharded_multi_step, shard_batch_spatial, shard_state,
+                                swirl_trace, unstack_state)
+    from tpufluid_torch.ops.cuda import build
+
+    mesh = bs_mesh(shape)
+    nb, b = shape[0], 2 * shape[0]
+    seq = np.stack([swirl_trace(cfg, BS_STEPS, seed=42 + i).batches for i in range(b)], axis=1)
+    dts = np.broadcast_to(check.per_sim_dts(b), (BS_STEPS, b))
+    build.reset_launches()
+    got = make_batch_spatial_multi_step(cfg, mesh)(
+        shard_batch_spatial(init_batch(cfg, b, device=device), mesh), dts, seq)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    want = {k: c * nb * BS_STEPS for k, c in sharded_launches(cfg, shape[1:]).items()}
+    assert launches == want, (name, shape, launches, want)
+    whole = gather_batch_spatial(got, device)
+    plain = gather_batch_spatial(make_batch_spatial_multi_step(cfg, mesh, plain=True)(
+        shard_batch_spatial(init_batch(cfg, b, device=device), mesh), dts, seq), device)
+    fields = ("velocity", "dye", "pressure")
+    err, _ = check.compare(tuple(getattr(whole, f) for f in fields),
+                           tuple(getattr(plain, f) for f in fields))
+    assert err == 0.0, (name, shape, err)
+    del plain
+    for i in range(b):
+        group = mesh.groups[i // 2]
+        one = make_sharded_multi_step(cfg, group)(
+            shard_state(init_state(cfg, device=device), group), dts[:, i], seq[:, i])
+        for r, row in enumerate(one):
+            for c, s in enumerate(row):
+                mine = got[i // 2][r][c]
+                assert all(torch.equal(getattr(mine, f)[i % 2], getattr(s, f)) for f in fields), \
+                    (name, shape, i, r, c)
+    truth = make_batched_multi_step(cfg, device=device)(init_batch(cfg, b, device=device), dts,
+                                                        seq)
+    dep = unsharded_departure(torch, lambda i, f: getattr(unstack_state(whole, i), f), truth,
+                              cfg, dts, seq, BS_STEPS, device, phase12_bound, fault_bound)
+    print(f"batch-spatial {name} {'x'.join(map(str, shape))} on {gpu}: {b} sims, {BS_STEPS} "
+          f"steps, per-sim dt: kernels vs plain passes max abs err {err:.3e}; each sim equal to "
+          f"its single-sim sharded step (0) and each unsharded sim to make_multi_step (0); "
+          f"launches {launches} ({sum(launches.values()) // BS_STEPS} a step); vs "
+          f"make_batched_multi_step: " + "; ".join(f"{f} {v:.3e}" for f, v in dep["rel"].items())
+          + f" of scale (<= {fault_bound:.0e}; {phase12_note(dep)}); per sim: " + "; ".join(
+              "/".join(f"{v:.2e}" for v in sim.values()) for sim in dep["per_sim"]))
+    return {"launches": launches, "max_abs_err": err, "vs_unsharded": dep}
+
+
+def bounded_batched_timing(torch, check, cfg, seq, device) -> dict:
+    """pre_pressure's true-wall form on a batch of BS_FULL_PER_GROUP sims
+    with a per-sim dt table, on a corner shard's padded block of
+    sharded_16384_bf16_2x2 (what 16c's groups launch): compared inside its
+    walls (0), timed beside its plain version and its bound."""
+    from tpufluid_torch.ops.cuda import stencil as kstencil
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+    from tpufluid_torch.ops.splat import SPLAT_DX, SPLAT_DY, splat_factors
+    from tpufluid_torch.parallel import sharded_step as ss
+
+    b = BS_FULL_PER_GROUP
+    h, w = SHARDED_RES // SHARDED_MESH[0], SHARDED_RES // SHARDED_MESH[1]
+    hp, wp = h + 2 * ss._G_STENCIL, w + 2 * ss._GC
+    gen = torch.Generator(device=device).manual_seed(7)
+    vel = torch.clamp(torch.randn((b, 2, hp, wp), generator=gen, device=device) * 400, -1000,
+                      1000).to(torch.bfloat16)
+    splats = torch.as_tensor(seq[0, :b], device=device)
+    vf = splat_factors(splats, hp, wp, cfg.splat_radius_uv(), cfg.aspect_ratio,
+                       slice(SPLAT_DX, SPLAT_DY + 1), row0=-ss._G_STENCIL, h_total=SHARDED_RES,
+                       col0=-ss._GC, w_total=SHARDED_RES)
+    dt = check._step_dts(check.per_sim_dts(b), b, cfg, device)[0]
+    bounds = check.shard_bounds(h, w, ss._G_STENCIL, ss._GC)["corner"]
+    r0, c0, wh, ww = kstencil.window(hp, wp, bounds)
+    rows, cols = slice(r0, r0 + wh), slice(c0, c0 + ww)
+    args = (vel, cfg.CURL, dt, vf, bounds)
+    err, _ = check.compare(*(tuple(t[..., rows, cols] for t in fn(*args))
+                             for fn in (kstencil.pre_pressure, kstencil.pre_pressure_plain)))
+    assert err == 0.0, err
+    n_active, n_rows = int((splats[..., 7] != 0).sum()), splats.shape[1]
+    nbytes = b * (2 * 2 * wh * ww + 4 * n_rows * (wh + ww + 2) + 3 * 2 * wh * ww) + dt.numel() * 4
+    flops = wh * ww * (2 * 2 * n_active + b * check._PRE_PRESSURE)
+    rate = spin_rate()
+    ms = queued_ms(lambda: kstencil.pre_pressure(*args), 20, rate)
+    plain_ms = queued_ms(lambda: kstencil.pre_pressure_plain(*args), 3, rate)
+    bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S)
+    by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / F32_FLOPS_PER_S else "operations"
+    print(f"time   pre_pressure:bounded:b{b}:per-sim corner shard {hp}x{wp} bf16, window "
+          f"{wh}x{ww}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}, {nbytes} B, {flops} flop); max_abs_err {err:.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "by": by, "bytes": nbytes,
+            "flops": flops, "max_abs_err": err}
+
+
+def batch_spatial_phase(torch, check, cfgs, gpu: str, device, errors: dict,
+                        sharded: dict) -> dict:
+    """Phase 16b and 16c: the two new kernel forms against their plain
+    versions (check.batched_bounded_cases, batched_f32_velocity_dye_cases)
+    with their times; batch x spatial at the demo's cross grid (f32 and bf16
+    RGB9E5, on BS_MESHES) and with the split phases forced; then at
+    sharded_16384_bf16_2x2 with BS_FULL_PER_GROUP tenants a group."""
+    from tpufluid_torch import (FluidConfig, init_batch, init_state,
+                                make_batch_spatial_multi_step, make_batched_multi_step,
+                                make_sharded_multi_step, shard_batch_spatial, shard_state,
+                                swirl_trace)
+    from tpufluid_torch.ops.cuda import build, floors
+    from tpufluid_torch.parallel import sharded_step as ss
+
+    ghosts = (ss._G_STENCIL, ss._GC)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        check_cases(torch, check, f"batch_spatial_{str(dtype)[6:]}",
+                    check.batched_bounded_cases(device, dtype, ghosts, seed=7), errors,
+                    exact=True)
+    dye_cases = {}
+    for name in ("demo_bfloat16_rgb9e5", "demo_bfloat16", "demo_float16"):
+        dye_cases[name] = check.batched_f32_velocity_dye_cases(cfgs[name], seed=7, device=device)
+        check_cases(torch, check, f"{name}:f32-velocity:batched", dye_cases[name], errors,
+                    exact=True)
+    # Times: the corner walls of both shard shapes, and the dye on the dye's
+    # grid (the sharded step's form: the velocity resampled there).
+    timing = {
+        "pre_pressure": timing_phase(torch, check, [
+            c for c in check.batched_bounded_cases(device, torch.bfloat16, ghosts, seed=7)
+            if c.label.startswith("pre_pressure:corner:")]),
+        "advect_dye": timing_phase(torch, check, [
+            c for c in dye_cases["demo_bfloat16_rgb9e5"] if ":dye-grid:" in c.label])}
+
+    out = {"demo": {}}
+    launch_totals = {"pre_pressure": 0, "advect_dye": 0}
+    for name, p12, fault in (("demo_float32", SHARDED_DEMO_BOUND, BS_F32_FAULT_BOUND),
+                             ("demo_bfloat16_rgb9e5", None, BS_BF16_FAULT_BOUND)):
+        for shape in BS_MESHES:
+            r = batch_spatial_run(torch, check, name, cfgs[name], shape, p12, fault, gpu,
+                                  device)
+            out["demo"][f"{name}:{'x'.join(map(str, shape))}"] = r
+            launch_totals["pre_pressure"] += r["launches"]["pre_pressure"]
+            if name == "demo_bfloat16_rgb9e5":   # the f32 velocity beside the bf16 dye
+                launch_totals["advect_dye"] += r["launches"]["advect_dye"]
+    split = FluidConfig(SIM_RESOLUTION=BS_SPLIT[0], DYE_RESOLUTION=BS_SPLIT[1],
+                        CANVAS_WIDTH=BS_SPLIT[0], CANVAS_HEIGHT=BS_SPLIT[0],
+                        PRESSURE_ITERATIONS=20, MAX_SPLATS=8, OVERLAP_HALO=True).validate()
+    r = batch_spatial_run(torch, check, f"split_{BS_SPLIT[0]}_{BS_SPLIT[1]}_float32", split,
+                          BS_SPLIT_MESH, SHARDED_DEMO_BOUND, BS_F32_FAULT_BOUND, gpu, device)
+    # Every phase split: three launches a phase where the unsplit step makes one.
+    mono = sharded_launches(dataclasses.replace(split, OVERLAP_HALO=False), BS_SPLIT_MESH[1:])
+    assert r["launches"] == {k: 3 * c * BS_SPLIT_MESH[0] * BS_STEPS for k, c in mono.items()}, \
+        r["launches"]
+    out["split"] = r
+    launch_totals["pre_pressure"] += r["launches"]["pre_pressure"]
+
+    # 16c: sharded_16384_bf16_2x2, BS_FULL_PER_GROUP tenants a group.
+    cfg = batch_config(SHARDED_RES)
+    mesh = bs_mesh(BS_FULL_MESH)
+    nb = BS_FULL_MESH[0]
+    b = nb * BS_FULL_PER_GROUP
+    seq = np.stack([swirl_trace(cfg, BS_FULL_STEPS, seed=42 + i).batches for i in range(b)],
+                   axis=1)
+    dts = np.broadcast_to(check.per_sim_dts(b), (BS_FULL_STEPS, b))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = shard_batch_spatial(init_batch(cfg, b, device=device), mesh)
+    multi = make_batch_spatial_multi_step(cfg, mesh)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = multi(start, dts, seq)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    del start
+    per = {k: c * nb for k, c in sharded_launches(cfg, BS_FULL_MESH[1:]).items()}
+    assert launches == {k: c * BS_FULL_STEPS for k, c in per.items()}, launches
+    launch_totals["pre_pressure"] += launches["pre_pressure"]
+    # The same steps again from the state reached (the allocator warm; the
+    # result dropped), then torch.profiler over SHARDED_PROFILE_STEPS steps.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multi(got, dts, seq)
+    torch.cuda.synchronize()
+    warm_secs = time.perf_counter() - t0
+    box = [got]
+
+    def one_step(t):
+        box[0] = multi(box[0], dts[:1], seq[t % BS_FULL_STEPS:t % BS_FULL_STEPS + 1])
+
+    _, other = floors.profile_calls(one_step, SHARDED_PROFILE_STEPS)
+    del box
+    kern, odev, idle = device_share(other, 1e3 * warm_secs / BS_FULL_STEPS)
+    fields = ("velocity", "dye", "pressure")
+    for i in range(b):
+        g, k = divmod(i, BS_FULL_PER_GROUP)
+        group = mesh.groups[g]
+        one = make_sharded_multi_step(cfg, group)(
+            shard_state(init_state(cfg, device=device), group), dts[:, i], seq[:, i])
+        for r_, row in enumerate(one):
+            for c, s in enumerate(row):
+                assert all(torch.equal(getattr(got[g][r_][c], f)[k], getattr(s, f))
+                           for f in fields), (i, r_, c)
+        del one
+        torch.cuda.empty_cache()
+    truth = make_batched_multi_step(cfg, device=device)(init_batch(cfg, b, device=device), dts,
+                                                        seq)
+    torch.cuda.synchronize()
+
+    def sim_field(i, f):   # one sim's field from its group's blocks
+        g, k = divmod(i, BS_FULL_PER_GROUP)
+        return torch.cat([torch.cat([getattr(s, f)[k] for s in row], dim=-1)
+                          for row in got[g]], dim=-2)
+
+    dep = unsharded_departure(torch, sim_field, truth, cfg, dts, seq, BS_FULL_STEPS, device,
+                              SHARDED_16K_BOUND, BS_BF16_FAULT_BOUND)
+    peak = torch.cuda.max_memory_allocated()
+    del truth
+    single_sps = sharded["rates"]["make_sharded_multi_step 2x2"]["steps_per_s"]
+    full = {"sim_steps_per_s": b * BS_FULL_STEPS / secs, "step_ms": 1e3 * secs / BS_FULL_STEPS,
+            "warm_sim_steps_per_s": b * BS_FULL_STEPS / warm_secs,
+            "warm_step_ms": 1e3 * warm_secs / BS_FULL_STEPS, "kernels_ms": kern,
+            "other_device_ms": odev, "idle": idle, "top_other_ops": other["top_other_ops"],
+            "launches_a_step": {k: c for k, c in per.items()}, "launches": launches,
+            "vs_unsharded": dep, "peak_bytes": peak, "single_sim_sharded_steps_per_s": single_sps}
+    print(f"batch-spatial sharded_{SHARDED_RES}_bf16_2x2:b{b} {'x'.join(map(str, BS_FULL_MESH))} "
+          f"on {gpu}: {b} sims ({BS_FULL_PER_GROUP} a group), {BS_FULL_STEPS} steps, per-sim dt "
+          f"(cut: {BS_FULL_STEPS} steps, every group's 4 shards on "
+          f"{torch.cuda.device_count()} card(s)): each sim equal to its single-sim sharded step "
+          f"(0) and each unsharded sim to make_multi_step (0); vs make_batched_multi_step: "
+          + "; ".join(f"{f} {v:.3e}" for f, v in dep["rel"].items())
+          + f" of scale (<= {BS_BF16_FAULT_BOUND:.0e}; {phase12_note(dep)}); per sim: "
+          + "; ".join(
+              "/".join(f"{v:.2e}" for v in sim.values()) for sim in dep["per_sim"]) + "; "
+          f"{full['sim_steps_per_s']:.2f} sim-steps/s ({full['step_ms']:.2f} ms a step of the "
+          f"{b} sims; again from there {full['warm_sim_steps_per_s']:.2f}, "
+          f"{full['warm_step_ms']:.2f} ms, of which kernels {kern:.2f} + other device "
+          f"{odev:.2f} ms, {100 * idle:.1f}% idle; top other: " + "; ".join(
+              f"{o['us']} us {o['op'][:40]}" for o in other["top_other_ops"][:3])
+          + f") beside phase 12's single-sim sharded {single_sps:.2f} steps/s; launches a "
+          f"step {per} ({sum(per.values())} = 2 x {sum(per.values()) // 2}); peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+    del got
+    torch.cuda.empty_cache()
+    bounded = bounded_batched_timing(torch, check, cfg, seq, device)
+    out.update(full=full, timing=timing, bounded=bounded, launches=launch_totals)
+    return out
+
+
+def dryrun_phase(torch, cfgs, gpu: str, device) -> dict:
+    """Phase 16d: dryrun_multichip(DRYRUN_DEVICES) on the cards round
+    robin, and make_auto_sharded_step against make_step over AUTO_STEPS
+    steps at demo_float32 on a 2x2 mesh (0: the same step)."""
+    from tpufluid_torch import (init_state, make_auto_sharded_step, make_step, shard_state,
+                                swirl_trace)
+    from tpufluid_torch.dryrun import dryrun_multichip
+    from tpufluid_torch.parallel.mesh import gather_state
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(DRYRUN_DEVICES)
+    print(f"dryrun_multichip({DRYRUN_DEVICES}) on {gpu} ({torch.cuda.device_count()} card(s), "
+          f"round robin) passed in {time.perf_counter() - t0:.1f} s: {json.dumps(dry)}")
+    cfg = cfgs["demo_float32"]
+    mesh = sharded_mesh(SHARDED_MESH)
+    trace = swirl_trace(cfg, AUTO_STEPS, seed=42)
+    auto, step = make_auto_sharded_step(cfg, mesh), make_step(cfg, device=device)
+    shards, one = shard_state(init_state(cfg, device=device), mesh), init_state(cfg, device=device)
+    for t in range(AUTO_STEPS):
+        shards = auto(shards, trace.dts[t], trace.batches[t])
+        one = step(one, trace.dts[t], trace.batches[t])
+        assert states_equal(torch, gather_state(shards, device), one), t
+    print(f"make_auto_sharded_step demo_float32 2x2: {AUTO_STEPS} steps equal to make_step (max "
+          "abs err 0)")
+    return {"dryrun": dry, "auto_max_abs_err": 0.0}
+
+
+def drift_phase(gpu: str, device) -> dict:
+    """Phase 16e: tools/fidelity_drift.run() at its defaults on the card;
+    every number of every summary finite."""
+    from tpufluid_torch.tools import fidelity_drift as fd
+
+    t0 = time.perf_counter()
+    summary = fd.run(device=device)
+    print(f"fidelity drift on {gpu}: {fd.STEPS} steps at {fd.SIM}^2, record every "
+          f"{fd.RECORD_EVERY}, trace seed {fd.TRACE_SEED}, {time.perf_counter() - t0:.1f} s; the "
+          "JAX tool's keys final, vel_rel_l2_at_100, max_abs_ke_rel_diff, "
+          "max_abs_dye_mass_rel_diff:")
+    for name, s in summary.items():
+        values = [v for k, v in s.items() if k != "final"]
+        values += [v for k, v in s["final"].items() if k not in ("variant", "step")]
+        assert all(math.isfinite(v) for v in values), (name, s)
+        print(f"fidelity drift {name:12s} {json.dumps(s)}")
+    return summary
+
+
+def batch_mesh_phase(torch, check, cfgs, gpu: str, device, errors: dict, sharded: dict) -> dict:
+    """Phase 16, the batch-mesh modes: 16a-16e."""
+    return {"batch_dp": batch_dp_phase(torch, check, gpu, device),
+            "batch_spatial": batch_spatial_phase(torch, check, cfgs, gpu, device, errors,
+                                                 sharded),
+            "dryrun": dryrun_phase(torch, cfgs, gpu, device),
+            "drift": drift_phase(gpu, device)}
+
+
 def main() -> int:
     import torch
 
@@ -2212,6 +2753,7 @@ def main() -> int:
     app_server = {"app": app_phase(torch, gpu, device),
                   "server": server_phase(torch, check, gpu, device)}
     fleet = fleet_phase(torch, check, gpu, device)
+    batch_mesh = batch_mesh_phase(torch, check, cfgs, gpu, device, errors, sharded)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -2283,6 +2825,30 @@ def main() -> int:
                             "plain_ms": r["kernels"][k.name]["plain_ms"],
                             "launches": r["launches"][k.name]} for c, r in packed.items()},
         })
+    # The batched forms of phase 16: pre_pressure's true walls with a
+    # per-sim dt table, advect_dye's float32 velocity beside a 16-bit dye;
+    # launches counted in the batch x spatial runs (16b, 16c).
+    bs = batch_mesh["batch_spatial"]
+    b, dye = bs["bounded"], bs["timing"]["advect_dye"]["advect_dye"]
+    for name, kernel, row, err, cfg_rows in (
+            ("pre_pressure:bounded:batched", "pre_pressure", b,
+             max([b["max_abs_err"]] + [e for (c, n), e in errors.items()
+                                       if c.startswith("batch_spatial_")]),
+             {f"sharded_{SHARDED_RES}_bf16_2x2:b{BS_FULL_PER_GROUP}": {
+                 "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"]},
+              "check_corners_b3": {f: bs["timing"]["pre_pressure"]["pre_pressure"][f]
+                                   for f in ("ms", "plain_ms", "bound_ms")}}),
+            ("advect_dye:f32-velocity:batched", "advect_dye", dye,
+             max(e for (c, n), e in errors.items() if c.endswith(":f32-velocity:batched")),
+             {"demo_bfloat16_rgb9e5:b3": {f: dye[f] for f in ("ms", "plain_ms", "bound_ms")}})):
+        launches = bs["launches"][kernel]
+        assert launches > 0, (name, launches)
+        k = build.KERNELS[kernel]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
+            "replaces": k.replaces, "launches": launches, "max_abs_err": err, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["by"],
+            "library_ms": None, "configs": cfg_rows})
     out_dir = Path("out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -2291,7 +2857,7 @@ def main() -> int:
          "floors": floors_run,
          "long_horizon": horizon, "batched": batched, "batched_frames": frames,
          "sharded": sharded, "packed": packed, "app_server": app_server, "fleet": fleet,
-         "kernels": kernels}, indent=1,
+         "batch_mesh": batch_mesh, "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -9,14 +9,24 @@ the dye kernel with the sharded step's float32 velocity beside a 16-bit dye
 against advect_plain,
 and the sharded step through the kernels against the sharded step through
 the plain versions on the same card, the shards of a mesh on the cards
-there are, round robin. tests/test_torch_sharding.py holds the sharded
-step to tpufluid's on the CPU.
+there are, round robin. The batch-mesh modes likewise: both kernel forms
+on a batch with per-sim dt tables (check.batched_bounded_cases,
+check.batched_f32_velocity_dye_cases), the batch x spatial multi-step
+against its plain passes, batch DP against the unsharded batch.
+tests/test_torch_sharding.py and tests/test_torch_batch_mesh.py hold
+these modes to tpufluid's on the CPU.
 """
 
 import pytest
 import torch
 
-from tpufluid_torch import FluidConfig, init_state, make_sharded_step, shard_state, swirl_trace
+import numpy as np
+
+from tpufluid_torch import (FluidConfig, gather_batch, gather_batch_spatial, init_batch,
+                            init_state, make_batch_sharded_multi_step,
+                            make_batch_spatial_mesh, make_batch_spatial_multi_step,
+                            make_batched_multi_step, make_sharded_step, shard_batch,
+                            shard_batch_spatial, shard_state, swirl_trace)
 from tpufluid_torch.ops.cuda import build, check
 from tpufluid_torch.ops.cuda import stencil as kstencil
 from tpufluid_torch.parallel.mesh import gather_state, make_mesh
@@ -134,3 +144,87 @@ def test_sharded_step_kernels_equal_plain(name, kw, shape, cuda):
         x, y = getattr(ga, f), getattr(gb, f)
         assert bool(torch.isfinite(x.float()).all()), (name, f)
         assert torch.equal(x, y), (name, f, float((x.float() - y.float()).abs().max()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: str(d)[6:])
+def test_batched_bounded_pre_pressure_matches_plain(dtype, cuda):
+    """The true-wall form on a batch of 3 sims with a per-sim dt table,
+    every wall, one launch each, bit-equal to the plain version (each
+    sim's window) inside the walls."""
+    for case in check.batched_bounded_cases(cuda, dtype, GHOSTS, seed=5):
+        before = build.KERNELS["pre_pressure"].launches
+        got = case.run()
+        torch.cuda.synchronize()
+        assert build.KERNELS["pre_pressure"].launches == before + 1, case.label
+        for g, w in zip(got, case.run(plain=True)):
+            assert torch.equal(g, w), (case.label, float((g.float() - w.float()).abs().max()))
+
+
+@pytest.mark.parametrize("dtype,rgb9e5", [("bfloat16", True), ("bfloat16", False),
+                                          ("float16", False)])
+def test_batched_dye_with_a_float32_velocity_matches_plain(dtype, rgb9e5, cuda):
+    """advect_dye on a batch of 3 with a float32 velocity beside the 16-bit
+    dye and the dye's per-sim dt table, one launch, bit-equal to
+    advect_plain, at a ragged cross grid."""
+    cfg = FluidConfig(SIM_RESOLUTION=37, DYE_RESOLUTION=131, CANVAS_WIDTH=1280,
+                      CANVAS_HEIGHT=720, DTYPE=dtype, DYE_RGB9E5=rgb9e5, MAX_SPLATS=8).validate()
+    for case in check.batched_f32_velocity_dye_cases(cfg, seed=3, device=cuda):
+        before = build.KERNELS["advect_dye"].launches
+        got = case.run()
+        torch.cuda.synchronize()
+        assert build.KERNELS["advect_dye"].launches == before + 1, case.label
+        want = case.run(plain=True)
+        assert torch.equal(got, want), (case.label, float((got.float() - want.float()).abs().max()))
+
+
+def _bs_mesh(shape):
+    n = torch.cuda.device_count()
+    return make_batch_spatial_mesh(shape, [f"cuda:{k % n}" for k in range(int(np.prod(shape)))])
+
+
+@pytest.mark.parametrize("kw,shape", [
+    (dict(SIM_RESOLUTION=64, DYE_RESOLUTION=256, CANVAS_WIDTH=512, CANVAS_HEIGHT=256,
+          DTYPE="bfloat16"), (2, 2, 2)),
+    (dict(SIM_RESOLUTION=256, DYE_RESOLUTION=512, CANVAS_WIDTH=256, CANVAS_HEIGHT=256,
+          OVERLAP_HALO=True), (2, 2, 1)),
+], ids=["cross-grid-bf16-222", "split-221"])
+def test_batch_spatial_kernels_equal_plain(kw, shape, cuda):
+    """Two batch x spatial steps (two sims a group, per-sim dts) through the
+    kernels equal the same through the plain passes, bit for bit; a
+    group's launches are a sharded step's, whatever its batch."""
+    cfg = FluidConfig(MAX_SPLATS=8, **kw).validate()
+    mesh = _bs_mesh(shape)
+    b = 2 * shape[0]
+    seq = np.stack([swirl_trace(cfg, 2, seed=4 + i).batches for i in range(b)], axis=1)
+    dts = np.broadcast_to(check.per_sim_dts(b), (2, b))
+    build.reset_launches()
+    a = make_batch_spatial_multi_step(cfg, mesh)(
+        shard_batch_spatial(init_batch(cfg, b, device=cuda), mesh), dts, seq)
+    torch.cuda.synchronize()
+    per_shard = 18 if cfg.overlap_halo else 6
+    assert sum(k.launches for k in build.KERNELS.values()) == 2 * per_shard * int(np.prod(shape))
+    p = make_batch_spatial_multi_step(cfg, mesh, plain=True)(
+        shard_batch_spatial(init_batch(cfg, b, device=cuda), mesh), dts, seq)
+    ga, gp = gather_batch_spatial(a), gather_batch_spatial(p)
+    for f in FIELDS:
+        assert torch.equal(getattr(ga, f), getattr(gp, f)), f
+
+
+def test_batch_dp_equals_unsharded_on_the_card(cuda):
+    """Batch DP on a (4, 1) mesh (2 sims a slice, per-sim dts) equals the
+    unsharded batched multi-step bit for bit: 6 launches a slice a step."""
+    cfg = FluidConfig(SIM_RESOLUTION=64, DYE_RESOLUTION=128, CANVAS_WIDTH=128,
+                      CANVAS_HEIGHT=128, MAX_SPLATS=8, DTYPE="bfloat16").validate()
+    b, t = 8, 3
+    seq = np.stack([swirl_trace(cfg, t, seed=9 + i).batches for i in range(b)], axis=1)
+    dts = np.broadcast_to(check.per_sim_dts(b), (t, b))
+    want = make_batched_multi_step(cfg, device=cuda)(init_batch(cfg, b, device=cuda), dts, seq)
+    mesh = _mesh((4, 1))
+    build.reset_launches()
+    got = make_batch_sharded_multi_step(cfg, mesh)(
+        shard_batch(init_batch(cfg, b, device=cuda), mesh), dts, seq)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in build.KERNELS.values()) == 6 * 4 * t
+    whole = gather_batch(got, want.velocity.device)
+    for f in FIELDS:
+        assert torch.equal(getattr(whole, f), getattr(want, f)), f

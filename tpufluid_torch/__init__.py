@@ -30,6 +30,17 @@ Public API:
     make_mesh, shard_state, exchange_halo_rows, make_sharded_step,
     make_sharded_multi_step, sharded_fluid_step
                                — the sharded step over a mesh of devices
+    make_auto_sharded_step     — the sharded state through the one-device
+                                 step (gather, step, reshard): a baseline
+    shard_batch, gather_batch, make_batch_sharded_multi_step,
+    make_batch_sharded_substepped_tick
+                               — batch data parallelism over a mesh
+    make_batch_spatial_mesh, shard_batch_spatial, gather_batch_spatial,
+    make_batch_spatial_multi_step
+                               — batch x spatial: each group of sims
+                                 sharded over its own (ny, nx) sub-mesh
+    dryrun (module)            — entry() and dryrun_multichip(n), the
+                                 multi-device certifications
     Pointer, PointerTracer, generate_color, random_splats, Trace,
     swirl_trace                — deterministic splat input, record and replay
     render_frame, make_render, capture_frame — the frame (float32 RGBA)
@@ -41,15 +52,19 @@ Public API:
                                  server (python -m tpufluid_torch.server)
 """
 
-from tpufluid_torch.batch import (init_batch, make_batched_multi_step, make_batched_render,
-                                  make_batched_step, stack_states, unstack_state)
+from tpufluid_torch.batch import (gather_batch, gather_batch_spatial, init_batch,
+                                  make_batch_sharded_multi_step, make_batch_spatial_mesh,
+                                  make_batch_spatial_multi_step, make_batched_multi_step,
+                                  make_batched_render, make_batched_step, shard_batch,
+                                  shard_batch_spatial, stack_states, unstack_state)
 from tpufluid_torch.config import MAX_DT, FluidConfig, get_resolution
-from tpufluid_torch.parallel import (exchange_halo_rows, make_mesh, make_sharded_multi_step,
-                                     make_sharded_step, shard_state, sharded_fluid_step)
+from tpufluid_torch.parallel import (exchange_halo_rows, make_auto_sharded_step, make_mesh,
+                                     make_sharded_multi_step, make_sharded_step, shard_state,
+                                     sharded_fluid_step)
 from tpufluid_torch.render import (capture_frame, frame_u8, make_render,
                                    make_step_and_render, render_frame, tick_body)
-from tpufluid_torch.serve_batch import (BatchFluidServer, make_batched_tick, make_substepped_tick,
-                                       make_tick_program)
+from tpufluid_torch.serve_batch import (BatchFluidServer, make_batch_sharded_substepped_tick,
+                                       make_batched_tick, make_substepped_tick, make_tick_program)
 from tpufluid_torch.state import FluidState, init_state, resize_state
 from tpufluid_torch.step import apply_splats, fluid_step, make_multi_step, make_step
 from tpufluid_torch.trace import (Pointer, PointerTracer, Trace, generate_color, random_splats,
@@ -94,4 +109,13 @@ __all__ = [
     "make_sharded_step",
     "make_sharded_multi_step",
     "sharded_fluid_step",
+    "make_auto_sharded_step",
+    "shard_batch",
+    "gather_batch",
+    "make_batch_sharded_multi_step",
+    "make_batch_sharded_substepped_tick",
+    "make_batch_spatial_mesh",
+    "shard_batch_spatial",
+    "gather_batch_spatial",
+    "make_batch_spatial_multi_step",
 ]

@@ -9,7 +9,9 @@ a lane-packed fleet of them (``packed_step_cases``);
 ``bounded_cases`` holds pre_pressure's true-wall form on the walls a
 shard of the sharded step sees in its padded block, and
 ``f32_velocity_dye_cases`` the dye kernel with the float32 velocity the
-sharded step gives a 16-bit dye;
+sharded step gives a 16-bit dye (``batched_bounded_cases`` and
+``batched_f32_velocity_dye_cases`` both on a batch with per-sim dts, as the
+batch x spatial step gives them);
 ``render_cases`` does the same for one frame (``batched_render_cases`` for
 a frame of B sims, one launch a kernel), and
 ``floors_cases`` for the three microbenchmark kernels on their own inputs
@@ -233,6 +235,36 @@ def bounded_cases(device, dtype: torch.dtype, ghosts: Tuple[int, int], seed: int
     return cases
 
 
+def batched_bounded_cases(device, dtype: torch.dtype, ghosts: Tuple[int, int], seed: int = 0,
+                          shards=BOUNDED_SHARDS, batch: int = 3) -> List[Case]:
+    """bounded_cases on a batch: pre_pressure's true-wall form on
+    random_batch(batch) of each shard's padded block (sims that differ, with
+    different numbers of active splat rows), with the per-sim dt table of
+    per_sim_dts, at every wall of shard_bounds, one launch for the batch:
+    what the batch x spatial step gives a group's shards. Each sim's window
+    is the same; both versions return the batch's windows."""
+    cases = []
+    for h, w in shards:
+        hp, wp = h + 2 * ghosts[0], w + 2 * ghosts[1]
+        cfg = FluidConfig(SIM_RESOLUTION=hp, DYE_RESOLUTION=hp, CANVAS_WIDTH=wp,
+                          CANVAS_HEIGHT=hp, MAX_SPLATS=8, DTYPE=_DTYPE_NAMES[dtype]).validate()
+        state, splats = random_batch(cfg, batch, seed, device)
+        vf = splat_factors(splats, hp, wp, cfg.splat_radius_uv(), cfg.aspect_ratio,
+                           slice(SPLAT_DX, SPLAT_DY + 1))
+        dt = _step_dts(per_sim_dts(batch), batch, cfg, device)[0]
+        n_active = int((splats[..., 7] != 0).sum())   # over every sim
+        for name, bounds in shard_bounds(h, w, *ghosts).items():
+            r0, c0, wh, ww = _stencil.window(hp, wp, bounds)
+            nbytes = _bytes(state.velocity[..., :wh, :ww], vf[0][:, :wh], vf[1][..., :ww],
+                            vf[2], dt) + 3 * batch * wh * ww * state.velocity.element_size()
+            cases.append(Case(f"pre_pressure:{name}:{hp}x{wp}:b{batch}:per-sim", "pre_pressure",
+                              _in_window(_stencil.pre_pressure),
+                              _in_window(_stencil.pre_pressure_plain),
+                              (state.velocity, cfg.CURL, dt, vf, bounds), nbytes,
+                              wh * ww * (2 * 2 * n_active + batch * _PRE_PRESSURE)))
+    return cases
+
+
 def random_batch(config: FluidConfig, batch: int, seed: int,
                  device) -> Tuple[FluidState, torch.Tensor]:
     """A batched state (B leading) and (B, S, 8) splats: sim b is
@@ -303,6 +335,36 @@ def f32_velocity_dye_cases(config: FluidConfig, seed: int, device) -> List[Case]
                           _advect.advect_plain, args,
                           _bytes(vel, state.dye, *df, state.dye),
                           dh * dw * (34 + 3 * 8 + (40 if quant else 0) + 3 * 2 * n_active)))
+    return cases
+
+
+def batched_f32_velocity_dye_cases(config: FluidConfig, seed: int, device,
+                                   batch: int = 3) -> List[Case]:
+    """f32_velocity_dye_cases on a batch: the dye kernel with a float32
+    velocity beside ``config``'s 16-bit dye on random_batch(batch) (sims
+    that differ, with different numbers of active splat rows), with the dye's
+    per-sim dt table of per_sim_dts, one launch for the batch, on the sim grid
+    and on the dye's grid: what the batch x spatial step gives a group's
+    shards at a cross grid. Labelled
+    "advect:dye:f32-velocity:<grid>:b<B>:per-sim"."""
+    state, splats = random_batch(config, batch, seed, device)
+    quant = "rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16 else None
+    (vh, vw), (dh, dw) = state.velocity.shape[-2:], state.dye.shape[-2:]
+    df = splat_factors(splats, dh, dw, config.splat_radius_uv(), config.aspect_ratio,
+                       slice(SPLAT_R, SPLAT_B + 1))
+    coarse = state.velocity.to(torch.float32)
+    fine = resample_bilinear(coarse, (dh, dw))
+    fine = torch.stack([fine[:, 0] * (dw / vw), fine[:, 1] * (dh / vh)], dim=1).contiguous()
+    dt = _step_dts(per_sim_dts(batch), batch, config, device)[1]
+    n_active = int((splats[..., 7] != 0).sum())   # over every sim
+    cases = []
+    for grid, vel in (("sim-grid", coarse), ("dye-grid", fine)):
+        args = (vel, state.dye, dt, config.DENSITY_DISSIPATION, df, quant)
+        cases.append(Case(f"advect:dye:f32-velocity:{grid}:b{batch}:per-sim", "advect_dye",
+                          _advect.advect, _advect.advect_plain, args,
+                          _bytes(vel, state.dye, *df, dt, state.dye),
+                          dh * dw * (batch * (34 + 3 * 8 + (40 if quant else 0))
+                                     + 3 * 2 * n_active)))
     return cases
 
 

@@ -55,6 +55,15 @@ class Mesh:
     def shape(self) -> Tuple[int, int]:
         return len(self.devices), len(self.devices[0])
 
+    @property
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+    @property
+    def flat(self) -> Tuple[torch.device, ...]:
+        """The devices in row-major order: the order batch DP's slices take."""
+        return tuple(d for row in self.devices for d in row)
+
 
 def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = None,
               shape: Optional[Sequence[int]] = None) -> Mesh:

@@ -34,6 +34,15 @@ computed in coordinates relative to the array it gathers from
 grid. The sharded step through the kernels equals the sharded step through
 the plain passes (``plain_sharded_step``) as the single-device step equals
 ``plain_step``.
+
+The same body steps a batch of B sims on every shard (the counterpart of
+the JAX package's vmap of ``sharded_fluid_step``, tpufluid/batch.py:258):
+each shard's fields lead with B, the passes take the B sims in one launch
+each, and dt is a number or each device's copy of the (2, B, 2) table of
+step.dt_table. Every index runs over the trailing (rows, columns) axes, so
+each sim of a batched sharded step equals its single-sim sharded step, bit
+for bit. The splats and the dt tables are those of one group of shards:
+two groups on one device never share them.
 """
 
 from __future__ import annotations
@@ -290,9 +299,13 @@ def _mirrored_pad(line: Sequence[torch.Tensor], width: int, axis: int) -> List[t
 # ---------------------------------------------------------------- the step
 
 
-def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tensor],
+def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
           config: FluidConfig, passes: dispatch.Passes) -> ShardedState:
-    """One sharded step; ``splats`` the (S, 8) batch on each shard's device."""
+    """One sharded step of one sim or of a batch of B sims on every shard.
+    ``splats``: the (S, 8) splat batch, or the (B, S, 8) one, on each
+    shard's device. ``dt``: every sim's clamped dt (a number), or each
+    shard device's copy of the (2, B, 2) table of step.dt_table (the
+    velocity's and the dye's dissipation)."""
     ny, nx = len(shards), len(shards[0])
     sw, sh_g = config.sim_size
     dw, dh_g = config.dye_size
@@ -305,6 +318,13 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
     max_disp = MAX_SPEED * _BOUND_DT
     overlap = config.overlap_halo
     gc = 0 if nx == 1 else _GC
+
+    def dts(x):
+        """(velocity's dt, dye's dt) of the passes on ``x``'s device."""
+        if isinstance(dt, dict):
+            table = dt[x.device]
+            return table[0], table[1]
+        return dt, dt
 
     def factors(i, j, x, h, w, cols, row0, col0, h_total, w_total):
         return splat_factors(splats[x.device], h, w, radius, aspect, cols, row0=row0,
@@ -319,6 +339,11 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
     def crop(x, gr, gcc, h, w):
         return x[..., gr:gr + h, gcc:gcc + w]
 
+    def rows(gy, r0, eh):
+        """Rows r0 .. r0 + eh of a row factor, (H, S) or a batch's (B, H, S),
+        as the kernels take it (contiguous; one sim's slice already is)."""
+        return gy[..., r0:r0 + eh, :].contiguous()
+
     # ---- splat bump + curl + confinement + divergence, at the true walls ----
     g = _G_STENCIL
     fv = _map(lambda i, j, x: factors(i, j, x, h_loc + 2 * g, w_loc + 2 * gc,
@@ -332,15 +357,16 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
 
             def op(envs, r0):
                 eh = envs[0].shape[-2]
-                return passes.pre_pressure(envs[0], config.CURL, dt,
-                                           splat_factors=(gy[r0:r0 + eh], gx, amt),
+                return passes.pre_pressure(envs[0], config.CURL, dts(x)[0],
+                                           splat_factors=(rows(gy, r0, eh), gx, amt),
                                            true_bounds=walls(i, j, g - r0))
             v, d = _overlap_rows(g, [(x, *strips)], op)
             return crop(v, 0, gc, h_loc, w_loc), crop(d, 0, gc, h_loc, w_loc)
 
         out = _map(pre, vc, _row_strips(vc, g), fv)
     else:
-        out = _map(lambda i, j, x, f: passes.pre_pressure(x, config.CURL, dt, splat_factors=f,
+        out = _map(lambda i, j, x, f: passes.pre_pressure(x, config.CURL, dts(x)[0],
+                                                          splat_factors=f,
                                                           true_bounds=walls(i, j, g)),
                    _exch2d(vel, g, gc), fv)
         out = _map(lambda i, j, o: tuple(crop(t, g, gc, h_loc, w_loc) for t in o), out)
@@ -404,7 +430,8 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
     gv = _G_VEL
 
     def self_advect(x):
-        return passes.advect_same_grid(x, x, dt, config.VELOCITY_DISSIPATION, max_disp, max_disp)
+        return passes.advect_same_grid(x, x, dts(x)[0], config.VELOCITY_DISSIPATION, max_disp,
+                                       max_disp)
 
     if overlap and h_loc >= 3 * gv:
         vc = _colpad(vel, gc)
@@ -428,8 +455,8 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
     disp_y, disp_x = max_disp * dh_g / sh_g, max_disp * dw / sw
 
     def advect_dye(vd, src, f):
-        return passes.advect_same_grid(vd, src, dt, config.DENSITY_DISSIPATION, disp_y, disp_x,
-                                       splat_factors=f, quant=quant)
+        return passes.advect_same_grid(vd, src, dts(src)[1], config.DENSITY_DISSIPATION, disp_y,
+                                       disp_x, splat_factors=f, quant=quant)
 
     if not same_grid:
         # The velocity resampled on each shard at its padded dye block's
@@ -455,7 +482,8 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
 
         def vel_on_dye(v_small, rows, cols):
             vd = _sample_2d(v_small.to(torch.float32), rows, cols)
-            return torch.stack([vd[0] * (dw / sw), vd[1] * (dh_g / sh_g)])
+            return torch.stack([vd[..., 0, :, :] * (dw / sw), vd[..., 1, :, :] * (dh_g / sh_g)],
+                               dim=-3)
 
     if overlap and hd_loc >= 3 * gd:
         dc = _colpad(dye, gdc)
@@ -471,7 +499,7 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
                 eh = envs[-1].shape[-2]
                 vd = envs[0] if same_grid else vel_on_dye(
                     vel_small[i][j], rc[i][j][0][r0:r0 + eh], rc[i][j][1])
-                return advect_dye(vd, envs[-1], (gy[r0:r0 + eh], gx, amt))
+                return advect_dye(vd, envs[-1], (rows(gy, r0, eh), gx, amt))
 
             operands = [(x, *xs)]
             if same_grid:
@@ -492,7 +520,8 @@ def _step(shards: ShardedState, dt: float, splats: Dict[torch.device, torch.Tens
 
 
 def _splats_on(shards: ShardedState, splats) -> Dict[torch.device, torch.Tensor]:
-    """The (S, 8) splat batch on every shard's device, copied once a device."""
+    """The splats (any leading shape, float32) on every shard's device,
+    copied once a device: what one group of shards reads."""
     devices = {s.velocity.device for row in shards for s in row}
     return {d: torch.as_tensor(splats, dtype=torch.float32, device=d) for d in devices}
 

@@ -97,7 +97,8 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from tpufluid_torch.batch import _host, _require_batch, _table, init_batch, step_dt
+from tpufluid_torch.batch import (_host, _require_batch, _split, _table, check_batch_shards,
+                                  init_batch, step_dt)
 from tpufluid_torch.checkpoint import load_state, save_state
 from tpufluid_torch.config import FluidConfig
 from tpufluid_torch.ops.cuda import dispatch
@@ -229,6 +230,40 @@ def make_substepped_tick(config: FluidConfig, device="cuda"):
     def tick(state: FluidState, dts, splats):
         _require_batch(state, device)
         return body(state, dts, splats)
+
+    return tick
+
+
+def make_batch_sharded_substepped_tick(config: FluidConfig, mesh):
+    """Fast-forward serving over a mesh: make_substepped_tick with the batch
+    axis sharded over ``mesh`` (batch.shard_batch's layout).
+
+    tick(batch_shards, dts, splats) -> (batch_shards, (B, h, w, 3) uint8).
+    Each device runs _substepped_body on its own B / n sims: its columns of
+    the (K, B) ``dts`` (one dt table a device a tick) and its rows of the
+    (B, MAX_SPLATS, 8) ``splats``. No byte of the state moves between
+    devices; the frames of all B sims, in order, are copied to the mesh's
+    first device, as JAX's out_specs gather them when they are read. Each
+    sim's state and frame equal the unsharded tick's bit for bit, and each
+    device makes the K-substep tick's 6K + 2 launches. Raises ValueError
+    where mesh.size does not divide B."""
+    body = _substepped_body(config)
+
+    def tick(shards, dts, splats):
+        a = _host(dts)
+        splats = torch.as_tensor(splats, dtype=torch.float32)
+        b = splats.shape[0]
+        m = _split(b, mesh.size, "mesh size")
+        if a.ndim != 2 or a.shape[1] != b or a.shape[0] < 1:
+            raise ValueError(f"substep dts of shape {a.shape}, expected (K, {b})")
+        check_batch_shards(shards, mesh, m)
+        out, frames = [], []
+        for k, shard in enumerate(shards):
+            state, frame = body(shard, a[:, k * m:(k + 1) * m], splats[k * m:(k + 1) * m])
+            out.append(state)
+            frames.append(frame)
+        first = mesh.flat[0]
+        return tuple(out), torch.cat([f.to(first) for f in frames])
 
     return tick
 
