@@ -65,8 +65,8 @@ the card.
    versions at the TPU microbenchmarks' default shapes (measure_roll_rate
    at (2, 96, 384)) and at ragged ones, on the microbenchmarks' inputs and
    on random ones (check.random_floors_cases: row-varying gather indices,
-   a sweep field that is not uniform): uint32 words bit-equal, the float32
-   sweep within tolerance, each launch counted.
+   a sweep field that is not uniform): every one bit-equal (max abs error
+   0, the float32 sweep too), each launch counted.
 8. Floors phase, on the 1024x1024 bfloat16 (RGB9E5) path's final state
    (bench.py config 3), launch counts zeroed just before and read just
    after: the card's memory bandwidth, the three reference rates,
@@ -74,7 +74,14 @@ the card.
    device time a step, printed beside phase 4's spin-queued time, its event
    count equal to its launch count) and one `floors {...}` JSON line of
    floor_report; then the three kernels' device time beside their plain
-   version's and their bound.
+   version's and their bound; floor_taa at twice the trips and floor_sweep
+   at twice the chunks, spin-queued beside their defaults, each ratio held
+   to 1.6-2.4 (every gather and every sweep runs); and one line a kernel
+   with its ms beside its bound, its SM-level floor (floor_sweep: its
+   operations over the SMs' float32 lanes, none a fused multiply-add, plus
+   its grid barriers; floor_taa: one shared-memory word an add at 32 words
+   a clock an SM) at the SM clock nvidia-smi reads under load, and its
+   earlier time (PERF.md §6 rows 8-10).
 9. Long-horizon phase: tpufluid_torch.tools.long_horizon at 4096x4096
    bfloat16 (RGB9E5), 1500 steps (300 with splats) in chunks of 50, launch
    counts zeroed before and checked after; it must report ok with no
@@ -276,6 +283,12 @@ PTXAS_LIBRARIES = ("stencil", "advect", "jacobi", "bloom", "display")
 TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
 FLOORS_KERNELS = ("floor_taa", "floor_roll", "floor_sweep")
 FLOORS_CONFIG = "1024_bfloat16_rgb9e5"    # bench.py config 3, where bench.py reports floors
+# The floors kernels' spin-queued ms before floor_taa's and floor_sweep's
+# redesigns (PERF.md §6 rows 8-10), printed beside this run's.
+FLOORS_EARLIER_MS = {"floor_taa": 0.2860, "floor_roll": 0.0320, "floor_sweep": 1.1699}
+FLOORS_SCALING = (1.6, 2.4)    # time at twice the work over the default's
+F32_LANES_PER_SM = 128         # H100 SXM: float32 adds a clock an SM
+SMEM_WORDS_PER_SM = 32         # H100 SXM: shared-memory words a clock an SM
 PROFILE_STEPS = 30                        # profile_step_kernels' default
 PROFILE_FRAMES = 30                       # profile_frame_kernels' default
 LONG_HORIZON_STEPS = 1500
@@ -669,16 +682,17 @@ def host_phase(torch, cfg, run, steps: int = 50) -> dict:
 
 def floors_kernel_phase(torch, check, device, errors: dict) -> None:
     """The floors kernels against their plain versions at the default and
-    the ragged shapes; adds each max abs error to ``errors``."""
+    the ragged shapes, each bit-equal; adds each max abs error to
+    ``errors``."""
     from tpufluid_torch.ops.cuda import build
 
     for ragged in (False, True):
         for case in check.floors_cases(device, ragged) + check.random_floors_cases(device, ragged):
             before = build.KERNELS[case.kernel_name].launches
-            err, tol = check.compare(case.run(), case.run(plain=True))
+            err, _ = check.compare(case.run(), case.run(plain=True))
             torch.cuda.synchronize()
-            print(f"kernel floors {case.label:20s} max_abs_err {err:.3e}  tol {tol:.3e}")
-            assert err <= tol, f"{case.label}: {err} > {tol}"
+            print(f"kernel floors {case.label:20s} max_abs_err {err:.3e}  tol {0.0:.3e}")
+            assert err == 0.0, f"{case.label}: {err} != 0"
             assert build.KERNELS[case.kernel_name].launches > before, case.label
             key = ("floors", case.kernel_name)
             errors[key] = max(errors.get(key, 0.0), err)
@@ -716,9 +730,78 @@ def floors_phase(torch, check, cfg, run, step_timing: dict, gpu: str, device) ->
           + "; ".join(f"{o['us']} us {o['op'][:60]}" for o in other["top_other_ops"]))
     print("floors " + json.dumps({"gpu": gpu, **report}))
     print(f"floors launches {launches}")
+    kernels = timing_phase(torch, check, check.floors_cases(device))
+    scaling = floors_scaling(torch, check, gpu, device)
+    mhz, max_mhz = sm_clock_mhz(torch)
+    sms = build.sm_count(device)
+    chunks, sweeps, h, w = check.SWEEP_DEFAULT
+    barriers = floors.sweep_plan(h, w, chunks * sweeps, sms).barriers
+    for name, row in kernels.items():
+        lanes = {"floor_sweep": F32_LANES_PER_SM, "floor_taa": SMEM_WORDS_PER_SM}.get(name)
+        sm_floor = row["flops"] / (sms * lanes * mhz * 1e6) * 1e3 if lanes and mhz else None
+        row.update(sm_floor_ms=sm_floor, sm_clock_mhz=mhz, was_ms=FLOORS_EARLIER_MS[name])
+        note = "not reckoned (not redesigned)" if sm_floor is None else (
+            f"{sm_floor:.4f} ms at {mhz} MHz ({sms} SMs x {lanes} "
+            + ("float32 lanes, no fused multiply-add" if name == "floor_sweep"
+               else "shared-memory words a clock") + ")"
+            + (f" + {barriers} grid barriers" if name == "floor_sweep" else ""))
+        print(f"floors {name:11s} {row['ms']:.4f} ms on {gpu} (was {FLOORS_EARLIER_MS[name]} ms, "
+              f"PERF.md §6; {FLOORS_EARLIER_MS[name] / row['ms']:.2f}x); bound "
+              f"{row['bound_ms']:.4f} ms ({row['by']}); SM-level floor {note}; plain "
+              f"{row['plain_ms']:.4f} ms; clocks.max.sm {max_mhz} MHz")
     return {"device_bw_gbps": bw, "rolls_per_s": rolls, "report": report,
-            "launches": launches,
-            "kernels": timing_phase(torch, check, check.floors_cases(device))}
+            "launches": launches, "kernels": kernels, "scaling": scaling,
+            "sm_clock_mhz": mhz, "sm_clock_max_mhz": max_mhz, "sweep_grid_barriers": barriers}
+
+
+def sm_clock_mhz(torch) -> tuple:
+    """(clocks.sm, clocks.max.sm) in MHz as nvidia-smi reads them while a
+    spin kernel keeps the card busy (idle, the clock drops); None where it
+    reads none."""
+    from tpufluid_torch.ops.cuda.floors import spin_rate
+
+    torch.cuda._sleep(int(spin_rate() * 1500))
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()
+    torch.cuda.synchronize()
+    try:
+        mhz, max_mhz = (float(v) for v in out[0].split(","))
+    except (IndexError, ValueError):
+        return None, None
+    return mhz, max_mhz
+
+
+def floors_scaling(torch, check, gpu: str, device) -> dict:
+    """floor_taa at twice the trips and floor_sweep at twice the chunks,
+    spin-queued beside their defaults in turns (default, double, double,
+    default): a kernel that skipped or folded work would not take about
+    twice as long. Asserts each ratio within FLOORS_SCALING."""
+    from tpufluid_torch.ops import floors as plain
+    from tpufluid_torch.ops.cuda import floors
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+
+    rate = spin_rate()
+    planes, n_idx, reps, trips = check.TAA_DEFAULT
+    chunks, sweeps, h, w = check.SWEEP_DEFAULT
+    seed, idx, op = plain.taa_inputs(planes, n_idx, reps, device)
+    field, x = plain.sweep_inputs(h, w, device)
+    runs = {"floor_taa": (f"trips {trips} -> {2 * trips}",
+                          lambda n: floors.taa(seed, idx, op, n * trips, reps)),
+            "floor_sweep": (f"chunks {chunks} -> {2 * chunks}",
+                            lambda n: floors.sweep(field, x, n * chunks, sweeps))}
+    out = {}
+    for name, (what, run) in runs.items():
+        ms = {1: [], 2: []}
+        for n in (1, 2, 2, 1):
+            ms[n].append(queued_ms(lambda: run(n), 20, rate))
+        one, two = (sum(v) / len(v) for v in (ms[1], ms[2]))
+        ratio = two / one
+        print(f"floors scaling {name:11s} {what}: {one:.4f} -> {two:.4f} ms, ratio "
+              f"{ratio:.3f} (held to {FLOORS_SCALING[0]}-{FLOORS_SCALING[1]}) on {gpu}")
+        assert FLOORS_SCALING[0] <= ratio <= FLOORS_SCALING[1], (name, ratio)
+        out[name] = {"ms": one, "double_ms": two, "ratio": ratio}
+    return out
 
 
 def long_horizon_phase(torch, check, gpu: str, device, errors: dict) -> dict:

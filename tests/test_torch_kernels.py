@@ -391,6 +391,36 @@ def test_floor_sweep_runs_any_number_of_sweeps_in_one_launch(cuda):
         floors.sweep(seed, x, 0, 20)
     with pytest.raises(ValueError, match="takes torch.float32"):
         floors.sweep(seed.half(), x.half(), 1, 1)
+    with pytest.raises(ValueError, match="does not fit"):
+        big = torch.zeros((4096, 4096), device=cuda)
+        floors.sweep(big, big, 1, 20)
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 5, 10, 20])
+def test_floor_sweep_every_k_bit_equal(k, cuda):
+    """floor_sweep on sweep_plan's geometry for K sweeps between barriers
+    (4 rows a thread, or 8 where K-deep halos need them), at the default
+    field (random, so every neighbour counts) and the ragged one, with
+    totals K does not divide."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    for (h, w), total in (((256, 1024), 2 * k + 3), ((37, 131), 6)):
+        seed = torch.rand((h, w), generator=gen, device=cuda)
+        x = torch.randn((h, w), generator=gen, device=cuda)
+        plan = floors.sweep_plan(h, w, total, build.sm_count(cuda), k)
+        got = floors.run_sweep(seed, x, plan)
+        assert torch.equal(got, plain_floors.sweep_plain(seed, x, total, 1)), (h, w, k, plan.r)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8, 16])
+def test_floor_taa_every_split_bit_equal(splits, cuda):
+    """floor_taa with each word's (trip, rep) terms cut over ``splits``
+    threads, on the random default and ragged cases."""
+    for ragged in (False, True):
+        seed, idx, op, trips, reps = check.random_floors_cases(cuda, ragged, seed=5)[0].args
+        plan = floors.taa_plan(op.shape[0], idx.shape[0], reps, trips, *seed.shape,
+                               build.sm_count(cuda), splits)
+        got = floors.run_taa(seed, idx, op, trips, plan)
+        assert torch.equal(got, plain_floors.taa_plain(seed, idx, op, trips, reps)), splits
 
 
 def test_profile_counts_every_launch(cuda):

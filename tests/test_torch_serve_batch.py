@@ -181,28 +181,40 @@ def test_fast_forward_substepping(server_url):
     """speed > 1 is fast-forward: once the K-substep program is in the
     table the loop runs ceil(max speed) masked substeps a frame (/stats
     "substeps" 2), and returns to the single-step program when the speed
-    drops back, with no sim-loop error."""
-    assert _post(server_url, 1, [{"k": "speed", "v": 2.0}]) == 204
+    drops back, with no sim-loop error.
+
+    "substeps" is the K of the last PUBLISHED tick, and the tick in flight
+    when a speed is posted was dispatched at the speeds before it (the
+    previous test leaves a tick at SPEED_MAX, K = 4, that can publish after
+    its own last /stats). The sim loop runs one tick at a time, so a tick
+    published two or more steps after the POST was dispatched after it: only
+    such readings are judged."""
+
+    def after_post(sid, speed):
+        assert _post(server_url, sid, [{"k": "speed", "v": speed}]) == 204
+        return _stats(server_url)["steps"] + 2
+
+    fresh = after_post(1, 2.0)
     deadline = time.time() + 120
     subs = 1
     while time.time() < deadline:
         st = _stats(server_url)
         assert st["error"] is None, st["error"]
         subs = st["substeps"]
-        if subs >= 2:
+        if st["steps"] >= fresh and subs >= 2:
             break
         time.sleep(0.1)
     assert subs == 2, "fast-forward program never engaged"
     data, step = _frame(server_url, 1)
     assert data[:2] == b"\xff\xd8" and step > 0
-    assert _post(server_url, 1, [{"k": "speed", "v": 1.0}]) == 204
+    fresh = after_post(1, 1.0)
     deadline = time.time() + 90
     while time.time() < deadline:
         st = _stats(server_url)
-        if st["substeps"] == 1 and st["speeds"][1] == 1.0:
+        if st["steps"] >= fresh and st["substeps"] == 1 and st["speeds"][1] == 1.0:
             break
         time.sleep(0.05)
-    assert st["substeps"] == 1 and st["error"] is None
+    assert st["steps"] >= fresh and st["substeps"] == 1 and st["error"] is None
 
 
 def test_bad_sid_events_rejected(server_url):

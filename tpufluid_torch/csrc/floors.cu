@@ -15,12 +15,51 @@
 // Bounds on this card (each input read once, each output written once):
 // all three are bound by operations, not bytes. At the defaults the gather
 // reads 96 KB of operand for 33.6 M adds; the roll 295 KB for 18.9 M adds at
-// (2, 96, 384); the sweep 2 MB for 419 M float32 operations. The designs are
-// the simplest right ones: one thread per output word, the operand read
-// through L1, and for the sweep one cooperative launch that keeps the TPU
-// kernel's single program over all sweeps, ping-ponging two float32 buffers
-// of 1 MB (in L2) with a grid-wide barrier between sweeps.
+// (2, 96, 384); the sweep 3 MB for 419 M float32 operations. What each
+// design does about it:
+//
+// floor_taa: every add needs one gathered word, so the SMs' shared memory
+// (32 words a clock each) is the limit. The sum is in uint32, whose adds
+// commute, so the (trip, rep) terms of a word are split over `splits`
+// threads of one block (ops/cuda/floors.py taa_plan), enough for every SM
+// to hold a block. A block stages the operand rows its words read, (planes,
+// its rows + reps - 1, lanes), in shared memory once by cp.async, keeps
+// each thread's n_idx * planes gather offsets in registers (16 at a time),
+// sums into four accumulators, and the
+// splits' partials meet in shared memory, where one thread a word adds them
+// to the seed: one launch, no atomics, no copy of the seed beforehand. Its
+// words' indices are staged too, so each is read from device memory once.
+// A launch lets the next one on the stream take its SMs early
+// (programmatic dependent launch): a chain of calls, as the reference rate
+// runs, pays the launch's latency once.
+// Every trip issues its loads again: a compiler barrier at the top of each
+// trip's run keeps them from being hoisted and the trips folded into a
+// multiply.
+//
+// floor_roll: one thread per output word, the operand read through L1 (the
+// simplest right design; not redesigned yet).
+//
+// floor_sweep: one cooperative launch, a block or two an SM, each block
+// holding its tile of the field and a K-deep halo (a region of RH = NY * R
+// rows by RW columns, R = 4 or 8, a plan's geometry: ops/cuda/floors.py
+// sweep_plan) on chip for
+// the whole run: its x in registers, loaded once, and its p in registers,
+// a thread a column and R rows, as jacobi_chunk's sweep (csrc/jacobi.cu):
+// the left and right neighbours and the rows beyond the thread's strip come
+// from a shared buffer, one __syncthreads a sweep. Every K sweeps the block
+// publishes the K-deep bands along its tile's edges to global memory, the
+// grid synchronises, and the block copies its ring (the neighbours' bands)
+// back by cp.async; the valid part of the region shrinks by one cell a
+// sweep, to the tile after K. So a run of `total` sweeps takes
+// ceil(total / K) - 1 grid barriers, and between them only the bands leave
+// the SMs. Cells outside the grid clamp at the grid's edge, never at the
+// region's, so the result equals sweep_plain bit for bit for every K.
+// Slower on the H100, and gone: one cluster of 16 blocks holding the field
+// in distributed shared memory with a cluster barrier a sweep, and
+// exchanges that wait on the neighbours' flags instead of the grid
+// (PERF.md §6).
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 
 #include <cstdint>
 
@@ -30,29 +69,168 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 
-// One thread per output word (r, c) of the (rows, lanes) tile. Out-of-range
-// indices clamp to the row (the plain version raises on them).
-__global__ void floor_taa_kernel(const uint32_t* __restrict__ seed, const int* __restrict__ idx,
-                                 const uint32_t* __restrict__ op, uint32_t* __restrict__ out,
-                                 int trips, int planes, int n_idx, int reps, int rows, int lanes) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= rows * lanes) return;
-    const int r = t / lanes;
-    const int op_rows = rows + reps;
-    uint32_t acc = seed[t];
-#pragma unroll 1
-    for (int k = 0; k < trips; ++k) {
-        for (int rep = 0; rep < reps; ++rep) {
-            for (int j = 0; j < n_idx; ++j) {
-                const int col = min(max(idx[j * rows * lanes + t], 0), lanes - 1);
-                for (int ch = 0; ch < planes; ++ch) {
-                    acc += op[(ch * op_rows + rep + r) * lanes + col];
-                }
-            }
+// ---- floor_taa ----------------------------------------------------------
+
+constexpr int kTaaGroup = 16;   // gather offsets a thread keeps at once
+constexpr int kTaaMaxThreads = 512;
+constexpr int kTaaMaxSmem = 232448;
+
+// A thread's terms [q_lo, q_hi) of one group of gather offsets, one trip's
+// run of reps at a time: the first `ng` of the kTaaGroup offsets, all of
+// them unless kSome (a group short of kTaaGroup tests each offset; a full
+// one runs unpredicated).
+template <bool kSome>
+__device__ __forceinline__ void taa_terms(uint32_t (&acc)[4], const int (&off)[kTaaGroup],
+                                          int ng, const uint32_t* smem, int rl, int lanes,
+                                          int reps, int q_lo, int q_hi) {
+    for (int q = q_lo; q < q_hi;) {
+        // Every trip gathers anew: nothing loaded above this line is reused
+        // below it.
+        asm volatile("" ::: "memory");
+        const int rep0 = q % reps;
+        const int n = min(reps - rep0, q_hi - q);
+        const uint32_t* row = smem + (rl + rep0) * lanes;
+#pragma unroll 2
+        for (int i = 0; i < n; ++i, row += lanes) {
+#pragma unroll
+            for (int g = 0; g < kTaaGroup; ++g)
+                if (!kSome || g < ng) acc[g & 3] += row[off[g]];
+        }
+        q += n;
+    }
+}
+
+// Block b: the words [b * words_b, ...) of the flattened (rows, lanes) tile,
+// each taken by `splits` threads (thread t: word t % words_b, split
+// t / words_b); split s sums the flattened (trip, rep) terms [s * P / splits,
+// (s + 1) * P / splits), P = trips * reps (as taa_plan.parts). The block
+// stages the operand rows its words read, (planes, its rows + reps - 1,
+// lanes), and its words' indices, (n_idx, words_b); gather offsets: the
+// flat index o < n_idx * planes is (j, ch) = (o / planes, o % planes),
+// kTaaGroup of them at a time, the last group's beyond n_idx * planes
+// skipped. Out-of-range indices clamp to the row (the plain version raises
+// on them).
+// The splits' partials meet in shared memory; split 0 adds them to the
+// seed in order and writes the word.
+__global__ void __launch_bounds__(kTaaMaxThreads, 2) floor_taa_kernel(
+        const uint32_t* __restrict__ seed, const int* __restrict__ idx,
+        const uint32_t* __restrict__ op, uint32_t* __restrict__ out, int trips, int planes,
+        int n_idx, int reps, int rows, int lanes, int words_b, int splits) {
+    extern __shared__ uint32_t smem[];
+    // Launched with programmatic stream serialization: wait here until the
+    // previous launch on the stream (which may have written this one's
+    // inputs) has finished and its writes are visible. Before this line no
+    // memory is touched.
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    const int w_lo = blockIdx.x * words_b;
+    const int w_hi = min(w_lo + words_b, rows * lanes);
+    const int row_first = w_lo / lanes;
+    const int srows = (w_hi - 1) / lanes - row_first + reps;   // its rows + reps - 1
+    const int words = srows * lanes;                           // staged words a plane
+    int* s_idx = (int*)smem + planes * words;                  // (n_idx, words_b)
+    uint32_t* part = (uint32_t*)s_idx + n_idx * words_b;       // (splits, words_b)
+
+    // Stage op[ch, row_first + q, :] for q < srows: one contiguous run of
+    // srows * lanes words a plane.
+    for (int ch = 0; ch < planes; ++ch) {
+        const uint32_t* src = op + ((size_t)ch * (rows + reps) + row_first) * lanes;
+        uint32_t* dst = smem + ch * words;
+        if ((lanes & 3) == 0 && ((uintptr_t)op & 15) == 0) {
+            for (int m = threadIdx.x; m < words / 4; m += blockDim.x)
+                __pipeline_memcpy_async(dst + 4 * m, src + 4 * m, 16);
+        } else {
+            for (int m = threadIdx.x; m < words; m += blockDim.x)
+                __pipeline_memcpy_async(dst + m, src + m, 4);
         }
     }
-    out[t] = acc;
+    const int nw = w_hi - w_lo;
+    for (int m = threadIdx.x; m < n_idx * nw; m += blockDim.x) {
+        const int j = m / nw, k = m - j * nw;
+        __pipeline_memcpy_async(s_idx + j * words_b + k, idx + (size_t)j * rows * lanes + w_lo + k,
+                                4);
+    }
+    __pipeline_commit();
+
+    const int wl = threadIdx.x % words_b, s = threadIdx.x / words_b;
+    const int wi = w_lo + wl;
+    const bool active = wi < w_hi;
+    const int r = active ? wi / lanes : row_first;
+    const int c = active ? wi - r * lanes : 0;
+    const int rl = r - row_first;   // staged row of rep 0
+    const int n_off = n_idx * planes;
+    int off[kTaaGroup];
+    // The thread's gather offsets, from its word's staged indices (past the
+    // last, a repeat of it, never gathered).
+    auto load_offsets = [&](int o0) {
+#pragma unroll
+        for (int g = 0; g < kTaaGroup; ++g) {
+            const int o = min(o0 + g, n_off - 1);
+            const int j = o / planes, ch = o - j * planes;
+            const int col = min(max(s_idx[j * words_b + wl], 0), lanes - 1);
+            off[g] = ch * words + col;
+        }
+    };
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    load_offsets(0);
+
+    uint32_t acc[4] = {0u, 0u, 0u, 0u};
+    const long long terms = (long long)trips * reps;
+    const int q_lo = (int)(s * terms / splits), q_hi = (int)((s + 1) * terms / splits);
+    if (active) {
+        for (int o0 = 0; o0 < n_off; o0 += kTaaGroup) {
+            if (o0 > 0) load_offsets(o0);
+            const int ng = n_off - o0;   // offsets of this group: kTaaGroup but the last
+            if (ng >= kTaaGroup)
+                taa_terms<false>(acc, off, ng, smem, rl, lanes, reps, q_lo, q_hi);
+            else
+                taa_terms<true>(acc, off, ng, smem, rl, lanes, reps, q_lo, q_hi);
+        }
+    }
+    // The gathers are done: the next launch on the stream may take the SMs
+    // as this one's blocks finish.
+    asm volatile("griddepcontrol.launch_dependents;");
+    part[s * words_b + wl] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    __syncthreads();
+    if (s == 0 && active) {
+        uint32_t sum = seed[wi];
+        for (int k = 0; k < splits; ++k) sum += part[k * words_b + wl];
+        out[wi] = sum;
+    }
 }
+
+static int launch_taa(const void* seed, const void* idx, const void* op, void* out, int trips,
+                      int planes, int n_idx, int reps, int rows, int lanes, int words_b,
+                      int splits, int smem, cudaStream_t stream) {
+    auto kernel = floor_taa_kernel;
+    static bool configured = false;   // the attribute is set once
+    if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTaaMaxSmem);
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((rows * lanes + words_b - 1) / words_b);
+    cfg.blockDim = dim3(words_b * splits);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(
+        &cfg, kernel, (const uint32_t*)seed, (const int*)idx, (const uint32_t*)op,
+        (uint32_t*)out, trips, planes, n_idx, reps, rows, lanes, words_b, splits);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return (int)err;
+    }
+    return (int)cudaGetLastError();
+}
+
+// ---- floor_roll ---------------------------------------------------------
 
 // One thread per word (p, i, c) of the (planes, nrk, cbw) operand:
 // roll(x, s)[i] = x[(i - s) mod nrk], the direction of pltpu.roll.
@@ -73,43 +251,152 @@ __global__ void floor_roll_kernel(const uint32_t* __restrict__ seed,
     out[t] = acc;
 }
 
-// All `total` sweeps in one cooperative launch: a grid-stride pass per sweep
-// from `src` into the next buffer, then a grid-wide barrier. The buffers are
-// written and read inside the launch, so they are not read-only (no
-// __restrict__ const, no non-coherent loads).
-__global__ void floor_sweep_kernel(const float* seed, const float* __restrict__ x, float* buf0,
-                                   float* buf1, float* out, int H, int W, int total) {
+// ---- floor_sweep --------------------------------------------------------
+
+constexpr int kSweepMaxRows = 8;       // R: rows a thread keeps in registers (4 or 8)
+constexpr int kSweepMaxThreads = 1024;
+constexpr int kSweepMaxSmem = 2 * kSweepMaxThreads * kSweepMaxRows * (int)sizeof(float);
+
+// Block b holds tile (b / tiles_x, b % tiles_x): the region's rows
+// [r0, r0 + RH) and columns [c0, c0 + RW), r0 = ty * (RH - 2K) - K,
+// c0 = tx * (RW - 2K) - K; its tile is the region less K cells on every
+// side. Phase n runs min(K, total - n * K) sweeps and publishes into
+// bands[n & 1]; phase n + 1 copies its ring from there. The band buffers
+// are written and read inside the launch, so they are not read-only.
+template <int R>
+__global__ void __launch_bounds__(kSweepMaxThreads, 1)
+floor_sweep_kernel(const float* __restrict__ seed, const float* __restrict__ x, float* band0,
+                   float* band1, float* __restrict__ out, int H, int W, int total, int K,
+                   int tiles_x) {
     cg::grid_group grid = cg::this_grid();
-    const int n = H * W;
-    const int stride = (int)grid.size();
-    const float* src = seed;
-    for (int s = 0; s < total; ++s) {
-        float* dst = s == total - 1 ? out : (s % 2 == 0 ? buf0 : buf1);
-        for (int t = (int)grid.thread_rank(); t < n; t += stride) {
-            const int i = t / W;
-            const int j = t - i * W;
-            const float L = src[i * W + max(j - 1, 0)];
-            const float R = src[i * W + min(j + 1, W - 1)];
-            const float B = src[max(i - 1, 0) * W + j];
-            const float T = src[min(i + 1, H - 1) * W + j];
-            dst[t] = ((((L + R) + B) + T) - x[t]) * 0.25f;
+    extern __shared__ float buf[];   // two RH x RW buffers, one per sweep parity
+    const int RW = blockDim.x, NY = blockDim.y, RH = NY * R;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int r0 = ((int)blockIdx.x / tiles_x) * (RH - 2 * K) - K;
+    const int c0 = ((int)blockIdx.x % tiles_x) * (RW - 2 * K) - K;
+    const int gj = c0 + tx;
+    const int cj = min(max(gj, 0), W - 1);
+    // Region columns of the left and right neighbours: clamped at the grid's
+    // edge, then into the region (a region-edge cell is outside the valid
+    // part after its first sweep).
+    const int jl = min(max(max(gj - 1, 0) - c0, 0), RW - 1);
+    const int jr = min(max(min(gj + 1, W - 1) - c0, 0), RW - 1);
+    const int row0 = ty * R;   // the strip's first region row
+    const bool col_in = gj >= 0 && gj < W;
+    const bool col_tile = tx >= K && tx < RW - K;
+    const bool col_band = tx < 2 * K || tx >= RW - 2 * K;
+
+    float v[R], d[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        const int at = min(max(r0 + row0 + k, 0), H - 1) * W + cj;
+        v[k] = seed[at];
+        d[k] = x[at];
+    }
+
+    for (int done = 0, phase = 0;; ++phase) {
+        if (phase > 0) {
+            // The ring: cells of the grid outside the tile, which the
+            // neighbours published (each within K of its own tile's edge).
+            const float* src = (phase & 1) ? band0 : band1;
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+                const int lr = row0 + k, gi = r0 + lr;
+                const bool ring = !(col_tile && lr >= K && lr < RH - K);
+                if (ring && col_in && gi >= 0 && gi < H)
+                    __pipeline_memcpy_async(buf + lr * RW + tx, src + (size_t)gi * W + gj, 4);
+            }
+            __pipeline_commit();
+            __pipeline_wait_prior(0);
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+                const int lr = row0 + k, gi = r0 + lr;
+                const bool ring = !(col_tile && lr >= K && lr < RH - K);
+                if (ring && col_in && gi >= 0 && gi < H) v[k] = buf[lr * RW + tx];
+            }
+        }
+        const int m = min(K, total - done);
+        for (int s = 0; s < m; ++s) {
+            float* cur = buf + (s & 1) * (RH * RW);
+#pragma unroll
+            for (int k = 0; k < R; ++k) cur[(row0 + k) * RW + tx] = v[k];
+            __syncthreads();
+            // The rows just beyond the strip: another strip of this block, or
+            // the region's own edge row (a cell of the grid that reads it
+            // there is at the grid's edge, where it reads itself instead, or
+            // outside the valid part).
+            const float hi = ty + 1 < NY ? cur[(row0 + R) * RW + tx] : cur[(RH - 1) * RW + tx];
+            const float lo = ty > 0 ? cur[(row0 - 1) * RW + tx] : cur[tx];
+            float below = lo;   // the old value of row i - 1
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+                const int gi = r0 + row0 + k;
+                const float* row = cur + (row0 + k) * RW;
+                const float T = gi + 1 < H ? (k + 1 < R ? v[min(k + 1, R - 1)] : hi) : v[k];
+                const float B = gi > 0 ? below : v[k];
+                below = v[k];
+                v[k] = ((((row[jl] + row[jr]) + B) + T) - d[k]) * 0.25f;
+            }
+        }
+        done += m;
+        if (done == total) break;
+        float* dst = (phase & 1) ? band1 : band0;
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            const int lr = row0 + k, gi = r0 + lr;
+            const bool band = col_band || lr < 2 * K || lr >= RH - 2 * K;
+            if (col_tile && lr >= K && lr < RH - K && band && col_in && gi < H)
+                dst[(size_t)gi * W + gj] = v[k];
         }
         grid.sync();
-        src = dst;
     }
+
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+        const int lr = row0 + k, gi = r0 + lr;
+        if (col_tile && lr >= K && lr < RH - K && col_in && gi < H)
+            out[(size_t)gi * W + gj] = v[k];
+    }
+}
+
+template <int R>
+static int launch_sweep(const void* seed, const void* x, void* band0, void* band1, void* out,
+                        int H, int W, int total, int K, int rw, int ny, int tiles_y,
+                        int tiles_x, cudaStream_t stream) {
+    auto kernel = floor_sweep_kernel<R>;
+    static bool configured = false;   // per instance: the attribute is set once
+    if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSweepMaxSmem);
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    const size_t smem = 2 * (size_t)ny * R * rw * sizeof(float);
+    void* args[] = {&seed, &x, &band0, &band1, &out, &H, &W, &total, &K, &tiles_x};
+    cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(tiles_y * tiles_x),
+                                                  dim3(rw, ny), args, smem, stream);
+    if (err != cudaSuccess) {
+        cudaGetLastError();   // clear it, so that it is not reported by a later launch
+        return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// seed, out (rows, lanes) uint32; idx (n_idx, rows, lanes) int32 in [0, lanes);
-// op (planes, rows + reps, lanes) uint32.
+// seed, out (rows, lanes) uint32; idx (n_idx, rows, lanes) int32 in
+// [0, lanes); op (planes, rows + reps, lanes) uint32. A plan's blocks:
+// words_b words of the tile a block, each summed by `splits` threads;
+// smem: the largest block's staging and partials, in bytes.
 int floor_taa(const void* seed, const void* idx, const void* op, void* out, int trips,
-              int planes, int n_idx, int reps, int rows, int lanes, void* stream) {
-    const int n = rows * lanes;
-    floor_taa_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)seed, (const int*)idx, (const uint32_t*)op, (uint32_t*)out, trips,
-        planes, n_idx, reps, rows, lanes);
-    return (int)cudaGetLastError();
+              int planes, int n_idx, int reps, int rows, int lanes, int words_b, int splits,
+              int smem, void* stream) {
+    if (trips < 1 || reps < 1 || rows < 1 || lanes < 1 || planes < 1 || n_idx < 1 ||
+        words_b < 1 || splits < 1 || words_b * splits > kTaaMaxThreads ||
+        (long long)trips * reps < splits || smem > kTaaMaxSmem)
+        return (int)cudaErrorInvalidValue;
+    return launch_taa(seed, idx, op, out, trips, planes, n_idx, reps, rows, lanes, words_b,
+                      splits, smem, (cudaStream_t)stream);
 }
 
 // seed, op, out (planes, nrk, cbw) uint32.
@@ -121,29 +408,27 @@ int floor_roll(const void* seed, const void* op, void* out, int planes, int nrk,
     return (int)cudaGetLastError();
 }
 
-// seed, x, buf0, buf1, out (H, W) float32; total >= 1 sweeps. The grid is
-// the smaller of one thread per cell and the blocks that fit on the card at
-// once (a cooperative launch larger than that is refused); a refused launch
-// returns its error.
-int floor_sweep(const void* seed, const void* x, void* buf0, void* buf1, void* out, int H,
-                int W, int total, void* stream) {
-    if (total < 1) return (int)cudaErrorInvalidValue;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, floor_sweep_kernel, kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = min((H * W + kThreads - 1) / kThreads, per_sm * sms);
-    if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-    void* args[] = {&seed, &x, &buf0, &buf1, &out, &H, &W, &total};
-    err = cudaLaunchCooperativeKernel((const void*)floor_sweep_kernel, dim3(blocks),
-                                      dim3(kThreads), args, 0, (cudaStream_t)stream);
-    if (err != cudaSuccess) {
-        cudaGetLastError();  // clear it, so that it is not reported by a later launch
-        return (int)err;
-    }
-    return (int)cudaGetLastError();
+// seed, x, band0, band1, out (H, W) float32; total >= 1 sweeps, K a phase;
+// blocks of rw x ny threads, each thread `rows` rows (4 or 8; regions of
+// ny * rows rows by rw columns), a grid of tiles_y x tiles_x tiles that
+// covers the field. A cooperative launch that the card cannot hold at once
+// is refused; a refused launch returns its error.
+int floor_sweep(const void* seed, const void* x, void* band0, void* band1, void* out, int H,
+                int W, int total, int K, int rows, int rw, int ny, int tiles_y, int tiles_x,
+                void* stream) {
+    const int rh = ny * rows;
+    if (total < 1 || K < 1 || rw < 1 || ny < 1 || rw * ny > kSweepMaxThreads ||
+        rh - 2 * K < 1 || rw - 2 * K < 1 || tiles_x * (rw - 2 * K) < W ||
+        tiles_y * (rh - 2 * K) < H)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (rows == 4)
+        return launch_sweep<4>(seed, x, band0, band1, out, H, W, total, K, rw, ny, tiles_y,
+                               tiles_x, s);
+    if (rows == 8)
+        return launch_sweep<8>(seed, x, band0, band1, out, H, W, total, K, rw, ny, tiles_y,
+                               tiles_x, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -17,6 +17,8 @@ events (``attribute_device_events``) are pure functions.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import re
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -31,11 +33,13 @@ from tpufluid_torch.ops.cuda.build import I, P, Kernel, ptr, stream
 from tpufluid_torch.step import make_step
 from tpufluid_torch.trace import swirl_trace
 
-FLOOR_TAA = Kernel("floor_taa", "floors", "floor_taa", [P, P, P, P, I, I, I, I, I, I, P],
+FLOOR_TAA = Kernel("floor_taa", "floors", "floor_taa",
+                   [P, P, P, P, I, I, I, I, I, I, I, I, I, P],
                    replaces="tpufluid/ops/pallas/floors.py:92")
 FLOOR_ROLL = Kernel("floor_roll", "floors", "floor_roll", [P, P, P, I, I, I, I, P],
                     replaces="tpufluid/ops/pallas/floors.py:133")
-FLOOR_SWEEP = Kernel("floor_sweep", "floors", "floor_sweep", [P, P, P, P, P, I, I, I, P],
+FLOOR_SWEEP = Kernel("floor_sweep", "floors", "floor_sweep",
+                     [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
                      replaces="tpufluid/ops/pallas/floors.py:163")
 
 
@@ -49,19 +53,194 @@ def _check(dtype: torch.dtype, *tensors: torch.Tensor) -> None:
             raise ValueError(f"kernel takes {dtype}, got {t.dtype}")
 
 
+# ---- plans of the two redesigned kernels (csrc/floors.cu) ----------------
+
+TAA_THREADS = 512        # threads of a floor_taa block: words_b = this // splits
+TAA_SPLITS = (1, 2, 4, 8, 16)   # threads a word: words_b stays a multiple of 32
+TAA_MAX_SMEM = 232448    # shared memory a block can use on the H100
+
+
+def _split(n: int, parts: int, i: int) -> Tuple[int, int]:
+    """[lo, hi) of part i of range(n) cut into ``parts`` (csrc/floors.cu's
+    i * n / parts)."""
+    return i * n // parts, (i + 1) * n // parts
+
+
+@dataclasses.dataclass(frozen=True)
+class TaaPlan:
+    """floor_taa's blocks: ``words_b`` consecutive words of the flattened
+    (rows, lanes) tile a block, each summed by ``splits`` threads, which
+    cut its trips * reps terms (flattened trip-major) into ``splits``
+    ranges; ``smem``: the bytes the largest block stages (its operand rows,
+    its words' indices and the splits' partials)."""
+
+    rows: int
+    lanes: int
+    reps: int
+    trips: int
+    words_b: int
+    splits: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return -(-self.rows * self.lanes // self.words_b)
+
+    @property
+    def threads(self) -> int:
+        return self.words_b * self.splits
+
+    def words(self):
+        """Each block's [lo, hi) of the flattened tile, in launch order."""
+        n = self.rows * self.lanes
+        for b in range(self.blocks):
+            yield b * self.words_b, min((b + 1) * self.words_b, n)
+
+    def parts(self):
+        """Each split's [lo, hi) of the flattened (trip, rep) terms, q =
+        trip * reps + rep."""
+        for s in range(self.splits):
+            yield _split(self.trips * self.reps, self.splits, s)
+
+
+@functools.lru_cache(maxsize=64)
+def taa_plan(planes: int, n_idx: int, reps: int, trips: int, rows: int, lanes: int,
+             sms: int, splits: Optional[int] = None) -> TaaPlan:
+    """floor_taa's blocks on a GPU of ``sms`` SMs: the (trip, rep) terms of
+    every word cut over ``splits`` threads (1, 2, 4, 8 or 16, so that a
+    warp's threads share a split), TAA_THREADS // splits words a block. By
+    default the split that leaves the fewest words on the busiest SM
+    (ceil(blocks / sms) * words a block), the fewest splits of equals (less
+    staging). Raises for a split past the terms, and for a block's staging
+    beyond shared memory."""
+    if min(planes, n_idx, reps, trips, rows, lanes) < 1:
+        raise ValueError(f"floor_taa needs every size >= 1: planes {planes}, n_idx {n_idx}, "
+                         f"reps {reps}, trips {trips}, tile {rows}x{lanes}")
+    terms, n = trips * reps, rows * lanes
+    choices = [s for s in TAA_SPLITS if s <= terms]
+
+    def busiest(s: int) -> int:   # words on the busiest SM
+        words_b = TAA_THREADS // s
+        blocks = -(-n // words_b)
+        return -(-blocks // sms) * words_b
+
+    if splits is None:
+        splits = min(choices, key=lambda s: (busiest(s), s))
+    if splits not in choices:
+        raise ValueError(f"floor_taa cuts a word's {terms} terms over one of {choices} "
+                         f"threads, not {splits}")
+    words_b = TAA_THREADS // splits
+    spanned = max((hi - 1) // lanes - lo // lanes + 1
+                  for lo, hi in ((b, min(b + words_b, n)) for b in range(0, n, words_b)))
+    smem = 4 * (planes * (spanned + reps - 1) * lanes + (n_idx + splits) * words_b)
+    if smem > TAA_MAX_SMEM:
+        raise ValueError(f"floor_taa stages {smem} bytes a block, over {TAA_MAX_SMEM}")
+    return TaaPlan(rows, lanes, reps, trips, words_b, splits, smem)
+
+
+SWEEP_ROWS = (4, 8)      # rows a floor_sweep thread can keep in registers (csrc/floors.cu)
+SWEEP_K = 5              # sweeps a phase: the fastest on the H100 (PERF.md)
+SWEEP_MAX_THREADS = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """floor_sweep's geometry: blocks of ``rw`` x ``ny`` threads, each
+    thread ``r`` rows, holding a region of ny * r rows by rw columns, a tile
+    less a halo ``k`` deep on every side; ``tiles_y`` x ``tiles_x`` tiles
+    cover the field, one block each and an SM; ``phases``: the sweeps
+    between grid barriers."""
+
+    h: int
+    w: int
+    k: int
+    r: int
+    rw: int
+    ny: int
+    tiles_y: int
+    tiles_x: int
+    phases: Tuple[int, ...]
+
+    @property
+    def rh(self) -> int:
+        return self.ny * self.r
+
+    @property
+    def tile(self) -> Tuple[int, int]:
+        return self.rh - 2 * self.k, self.rw - 2 * self.k
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_y * self.tiles_x
+
+    @property
+    def barriers(self) -> int:
+        return len(self.phases) - 1
+
+    def design_cell_sweeps(self) -> int:
+        """Cells x sweeps the blocks compute, halos and the last tiles'
+        padding included (the function's: h * w * sum(phases))."""
+        return self.blocks * self.rh * self.rw * sum(self.phases)
+
+
+@functools.lru_cache(maxsize=64)
+def sweep_plan(h: int, w: int, total: int, sms: int, k: int = SWEEP_K) -> SweepPlan:
+    """floor_sweep's geometry for ``total`` sweeps of an (h, w) field on a
+    GPU of ``sms`` SMs, ``k`` sweeps a phase (fewer if the run is shorter):
+    of the regions (columns a multiple of 32, up to SWEEP_MAX_THREADS
+    threads, SWEEP_ROWS rows a thread) whose tiles cover the field in at
+    most ``sms`` blocks, one an SM, the smallest (the least work on the
+    busiest SM); of equals the one with fewer rows a thread (more warps),
+    then the widest. Raises where none does: the field outgrows what the
+    grid holds on chip."""
+    if total < 1 or k < 1:
+        raise ValueError(f"floor_sweep needs total >= 1 and k >= 1, got {total}, {k}")
+    k = min(k, total)
+    best = None
+    for r in SWEEP_ROWS:
+        for rw in range(32, SWEEP_MAX_THREADS + 1, 32):
+            for ny in range(1, SWEEP_MAX_THREADS // rw + 1):
+                th, tw = ny * r - 2 * k, rw - 2 * k
+                if th < 1 or tw < 1:
+                    continue
+                ty, tx = -(-h // th), -(-w // tw)
+                if ty * tx > sms:
+                    continue
+                key = (rw * ny * r, r, -rw)
+                if best is None or key < best[0]:
+                    best = (key, r, rw, ny, ty, tx)
+    if best is None:
+        raise ValueError(f"a {h}x{w} field with {k}-deep halos does not fit {sms} blocks of "
+                         f"{SWEEP_MAX_THREADS} threads x {max(SWEEP_ROWS)} rows on chip")
+    _, r, rw, ny, ty, tx = best
+    return SweepPlan(h, w, k, r, rw, ny, ty, tx, tuple(_jacobi.chunks(total, k)))
+
+
+def run_taa(seed: torch.Tensor, idx: torch.Tensor, op: torch.Tensor, trips: int,
+            plan: TaaPlan) -> torch.Tensor:
+    """One floor_taa launch on ``plan``'s blocks (checked inputs)."""
+    out = torch.empty_like(seed)
+    FLOOR_TAA(ptr(seed), ptr(idx), ptr(op), ptr(out), trips, op.shape[0], idx.shape[0],
+              plan.reps, plan.rows, plan.lanes, plan.words_b, plan.splits, plan.smem,
+              stream())
+    return out
+
+
 def taa(seed: torch.Tensor, idx: torch.Tensor, op: torch.Tensor, trips: int,
         reps: int) -> torch.Tensor:
     """plain.taa_plain on the card: seed (rows, lanes), idx (n_idx, rows,
-    lanes), op (planes, rows + reps, lanes), all int32 words."""
+    lanes), op (planes, rows + reps, lanes), all int32 words; one launch on
+    taa_plan's blocks. No work (a size 0) is the seed, without a launch."""
     _check(torch.int32, seed, idx, op)
     rows, lanes = seed.shape
     if idx.shape[1:] != seed.shape or op.shape[1:] != (rows + reps, lanes):
         raise ValueError(f"seed {tuple(seed.shape)}, idx {tuple(idx.shape)}, op "
                          f"{tuple(op.shape)} with reps={reps}")
-    out = torch.empty_like(seed)
-    FLOOR_TAA(ptr(seed), ptr(idx), ptr(op), ptr(out), trips, op.shape[0], idx.shape[0],
-              reps, rows, lanes, stream())
-    return out
+    if min(trips, reps, idx.shape[0], op.shape[0], rows, lanes) < 1:
+        return seed.clone()
+    plan = taa_plan(op.shape[0], idx.shape[0], reps, trips, rows, lanes,
+                    build.sm_count(seed.device))
+    return run_taa(seed, idx, op, trips, plan)
 
 
 def roll(seed: torch.Tensor, op: torch.Tensor, trips: int) -> torch.Tensor:
@@ -74,19 +253,28 @@ def roll(seed: torch.Tensor, op: torch.Tensor, trips: int) -> torch.Tensor:
     return out
 
 
+def run_sweep(seed: torch.Tensor, x: torch.Tensor, plan: SweepPlan) -> torch.Tensor:
+    """One floor_sweep launch of ``sum(plan.phases)`` sweeps on ``plan``'s
+    geometry (checked inputs), the bands through two float32 buffers."""
+    out = torch.empty_like(seed)
+    band0, band1 = torch.empty_like(seed), torch.empty_like(seed)
+    FLOOR_SWEEP(ptr(seed), ptr(x), ptr(band0), ptr(band1), ptr(out), plan.h, plan.w,
+                sum(plan.phases), plan.k, plan.r, plan.rw, plan.ny, plan.tiles_y,
+                plan.tiles_x, stream())
+    return out
+
+
 def sweep(seed: torch.Tensor, x: torch.Tensor, chunks: int, sweeps: int) -> torch.Tensor:
     """plain.sweep_plain on the card, all chunks * sweeps sweeps in one
-    cooperative launch: seed, x (H, W) float32."""
+    cooperative launch on sweep_plan's geometry: seed, x (H, W) float32.
+    Raises where the field does not fit on chip."""
     _check(torch.float32, seed, x)
     if seed.shape != x.shape or x.ndim != 2:
         raise ValueError(f"seed {tuple(seed.shape)} / x {tuple(x.shape)}")
     if chunks * sweeps < 1:
         raise ValueError("sweep needs chunks * sweeps >= 1")
-    out = torch.empty_like(seed)
-    buf0, buf1 = torch.empty_like(seed), torch.empty_like(seed)
-    FLOOR_SWEEP(ptr(seed), ptr(x), ptr(buf0), ptr(buf1), ptr(out), *x.shape,
-                chunks * sweeps, stream())
-    return out
+    plan = sweep_plan(*x.shape, chunks * sweeps, build.sm_count(x.device))
+    return run_sweep(seed, x, plan)
 
 
 # ---- reference rates ---------------------------------------------------
@@ -100,21 +288,17 @@ def _require_cuda() -> torch.device:
 
 
 def _event_rate(call, seed, scan_len: int = 10, reps: int = 3) -> float:
-    """Seconds per ``call`` on the card, from CUDA events around reps x
-    scan_len calls after scan_len warm-up calls. ``call`` maps carry ->
-    carry: each call's output is the next call's seed, as in floors.py's
-    lax.scan chain (_scan_rate, :72)."""
-    out = seed
-    for _ in range(scan_len):
-        out = call(out)
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps * scan_len):
-        out = call(out)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3 / (reps * scan_len)
+    """Seconds per ``call`` on the card: reps x scan_len calls queued behind
+    a spin kernel (queued_ms), so that the host's launch cost is hidden, as
+    in floors.py's lax.scan chain (_scan_rate, :72), which runs on the
+    device. ``call`` maps carry -> carry: each call's output is the next
+    call's seed."""
+    box = [seed]
+
+    def one():
+        box[0] = call(box[0])
+
+    return queued_ms(one, reps * scan_len, spin_rate()) / 1e3
 
 
 def spin_rate() -> float:

@@ -22,10 +22,28 @@ Display: at the demo (f32 dye 1024x1820 -> 720x1280) and 1024x1024 (bf16
 dye), with bloom, sunrays and dither from numpy (seed 0): the composite
 with and without shading, composed and not.
 
+Floors (the profiling path's yardsticks, at their defaults): floor_sweep's
+16 x 20 sweeps of 256x1024 at K = 1, 2, 4, 5, 10 and 20 sweeps between
+grid barriers, each on sweep_plan's geometry for that K;
+floor_taa at (2, 8, 32, 8) with each word's (trip, rep) terms cut over 1,
+2, 4, 8 and 16 threads (taa_plan; TAA_THREADS a block), each also at twice
+the trips. Each is held to its plain version on the microbenchmark's
+inputs and on check.random_floors_cases before it is timed.
+
+Rates (``--only rates``): the three reference rates' chains, each call's
+output the next one's seed, timed two ways, from the host (CUDA events
+around 30 calls after 10) and on the device (the same 30 queued behind a
+spin kernel, as ops/cuda/floors.py's _event_rate). It calls only
+floors.taa / roll / sweep, queued_ms and the plain module's input makers,
+so an older checkout of the package can be timed by putting it first on
+PYTHONPATH and running this file as a script.
+
 Every candidate must equal its plain version bit for bit. Prints one line
 per candidate: its device ms (spin-queued CUDA events, as chip_smoke.py
 times), its launches and the card's name and power limit; ``--json``
-writes the rows.
+writes the rows. ``--only`` takes a comma-separated list of sections
+(stencil, jacobi, bloom, display, floors, rates; all but rates by
+default).
 """
 
 from __future__ import annotations
@@ -39,7 +57,9 @@ import numpy as np
 import torch
 
 from tpufluid_torch import FluidConfig
-from tpufluid_torch.ops.cuda import bloom, display, jacobi, stencil
+from tpufluid_torch.ops import floors as plain_floors
+from tpufluid_torch.ops.cuda import bloom, check, display, jacobi, stencil
+from tpufluid_torch.ops.cuda import floors
 from tpufluid_torch.ops.cuda.build import sm_count
 from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 from tpufluid_torch.ops.splat import splat_factors
@@ -199,18 +219,163 @@ def display_rows(rate: float, gpu: str) -> list:
     return rows
 
 
+SWEEP_KS = (1, 2, 4, 5, 10, 20)
+
+
+def _floors_inputs(kernel: str) -> list:
+    """The microbenchmark's own inputs and check.random_floors_cases' at
+    the default shapes, for ``kernel``."""
+    return [c.args for c in check.floors_cases("cuda") + check.random_floors_cases("cuda")
+            if c.kernel_name == kernel]
+
+
+def _candidate(rows: list, row: dict, run, want, rate: float, gpu: str, what: str) -> None:
+    """Hold ``run`` to each of ``want`` (one per input set), then time it on
+    the first; adds the row."""
+    err = 0.0
+    for r, w in zip(run, want):
+        err = max(err, check.compare(r(), w)[0])
+    row.update(ms=queued_ms(run[0], 20, rate), max_abs_err=err)
+    rows.append(row)
+    print(f"{row['kernel']} candidate {what}: {row['ms']:.4f} ms, max_abs_err {err:.1e} "
+          f"on {gpu}", flush=True)
+
+
+def sweep_rows(rate: float, gpu: str) -> list:
+    sms = sm_count(torch.device("cuda"))
+    cases = _floors_inputs("floor_sweep")
+    want = [plain_floors.sweep_plain(*a) for a in cases]
+    chunks, sweeps, h, w = check.SWEEP_DEFAULT
+    total = chunks * sweeps
+    rows = []
+    planned = floors.sweep_plan(h, w, total, sms)
+    for k in SWEEP_KS:
+        plan = floors.sweep_plan(h, w, total, sms, k)
+        over = plan.design_cell_sweeps() / (h * w * total)
+        run = [lambda a=a, p=plan: floors.run_sweep(a[0], a[1], p) for a in cases]
+        mark = " (plan)" if plan == planned else ""
+        _candidate(rows, {"kernel": "floor_sweep", "sweeps_a_phase": k,
+                          "rows_a_thread": plan.r, "region": (plan.rh, plan.rw),
+                          "tile": plan.tile, "blocks": plan.blocks,
+                          "grid_barriers": plan.barriers, "overcompute": over,
+                          "planned": plan == planned, "launches": 1}, run, want, rate, gpu,
+                   f"K={k:2d} region {plan.rh}x{plan.rw} ({plan.r} rows a thread) tile "
+                   f"{plan.tile[0]}x{plan.tile[1]} {plan.blocks} blocks {plan.barriers} grid "
+                   f"barriers overcompute {over:.3f}{mark}")
+    return rows
+
+
+def taa_rows(rate: float, gpu: str) -> list:
+    sms = sm_count(torch.device("cuda"))
+    cases = _floors_inputs("floor_taa")
+    want = [plain_floors.taa_plain(*a) for a in cases]
+    planes, n_idx, reps, trips = check.TAA_DEFAULT
+    tile = (plain_floors.ROWS, plain_floors.LANE)
+    planned = floors.taa_plan(planes, n_idx, reps, trips, *tile, sms)
+    rows = []
+    for splits in floors.TAA_SPLITS:
+        plan = floors.taa_plan(planes, n_idx, reps, trips, *tile, sms, splits)
+        run = [lambda a=a, p=plan: floors.run_taa(a[0], a[1], a[2], a[3], p) for a in cases]
+        mark = " (plan)" if plan == planned else ""
+        _candidate(rows, {"kernel": "floor_taa", "splits": splits, "words_a_block": plan.words_b,
+                          "blocks": plan.blocks, "threads": plan.threads, "smem": plan.smem,
+                          "planned": plan == planned, "launches": 1}, run, want, rate, gpu,
+                   f"{splits:2d} threads a word: {plan.blocks} blocks of {plan.threads} threads "
+                   f"({plan.words_b} words, {plan.smem} B of shared memory){mark}")
+        twice = floors.taa_plan(planes, n_idx, reps, 2 * trips, *tile, sms, splits)
+        a = cases[0]
+        rows[-1]["twice_trips_ms"] = ms = queued_ms(
+            lambda: floors.run_taa(a[0], a[1], a[2], 2 * a[3], twice), 20, rate)
+        print(f"floor_taa candidate {splits:2d} threads a word at {2 * trips} trips: "
+              f"{ms:.4f} ms on {gpu}", flush=True)
+    return rows
+
+
+def _host_ms(call, seed, scan_len: int = 10, reps: int = 3) -> float:
+    """Device ms a ``call`` from CUDA events recorded by the host around
+    reps x scan_len chained calls after scan_len warm-up calls: the
+    launches' host cost shows where it exceeds the kernel's."""
+    out = seed
+    for _ in range(scan_len):
+        out = call(out)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps * scan_len):
+        out = call(out)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * scan_len)
+
+
+def _queued_chain_ms(call, seed, rate: float, n: int = 30) -> float:
+    """Device ms a ``call`` of n chained calls queued behind a spin kernel."""
+    box = [seed]
+
+    def one():
+        box[0] = call(box[0])
+
+    return queued_ms(one, n, rate)
+
+
+def rate_rows(rate: float, gpu: str) -> list:
+    """The reference rates at their defaults (measure_taa_row_rate,
+    measure_roll_rate at check.ROLL_DEFAULT, measure_sweep_rate), each
+    timed from the host and on the device."""
+    dev = torch.device("cuda")
+    planes, n_idx, reps, trips = check.TAA_DEFAULT
+    seed, idx, op = plain_floors.taa_inputs(planes, n_idx, reps, device=dev)
+    taa = (lambda c: floors.taa(c, idx, op, trips, reps), seed,
+           trips * reps * n_idx * planes * plain_floors.ROWS / 1e3, "rows/us")
+    rp, nrk, cbw, rtrips = check.ROLL_DEFAULT
+    rseed, rop = plain_floors.roll_inputs(rp, nrk, cbw, device=dev)
+    roll = (lambda c: floors.roll(c, rop, rtrips), rseed, rtrips * 1e3, "rolls/s")
+    chunks, sweeps, h, w = check.SWEEP_DEFAULT
+    sseed, x = plain_floors.sweep_inputs(h, w, device=dev)
+    sweep = (lambda c: floors.sweep(c, x, chunks, sweeps), sseed,
+             chunks * sweeps * h * w / 1e6, "G cell-sweeps/s")
+    rows = []
+    for name, (call, s0, per_ms, unit) in (("floor_taa", taa), ("floor_roll", roll),
+                                           ("floor_sweep", sweep)):
+        host, device = _host_ms(call, s0), _queued_chain_ms(call, s0, rate)
+        rows.append({"kernel": name, "host_ms": host, "device_ms": device,
+                     "host_rate": per_ms / host, "device_rate": per_ms / device, "unit": unit})
+        print(f"{name} rate from the host {per_ms / host:.1f} {unit} ({host:.4f} ms a call), "
+              f"on the device {per_ms / device:.1f} {unit} ({device:.4f} ms a call) on {gpu}",
+              flush=True)
+    return rows
+
+
+SECTIONS = ("stencil", "jacobi", "bloom", "display", "floors", "rates")
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--json", default=None)
+    ap.add_argument("--only", default=",".join(SECTIONS[:-1]),
+                    help=f"comma-separated sections of {SECTIONS}")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if only - set(SECTIONS):
+        ap.error(f"unknown sections {sorted(only - set(SECTIONS))}; of {SECTIONS}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_candidates measures a CUDA GPU and none is available")
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     rate = spin_rate()
-    rows = (stencil_rows(rate, gpu) + jacobi_rows(args.iters, rate, gpu)
-            + bloom_rows(rate, gpu) + bloom_batch_rows(rate, gpu) + display_rows(rate, gpu))
+    rows = []
+    if "stencil" in only:
+        rows += stencil_rows(rate, gpu)
+    if "jacobi" in only:
+        rows += jacobi_rows(args.iters, rate, gpu)
+    if "bloom" in only:
+        rows += bloom_rows(rate, gpu) + bloom_batch_rows(rate, gpu)
+    if "display" in only:
+        rows += display_rows(rate, gpu)
+    if "floors" in only:
+        rows += sweep_rows(rate, gpu) + taa_rows(rate, gpu)
+    rates = rate_rows(rate, gpu) if "rates" in only else []
     sms = sm_count(torch.device("cuda"))
     chosen = {name: jacobi.plan(h, w, args.iters, sms) for name, h, w, _ in GRIDS}
     print(f"jacobi plan on {sms} SMs: {chosen}")
@@ -218,7 +383,7 @@ def main(argv=None) -> list:
     print(f"pre_pressure plan on {sms} SMs: {tiles}")
     if args.json:
         with open(args.json, "w") as f:
-            json.dump({"gpu": gpu, "rows": rows, "jacobi_plan": chosen,
+            json.dump({"gpu": gpu, "rows": rows, "rates": rates, "jacobi_plan": chosen,
                        "pre_pressure_plan": {k: str(v) for k, v in tiles.items()}}, f, indent=1)
     bad = [r for r in rows if r["max_abs_err"] != 0.0]
     if bad:
