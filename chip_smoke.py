@@ -44,7 +44,12 @@ the card.
    bf16 (RGB9E5), the flag variants (SHADING, BLOOM, SUNRAYS each off), the
    display without dither and with compose=False, the capture size and the
    server's 360x640 tick. Prints each max error beside its tolerance and
-   fails past it.
+   fails past it. Then canvases much smaller than their dye, the server's
+   CLI dye (512) at 200x112 and the app's (1024) at 256x256, f32 and bf16
+   RGB9E5, shaded, unshaded and compose=False: the display's launches of
+   each form (display, display_direct) printed, each the form the wrapper
+   picks (in f32 the direct form every time: the staged window does not
+   fit a block), every one bit-equal.
 6. Render path phase, on each path's final state: one make_render frame
    with the launch counts zeroed just before and read just after (1
    bloom_pyramid, 1 display, no step kernel), held against the plain
@@ -60,6 +65,18 @@ the card.
    frames: each render kernel's device time a frame, its event count equal
    to its launch count, and the rest of the frame's device time by PyTorch
    op).
+6b. Small-canvas phase, the display's direct form on the entry points:
+   FluidServer at its CLI defaults (sim 128, dye 512, 640x360) ticks 5
+   times, then takes a 200x112 canvas as a small browser window posts it
+   (reconfigure) and ticks 20 times with pointer events, launch counts
+   zeroed just before and read just after: 6 step launches, 1 bloom_pyramid
+   and 1 display_direct a tick, no staged display; its frame against the
+   plain render, and the frame's kernel calls against their plain versions
+   (0). tpufluid_torch.app.main at --canvas 256x256 (dye 1024), 20 steps, a
+   frame every 10 (1 display_direct a frame). The direct form's device time
+   on the server's state beside its bound (the dye bytes its taps touch)
+   and its plain version's; both forms at the demo and 1024x1024, where
+   the wrapper picks the staged one, bit-equal and timed in turns.
 7. Floors kernel phase: the three microbenchmark kernels (floor_taa,
    floor_roll, floor_sweep; check.floors_cases) against their plain
    versions at the TPU microbenchmarks' default shapes (measure_roll_rate
@@ -76,12 +93,16 @@ the card.
    floor_report; then the three kernels' device time beside their plain
    version's and their bound; floor_taa at twice the trips and floor_sweep
    at twice the chunks, spin-queued beside their defaults, each ratio held
-   to 1.6-2.4 (every gather and every sweep runs); and one line a kernel
-   with its ms beside its bound, its SM-level floor (floor_sweep: its
-   operations over the SMs' float32 lanes, none a fused multiply-add, plus
-   its grid barriers; floor_taa: one shared-memory word an add at 32 words
-   a clock an SM) at the SM clock nvidia-smi reads under load, and its
-   earlier time (PERF.md §6 rows 8-10).
+   to 1.6-2.4 (every gather and every sweep runs), and floor_roll at 256,
+   512 and 1024 trips, the time added by the second doubling over that of
+   the first held to 1.6-2.4 (linear: 2), each time the least of three
+   runs taken in turns; and one line a kernel with its
+   ms beside its bound, its SM-level floor (floor_sweep: its operations
+   over the SMs' float32 lanes, none a fused multiply-add, plus its grid
+   barriers; floor_taa: one shared-memory word an add at 32 words a clock
+   an SM; floor_roll: its adds over 64 int32 lanes an SM plus one
+   shared-memory word for each R adds) at the SM clock nvidia-smi reads
+   under load, and its earlier time (PERF.md §6 rows 8-10).
 9. Long-horizon phase: tpufluid_torch.tools.long_horizon at 4096x4096
    bfloat16 (RGB9E5), 1500 steps (300 with splats) in chunks of 50, launch
    counts zeroed before and checked after; it must report ok with no
@@ -283,12 +304,14 @@ PTXAS_LIBRARIES = ("stencil", "advect", "jacobi", "bloom", "display")
 TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
 FLOORS_KERNELS = ("floor_taa", "floor_roll", "floor_sweep")
 FLOORS_CONFIG = "1024_bfloat16_rgb9e5"    # bench.py config 3, where bench.py reports floors
-# The floors kernels' spin-queued ms before floor_taa's and floor_sweep's
-# redesigns (PERF.md §6 rows 8-10), printed beside this run's.
+# The floors kernels' spin-queued ms before their redesigns (PERF.md §6
+# rows 8-10), printed beside this run's.
 FLOORS_EARLIER_MS = {"floor_taa": 0.2860, "floor_roll": 0.0320, "floor_sweep": 1.1699}
 FLOORS_SCALING = (1.6, 2.4)    # time at twice the work over the default's
 F32_LANES_PER_SM = 128         # H100 SXM: float32 adds a clock an SM
+INT32_LANES_PER_SM = 64        # H100 SXM: int32 adds a clock an SM
 SMEM_WORDS_PER_SM = 32         # H100 SXM: shared-memory words a clock an SM
+ROLL_TRIPS = (256, 512, 1024)  # floor_roll's linearity: each doubling's added time a trip
 PROFILE_STEPS = 30                        # profile_step_kernels' default
 PROFILE_FRAMES = 30                       # profile_frame_kernels' default
 LONG_HORIZON_STEPS = 1500
@@ -302,6 +325,13 @@ BATCH_WARM, BATCH_TIMED = 100, 200
 CROSS_GRID_BATCH = 4           # the demo's 128/1024 cross grid, batched
 BATCH_FRAME_WARM = 50          # steps before the batched frames are compared and timed
 PER_FRAME = {"bloom_pyramid": 1, "display": 1}
+# The display's direct form on the entry points (phase 6b): the server at
+# its CLI defaults, its canvas posted down to a small browser window's, and
+# the app at --canvas 256x256 with its default dye (check.DIRECT_GEOMETRIES).
+SMALL_SERVER_CANVAS = "server_cli_200x112"
+SMALL_APP_CANVAS = "app_canvas_256x256"
+SMALL_TICKS = 20
+SMALL_APP_STEPS, SMALL_APP_RENDER_EVERY = 20, 10
 SHARDED_MESH = (2, 2)
 SHARDED_RES = 16384            # sharded_16384_bf16_2x2: BASELINE.md config #5
 SHARDED_CHECK_RES = 4096       # the kernels-against-plain cells
@@ -507,11 +537,17 @@ def timing_phase(torch, check, cases, verbose: bool = True) -> dict:
 
 def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
     """Every kernel call of a frame against its plain version: at each
-    config's canvas, then the variants at the two path configs. Adds each
-    max abs error to ``errors`` per (config, kernel); asserts each within
-    tolerance."""
+    config's canvas, then the variants at the two path configs, then two
+    small canvases, where each form's display launches are counted. Adds
+    each max abs error to ``errors`` per (config, kernel); asserts each
+    within tolerance."""
+    from tpufluid_torch import FluidConfig
+    from tpufluid_torch.ops.cuda import build
+
     def run(name, cfg, label, state, **kw):
+        ran = []
         for case in check.render_cases(state, cfg, **kw):
+            ran.append(case.kernel_name)
             err, tol = check.compare(case.run(), case.run(plain=True))
             torch.cuda.synchronize()
             print(f"kernel {name:22s} {label:14s} {case.label:15s} max_abs_err {err:.3e}  "
@@ -519,6 +555,7 @@ def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
             assert err == 0.0, f"{case.label} on {name} {label}: {err} != 0"
             key = (name, case.kernel_name)
             errors[key] = max(errors.get(key, 0.0), err)
+        return ran
 
     for name, cfg in cfgs.items():
         state, _ = check.random_state(cfg, seed=7, device=device)
@@ -533,6 +570,26 @@ def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
         cw, ch = cfg.capture_size
         run(name, cfg, f"capture{ch}x{cw}", state, out_hw=(ch, cw))
         run(name, cfg, "tick360x640", state, out_hw=(360, 640))
+    # Canvases much smaller than their dye, where the staged window does
+    # not fit a block in f32: the direct form runs, the staged form does
+    # not. In bf16 some of them fit (a 16-bit window is half the bytes):
+    # the form the wrapper picks is the one that runs.
+    for label in (SMALL_SERVER_CANVAS, SMALL_APP_CANVAS):
+        res, cw, ch, own = check.DIRECT_GEOMETRIES[label]
+        for dtype, rgb9e5 in (("float32", False), ("bfloat16", True)):
+            cfg = FluidConfig(DYE_RESOLUTION=res, CANVAS_WIDTH=cw, CANVAS_HEIGHT=ch,
+                              DTYPE=dtype, DYE_RGB9E5=rgb9e5, MAX_SPLATS=8).validate()
+            name = f"{label}_{dtype}"
+            state, _ = check.random_state(cfg, seed=10, device=device)
+            build.reset_launches()
+            ran = (run(name, cfg, "canvas", state)
+                   + run(name, dataclasses.replace(cfg, SHADING=False), "shading=off", state)
+                   + run(name, cfg, "compose=off", state, compose=False))
+            forms = {k: build.KERNELS[k].launches for k in ("display", "display_direct")}
+            print(f"kernel {name:22s} display forms: launches {forms}")
+            assert forms == {k: ran.count(k) for k in forms}, (name, forms, ran)
+            if cfg.dtype == own:
+                assert ran.count("display_direct") == 3, (name, ran)
 
 
 def render_path_phase(torch, check, cfg, run, device) -> dict:
@@ -619,6 +676,96 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
             "tick_device_ms": tick_device,
             "launches": {k: frame_launches[k] for k in RENDER_KERNELS},
             "tick_launches": tick_launches, "kernels": timing}
+
+
+def small_canvas_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
+    """Phase 6b, the display's direct form on the entry points. The server
+    at its CLI defaults ticks at its 640x360, then takes a small browser
+    window's canvas (reconfigure, as the page's POST /config) and ticks
+    SMALL_TICKS times with pointer events, launch counts zeroed just before
+    and read just after (the step's 6, 1 bloom_pyramid and 1 display_direct
+    a tick, no staged display); its frame against the plain render. The app
+    at --canvas 256x256 with its default dye, counts zeroed before and read
+    after (1 display_direct a frame). Then the direct form's device time on
+    the server's state beside its bound and its plain version's, and both
+    forms at the demo and 1024x1024, where the wrapper picks the staged one:
+    each bit-equal to the plain version, spin-queued side by side."""
+    import shutil
+
+    from tpufluid_torch import init_state
+    from tpufluid_torch.app import build_argparser as app_argparser
+    from tpufluid_torch.ops.cuda import build, display
+    from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
+    from tpufluid_torch.render import plain_render, render_frame
+    from tpufluid_torch.server import MAX_DT, FluidServer, build_argparser, config_from_args
+
+    res, cw, ch, _ = check.DIRECT_GEOMETRIES[SMALL_SERVER_CANVAS]
+    cfg = config_from_args(build_argparser().parse_args([]))
+    assert cfg.DYE_RESOLUTION == res, (cfg.DYE_RESOLUTION, res)
+    srv = FluidServer(cfg, seed=0, device=device)
+    srv.state = init_state(cfg, device=device)
+    srv.handle_events([{"k": "burst"}])
+    for _ in range(5):
+        srv.advance(MAX_DT)
+    srv.reconfigure({"CANVAS_WIDTH": cw, "CANVAS_HEIGHT": ch})
+    small = srv.config
+    srv.tracer.feed("down", pid=1, x=40.0, y=40.0)
+    build.reset_launches()
+    for k in range(SMALL_TICKS):
+        srv.tracer.feed("move", pid=1, x=40.0 + 6 * k, y=40.0 + 2 * k)
+        frame = srv.advance(MAX_DT)
+    launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    per_tick = {**expected_per_step(small), "bloom_pyramid": 1, "display_direct": 1}
+    want = {k: n * SMALL_TICKS for k, n in per_tick.items() if n}
+    assert launches == want, (launches, want)
+    assert frame.shape == (ch, cw, 3) and frame.dtype == np.uint8, frame.shape
+    state = srv.state
+    err, tol = check.compare(render_frame(state, small), plain_render(state, small))
+    assert err <= tol, f"small-canvas frame vs plain render: {err} > {tol}"
+    assert bool(torch.isfinite(state.dye).all()) and float(state.dye.max()) > 0.0
+    cases = check.render_cases(state, small)
+    check_cases(torch, check, SMALL_SERVER_CANVAS, cases, errors, exact=True)
+    print(f"small canvas server {small.SIM_RESOLUTION}/{small.DYE_RESOLUTION} "
+          f"{cw}x{ch} (from 640x360) on {gpu}: {SMALL_TICKS} ticks, launches {launches}; "
+          f"frame vs plain render max abs err {err:.3e} tol {tol:.3e}")
+
+    ares, acw, ach, _ = check.DIRECT_GEOMETRIES[SMALL_APP_CANVAS]
+    assert app_argparser().parse_args([]).dye_res == ares
+    out = Path("out/chip_smoke_small_canvas")
+    shutil.rmtree(out, ignore_errors=True)
+    build.reset_launches()
+    line = app_run(["--canvas", f"{acw}x{ach}", "--steps", str(SMALL_APP_STEPS),
+                    "--render-every", str(SMALL_APP_RENDER_EVERY), "--metrics-every", "0",
+                    "--out", str(out)])
+    app_launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    frames = SMALL_APP_STEPS // SMALL_APP_RENDER_EVERY
+    want = {k: n * SMALL_APP_STEPS for k, n in expected_per_step(cfgs["demo_float32"]).items()
+            if n}
+    want.update(bloom_pyramid=frames, display_direct=frames)
+    assert app_launches == want, (app_launches, want)
+    assert len(sorted(out.glob("frame_*.png"))) == frames
+    print(f"small canvas app --canvas {acw}x{ach} on {gpu}: {line}; launches {app_launches}")
+
+    timing = timing_phase(torch, check, cases)
+    rate = spin_rate()
+    forms = {}
+    for name in ("demo_float32", "1024_bfloat16_rgb9e5"):
+        big, _ = check.random_state(cfgs[name], seed=12, device=device)
+        case = check.render_cases(big, cfgs[name])[-1]
+        assert case.kernel_name == "display", (name, case.kernel_name)
+        plain = case.run(plain=True)
+        assert torch.equal(display.display(*case.args, force="direct"), plain), name
+        assert torch.equal(case.run(), plain), name
+        row = {}
+        for form in ("staged", "direct", "direct", "staged"):
+            ms = queued_ms(lambda: display.display(*case.args, force=form), 20, rate)
+            row.setdefault(form, []).append(ms)
+        forms[name] = {f: sum(v) / len(v) for f, v in row.items()}
+        print(f"time   display forms at {name} on {gpu}: staged {forms[name]['staged']:.4f} ms, "
+              f"direct {forms[name]['direct']:.4f} ms (the wrapper picks staged; "
+              f"each the mean of two, in turns)")
+    return {"launches": launches, "app_launches": app_launches, "app_line": line,
+            "frame_err": err, "frame_tol": tol, "kernels": timing, "forms": forms}
 
 
 HOST_FUNCS = {  # (module file, function) -> label, for the host profile
@@ -736,15 +883,24 @@ def floors_phase(torch, check, cfg, run, step_timing: dict, gpu: str, device) ->
     sms = build.sm_count(device)
     chunks, sweeps, h, w = check.SWEEP_DEFAULT
     barriers = floors.sweep_plan(h, w, chunks * sweeps, sms).barriers
+    roll_r = floors.roll_plan(*check.ROLL_DEFAULT, sms).r
     for name, row in kernels.items():
-        lanes = {"floor_sweep": F32_LANES_PER_SM, "floor_taa": SMEM_WORDS_PER_SM}.get(name)
-        sm_floor = row["flops"] / (sms * lanes * mhz * 1e6) * 1e3 if lanes and mhz else None
+        # SM clocks of the kernel's work: the sweep's float32 operations;
+        # the gather's shared-memory words, one an add; the roll's int32
+        # adds and its shared-memory words, one for every R adds.
+        flops = row["flops"]
+        clocks = {"floor_sweep": flops / F32_LANES_PER_SM, "floor_taa": flops / SMEM_WORDS_PER_SM,
+                  "floor_roll": flops / INT32_LANES_PER_SM
+                  + flops / roll_r / SMEM_WORDS_PER_SM}[name]
+        sm_floor = clocks / (sms * mhz * 1e6) * 1e3 if mhz else None
         row.update(sm_floor_ms=sm_floor, sm_clock_mhz=mhz, was_ms=FLOORS_EARLIER_MS[name])
-        note = "not reckoned (not redesigned)" if sm_floor is None else (
-            f"{sm_floor:.4f} ms at {mhz} MHz ({sms} SMs x {lanes} "
-            + ("float32 lanes, no fused multiply-add" if name == "floor_sweep"
-               else "shared-memory words a clock") + ")"
-            + (f" + {barriers} grid barriers" if name == "floor_sweep" else ""))
+        note = "not reckoned (no SM clock read)" if sm_floor is None else (
+            f"{sm_floor:.4f} ms at {mhz} MHz ({sms} SMs x "
+            + {"floor_sweep": f"{F32_LANES_PER_SM} float32 lanes, no fused multiply-add) + "
+                              f"{barriers} grid barriers",
+               "floor_taa": f"{SMEM_WORDS_PER_SM} shared-memory words a clock)",
+               "floor_roll": f"{INT32_LANES_PER_SM} int32 lanes, + a shared-memory word for "
+                             f"{roll_r} adds at {SMEM_WORDS_PER_SM} a clock)"}[name])
         print(f"floors {name:11s} {row['ms']:.4f} ms on {gpu} (was {FLOORS_EARLIER_MS[name]} ms, "
               f"PERF.md §6; {FLOORS_EARLIER_MS[name] / row['ms']:.2f}x); bound "
               f"{row['bound_ms']:.4f} ms ({row['by']}); SM-level floor {note}; plain "
@@ -775,13 +931,27 @@ def sm_clock_mhz(torch) -> tuple:
 def floors_scaling(torch, check, gpu: str, device) -> dict:
     """floor_taa at twice the trips and floor_sweep at twice the chunks,
     spin-queued beside their defaults in turns (default, double, double,
-    default): a kernel that skipped or folded work would not take about
-    twice as long. Asserts each ratio within FLOORS_SCALING."""
+    default, default, double): a kernel that skipped or folded work would
+    not take about twice as long. Asserts each ratio within FLOORS_SCALING.
+    floor_roll runs a few microseconds over its fixed cost, so its time is
+    taken at ROLL_TRIPS (256, 512, 1024 trips, in turns up, down and up):
+    growing linearly, the time added from 512 to 1024 trips is twice that
+    from 256 to 512, and the ratio of the two is held within FLOORS_SCALING
+    too. Each size's time is the least of its three runs: a host that falls
+    behind the queue only adds time to a run, and the least run is the
+    kernel's."""
     from tpufluid_torch.ops import floors as plain
     from tpufluid_torch.ops.cuda import floors
     from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 
     rate = spin_rate()
+
+    def least(run, order) -> dict:
+        ms = {n: [] for n in order}
+        for n in order:
+            ms[n].append(queued_ms(lambda: run(n), 20, rate))
+        return {n: min(v) for n, v in ms.items()}, ms
+
     planes, n_idx, reps, trips = check.TAA_DEFAULT
     chunks, sweeps, h, w = check.SWEEP_DEFAULT
     seed, idx, op = plain.taa_inputs(planes, n_idx, reps, device)
@@ -792,15 +962,24 @@ def floors_scaling(torch, check, gpu: str, device) -> dict:
                             lambda n: floors.sweep(field, x, n * chunks, sweeps))}
     out = {}
     for name, (what, run) in runs.items():
-        ms = {1: [], 2: []}
-        for n in (1, 2, 2, 1):
-            ms[n].append(queued_ms(lambda: run(n), 20, rate))
-        one, two = (sum(v) / len(v) for v in (ms[1], ms[2]))
-        ratio = two / one
-        print(f"floors scaling {name:11s} {what}: {one:.4f} -> {two:.4f} ms, ratio "
-              f"{ratio:.3f} (held to {FLOORS_SCALING[0]}-{FLOORS_SCALING[1]}) on {gpu}")
-        assert FLOORS_SCALING[0] <= ratio <= FLOORS_SCALING[1], (name, ratio)
-        out[name] = {"ms": one, "double_ms": two, "ratio": ratio}
+        t, ms = least(run, (1, 2, 2, 1, 1, 2))
+        ratio = t[2] / t[1]
+        print(f"floors scaling {name:11s} {what}: {t[1]:.4f} -> {t[2]:.4f} ms (least of "
+              f"{len(ms[1])} runs each), ratio {ratio:.3f} (held to {FLOORS_SCALING[0]}-"
+              f"{FLOORS_SCALING[1]}) on {gpu}")
+        assert FLOORS_SCALING[0] <= ratio <= FLOORS_SCALING[1], (name, ratio, ms)
+        out[name] = {"ms": t[1], "double_ms": t[2], "ratio": ratio, "runs": ms}
+    rseed, rop = plain.roll_inputs(*check.ROLL_DEFAULT[:3], device)
+    t, ms = least(lambda n: floors.roll(rseed, rop, n),
+                  ROLL_TRIPS + ROLL_TRIPS[::-1] + ROLL_TRIPS)
+    t = [t[n] for n in ROLL_TRIPS]
+    ratio = (t[2] - t[1]) / (t[1] - t[0])
+    print(f"floors scaling floor_roll  trips {' -> '.join(map(str, ROLL_TRIPS))}: "
+          + " -> ".join(f"{v:.4f}" for v in t) + f" ms (least of 3 runs each); added time "
+          f"{t[1] - t[0]:.4f} -> {t[2] - t[1]:.4f} ms, ratio {ratio:.3f} (linear: 2; held to "
+          f"{FLOORS_SCALING[0]}-{FLOORS_SCALING[1]}) on {gpu}")
+    assert FLOORS_SCALING[0] <= ratio <= FLOORS_SCALING[1], ("floor_roll", ratio, ms)
+    out["floor_roll"] = {"trips": list(ROLL_TRIPS), "ms": t, "ratio": ratio, "runs": ms}
     return out
 
 
@@ -2826,6 +3005,7 @@ def main() -> int:
                         "render": {k: v for k, v in rend.items()
                                    if k not in ("kernels", "launches")}}
 
+    small = small_canvas_phase(torch, check, cfgs, gpu, device, errors)
     floors_run = floors_phase(torch, check, cfgs[FLOORS_CONFIG], runs[FLOORS_CONFIG],
                               report[FLOORS_CONFIG]["kernels"], gpu, device)
     horizon = long_horizon_phase(torch, check, gpu, device, errors)
@@ -2840,6 +3020,8 @@ def main() -> int:
 
     kernels = []
     for k in build.KERNELS.values():
+        if k.name == "display_direct":   # launched at small canvases only, below
+            continue
         if k.name in FLOORS_KERNELS:   # launched by the profiling path only
             row, launches = floors_run["kernels"][k.name], floors_run["launches"][k.name]
             err = max(errors[("floors", k.name)], row["max_abs_err"])
@@ -2878,6 +3060,20 @@ def main() -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["by"], "library_ms": row.get("library_ms"), "configs": per_config,
         })
+    # The display's direct form: launched where the staged window does not
+    # fit, here the server's ticks at a small canvas (phase 6b).
+    row, k = small["kernels"]["display_direct"], build.KERNELS["display_direct"]
+    kernels.append({
+        "name": k.name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
+        "replaces": k.replaces, "launches": small["launches"]["display_direct"],
+        "max_abs_err": max(e for (c, n), e in errors.items() if n == k.name),
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["by"], "library_ms": None,
+        "configs": {SMALL_SERVER_CANVAS: {"launches": small["launches"]["display_direct"]},
+                    SMALL_APP_CANVAS: {"launches": small["app_launches"]["display_direct"]},
+                    **{f"{c}:forced": {"ms": f["direct"], "staged_ms": f["staged"]}
+                       for c, f in small["forms"].items()}},
+    })
     # pre_pressure's true-wall form: launched by the sharded step alone.
     b = sharded["bounded"]
     kernels.append({
@@ -2937,7 +3133,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"gpu": gpu, "paths": report, "ptxas": ptxas,
          "kernel_errors": {f"{c}/{k}": e for (c, k), e in errors.items()},
-         "floors": floors_run,
+         "small_canvas": small, "floors": floors_run,
          "long_horizon": horizon, "batched": batched, "batched_frames": frames,
          "sharded": sharded, "packed": packed, "app_server": app_server, "fleet": fleet,
          "batch_mesh": batch_mesh, "kernels": kernels}, indent=1,

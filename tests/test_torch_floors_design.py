@@ -1,13 +1,18 @@
-"""The designs of floor_taa and floor_sweep (csrc/floors.cu) on the CPU.
+"""The designs of floor_taa, floor_roll and floor_sweep (csrc/floors.cu) on
+the CPU.
 
 Neither kernel runs here, so what surrounds them is held instead: the plans
 of ops/cuda/floors.py (taa_plan: every (trip, rep) term of every word in
-exactly one block; sweep_plan: tiles that cover the field within the SMs),
+exactly one block; roll_plan: every (word, trip) in exactly one thread;
+sweep_plan: tiles that cover the field within the SMs),
 and a torch model of each kernel's decomposition, which must equal the
 plain version (ops/floors.py) bit for bit on the microbenchmarks' own
 inputs and on check.random_floors_cases:
 - floor_taa: each block's partial over its rows, reps and trips, wrapped to
   32 bits, added to the seed in the plan's order;
+- floor_roll: each thread's R rows of one column of its block's strip, its
+  window of R words sliding down one row a trip, one word loaded a trip;
+  each split's partials, wrapped, added to the seed;
 - floor_sweep: the plan's tiles, each in a region with a halo as deep as a
   phase's sweeps, the neighbours' bands published and the ring reloaded
   every phase, the sweep's neighbours clamped at the grid's edge as the
@@ -145,6 +150,135 @@ def test_taa_model_matches_plain(label, sms):
     got = _taa_model(seed, idx, op, trips, plan)
     want = pf.taa_plain(seed, idx, op, trips, reps)
     np.testing.assert_array_equal(_u32(got), _u32(want))
+
+
+# ---- floor_roll ----------------------------------------------------------
+
+ROLL_SHAPES = {"default": check.ROLL_DEFAULT, "ragged": check.ROLL_RAGGED,
+               "short": (2, 3, 40, 7)}     # fewer rows than a thread's window
+
+
+def _roll_coverage(plan: fk.RollPlan, blocks, parts) -> np.ndarray:
+    """How many threads of ``plan`` take each (plane, row, column, trip),
+    over the blocks' words ``blocks`` and the splits' ``parts``."""
+    count = np.zeros((plan.planes, plan.nrk, plan.cbw, plan.trips), np.int64)
+    for plane, (r0, r1), (c0, c1) in blocks:
+        for k0, k1 in parts:
+            count[plane, r0:r1, c0:c1, k0:k1] += 1
+    return count
+
+
+@pytest.mark.parametrize("rows", fk.ROLL_ROWS)
+@pytest.mark.parametrize("sms", [132, 16, 1])
+@pytest.mark.parametrize("shape", list(ROLL_SHAPES))
+def test_roll_plan_covers_every_word_and_trip_once(shape, sms, rows):
+    """Every trip of every word in exactly one thread, at the default, the
+    ragged shape and one shorter than a window, on 132, 16 and 1 SMs; a
+    plan that drops or repeats a block or a split fails the count; the
+    threads and the staging fit a block."""
+    plan = fk.roll_plan(*ROLL_SHAPES[shape], sms, rows=rows)
+    blocks, parts = list(plan.words()), list(plan.parts())
+    assert (_roll_coverage(plan, blocks, parts) == 1).all()
+    assert not (_roll_coverage(plan, blocks[:-1], parts) == 1).all()
+    assert not (_roll_coverage(plan, blocks + blocks[:1], parts) == 1).all()
+    if plan.splits > 1:
+        assert not (_roll_coverage(plan, blocks, parts[1:]) == 1).all()
+    assert not (_roll_coverage(plan, blocks, parts + parts[:1]) == 1).all()
+    assert len(blocks) == plan.blocks and plan.threads <= fk.ROLL_MAX_THREADS
+    assert plan.r == rows and plan.splits in fk.ROLL_SPLITS and plan.splits <= plan.trips
+    assert plan.smem == 4 * fk.ROLL_STRIP * (plan.nrk + (plan.splits - 1) * plan.groups_b
+                                             * rows) <= fk.TAA_MAX_SMEM
+
+
+def test_roll_plan_default_and_raises():
+    """The default (2, 96, 384) with 256 trips on 132 SMs: 8 rows a thread,
+    4 splits (1,152 warps, 8 or more an SM), 3 row groups a block, 96
+    blocks of 384 threads; with 4 rows, 2 splits and 5 groups, 120 blocks;
+    an explicit split is taken; a split past the trips or off the list, a
+    row count off the list, an empty size and a strip past shared memory
+    raise."""
+    plan = fk.roll_plan(*check.ROLL_DEFAULT, 132)
+    assert (plan.r, plan.splits, plan.groups_b, plan.blocks, plan.threads) == (8, 4, 3, 96, 384)
+    plan = fk.roll_plan(*check.ROLL_DEFAULT, 132, rows=4)
+    assert (plan.splits, plan.groups_b, plan.blocks) == (2, 5, 120)
+    assert fk.roll_plan(*check.ROLL_DEFAULT, 132, splits=1).splits == 1
+    assert fk.roll_plan(2, 96, 384, 2, 132).splits == 2      # every trip its thread
+    with pytest.raises(ValueError, match="threads, not"):
+        fk.roll_plan(2, 96, 384, 2, 132, splits=4)
+    with pytest.raises(ValueError, match="threads, not"):
+        fk.roll_plan(*check.ROLL_DEFAULT, 132, splits=3)
+    with pytest.raises(ValueError, match="rows a thread"):
+        fk.roll_plan(*check.ROLL_DEFAULT, 132, rows=2)
+    with pytest.raises(ValueError, match=">= 1"):
+        fk.roll_plan(2, 0, 384, 256, 132)
+    with pytest.raises(ValueError, match="stages"):
+        fk.roll_plan(1, 2000, 32, 4, 132)
+
+
+def _roll_model(seed, op, plan: fk.RollPlan) -> torch.Tensor:
+    """floor_roll's decomposition, every thread at once: thread (block,
+    split, group, lane) takes rows i0 .. i0 + R - 1 of its block's strip
+    column and the split's trips [k0, k0 + n); its window w[j] starts as
+    row (i0 + j - k0) mod nrk of the strip; each trip adds slot (j - t) mod
+    R to row j, then loads the next row down (wrapping by a compare) into
+    slot (R - 1 - t) mod R; past its trips a thread adds nothing. Split 0
+    starts from the seed; the other splits' partials, wrapped, are added to
+    its sum."""
+    r, nrk = plan.r, plan.nrk
+    ops = pf._u64(op)
+    threads = []   # (plane, i0, column, k0, n, split)
+    for plane, (r0, r1), (c0, c1) in plan.words():
+        for s, (k0, k1) in enumerate(plan.parts()):
+            for i0 in range(r0, r1, r):
+                for c in range(c0, c1):
+                    threads.append((plane, i0, c, k0, k1 - k0, s))
+    t = torch.tensor(threads, dtype=torch.int64)
+    plane, i0, col, k0, n, split = t.unbind(1)
+    row = (i0 - k0) % nrk
+    w = [ops[plane, (row + j) % nrk, col] for j in range(r)]
+    seeds = pf._u64(seed)
+    acc = [torch.where((split == 0) & (i0 + j < nrk),
+                       seeds[plane, (i0 + j).clamp(max=nrk - 1), col], 0) for j in range(r)]
+    off = row
+    for trip in range(int(n.max())):
+        live = trip < n
+        for j in range(r):
+            acc[j] = torch.where(live, (acc[j] + w[(j - trip) % r]) & MASK, acc[j])
+        off = off - 1
+        off = torch.where(off < 0, off + nrk, off)
+        w[(r - 1 - trip) % r] = ops[plane, off, col]
+    out = torch.zeros(seed.numel(), dtype=torch.int64)
+    for j in range(r):
+        rows = i0 + j
+        keep = rows < nrk
+        flat = (plane * nrk + rows) * plan.cbw + col
+        out.index_add_(0, flat[keep], acc[j][keep])    # split 0 and the partials
+    return pf._wrap32(out.reshape(seed.shape) & MASK)
+
+
+def _roll_cases():
+    out = {}
+    for ragged in (False, True):
+        for case in (check.floors_cases("cpu", ragged)[1],
+                     check.random_floors_cases("cpu", ragged)[1]):
+            out[case.label] = case.args
+    return out
+
+
+ROLL_CASES = _roll_cases()
+
+
+@pytest.mark.parametrize("rows", fk.ROLL_ROWS)
+@pytest.mark.parametrize("label", list(ROLL_CASES))
+def test_roll_model_matches_plain(label, rows):
+    """The plan's geometry at the case's own trips (default, ragged,
+    random: check.floors_cases, check.random_floors_cases) on 132 SMs, 4
+    and 8 rows a thread; and one split where the default cuts the trips."""
+    seed, op, trips = ROLL_CASES[label]
+    want = pf.roll_plain(seed, op, trips)
+    for splits in (None, 1):
+        plan = fk.roll_plan(*op.shape, trips, 132, rows=rows, splits=splits)
+        np.testing.assert_array_equal(_u32(_roll_model(seed, op, plan)), _u32(want))
 
 
 # ---- floor_sweep ---------------------------------------------------------

@@ -303,6 +303,76 @@ def test_display_matches_plain_at_render_sizes(dye_hw, out_hw, dtype, cuda):
             assert torch.equal(got, want), (shading, compose)
 
 
+def _display_extras(cfg, gen, device, batch=()):
+    """Bloom, sunrays and dither textures at ``cfg``'s sizes, from numpy."""
+    (bw, bh), (sw, sh) = cfg.bloom_size, cfg.sunrays_size
+
+    def t(*shape):
+        return torch.from_numpy((gen.random(shape) * 1.5).astype(np.float32)).to(device)
+
+    return t(*batch, 3, bh, bw), t(*batch, sh, sw), t(64, 64)
+
+
+def _display_forms_match_plain(dye, out_hw, extras, want_kernel=None):
+    """Each shading and compose of the display at ``out_hw``: the wrapper
+    launches the form kernel_of names, and only it (with shading,
+    ``want_kernel`` where given), and it and the direct form, forced, are
+    bit-equal to display_plain."""
+    for shading in (True, False):
+        for compose in (True, False):
+            want = display.display_plain(dye, out_hw, shading, *extras, compose=compose)
+            before = {k: build.KERNELS[k].launches for k in ("display", "display_direct")}
+            got = display.display(dye, out_hw, shading, *extras, compose=compose)
+            forced = display.display(dye, out_hw, shading, *extras, compose=compose,
+                                     force="direct")
+            torch.cuda.synchronize()
+            picked = display.kernel_of(dye, out_hw, shading)
+            after = {k: build.KERNELS[k].launches for k in before}
+            if shading and want_kernel:
+                assert picked == want_kernel, (out_hw, picked)
+            runs = {picked: 1}
+            runs["display_direct"] = runs.get("display_direct", 0) + 1
+            assert {k: after[k] - before[k] for k in after} == \
+                {k: runs.get(k, 0) for k in after}, (shading, compose, picked)
+            assert torch.equal(got, want), (shading, compose, float((got - want).abs().max()))
+            assert torch.equal(forced, want), (shading, compose)
+
+
+@pytest.mark.parametrize("label", sorted(check.DIRECT_GEOMETRIES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+def test_display_direct_form_at_small_canvases(label, dtype, cuda):
+    """Every small canvas of check.DIRECT_GEOMETRIES, where the staged
+    window does not fit a block with shading in the geometry's own dtype:
+    the wrapper takes the direct form there (without shading, or in 16 bits
+    at a float32 geometry, the staged one where its window fits), each
+    storage type, shaded and not, composed and not, bit-equal to
+    display_plain."""
+    (h, w), out_hw = check.direct_geometry(label)
+    res, cw, ch, own = check.DIRECT_GEOMETRIES[label]
+    cfg = FluidConfig(DYE_RESOLUTION=res, CANVAS_WIDTH=cw, CANVAS_HEIGHT=ch).validate()
+    gen = np.random.default_rng(res + cw)
+    dye = torch.empty((3, h, w), device=cuda).uniform_(0.0, 1.5).to(dtype)
+    _display_forms_match_plain(dye, out_hw, _display_extras(cfg, gen, cuda),
+                               "display_direct" if dtype == own else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=lambda d: str(d)[6:])
+def test_display_direct_form_batched(dtype, cuda):
+    """A batch of 4 dyes of 512 at a 200x112 canvas, one direct launch for
+    the 4 sims, bit-equal to display_plain sim by sim; and the staged form
+    at the demo is still what the wrapper picks."""
+    cfg = FluidConfig(DYE_RESOLUTION=512, CANVAS_WIDTH=200, CANVAS_HEIGHT=112).validate()
+    dw, dh = cfg.dye_size
+    gen = np.random.default_rng(4)
+    dye = torch.empty((4, 3, dh, dw), device=cuda).uniform_(0.0, 1.5).to(dtype)
+    _display_forms_match_plain(dye, (112, 200), _display_extras(cfg, gen, cuda, (4,)),
+                               "display_direct" if dtype == torch.float32 else None)
+    demo = torch.zeros((2, 3, 1024, 1820), device=cuda, dtype=dtype)
+    assert display.kernel_of(demo, (720, 1280), True) == "display"
+    assert display.kernel_of(demo[0], (1024, 1024), True) == "display"
+
+
 def test_kernel_render_matches_plain_render(cuda):
     cfg = FluidConfig(DTYPE="bfloat16", **CONFIGS["small"]).validate()
     state, _ = check.random_state(cfg, seed=2, device=cuda)
@@ -352,10 +422,18 @@ def test_refused_render_launches_raise(cuda):
             display.DISPLAY(ptr(dye), 1, 3, 64, 64, 0, ptr(out), 64, 64, 1, 0, 0.0, 0.0, 0.0,
                             None, 0, 0, None, 0, 0, None, 0, 0, 0.0, 0.0, *win, stream())
     # a dye window past a block's shared memory (a 4096x7282 dye shown at
-    # 200x360): the wrapper's launch is refused and raises
+    # 200x360): the staged form, forced, is refused and raises; the wrapper
+    # takes the direct form there, bit-equal to display_plain
+    big = torch.empty((3, 4096, 7282), device=cuda).uniform_(0.0, 1.5)
     before = display.DISPLAY.launches
     with pytest.raises(RuntimeError, match="failed to launch"):
-        display.display(torch.zeros((3, 4096, 7282), device=cuda), (200, 360), True)
+        display.display(big, (200, 360), True, force="staged")
+    assert display.DISPLAY.launches == before
+    direct = display.DISPLAY_DIRECT.launches
+    got = display.display(big, (200, 360), True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, display.display_plain(big, (200, 360), True))
+    assert display.DISPLAY_DIRECT.launches == direct + 1
     assert display.DISPLAY.launches == before
     dye, base = dye.uniform_(), base.uniform_()
     got = display.display(dye, (64, 64), True)
@@ -423,6 +501,26 @@ def test_floor_taa_every_split_bit_equal(splits, cuda):
         assert torch.equal(got, plain_floors.taa_plain(seed, idx, op, trips, reps)), splits
 
 
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("rows", [4, 8])
+def test_floor_roll_every_plan_bit_equal(rows, splits, cuda):
+    """floor_roll with R rows a thread and each word's trips cut over
+    ``splits`` threads, on the random default and ragged cases and on the
+    microbenchmark's own default inputs."""
+    cases = [check.random_floors_cases(cuda, ragged, seed=6)[1].args for ragged in (False, True)]
+    cases.append(check.floors_cases(cuda)[1].args)
+    for seed, op, trips in cases:
+        plan = floors.roll_plan(*op.shape, trips, build.sm_count(cuda), rows, splits)
+        before = floors.FLOOR_ROLL.launches
+        got = floors.run_roll(seed, op, plan)
+        torch.cuda.synchronize()
+        assert floors.FLOOR_ROLL.launches == before + 1
+        assert torch.equal(got, plain_floors.roll_plain(seed, op, trips)), (op.shape, plan)
+    with pytest.raises(ValueError, match="trips >= 0"):
+        floors.roll(seed, op, -1)
+    assert torch.equal(floors.roll(seed, op, 0), seed)
+
+
 def test_profile_counts_every_launch(cuda):
     cfg = FluidConfig(DTYPE="bfloat16", **CONFIGS["small"]).validate()
     state, _ = check.random_state(cfg, seed=4, device=cuda)
@@ -443,4 +541,5 @@ def test_reference_rates_run(cuda):
     assert floors.measure_sweep_rate(chunks=1, sweeps=2) > 0
     assert floors.measure_hbm_bandwidth_gbps() > 0
     for k, n in before.items():
-        assert build.KERNELS[k].launches == n + 40, k     # 10 warm-up + 3 x 10 timed
+        # queued_ms: 1 warm-up, 3 x 10 to time the enqueue, 3 x 10 timed
+        assert build.KERNELS[k].launches == n + 61, k

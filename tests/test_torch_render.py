@@ -75,6 +75,20 @@ def test_render_frame_matches_jax(dtype):
     _close(got, jax_render(s, jcfg))
 
 
+@pytest.mark.parametrize("flags", [dict(DTYPE="float32"), dict(DTYPE="bfloat16", DYE_RGB9E5=True)],
+                         ids=["float32", "bfloat16_rgb9e5"])
+def test_small_canvas_render_matches_jax(flags):
+    """A 512 dye at a 112x200 canvas, the server's CLI dye in a small
+    browser window: on the card the display takes its direct form there
+    (its staged window does not fit a block); here the plain version."""
+    jcfg, cfg = _cfgs(DYE_RESOLUTION=512, CANVAS_WIDTH=200, CANVAS_HEIGHT=112, **flags)
+    assert tuple(cfg.dye_size) == (914, 512)
+    s, ts = _states(jcfg, seed=8)
+    got = T.render_frame(ts, cfg)
+    assert got.shape == (4, 112, 200)
+    _close(got, jax_render(s, jcfg))
+
+
 @pytest.mark.parametrize("flags", [dict(SHADING=False), dict(BLOOM=False),
                                    dict(SUNRAYS=False), dict(BLOOM_RESOLUTION=4),
                                    dict(BACK_COLOR=(10, 200, 30))],

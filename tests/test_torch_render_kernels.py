@@ -14,9 +14,14 @@ version bit for bit, with inputs made by numpy from a seed at small sizes.
     the first row's lowest tap to the last row's highest, the column stage
     at the tile's columns for every window row and the row stage at the
     tile's rows for every window column, then each texel's lerps.
+  * The display's direct form (a window that does not fit a block): per
+    16x64 output tile the same tap tables, each texel's taps read from the
+    whole dye in the same stage order, at 4x and 16x downsamples.
   * The window that ops/cuda/display.window reports covers every corner a
     tile reads, and fits a block's shared memory, at the full output sizes
-    of the render: the canvases, the captures and the 360x640 tick.
+    of the render: the canvases, the captures and the 360x640 tick; there
+    display.form picks the staged form, and at the small canvases of
+    check.DIRECT_GEOMETRIES the direct one.
 
 The kernels' bits on the card: tests/test_torch_kernels.py, chip_smoke.py.
 """
@@ -29,11 +34,23 @@ from tpufluid_torch import FluidConfig
 from tpufluid_torch.ops import bloom as tbloom
 from tpufluid_torch.ops import display as tdisplay
 from tpufluid_torch.ops.cuda import bloom as kbloom
+from tpufluid_torch.ops.cuda import check
 from tpufluid_torch.ops.cuda import display as kdisplay
 
 f32 = np.float32
 # Shared memory a block may opt into on the H100 (sm_90), in bytes.
 MAX_SHARED = 232448
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One PyTorch intra-op thread for this module: the suite runs files in
+    parallel workers, and each worker's full thread pool oversubscribes the
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _axis(k, n_in, n_out, scale=1.0, off=0.0, wrap=False):
@@ -233,8 +250,18 @@ def _sample(tex, r, q):
     return _lerp(top, bot, r[2][:, None])
 
 
-def _emulate_display(dye, out_hw, shading, bloom, rays, dither, compose):
-    """display_kernel tile by tile in numpy."""
+def _sample_rows_cols(tex, r, q):
+    """csrc/display.cu sample_rows_cols of (C, h, w) planes at row taps r
+    and column taps q -> (C, rows, cols): rows first, then columns."""
+    a = _lerp(tex[:, r[0][:, None], q[0][None]], tex[:, r[1][:, None], q[0][None]], r[2][:, None])
+    b = _lerp(tex[:, r[0][:, None], q[1][None]], tex[:, r[1][:, None], q[1][None]], r[2][:, None])
+    return _lerp(a, b, q[2][None])
+
+
+def _emulate_display(dye, out_hw, shading, bloom, rays, dither, compose, direct=False):
+    """display_kernel tile by tile in numpy: the staged form, or with
+    ``direct`` the direct form, each tap's rows and columns read from the
+    whole dye."""
     th, tw = kdisplay.TILE
     c_, h, w = dye.shape
     oh, ow = out_hw
@@ -251,22 +278,30 @@ def _emulate_display(dye, out_hw, shading, bloom, rays, dither, compose):
             nr, nq = min(th, oh - r0), min(tw, ow - q0)
             rows = [_tables(h, oh, r0, th, o) for o in (0.0, ty, -ty)]
             cols = [_tables(w, ow, q0, tw, o) for o in (0.0, tx, -tx)]
-            lo, hi = (2, 1) if shading else (0, 0)
-            oy, ox = rows[lo][0][0], cols[lo][0][0]
-            wh, ww = rows[hi][1][nr - 1] - oy + 1, cols[hi][1][nq - 1] - ox + 1
-            assert wh <= win_h and ww <= win_w
-            win = dye[:, oy:oy + wh, ox:ox + ww].astype(f32)
-            assert win.shape == (c_, wh, ww)
-            c0 = cols[0]
-            hc = _lerp(win[:, :, c0[0] - ox], win[:, :, c0[1] - ox], c0[2])    # (C, wh, tw)
-            r_ = rows[0]
-            vr = _lerp(win[:, r_[0] - oy, :], win[:, r_[1] - oy, :], r_[2][:, None])  # (C, th, ww)
+            if direct:
+                def col_then_row(t):
+                    return np.stack([_sample(dye[k], t, cols[0]) for k in range(c_)])
 
-            def col_then_row(t):
-                return _lerp(hc[:, t[0] - oy, :], hc[:, t[1] - oy, :], t[2][:, None])
+                def row_then_col(t):
+                    return _sample_rows_cols(dye, rows[0], t)
+            else:
+                lo, hi = (2, 1) if shading else (0, 0)
+                oy, ox = rows[lo][0][0], cols[lo][0][0]
+                wh, ww = rows[hi][1][nr - 1] - oy + 1, cols[hi][1][nq - 1] - ox + 1
+                assert wh <= win_h and ww <= win_w
+                win = dye[:, oy:oy + wh, ox:ox + ww].astype(f32)
+                assert win.shape == (c_, wh, ww)
+                c0 = cols[0]
+                hc = _lerp(win[:, :, c0[0] - ox], win[:, :, c0[1] - ox], c0[2])    # (C, wh, tw)
+                r_ = rows[0]
+                vr = _lerp(win[:, r_[0] - oy, :], win[:, r_[1] - oy, :],
+                           r_[2][:, None])                                       # (C, th, ww)
 
-            def row_then_col(t):
-                return _lerp(vr[:, :, t[0] - ox], vr[:, :, t[1] - ox], t[2])
+                def col_then_row(t, hc=hc, oy=oy):
+                    return _lerp(hc[:, t[0] - oy, :], hc[:, t[1] - oy, :], t[2][:, None])
+
+                def row_then_col(t, vr=vr, ox=ox):
+                    return _lerp(vr[:, :, t[0] - ox], vr[:, :, t[1] - ox], t[2])
 
             if not shading:
                 res = col_then_row(rows[0])
@@ -349,6 +384,28 @@ def test_display_kernel_structure_equals_plain(variant, out_hw, dtype):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("variant", DISPLAY_VARIANTS,
+                         ids=lambda v: "".join("x-"[not b] if b is not None else "." for b in v))
+@pytest.mark.parametrize("out_hw", [(64, 114), (16, 28)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+def test_display_direct_form_equals_plain(variant, out_hw, dtype):
+    """The direct form, transliterated, gives display_plain's bits: a
+    256x455 dye shown 4x and 16x smaller, the render's variants, each
+    storage type of the dye."""
+    shading, bl, sr, di, compose = variant
+    rng = np.random.default_rng(out_hw[0] * 1000 + out_hw[1] + 7)
+    dye, bloom, rays, dither = _display_inputs(rng, 256, 455)
+    dye = torch.from_numpy(dye).to(dtype)
+    pick = {True: torch.from_numpy, False: lambda a: None, None: lambda a: None}
+    args = (pick[bl](bloom), pick[sr](rays), pick[di](dither))
+    want = kdisplay.display_plain(dye, out_hw, shading, *args, compose=compose).numpy()
+    got = _emulate_display(dye.float().numpy(), out_hw, shading,
+                           *(None if a is None else a.numpy() for a in args), compose,
+                           direct=True)
+    np.testing.assert_array_equal(got, want)
+
+
 def _display_smem(c, win_h, win_w, shading, itemsize=4):
     """csrc/display.cu display_smem_bytes plus the static tap tables
     (2 x 3 x (kTileH + kTileW) entries of 12 bytes): the window in the dye's
@@ -404,3 +461,36 @@ def test_display_window_covers_every_tap(shape, shading):
     assert extent(h, oh, th, offs) == win_h
     assert extent(w, ow, tw, [o for o in (0.0, tx, -tx)][:len(offs)]) == win_w
     assert _display_smem(3, win_h, win_w, shading) <= MAX_SHARED
+
+
+def test_display_form_picks_by_shape():
+    """display.form against the H100's 232,448 bytes: the staged form at the
+    render's full output sizes (the demo, 1024x1024, their captures, the
+    360x640 tick), shaded or not, in float32 and 16 bits; the direct form at
+    every small canvas of check.DIRECT_GEOMETRIES with shading, in its dtype;
+    the staged form's bytes are this module's reckoning of display.cu's, and
+    a limit a byte under them turns the form direct."""
+    for h, w, oh, ow in _full_shapes():
+        for shading in (True, False):
+            for itemsize in (4, 2):
+                win = kdisplay.window(h, w, oh, ow, shading)
+                need = kdisplay.smem_bytes(3, *win, shading, itemsize)
+                assert need == _display_smem(3, *win, shading, itemsize)
+                assert kdisplay.form(3, h, w, oh, ow, shading, itemsize, MAX_SHARED) == "staged"
+                assert kdisplay.form(3, h, w, oh, ow, shading, itemsize, need) == "staged"
+                assert kdisplay.form(3, h, w, oh, ow, shading, itemsize, need - 1) == "direct"
+    for label, (_, _, _, dtype) in check.DIRECT_GEOMETRIES.items():
+        (h, w), (oh, ow) = check.direct_geometry(label)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        win = kdisplay.window(h, w, oh, ow, True)
+        assert kdisplay.smem_bytes(3, *win, True, itemsize) > MAX_SHARED, label
+        assert kdisplay.form(3, h, w, oh, ow, True, itemsize, MAX_SHARED) == "direct", label
+
+
+def test_display_kernel_of_on_the_cpu():
+    """A CPU dye launches no kernel: kernel_of names the staged display,
+    as render_cases labels it there, and force takes only the two forms."""
+    dye = torch.zeros((3, 512, 914))
+    assert kdisplay.kernel_of(dye, (112, 200), True) == "display"
+    with pytest.raises(ValueError, match="force must be one of"):
+        kdisplay.display(dye, (112, 200), True, force="windowed")

@@ -49,6 +49,17 @@
 //     samples';
 //   * 16-byte stores of each plane where the width is a multiple of 4.
 //
+// The direct form (display_frame_direct) is the same kernel for a window
+// that does not fit a block's shared memory: a canvas much smaller than its
+// dye (at a 64x downsample one output row with shading spans ~128 dye rows,
+// so no smaller tile fits either). It keeps the tap tables in shared memory
+// and the same stage order per tap, and reads each tap's two rows and two
+// columns straight from device memory through the read-only cache; it
+// stages nothing of the dye. The same float32 operations in the same order
+// give the staged form's, and the plain version's, bits. The wrapper picks
+// the form from the shape before the launch (ops/cuda/display.py form):
+// staged where its shared memory fits the device's opt-in limit.
+//
 // A batch of B sims (tpufluid/batch.py's vmap, which adds a batch grid axis
 // to the TPU kernel) is one launch: grid z is the sim, whose dye, bloom,
 // sunrays and output a block offsets by its sim (common.cuh sim_offset, in
@@ -73,6 +84,26 @@ struct Plane {
         return to_f32(p[y * w + x]);
     }
 };
+
+// A dye plane in device memory, read through the read-only cache (the
+// direct form).
+template <typename T>
+struct Global {
+    const T* p;
+    int w;
+    __device__ __forceinline__ float operator()(int y, int x) const {
+        return to_f32(__ldg(p + y * w + x));
+    }
+};
+
+// Rows first, then columns: the staged form's row stage, then its lerp
+// along the row (sample_cols_rows is the other order).
+template <typename Fetch>
+__device__ __forceinline__ float sample_rows_cols(Fetch plane, AxisTap row, AxisTap col) {
+    const float a = lerp_ab(plane(row.i0, col.i0), plane(row.i1, col.i0), row.f);
+    const float b = lerp_ab(plane(row.i0, col.i1), plane(row.i1, col.i1), row.f);
+    return lerp_ab(a, b, col.f);
+}
 
 __device__ __forceinline__ float linear_to_gamma(float c) {
     c = fmaxf(c, 0.0f);
@@ -140,8 +171,12 @@ __device__ __forceinline__ void copy_window(const T* __restrict__ dye, int C, in
     __pipeline_commit();
 }
 
-template <typename T, int C, typename I>
-__global__ void __launch_bounds__(kThreads, 4) display_kernel(
+// kDirect: the direct form, which takes no window (win_h, win_w unused)
+// and no dynamic shared memory; it holds every tap of its 4 texels in
+// registers, so it is built for 2 blocks an SM (128 registers), the staged
+// form for 4.
+template <typename T, int C, typename I, bool kDirect>
+__global__ void __launch_bounds__(kThreads, kDirect ? 2 : 4) display_kernel(
         const T* __restrict__ dye, int H, int W, float* __restrict__ out, int oh, int ow,
         int shading, int compose, float tx, float ty, float nz, Extras ex, int win_h,
         int win_w) {
@@ -180,13 +215,19 @@ __global__ void __launch_bounds__(kThreads, 4) display_kernel(
     // The window: every coordinate is monotone in its index and its offset,
     // so the lowest corner is the first row's lowest tap, the highest the
     // last row's highest. The window starts on a multiple of the copy's unit.
-    const int lo = shading ? 2 : 0, hi = shading ? 1 : 0;
-    const int oy = rows[lo][0].i0, wh = rows[hi][nr - 1].i1 - oy + 1;
-    const int ox_tap = cols[lo][0].i0, ww_tap = cols[hi][nq - 1].i1 - ox_tap + 1;
-    if (wh > win_h || ww_tap > win_w) __trap();
     const T* sim_dye = dye + sim_offset<I>((I)C * H * W);
-    const int unit = copy_unit(sim_dye, W), ox = ox_tap / unit * unit, ww = ox_tap + ww_tap - ox;
-    copy_window(sim_dye, C, H, W, oy, wh, ox, ww, unit, win, win_h, pitch, warp, lane);
+    int oy = 0, wh = 0, ox = 0, ww = 0;
+    if constexpr (!kDirect) {
+        const int lo = shading ? 2 : 0, hi = shading ? 1 : 0;
+        oy = rows[lo][0].i0;
+        wh = rows[hi][nr - 1].i1 - oy + 1;
+        const int ox_tap = cols[lo][0].i0, ww_tap = cols[hi][nq - 1].i1 - ox_tap + 1;
+        if (wh > win_h || ww_tap > win_w) __trap();
+        const int unit = copy_unit(sim_dye, W);
+        ox = ox_tap / unit * unit;
+        ww = ox_tap + ww_tap - ox;
+        copy_window(sim_dye, C, H, W, oy, wh, ox, ww, unit, win, win_h, pitch, warp, lane);
+    }
 
     // While the window arrives: the part of the composite that does not
     // read the dye, for this thread's 4 texels along its row.
@@ -228,55 +269,73 @@ __global__ void __launch_bounds__(kThreads, 4) display_kernel(
             }
         }
     }
-    __pipeline_wait_prior(0);
-    __syncthreads();
+    if constexpr (!kDirect) {
+        __pipeline_wait_prior(0);
+        __syncthreads();
 
-    // The column stage at the tile's columns (2 a lane) for every window row.
-    const AxisTap ca = cols[0][lane], cb = cols[0][lane + 32];
-    const int a0 = ca.i0 - ox, a1 = ca.i1 - ox, b0 = cb.i0 - ox, b1 = cb.i1 - ox;
+        // The column stage at the tile's columns (2 a lane) for every window row.
+        const AxisTap ca = cols[0][lane], cb = cols[0][lane + 32];
+        const int a0 = ca.i0 - ox, a1 = ca.i1 - ox, b0 = cb.i0 - ox, b1 = cb.i1 - ox;
 #pragma unroll 4
-    for (int e = warp; e < C * wh; e += kWarps) {
-        const int c = e / wh, y = e - c * wh;
-        const T* src = win + (c * win_h + y) * pitch;
-        float* dst = hc + (c * win_h + y) * kTileW;
-        dst[lane] = lerp_ab(to_f32(src[a0]), to_f32(src[a1]), ca.f);
-        dst[lane + 32] = lerp_ab(to_f32(src[b0]), to_f32(src[b1]), cb.f);
-    }
-    // With shading, the row stage at the tile's rows for every window column.
-    if (shading) {
-        for (int e = warp; e < C * kTileH; e += kWarps) {
-            const int c = e / kTileH, rr = e - c * kTileH;
-            const AxisTap t = rows[0][rr];
-            const T* a = win + (c * win_h + t.i0 - oy) * pitch;
-            const T* b = win + (c * win_h + t.i1 - oy) * pitch;
-            float* dst = vr + (c * kTileH + rr) * pitch;
-#pragma unroll 4
-            for (int x = lane; x < ww; x += 32)
-                dst[x] = lerp_ab(to_f32(a[x]), to_f32(b[x]), t.f);
+        for (int e = warp; e < C * wh; e += kWarps) {
+            const int c = e / wh, y = e - c * wh;
+            const T* src = win + (c * win_h + y) * pitch;
+            float* dst = hc + (c * win_h + y) * kTileW;
+            dst[lane] = lerp_ab(to_f32(src[a0]), to_f32(src[a1]), ca.f);
+            dst[lane + 32] = lerp_ab(to_f32(src[b0]), to_f32(src[b1]), cb.f);
         }
+        // With shading, the row stage at the tile's rows for every window column.
+        if (shading) {
+            for (int e = warp; e < C * kTileH; e += kWarps) {
+                const int c = e / kTileH, rr = e - c * kTileH;
+                const AxisTap t = rows[0][rr];
+                const T* a = win + (c * win_h + t.i0 - oy) * pitch;
+                const T* b = win + (c * win_h + t.i1 - oy) * pitch;
+                float* dst = vr + (c * kTileH + rr) * pitch;
+#pragma unroll 4
+                for (int x = lane; x < ww; x += 32)
+                    dst[x] = lerp_ab(to_f32(a[x]), to_f32(b[x]), t.f);
+            }
+        }
+        __syncthreads();
     }
-    __syncthreads();
     if (!active) return;
     const int i = r0 + r;
 
-    // The dye's column stage (shared) at rows t.i0, t.i1 for this thread's
-    // 4 columns, then the row stage.
+    // Columns first at rows t.i0, t.i1 for this thread's 4 columns, then
+    // the rows: the staged form's column stage (shared), or the taps from
+    // device memory.
     auto col_then_row = [&](int c, AxisTap t, float v[kVec]) {
-        const float4 a = *reinterpret_cast<const float4*>(hc + (c * win_h + t.i0 - oy) * kTileW + qb);
-        const float4 b = *reinterpret_cast<const float4*>(hc + (c * win_h + t.i1 - oy) * kTileW + qb);
-        v[0] = lerp_ab(a.x, b.x, t.f);
-        v[1] = lerp_ab(a.y, b.y, t.f);
-        v[2] = lerp_ab(a.z, b.z, t.f);
-        v[3] = lerp_ab(a.w, b.w, t.f);
-    };
-    // The dye's row stage (shared) at this row, then the column stage at
-    // column table `k`.
-    auto row_then_col = [&](int c, int k, float v[kVec]) {
-        const float* rowv = vr + (c * kTileH + r) * pitch;
+        if constexpr (kDirect) {
+            const Global<T> plane{sim_dye + (size_t)c * H * W, W};
 #pragma unroll
-        for (int u = 0; u < kVec; ++u) {
-            const AxisTap t = cols[k][qb + u];
-            v[u] = lerp_ab(rowv[t.i0 - ox], rowv[t.i1 - ox], t.f);
+            for (int u = 0; u < kVec; ++u) v[u] = sample_cols_rows(plane, t, cols[0][qb + u]);
+        } else {
+            const float4 a =
+                *reinterpret_cast<const float4*>(hc + (c * win_h + t.i0 - oy) * kTileW + qb);
+            const float4 b =
+                *reinterpret_cast<const float4*>(hc + (c * win_h + t.i1 - oy) * kTileW + qb);
+            v[0] = lerp_ab(a.x, b.x, t.f);
+            v[1] = lerp_ab(a.y, b.y, t.f);
+            v[2] = lerp_ab(a.z, b.z, t.f);
+            v[3] = lerp_ab(a.w, b.w, t.f);
+        }
+    };
+    // Rows first at this row, then the columns at column table `k`: the
+    // staged form's row stage (shared), or the taps from device memory.
+    auto row_then_col = [&](int c, int k, float v[kVec]) {
+        if constexpr (kDirect) {
+            const Global<T> plane{sim_dye + (size_t)c * H * W, W};
+#pragma unroll
+            for (int u = 0; u < kVec; ++u)
+                v[u] = sample_rows_cols(plane, rows[0][r], cols[k][qb + u]);
+        } else {
+            const float* rowv = vr + (c * kTileH + r) * pitch;
+#pragma unroll
+            for (int u = 0; u < kVec; ++u) {
+                const AxisTap t = cols[k][qb + u];
+                v[u] = lerp_ab(rowv[t.i0 - ox], rowv[t.i1 - ox], t.f);
+            }
         }
     };
 
@@ -350,12 +409,12 @@ __global__ void __launch_bounds__(kThreads, 4) display_kernel(
     }
 }
 
-template <typename T, int C, typename I>
+template <typename T, int C, typename I, bool kDirect>
 static int launch(const void* dye, int B, int H, int W, void* out, int oh, int ow, int shading,
                   int compose, float tx, float ty, float nz, const Extras& ex, int win_h,
                   int win_w, cudaStream_t stream) {
-    const auto kernel = display_kernel<T, C, I>;
-    const int smem = display_smem_bytes(C, win_h, win_w, shading, sizeof(T));
+    const auto kernel = display_kernel<T, C, I, kDirect>;
+    const int smem = kDirect ? 0 : display_smem_bytes(C, win_h, win_w, shading, sizeof(T));
     if (smem > 48 * 1024) {
         const cudaError_t err =
             cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -368,6 +427,38 @@ static int launch(const void* dye, int B, int H, int W, void* out, int oh, int o
     kernel<<<grid, kThreads, smem, stream>>>((const T*)dye, H, W, (float*)out, oh, ow, shading,
                                              compose, tx, ty, nz, ex, win_h, win_w);
     return (int)cudaGetLastError();
+}
+
+template <bool kDirect>
+static int frame(const void* dye, int B, int C, int H, int W, int dtype, void* out, int oh,
+                 int ow, int shading, int compose, float tx, float ty, float nz,
+                 const void* bloom, int bh, int bw, const void* sunrays, int sh, int sw,
+                 const void* dither, int dh, int dw, float dsu, float dsv, int win_h, int win_w,
+                 void* stream) {
+    if (B < 1 || B > kMaxBatch || C < 1 || C > 4 || (compose && bloom && C != 3) || oh < 1 ||
+        ow < 1 || (!kDirect && (win_h < 1 || win_w < 1)))
+        return (int)cudaErrorInvalidValue;
+    const Extras ex{compose ? (const float*)bloom : nullptr, bh, bw,
+                    compose ? (const float*)sunrays : nullptr, sh, sw,
+                    compose && bloom ? (const float*)dither : nullptr, dh, dw, dsu, dsv};
+    const cudaStream_t s = (cudaStream_t)stream;
+    // The largest element count of one sim's tensors, in 32 bits where the
+    // batch's fits.
+    size_t per_sim = (size_t)(C + 1) * oh * ow;
+    per_sim = per_sim > (size_t)C * H * W ? per_sim : (size_t)C * H * W;
+    per_sim = per_sim > (size_t)3 * bh * bw ? per_sim : (size_t)3 * bh * bw;
+    per_sim = per_sim > (size_t)sh * sw ? per_sim : (size_t)sh * sw;
+#define DISPLAY_ARGS dye, B, H, W, out, oh, ow, shading, compose, tx, ty, nz, ex, win_h, win_w, s
+    DISPATCH_STORAGE(dtype, T,
+        DISPATCH_INDEX(wide_batch(B, per_sim), I,
+            switch (C) {
+                case 1: return launch<T, 1, I, kDirect>(DISPLAY_ARGS);
+                case 2: return launch<T, 2, I, kDirect>(DISPLAY_ARGS);
+                case 3: return launch<T, 3, I, kDirect>(DISPLAY_ARGS);
+                default: return launch<T, 4, I, kDirect>(DISPLAY_ARGS);
+            }));
+#undef DISPLAY_ARGS
+    return (int)cudaErrorInvalidValue;
 }
 
 extern "C" {
@@ -384,30 +475,19 @@ int display_frame(const void* dye, int B, int C, int H, int W, int dtype, void* 
                   const void* bloom, int bh, int bw, const void* sunrays, int sh, int sw,
                   const void* dither, int dh, int dw, float dsu, float dsv, int win_h, int win_w,
                   void* stream) {
-    if (B < 1 || B > kMaxBatch || C < 1 || C > 4 || (compose && bloom && C != 3) || oh < 1 ||
-        ow < 1 || win_h < 1 || win_w < 1)
-        return (int)cudaErrorInvalidValue;
-    const Extras ex{compose ? (const float*)bloom : nullptr, bh, bw,
-                    compose ? (const float*)sunrays : nullptr, sh, sw,
-                    compose && bloom ? (const float*)dither : nullptr, dh, dw, dsu, dsv};
-    const cudaStream_t s = (cudaStream_t)stream;
-    // The largest element count of one sim's tensors, in 32 bits where the
-    // batch's fits.
-    size_t per_sim = (size_t)(C + 1) * oh * ow;
-    per_sim = per_sim > (size_t)C * H * W ? per_sim : (size_t)C * H * W;
-    per_sim = per_sim > (size_t)3 * bh * bw ? per_sim : (size_t)3 * bh * bw;
-    per_sim = per_sim > (size_t)sh * sw ? per_sim : (size_t)sh * sw;
-#define DISPLAY_ARGS dye, B, H, W, out, oh, ow, shading, compose, tx, ty, nz, ex, win_h, win_w, s
-    DISPATCH_STORAGE(dtype, T,
-        DISPATCH_INDEX(wide_batch(B, per_sim), I,
-            switch (C) {
-                case 1: return launch<T, 1, I>(DISPLAY_ARGS);
-                case 2: return launch<T, 2, I>(DISPLAY_ARGS);
-                case 3: return launch<T, 3, I>(DISPLAY_ARGS);
-                default: return launch<T, 4, I>(DISPLAY_ARGS);
-            }));
-#undef DISPLAY_ARGS
-    return (int)cudaErrorInvalidValue;
+    return frame<false>(dye, B, C, H, W, dtype, out, oh, ow, shading, compose, tx, ty, nz, bloom,
+                        bh, bw, sunrays, sh, sw, dither, dh, dw, dsu, dsv, win_h, win_w, stream);
+}
+
+// The direct form: display_frame's arguments but the window, which it does
+// not stage, at any size.
+int display_frame_direct(const void* dye, int B, int C, int H, int W, int dtype, void* out,
+                         int oh, int ow, int shading, int compose, float tx, float ty, float nz,
+                         const void* bloom, int bh, int bw, const void* sunrays, int sh, int sw,
+                         const void* dither, int dh, int dw, float dsu, float dsv,
+                         void* stream) {
+    return frame<true>(dye, B, C, H, W, dtype, out, oh, ow, shading, compose, tx, ty, nz, bloom,
+                       bh, bw, sunrays, sh, sw, dither, dh, dw, dsu, dsv, 0, 0, stream);
 }
 
 }  // extern "C"

@@ -36,8 +36,23 @@
 // trip's run keeps them from being hoisted and the trips folded into a
 // multiply.
 //
-// floor_roll: one thread per output word, the operand read through L1 (the
-// simplest right design; not redesigned yet).
+// floor_roll: every add reads one operand word, and the words a column's
+// rows read are the same words shifted by a row a trip, so the limit is
+// the SMs' instruction issue, not bytes. A block stages one plane's strip
+// of 32 columns, all nrk rows of it, in shared memory by cp.async, once. A
+// thread owns R consecutive rows of one column (R = 4 or 8) and a share of
+// the trips: the word trip k + 1 needs for row i + 1 is the one trip k used
+// for row i, so the thread keeps its R rows' words in a register window
+// that slides by one row a trip, and a trip costs one shared-memory load
+// and R adds; the row wraps by a compare, not a modulo, and the trip loop
+// is unrolled R times, so the window's slots are registers named at
+// compile time. Where the words are too few to fill the card, a word's
+// trips are cut over S threads of the block (S splits) whose partials meet
+// in shared memory, where split 0, which started from the seed, adds them
+// (ops/cuda/floors.py roll_plan). Programmatic dependent launch, as
+// floor_taa. Every trip loads its word anew: a compiler barrier at the top
+// of each trip keeps trips k and k + nrk, which read the same word, from
+// being folded into a multiply.
 //
 // floor_sweep: one cooperative launch, a block or two an SM, each block
 // holding its tile of the field and a K-deep halo (a region of RH = NY * R
@@ -62,12 +77,11 @@
 #include <cuda_pipeline.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
-
-constexpr int kThreads = 256;
 
 // ---- floor_taa ----------------------------------------------------------
 
@@ -232,23 +246,168 @@ static int launch_taa(const void* seed, const void* idx, const void* op, void* o
 
 // ---- floor_roll ---------------------------------------------------------
 
-// One thread per word (p, i, c) of the (planes, nrk, cbw) operand:
+constexpr int kRollStrip = 32;          // columns a block stages: a warp's lanes
+constexpr int kRollMaxThreads = 1024;
+constexpr int kRollMaxSmem = 232448;
+
+// Block b takes plane b / (strips * chunks), strip (b / chunks) % strips and
+// row-group chunk b % chunks: groups_b groups of R rows, the rows
+// [(chunk * groups_b + g) * R, ... + R) of its 32 columns. Thread t: lane
+// t % 32 is the column, warp t / 32 = split * groups_b + g; split s sums
+// the trips [s * trips / splits, (s + 1) * trips / splits).
 // roll(x, s)[i] = x[(i - s) mod nrk], the direction of pltpu.roll.
-__global__ void floor_roll_kernel(const uint32_t* __restrict__ seed,
-                                  const uint32_t* __restrict__ op, uint32_t* __restrict__ out,
-                                  int planes, int nrk, int cbw, int trips) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= planes * nrk * cbw) return;
-    const int c = t % cbw;
-    const int i = (t / cbw) % nrk;
-    const int plane = t / (nrk * cbw);
-    uint32_t acc = seed[t];
-    for (int k = 0; k < trips; ++k) {
-        int src = i - k % nrk;
-        if (src < 0) src += nrk;
-        acc += op[(plane * nrk + src) * cbw + c];
+template <int R>
+__global__ void __launch_bounds__(kRollMaxThreads) floor_roll_kernel(
+        const uint32_t* __restrict__ seed, const uint32_t* __restrict__ op,
+        uint32_t* __restrict__ out, int nrk, int cbw, int trips, int groups_b, int splits) {
+    extern __shared__ uint32_t smem[];
+    // Launched with programmatic stream serialization, as floor_taa: no
+    // memory is touched before the previous launch on the stream is done.
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    uint32_t* strip = smem;                                  // (nrk, kRollStrip)
+    uint32_t* part = smem + nrk * kRollStrip;                // (splits - 1, groups_b, R, 32)
+    const int strips = (cbw + kRollStrip - 1) / kRollStrip;
+    const int ngroups = (nrk + R - 1) / R;
+    const int chunks = (ngroups + groups_b - 1) / groups_b;
+    const int chunk = blockIdx.x % chunks;
+    const int s_idx = (blockIdx.x / chunks) % strips;
+    const int plane = blockIdx.x / (chunks * strips);
+    const int col0 = s_idx * kRollStrip;
+    const int ncol = min(kRollStrip, cbw - col0);
+    const uint32_t* src = op + (size_t)plane * nrk * cbw + col0;
+
+    // Stage the strip: nrk rows of ncol words, 16 bytes at a time where the
+    // rows allow it.
+    if (ncol == kRollStrip && cbw % 4 == 0 && ((uintptr_t)src & 15) == 0) {
+        for (int m = threadIdx.x; m < nrk * (kRollStrip / 4); m += blockDim.x) {
+            const int y = m / (kRollStrip / 4), q = m % (kRollStrip / 4);
+            __pipeline_memcpy_async(strip + y * kRollStrip + 4 * q,
+                                    src + (size_t)y * cbw + 4 * q, 16);
+        }
+    } else {
+        for (int m = threadIdx.x; m < nrk * kRollStrip; m += blockDim.x) {
+            const int y = m / kRollStrip, x = m % kRollStrip;
+            if (x < ncol) __pipeline_memcpy_async(strip + m, src + (size_t)y * cbw + x, 4);
+        }
     }
-    out[t] = acc;
+    __pipeline_commit();
+
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int split = warp / groups_b, g = warp % groups_b;
+    const int group = chunk * groups_b + g;
+    const int i0 = group * R;
+    const bool active = group < ngroups && lane < ncol;
+    const int k_lo = (int)((long long)split * trips / splits);
+    const int n = (int)((long long)(split + 1) * trips / splits) - k_lo;
+    uint32_t acc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = 0u;
+    // Split 0 starts from the seed, read while the strip arrives.
+    if (split == 0 && active) {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            if (i0 + j < nrk) acc[j] = seed[((size_t)plane * nrk + i0 + j) * cbw + col0 + lane];
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    if (active) {
+        // w[j]: the word of row i0 + j at the split's first trip, k_lo;
+        // `off` walks the strip's rows downward, one a trip, wrapping.
+        const int wrap = nrk * kRollStrip;
+        int row = (i0 - k_lo) % nrk;
+        if (row < 0) row += nrk;
+        uint32_t w[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) w[j] = strip[((row + j) % nrk) * kRollStrip + lane];
+        int off = row * kRollStrip + lane;
+        // Trip u of a run of R: row j adds slot (j - u) mod R, then the
+        // next trip's row-0 word goes into slot (R - 1 - u).
+        auto trip = [&](auto u_const) {
+            constexpr int u = decltype(u_const)::value;
+            asm volatile("" ::: "memory");
+#pragma unroll
+            for (int j = 0; j < R; ++j) acc[j] += w[(j - u + R) % R];
+            off -= kRollStrip;
+            if (off < 0) off += wrap;
+            w[R - 1 - u] = strip[off];
+        };
+        int t = 0;
+        for (; t + R <= n; t += R) {
+            trip(std::integral_constant<int, 0>{});
+            trip(std::integral_constant<int, 1>{});
+            trip(std::integral_constant<int, 2>{});
+            trip(std::integral_constant<int, 3>{});
+            if constexpr (R == 8) {
+                trip(std::integral_constant<int, 4>{});
+                trip(std::integral_constant<int, 5>{});
+                trip(std::integral_constant<int, 6>{});
+                trip(std::integral_constant<int, 7>{});
+            }
+        }
+        // The last n mod R trips.
+        if (t < n) trip(std::integral_constant<int, 0>{});
+        if (t + 1 < n) trip(std::integral_constant<int, 1>{});
+        if (t + 2 < n) trip(std::integral_constant<int, 2>{});
+        if constexpr (R == 8) {
+            if (t + 3 < n) trip(std::integral_constant<int, 3>{});
+            if (t + 4 < n) trip(std::integral_constant<int, 4>{});
+            if (t + 5 < n) trip(std::integral_constant<int, 5>{});
+            if (t + 6 < n) trip(std::integral_constant<int, 6>{});
+        }
+        if (split > 0) {
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+                part[(((split - 1) * groups_b + g) * R + j) * 32 + lane] = acc[j];
+        }
+    }
+    // The trips are done: the next launch on the stream may take the SMs
+    // as this one's blocks finish.
+    asm volatile("griddepcontrol.launch_dependents;");
+    __syncthreads();
+    if (split == 0 && active) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            if (i0 + j >= nrk) break;
+            uint32_t sum = acc[j];
+            for (int k = 1; k < splits; ++k)
+                sum += part[(((k - 1) * groups_b + g) * R + j) * 32 + lane];
+            out[((size_t)plane * nrk + i0 + j) * cbw + col0 + lane] = sum;
+        }
+    }
+}
+
+template <int R>
+static int launch_roll(const void* seed, const void* op, void* out, int planes, int nrk, int cbw,
+                       int trips, int groups_b, int splits, int smem, cudaStream_t stream) {
+    auto kernel = floor_roll_kernel<R>;
+    static bool configured = false;   // per instance: the attribute is set once
+    if (!configured) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRollMaxSmem);
+        if (err != cudaSuccess) return (int)err;
+        configured = true;
+    }
+    const int strips = (cbw + kRollStrip - 1) / kRollStrip;
+    const int chunks = ((nrk + R - 1) / R + groups_b - 1) / groups_b;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(planes * strips * chunks);
+    cfg.blockDim = dim3(32 * groups_b * splits);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)seed,
+                                               (const uint32_t*)op, (uint32_t*)out, nrk, cbw,
+                                               trips, groups_b, splits);
+    if (err != cudaSuccess) {
+        cudaGetLastError();
+        return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 // ---- floor_sweep --------------------------------------------------------
@@ -399,13 +558,22 @@ int floor_taa(const void* seed, const void* idx, const void* op, void* out, int 
                       splits, smem, (cudaStream_t)stream);
 }
 
-// seed, op, out (planes, nrk, cbw) uint32.
+// seed, op, out (planes, nrk, cbw) uint32; trips >= 1. A plan's blocks
+// (ops/cuda/floors.py roll_plan): `rows` rows a thread (4 or 8), groups_b
+// row groups a block, each word's trips cut over `splits` threads; smem: the
+// strip and the splits' partials, in bytes.
 int floor_roll(const void* seed, const void* op, void* out, int planes, int nrk, int cbw,
-               int trips, void* stream) {
-    const int n = planes * nrk * cbw;
-    floor_roll_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)seed, (const uint32_t*)op, (uint32_t*)out, planes, nrk, cbw, trips);
-    return (int)cudaGetLastError();
+               int trips, int rows, int groups_b, int splits, int smem, void* stream) {
+    if (planes < 1 || nrk < 1 || cbw < 1 || trips < 1 || groups_b < 1 || splits < 1 ||
+        splits > trips || 32 * groups_b * splits > kRollMaxThreads || smem > kRollMaxSmem ||
+        smem < 4 * (nrk * kRollStrip + (splits - 1) * groups_b * rows * 32))
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (rows == 4)
+        return launch_roll<4>(seed, op, out, planes, nrk, cbw, trips, groups_b, splits, smem, s);
+    if (rows == 8)
+        return launch_roll<8>(seed, op, out, planes, nrk, cbw, trips, groups_b, splits, smem, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 // seed, x, band0, band1, out (H, W) float32; total >= 1 sweeps, K a phase;

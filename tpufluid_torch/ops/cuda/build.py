@@ -148,6 +148,14 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def smem_optin(device: torch.device) -> int:
+    """Shared memory a block of the CUDA device may opt into, in bytes
+    (cudaDevAttrMaxSharedMemoryPerBlockOptin: 232,448 on the H100), static
+    and dynamic together."""
+    return int(torch.cuda.get_device_properties(device).shared_memory_per_block_optin)
+
+
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 

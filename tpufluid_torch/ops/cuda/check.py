@@ -46,7 +46,8 @@ from tpufluid_torch.ops.cuda import display as _display
 from tpufluid_torch.ops.cuda import floors as _floors_k
 from tpufluid_torch.ops.cuda import jacobi as _jacobi
 from tpufluid_torch.ops.cuda import stencil as _stencil
-from tpufluid_torch.ops.sampling import resample_bilinear
+from tpufluid_torch.ops.display import shading_constants
+from tpufluid_torch.ops.sampling import affine_axis_plan, resample_bilinear
 from tpufluid_torch.ops.splat import SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R, splat_factors
 from tpufluid_torch.ops.sunrays import apply_sunrays
 from tpufluid_torch.render import blue_noise
@@ -440,17 +441,40 @@ def _display_flops(dye_hw, out_hw, c: int, shading: bool, extras, compose: bool)
     return n
 
 
+def _dye_texels_read(dye_hw, out_hw, shading: bool) -> int:
+    """Texels of one dye channel a display pass must read: the rows and
+    columns its taps touch (ops/cuda/display.window's axis plans), the
+    center's rows by every column of the center, left and right taps, and
+    the above and below taps' other rows by the center's columns. A canvas
+    much smaller than its dye reads a share of it; an upsampled one all."""
+    (h, w), (oh, ow) = dye_hw, out_hw
+    tx, ty, _ = shading_constants(out_hw)
+
+    def taps(n_in, n_out, off):
+        lo, hi = affine_axis_plan(n_in, n_out, off=off)[:2]
+        return set(lo.tolist()) | set(hi.tolist())
+
+    rows, cols = taps(h, oh, 0.0), taps(w, ow, 0.0)
+    if not shading:
+        return len(rows) * len(cols)
+    sides = taps(w, ow, tx) | taps(w, ow, -tx)
+    above_below = taps(h, oh, ty) | taps(h, oh, -ty)
+    return len(rows) * len(cols | sides) + len(above_below - rows) * len(cols)
+
+
 def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bool = True,
                  compose: bool = True, tag: str = "") -> List[Case]:
     """Every kernel call of one frame from ``state`` at ``out_hw`` (default
     the canvas), in the render's order: the bloom pyramid (one call, after
     the base resample, where the config has 2 mips or more), then the
-    display; of one sim, or of a batch (fields with a leading B) in one
-    launch each, with the work of the B sims. ``dither=False`` leaves the
+    display (on the card, the kernel of the form it takes there:
+    display.kernel_of); of one sim, or of a batch (fields with a leading
+    B) in one launch each, with the work of the B sims. ``dither=False`` leaves the
     dither out of the display and ``compose=False`` makes it the shaded
     center alone: neither is what render_frame calls, both are what the
     display kernel takes. The pyramid's bytes are its base read and its
-    output written: the mips between are the function's own. ``tag`` is
+    output written: the mips between are the function's own. The display's
+    dye bytes are the texels its taps touch (_dye_texels_read). ``tag`` is
     added to each label."""
     out_hw = tuple(out_hw or (config.CANVAS_HEIGHT, config.CANVAS_WIDTH))
     dye = state.dye.to(torch.float32)
@@ -485,10 +509,13 @@ def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bo
     if "bloom" not in extras:
         extras.pop("dither", None)
     cases.append(Case(
-        ("display" if compose else "display:base") + tag, "display", _display.display,
+        ("display" if compose else "display:base") + tag,
+        _display.kernel_of(state.dye, out_hw, config.SHADING), _display.display,
         _display.display_plain,
         (state.dye, out_hw, config.SHADING, bloom, rays, noise, compose),
-        _bytes(state.dye, bloom, rays, noise if bloom is not None else None) + 4 * n_out,
+        n_sims * c * state.dye.element_size() * _dye_texels_read(
+            tuple(state.dye.shape[-2:]), out_hw, config.SHADING)
+        + _bytes(bloom, rays, noise if bloom is not None else None) + 4 * n_out,
         n_sims * _display_flops(tuple(state.dye.shape[-2:]), out_hw, c, config.SHADING,
                                 extras, compose)))
     return cases
@@ -503,6 +530,31 @@ def batched_render_cases(state: FluidState, config: FluidConfig, out_hw=None,
     if state.dye.ndim != 4:
         raise ValueError(f"a batched state leads with B, got dye {tuple(state.dye.shape)}")
     return render_cases(state, config, out_hw, dither, compose, f":b{state.dye.shape[0]}")
+
+
+# Frames whose staged display window does not fit a block of the H100
+# (232,448 bytes of shared memory, with shading): (DYE_RESOLUTION,
+# CANVAS_WIDTH, CANVAS_HEIGHT, the dye's dtype). The server's CLI dye at a
+# small browser window; the page's "high" quality (dye 1024) at 500x281;
+# the app at --canvas 256x256 with its default dye; a bf16 4096 dye at
+# 1280x720; a 1024 and a bf16 4096 dye at the page's 64-pixel minimum
+# canvas height (server.py's resize script).
+DIRECT_GEOMETRIES = {
+    "server_cli_200x112": (512, 200, 112, torch.float32),
+    "server_high_500x281": (1024, 500, 281, torch.float32),
+    "app_canvas_256x256": (1024, 256, 256, torch.float32),
+    "dye4096_1280x720": (4096, 1280, 720, torch.bfloat16),
+    "dye1024_114x64": (1024, 114, 64, torch.float32),
+    "dye4096_114x64": (4096, 114, 64, torch.bfloat16),
+}
+
+
+def direct_geometry(label: str) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((dye h, w), (out h, w)) of DIRECT_GEOMETRIES[label]: the dye's grid
+    as FluidConfig sizes it for the canvas."""
+    res, cw, ch, _ = DIRECT_GEOMETRIES[label]
+    dw, dh = FluidConfig(DYE_RESOLUTION=res, CANVAS_WIDTH=cw, CANVAS_HEIGHT=ch).validate().dye_size
+    return (dh, dw), (ch, cw)
 
 
 # The floors microbenchmarks' default arguments (tpufluid/ops/pallas/

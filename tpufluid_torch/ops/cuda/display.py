@@ -6,9 +6,13 @@ resample_shade_pallas with compose=False). One launch per frame writes the
 premultiplied (C + 1, oh, ow) RGBA, or the shaded (C, oh, ow) center when
 compose=False, at any output size. A block owns a TILE of the output and
 stages the dye window its taps touch in shared memory; ``window`` gives the
-largest such window of a launch from the same axis math. The kernel reads
-the dye in its storage type; the plain version casts it to float32 first,
-as the render does.
+largest such window of a launch from the same axis math. Where that window
+does not fit a block (a canvas much smaller than its dye), the kernel's
+direct form reads each tap from device memory instead, with the same bits;
+``form`` picks one of the two from the shape and the device's limit before
+the launch, and each form counts its own launches (DISPLAY, DISPLAY_DIRECT).
+The kernel reads the dye in its storage type; the plain version casts it to
+float32 first, as the render does.
 
 A batch of B sims is one launch too (tpufluid/batch.py vmaps the TPU
 kernel): dye (B, C, H, W), bloom (B, 3, bh, bw), sunrays (B, sh, sw), one
@@ -25,15 +29,20 @@ import torch
 
 from tpufluid_torch.ops import display as D
 from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, check_storage, per_sim,
-                                           ptr, stream)
+                                           ptr, smem_optin, stream)
 from tpufluid_torch.ops.sampling import affine_axis_plan
 
-DISPLAY = Kernel("display", "display", "display_frame",
-                 [P, I, I, I, I, I, P, I, I, I, I, F, F, F, P, I, I, P, I, I, P, I, I, F, F, I,
-                  I, P],
+_ARGS = [P, I, I, I, I, I, P, I, I, I, I, F, F, F, P, I, I, P, I, I, P, I, I, F, F]
+DISPLAY = Kernel("display", "display", "display_frame", _ARGS + [I, I, P],
                  replaces="tpufluid/ops/pallas/display.py:262")
+DISPLAY_DIRECT = Kernel("display_direct", "display", "display_frame_direct", _ARGS + [P],
+                        replaces="tpufluid/ops/pallas/display.py:262")
 
 TILE = (16, 64)          # output rows x columns a block (csrc/display.cu kTileH, kTileW)
+# Static shared memory of a block: the tap tables, 2 x 3 x (kTileH + kTileW)
+# entries of 12 bytes (csrc/display.cu rows, cols, xrows, xcols).
+TABLES_SMEM = 12 * 6 * (TILE[0] + TILE[1])
+FORMS = ("staged", "direct")
 
 
 @functools.lru_cache(maxsize=64)
@@ -54,6 +63,42 @@ def window(h: int, w: int, out_h: int, out_w: int, shading: bool) -> Tuple[int, 
         return int((hi[last] - lo[first]).max()) + 1
 
     return extent(h, out_h, TILE[0], ty), extent(w, out_w, TILE[1], tx)
+
+
+def smem_bytes(channels: int, win_h: int, win_w: int, shading: bool, itemsize: int) -> int:
+    """Shared memory of a staged block, in bytes (csrc/display.cu
+    display_smem_bytes plus TABLES_SMEM): the window in the dye's storage
+    type, win_w + 1 columns rounded up to even, padded to 16 bytes; the
+    float32 column stage at the tile's columns for every window row; with
+    shading the float32 row stage at the tile's rows for every window
+    column."""
+    pitch = (win_w + 2) & ~1
+    staged = (channels * win_h * pitch * itemsize + 15) // 16 * 16 + 4 * channels * win_h * TILE[1]
+    if shading:
+        staged += 4 * channels * TILE[0] * pitch
+    return staged + TABLES_SMEM
+
+
+def form(channels: int, h: int, w: int, out_h: int, out_w: int, shading: bool, itemsize: int,
+         limit: int) -> str:
+    """The kernel's form for an (h, w) dye of ``channels`` channels stored
+    in ``itemsize`` bytes shown at (out_h, out_w): "staged" where a tile's
+    largest window (``window``) and its stages fit ``limit`` bytes of
+    shared memory a block (the device's opt-in limit, build.smem_optin),
+    else "direct"."""
+    win = window(h, w, out_h, out_w, bool(shading))
+    return "staged" if smem_bytes(channels, *win, bool(shading), itemsize) <= limit else "direct"
+
+
+def kernel_of(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool) -> str:
+    """Name of the Kernel that display launches for ``dye`` on the card: by
+    ``form`` on a CUDA tensor. A CPU tensor runs the plain version, which
+    launches none; its name there is DISPLAY's."""
+    if not dye.is_cuda:
+        return DISPLAY.name
+    c, h, w = dye.shape[-3:]
+    chosen = form(c, h, w, *out_hw, shading, dye.element_size(), smem_optin(dye.device))
+    return DISPLAY.name if chosen == "staged" else DISPLAY_DIRECT.name
 
 
 def _check(dye, bloom_tex, sunrays_tex, dither_tex, compose):
@@ -78,12 +123,17 @@ def _check(dye, bloom_tex, sunrays_tex, dither_tex, compose):
 def display(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool,
             bloom_tex: Optional[torch.Tensor] = None,
             sunrays_tex: Optional[torch.Tensor] = None,
-            dither_tex: Optional[torch.Tensor] = None, compose: bool = True) -> torch.Tensor:
+            dither_tex: Optional[torch.Tensor] = None, compose: bool = True,
+            force: Optional[str] = None) -> torch.Tensor:
     """The display pass on the card -> float32 (C + 1, oh, ow) premultiplied
     RGBA, or with compose=False the shaded (C, oh, ow) center; for a batch
-    (B, C, H, W), (B, C + 1, oh, ow) in one launch. A window past the shared
-    memory a block may have, or B past the kernel's 65535, is refused by the
-    launch, which raises in Kernel."""
+    (B, C, H, W), (B, C + 1, oh, ow) in one launch, in the form ``form``
+    picks from the shape and the device's shared memory, or in ``force``
+    ("staged" or "direct", to time or test one form where the other would
+    run). A staged window past a block's shared memory, or B past the
+    kernel's 65535, is refused by the launch, which raises in Kernel."""
+    if force not in (None,) + FORMS:
+        raise ValueError(f"force must be one of {FORMS}, got {force!r}")
     bloom, rays, dither = _check(dye, bloom_tex, sunrays_tex, dither_tex, compose)
     code = check_storage(dye)
     extras = [t for t in (bloom, rays, dither) if t is not None]
@@ -96,13 +146,17 @@ def display(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool,
     out = torch.empty(dye.shape[:-3] + (c + 1 if compose else c, oh, ow), dtype=torch.float32,
                       device=dye.device)
     tx, ty, nz = D.shading_constants(out_hw)
-    win = window(h, w, oh, ow, bool(shading))
     bh, bw = bloom.shape[-2:] if bloom is not None else (0, 0)
     sh, sw = rays.shape[-2:] if rays is not None else (0, 0)
     dh, dw = dither.shape if dither is not None else (0, 0)
-    DISPLAY(ptr(dye), b, c, h, w, code, ptr(out), oh, ow, int(shading), int(compose),
+    args = (ptr(dye), b, c, h, w, code, ptr(out), oh, ow, int(shading), int(compose),
             tx, ty, nz, ptr(bloom), bh, bw, ptr(rays), sh, sw, ptr(dither), dh, dw,
-            ow / dw if dw else 0.0, oh / dh if dh else 0.0, *win, stream())
+            ow / dw if dw else 0.0, oh / dh if dh else 0.0)
+    chosen = force or form(c, h, w, oh, ow, shading, dye.element_size(), smem_optin(dye.device))
+    if chosen == "staged":
+        DISPLAY(*args, *window(h, w, oh, ow, bool(shading)), stream())
+    else:
+        DISPLAY_DIRECT(*args, stream())
     return out
 
 

@@ -36,7 +36,7 @@ from tpufluid_torch.trace import swirl_trace
 FLOOR_TAA = Kernel("floor_taa", "floors", "floor_taa",
                    [P, P, P, P, I, I, I, I, I, I, I, I, I, P],
                    replaces="tpufluid/ops/pallas/floors.py:92")
-FLOOR_ROLL = Kernel("floor_roll", "floors", "floor_roll", [P, P, P, I, I, I, I, P],
+FLOOR_ROLL = Kernel("floor_roll", "floors", "floor_roll", [P, P, P, I, I, I, I, I, I, I, I, P],
                     replaces="tpufluid/ops/pallas/floors.py:133")
 FLOOR_SWEEP = Kernel("floor_sweep", "floors", "floor_sweep",
                      [P, P, P, P, P, I, I, I, I, I, I, I, I, I, P],
@@ -53,7 +53,7 @@ def _check(dtype: torch.dtype, *tensors: torch.Tensor) -> None:
             raise ValueError(f"kernel takes {dtype}, got {t.dtype}")
 
 
-# ---- plans of the two redesigned kernels (csrc/floors.cu) ----------------
+# ---- plans of the redesigned kernels (csrc/floors.cu) --------------------
 
 TAA_THREADS = 512        # threads of a floor_taa block: words_b = this // splits
 TAA_SPLITS = (1, 2, 4, 8, 16)   # threads a word: words_b stays a multiple of 32
@@ -136,6 +136,104 @@ def taa_plan(planes: int, n_idx: int, reps: int, trips: int, rows: int, lanes: i
     if smem > TAA_MAX_SMEM:
         raise ValueError(f"floor_taa stages {smem} bytes a block, over {TAA_MAX_SMEM}")
     return TaaPlan(rows, lanes, reps, trips, words_b, splits, smem)
+
+
+ROLL_STRIP = 32          # columns a floor_roll block stages (csrc/floors.cu kRollStrip)
+ROLL_ROWS = (4, 8)       # rows a floor_roll thread keeps in its register window
+ROLL_SPLITS = (1, 2, 4, 8, 16)   # threads a word's trips are cut over
+ROLL_MAX_THREADS = 1024
+ROLL_WARPS_PER_SM = 8    # warps an SM that the default split aims at, to hide latency
+ROLL_DEFAULT_ROWS = 8    # the fastest on the H100 with 4 splits at the default (PERF.md)
+
+
+@dataclasses.dataclass(frozen=True)
+class RollPlan:
+    """floor_roll's blocks: each stages one plane's strip of ROLL_STRIP
+    columns (all nrk rows) and takes ``groups_b`` groups of ``r``
+    consecutive rows of it, every (row group, column) summed by ``splits``
+    threads that cut the trips into ranges; ``smem``: the strip and the
+    splits' partials, in bytes."""
+
+    planes: int
+    nrk: int
+    cbw: int
+    trips: int
+    r: int
+    groups_b: int
+    splits: int
+    smem: int
+
+    @property
+    def strips(self) -> int:
+        return -(-self.cbw // ROLL_STRIP)
+
+    @property
+    def chunks(self) -> int:
+        """Blocks a strip: its row groups, groups_b a block."""
+        return -(-(-(-self.nrk // self.r)) // self.groups_b)
+
+    @property
+    def blocks(self) -> int:
+        return self.planes * self.strips * self.chunks
+
+    @property
+    def threads(self) -> int:
+        return ROLL_STRIP * self.groups_b * self.splits
+
+    def words(self):
+        """Each block's (plane, [row lo, row hi), [column lo, column hi)),
+        in launch order (csrc/floors.cu's block index)."""
+        for b in range(self.blocks):
+            chunk = b % self.chunks
+            strip = (b // self.chunks) % self.strips
+            plane = b // (self.chunks * self.strips)
+            r0 = chunk * self.groups_b * self.r
+            c0 = strip * ROLL_STRIP
+            yield (plane, (r0, min(r0 + self.groups_b * self.r, self.nrk)),
+                   (c0, min(c0 + ROLL_STRIP, self.cbw)))
+
+    def parts(self):
+        """Each split's [lo, hi) of the trips."""
+        for s in range(self.splits):
+            yield _split(self.trips, self.splits, s)
+
+
+@functools.lru_cache(maxsize=64)
+def roll_plan(planes: int, nrk: int, cbw: int, trips: int, sms: int,
+              rows: Optional[int] = None, splits: Optional[int] = None) -> RollPlan:
+    """floor_roll's blocks on a GPU of ``sms`` SMs: ``rows`` rows a thread
+    (ROLL_ROWS, default ROLL_DEFAULT_ROWS); by default the fewest splits
+    (ROLL_SPLITS, at most the trips) that give ROLL_WARPS_PER_SM warps an
+    SM, or the most there are; then the row groups a block that leave the
+    least work on the busiest SM (ceil(blocks / sms) * groups a block), the
+    most of equals (fewer stagings). Raises for a size below 1, a row count
+    or split off the lists or past the trips, and a strip past shared
+    memory."""
+    if min(planes, nrk, cbw, trips, sms) < 1:
+        raise ValueError(f"floor_roll needs every size >= 1: planes {planes}, nrk {nrk}, "
+                         f"cbw {cbw}, trips {trips}, sms {sms}")
+    rows = ROLL_DEFAULT_ROWS if rows is None else rows
+    if rows not in ROLL_ROWS:
+        raise ValueError(f"floor_roll keeps one of {ROLL_ROWS} rows a thread, not {rows}")
+    choices = [s for s in ROLL_SPLITS if s <= trips]
+    ngroups = -(-nrk // rows)
+    pairs = planes * -(-cbw // ROLL_STRIP) * ngroups          # (row group, strip) pairs
+    if splits is None:
+        splits = next((s for s in choices if pairs * s >= ROLL_WARPS_PER_SM * sms), choices[-1])
+    if splits not in choices:
+        raise ValueError(f"floor_roll cuts a word's {trips} trips over one of {choices} "
+                         f"threads, not {splits}")
+
+    def busiest(g: int) -> int:   # row groups on the busiest SM
+        blocks = planes * -(-cbw // ROLL_STRIP) * -(-ngroups // g)
+        return -(-blocks // sms) * g
+
+    fits = range(1, min(ngroups, ROLL_MAX_THREADS // (ROLL_STRIP * splits)) + 1)
+    groups_b = min(fits, key=lambda g: (busiest(g), -g))
+    smem = 4 * ROLL_STRIP * (nrk + (splits - 1) * groups_b * rows)
+    if smem > TAA_MAX_SMEM:
+        raise ValueError(f"floor_roll stages {smem} bytes a block, over {TAA_MAX_SMEM}")
+    return RollPlan(planes, nrk, cbw, trips, rows, groups_b, splits, smem)
 
 
 SWEEP_ROWS = (4, 8)      # rows a floor_sweep thread can keep in registers (csrc/floors.cu)
@@ -243,14 +341,27 @@ def taa(seed: torch.Tensor, idx: torch.Tensor, op: torch.Tensor, trips: int,
     return run_taa(seed, idx, op, trips, plan)
 
 
+def run_roll(seed: torch.Tensor, op: torch.Tensor, plan: RollPlan) -> torch.Tensor:
+    """One floor_roll launch on ``plan``'s blocks (checked inputs)."""
+    out = torch.empty_like(seed)
+    FLOOR_ROLL(ptr(seed), ptr(op), ptr(out), plan.planes, plan.nrk, plan.cbw, plan.trips,
+               plan.r, plan.groups_b, plan.splits, plan.smem, stream())
+    return out
+
+
 def roll(seed: torch.Tensor, op: torch.Tensor, trips: int) -> torch.Tensor:
-    """plain.roll_plain on the card: seed, op (planes, nrk, cbw) int32 words."""
+    """plain.roll_plain on the card: seed, op (planes, nrk, cbw) int32
+    words; one launch on roll_plan's blocks. No trips is the seed, without
+    a launch."""
     _check(torch.int32, seed, op)
     if seed.shape != op.shape or op.ndim != 3:
         raise ValueError(f"seed {tuple(seed.shape)} / op {tuple(op.shape)}")
-    out = torch.empty_like(seed)
-    FLOOR_ROLL(ptr(seed), ptr(op), ptr(out), *op.shape, trips, stream())
-    return out
+    if trips < 0:
+        raise ValueError(f"roll needs trips >= 0, got {trips}")
+    if trips == 0 or op.numel() == 0:
+        return seed.clone()
+    plan = roll_plan(*op.shape, trips, build.sm_count(seed.device))
+    return run_roll(seed, op, plan)
 
 
 def run_sweep(seed: torch.Tensor, x: torch.Tensor, plan: SweepPlan) -> torch.Tensor:

@@ -20,14 +20,24 @@ for every sim (the plans it beat, too, are gone).
 
 Display: at the demo (f32 dye 1024x1820 -> 720x1280) and 1024x1024 (bf16
 dye), with bloom, sunrays and dither from numpy (seed 0): the composite
-with and without shading, composed and not.
+with and without shading, composed and not, in both forms (the staged one,
+which the wrapper picks there, and the direct one). Then the direct form
+where the staged window does not fit (the first four of
+check.DIRECT_GEOMETRIES: the server's CLI dye at 200x112, dye 1024 at
+500x281, the app's at 256x256, a 4096 dye at 1280x720), in float32 and
+bf16 (RGB9E5), one sim and a batch of DIRECT_BATCH, on check.random_state
+(random_batch), each beside its bound, max(bytes / 3.35 TB/s, operations /
+67 TFLOP/s), from the render case's bytes and check._display_flops; and
+the staged form too where a 16-bit window fits.
 
 Floors (the profiling path's yardsticks, at their defaults): floor_sweep's
 16 x 20 sweeps of 256x1024 at K = 1, 2, 4, 5, 10 and 20 sweeps between
 grid barriers, each on sweep_plan's geometry for that K;
 floor_taa at (2, 8, 32, 8) with each word's (trip, rep) terms cut over 1,
 2, 4, 8 and 16 threads (taa_plan; TAA_THREADS a block), each also at twice
-the trips. Each is held to its plain version on the microbenchmark's
+the trips; floor_roll at (2, 96, 384) with 256 trips, 4 or 8 rows a thread
+and each word's trips over 1, 2, 4, 8 and 16 threads (roll_plan), each
+also at twice the trips. Each is held to its plain version on the microbenchmark's
 inputs and on check.random_floors_cases before it is timed.
 
 Rates (``--only rates``): the three reference rates' chains, each call's
@@ -64,6 +74,8 @@ from tpufluid_torch.ops.cuda.build import sm_count
 from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 from tpufluid_torch.ops.splat import splat_factors
 
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
+F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 GRIDS = (("1024_bfloat16", 1024, 1024, torch.bfloat16),
          ("demo_float32", 128, 228, torch.float32))
 SWEEPS = (1, 4, 5, 8, 10, 20)
@@ -205,17 +217,107 @@ def display_rows(rate: float, gpu: str) -> list:
         extras = (t(3, bh, bw), t(sh, sw), blue_noise(dye.device))
         for shading, compose in ((True, True), (False, True), (True, False), (False, False)):
             want = display.display_plain(dye, out_hw, shading, *extras, compose=compose)
+            for form in display.FORMS:
+                def run():
+                    return display.display(dye, out_hw, shading, *extras, compose=compose,
+                                           force=form)
 
-            def run():
-                return display.display(dye, out_hw, shading, *extras, compose=compose)
+                err = float((run() - want).abs().max())
+                ms = queued_ms(run, 20, rate)
+                row = {"kernel": "display", "grid": name, "shading": shading,
+                       "compose": compose, "form": form, "launches": 1, "ms": ms,
+                       "max_abs_err": err}
+                rows.append(row)
+                print(f"display candidate {name:14s} shading={int(shading)} "
+                      f"compose={int(compose)} {form}: {ms:.4f} ms, max_abs_err {err:.1e} "
+                      f"on {gpu}", flush=True)
+    return rows
 
-            err = float((run() - want).abs().max())
-            ms = queued_ms(run, 20, rate)
-            row = {"kernel": "display", "grid": name, "shading": shading, "compose": compose,
-                   "launches": 1, "ms": ms, "max_abs_err": err}
-            rows.append(row)
-            print(f"display candidate {name:14s} shading={int(shading)} compose={int(compose)}: "
-                  f"{ms:.4f} ms, max_abs_err {err:.1e} on {gpu}", flush=True)
+
+# The demo's dye shown at smaller 16:9 canvases: the staged form's shared
+# memory a block grows as the canvas shrinks, past half an SM's at ~110 KB.
+THRESHOLD_HEIGHTS = (720, 600, 540, 480, 432, 400, 360, 320)
+
+
+def threshold_rows(rate: float, gpu: str) -> list:
+    from tpufluid_torch.ops.cuda.build import smem_optin
+    from tpufluid_torch.render import blue_noise
+
+    limit = smem_optin(torch.device("cuda"))
+    rng = np.random.default_rng(0)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for ch in THRESHOLD_HEIGHTS:
+            cw = round(ch * 16 / 9)
+            cfg = FluidConfig(CANVAS_WIDTH=cw, CANVAS_HEIGHT=ch).validate()
+            (dw, dh), (bw, bh), (sw, sh) = cfg.dye_size, cfg.bloom_size, cfg.sunrays_size
+
+            def t(*shape):
+                return torch.from_numpy((rng.random(shape) * 1.5).astype(np.float32)).cuda()
+
+            dye = t(3, dh, dw).to(dtype)
+            extras = (t(3, bh, bw), t(sh, sw), blue_noise(dye.device))
+            smem = display.smem_bytes(3, *display.window(dh, dw, ch, cw, True), True,
+                                      dye.element_size())
+            want = display.display_plain(dye, (ch, cw), True, *extras)
+            for form in display.FORMS:
+                if form == "staged" and smem > limit:
+                    continue
+
+                def run():
+                    return display.display(dye, (ch, cw), True, *extras, force=form)
+
+                err = float((run() - want).abs().max())
+                ms = queued_ms(run, 20, rate)
+                rows.append({"kernel": "display", "grid": f"{dh}x{dw}->{ch}x{cw}",
+                             "dtype": str(dtype)[6:], "form": form, "staged_smem": smem,
+                             "launches": 1, "ms": ms, "max_abs_err": err})
+                print(f"display threshold {str(dtype)[6:]:8s} {dh}x{dw} -> {ch}x{cw} staged "
+                      f"{smem} B a block: {form} {ms:.4f} ms, max_abs_err {err:.1e} on {gpu}",
+                      flush=True)
+    return rows
+
+
+DIRECT_TIMED = ("server_cli_200x112", "server_high_500x281", "app_canvas_256x256",
+                "dye4096_1280x720")
+DIRECT_BATCH = 4
+
+
+def direct_rows(rate: float, gpu: str) -> list:
+    rows = []
+    for label in DIRECT_TIMED:
+        res, cw, ch, _ = check.DIRECT_GEOMETRIES[label]
+        for dtype, rgb9e5 in (("float32", False), ("bfloat16", True)):
+            cfg = FluidConfig(DYE_RESOLUTION=res, CANVAS_WIDTH=cw, CANVAS_HEIGHT=ch,
+                              DTYPE=dtype, DYE_RGB9E5=rgb9e5).validate()
+            for batch in (1, DIRECT_BATCH):
+                if batch == 1:
+                    state, _ = check.random_state(cfg, 0, "cuda")
+                    case = check.render_cases(state, cfg)[-1]
+                else:
+                    state, _ = check.random_batch(cfg, batch, 0, "cuda")
+                    case = check.batched_render_cases(state, cfg)[-1]
+                want = case.run(plain=True)
+                bound = 1e3 * max(case.nbytes / HBM_BYTES_PER_S, case.flops / F32_FLOPS_PER_S)
+                by = ("bytes" if case.nbytes / HBM_BYTES_PER_S >= case.flops / F32_FLOPS_PER_S
+                      else "operations")
+                forms = ("direct",) if case.kernel_name == "display_direct" else display.FORMS
+                for form in forms:
+                    def run():
+                        return display.display(*case.args, force=form)
+
+                    err = float((run() - want).abs().max())
+                    ms = queued_ms(run, 20, rate)
+                    row = {"kernel": "display_direct" if form == "direct" else "display",
+                           "grid": label, "dtype": dtype, "batch": batch, "form": form,
+                           "picked": case.kernel_name, "launches": 1, "ms": ms,
+                           "bound_ms": bound, "bound_by": by, "max_abs_err": err}
+                    rows.append(row)
+                    print(f"display candidate {label:20s} {dtype:8s} b{batch} {form} (the "
+                          f"wrapper picks {case.kernel_name}): {ms:.4f} ms, bound {bound:.4f} "
+                          f"ms ({by}), max_abs_err {err:.1e} on {gpu}", flush=True)
+                del state, case, want
+                torch.cuda.empty_cache()
     return rows
 
 
@@ -288,6 +390,33 @@ def taa_rows(rate: float, gpu: str) -> list:
             lambda: floors.run_taa(a[0], a[1], a[2], 2 * a[3], twice), 20, rate)
         print(f"floor_taa candidate {splits:2d} threads a word at {2 * trips} trips: "
               f"{ms:.4f} ms on {gpu}", flush=True)
+    return rows
+
+
+def roll_rows(rate: float, gpu: str) -> list:
+    sms = sm_count(torch.device("cuda"))
+    cases = _floors_inputs("floor_roll")
+    want = [plain_floors.roll_plain(*a) for a in cases]
+    planes, nrk, cbw, trips = check.ROLL_DEFAULT
+    planned = floors.roll_plan(planes, nrk, cbw, trips, sms)
+    rows = []
+    for r in floors.ROLL_ROWS:
+        for splits in floors.ROLL_SPLITS:
+            plan = floors.roll_plan(planes, nrk, cbw, trips, sms, r, splits)
+            run = [lambda a=a, p=plan: floors.run_roll(a[0], a[1], p) for a in cases]
+            mark = " (plan)" if plan == planned else ""
+            _candidate(rows, {"kernel": "floor_roll", "rows_a_thread": r, "splits": splits,
+                              "groups_a_block": plan.groups_b, "blocks": plan.blocks,
+                              "threads": plan.threads, "smem": plan.smem,
+                              "planned": plan == planned, "launches": 1}, run, want, rate, gpu,
+                       f"{r} rows a thread, {splits:2d} threads a word: {plan.blocks} blocks "
+                       f"of {plan.threads} threads ({plan.groups_b} row groups){mark}")
+            twice = floors.roll_plan(planes, nrk, cbw, 2 * trips, sms, r, splits)
+            a = cases[0]
+            rows[-1]["twice_trips_ms"] = ms = queued_ms(
+                lambda: floors.run_roll(a[0], a[1], twice), 20, rate)
+            print(f"floor_roll candidate {r} rows a thread, {splits:2d} threads a word at "
+                  f"{2 * trips} trips: {ms:.4f} ms on {gpu}", flush=True)
     return rows
 
 
@@ -372,9 +501,9 @@ def main(argv=None) -> list:
     if "bloom" in only:
         rows += bloom_rows(rate, gpu) + bloom_batch_rows(rate, gpu)
     if "display" in only:
-        rows += display_rows(rate, gpu)
+        rows += display_rows(rate, gpu) + threshold_rows(rate, gpu) + direct_rows(rate, gpu)
     if "floors" in only:
-        rows += sweep_rows(rate, gpu) + taa_rows(rate, gpu)
+        rows += sweep_rows(rate, gpu) + taa_rows(rate, gpu) + roll_rows(rate, gpu)
     rates = rate_rows(rate, gpu) if "rates" in only else []
     sms = sm_count(torch.device("cuda"))
     chosen = {name: jacobi.plan(h, w, args.iters, sms) for name, h, w, _ in GRIDS}
