@@ -9,19 +9,27 @@ the card.
    source, all at once) and prints the card's name and power limit.
    Sums up the ptxas report (registers, static shared memory, stack
    frame, spills) of every pre_pressure, gradient_subtract, advect,
-   jacobi_chunk, bloom_pyramid and display instance and names any with a
-   stack frame or spills.
+   jacobi_chunk, jacobi_project, bloom_pyramid and display instance and
+   names any with a stack frame or spills.
 2. Kernel phase: every kernel call of a step (check.step_cases: the
-   dye's is advect_dye) against its plain PyTorch
-   version on the same inputs, at the main path's shapes — demo default
+   solve's is jacobi_project, its chunks and then the fused last launch,
+   which subtracts the gradient; the dye's is advect_dye), then the
+   standalone solve and gradient subtract that the fused launch replaces
+   and the sharded step still runs, against their plain PyTorch
+   versions on the same inputs, at the main path's shapes — demo default
    (sim 128x228, dye 1024x1820) and 1024x1024 — in float32, bfloat16 with
    and without RGB9E5, and float16. Prints each max error beside its
-   tolerance and fails past it; pre_pressure and advect_dye must equal
-   their plain versions bit for bit (max abs error 0).
+   tolerance and fails past it; pre_pressure, jacobi_project and advect_dye
+   must equal their plain versions bit for bit (max abs error 0). Then the
+   fused solve alone at N = 0, 1, 9, 10, 11, 20 and 23 sweeps, in the three
+   storage types, on one sim, batches of 3 and 16 and packed fleets
+   (project_phase, both tiles): every pressure and velocity bit-equal to
+   jacobi_plain then gradient_subtract_plain.
 3. Path phase: the port's make_multi_step over a swirl_trace, 300 steps
    each: the demo default in float32 and 1024x1024 in bfloat16 (RGB9E5 on).
    Launch counts are zeroed just before each run and read just after; each
-   kernel must have launched its expected count per step. The first 3 steps
+   kernel must have launched its expected count per step (5 launches a
+   step: expected_per_step) and no other kernel. The first 3 steps
    must match the plain step run on the same GPU tensors, and the state must
    stay finite with dye >= 0.
 4. Timing: steps/s of the last 200 steps of each run, stepped one
@@ -35,8 +43,10 @@ the card.
    state (advect.dye_window_plan); one torch grid_sample call on the dye
    and one on the velocity (bilinear, border, the source's shape and
    storage type, on the backtraced coordinates: check.grid_sample_ms) as
-   the two advection kernels' library yardsticks; last the host time of
-   the step's Python layers under cProfile.
+   the two advection kernels' library yardsticks; the fused jacobi_project
+   beside the pair it replaces (the standalone solve and gradient
+   subtract, spin-queued on the same inputs); last the host time of the
+   step's Python layers under cProfile.
 5. Render kernel phase: every kernel call of a frame (check.render_cases:
    the whole bloom pyramid, one launch, and the display) against its plain
    version, with max abs error 0 required,
@@ -69,7 +79,7 @@ the card.
    FluidServer at its CLI defaults (sim 128, dye 512, 640x360) ticks 5
    times, then takes a 200x112 canvas as a small browser window posts it
    (reconfigure) and ticks 20 times with pointer events, launch counts
-   zeroed just before and read just after: 6 step launches, 1 bloom_pyramid
+   zeroed just before and read just after: 5 step launches, 1 bloom_pyramid
    and 1 display_direct a tick, no staged display; its frame against the
    plain render, and the frame's kernel calls against their plain versions
    (0). tpufluid_torch.app.main at --canvas 256x256 (dye 1024), 20 steps, a
@@ -121,7 +131,7 @@ the card.
    per sim linspace(1/90, 1/60, B)), max abs error 0 required; the same at
    the demo's cross grid (128/1024) with B = 4. Then make_batched_multi_step
    over each sim's own swirl_trace (seed 42 + i), per-sim dts: launch counts
-   zeroed before and read after 3 steps (6 launches a batched step), each
+   zeroed before and read after 3 steps (5 launches a batched step), each
    sim equal bit for bit to make_step on that sim alone and the batch to
    the plain batched step; then 100 warm-up and 200 timed steps, lock-step
    and per sim (aggregate sim-steps/s), the batched step's median and p95
@@ -140,7 +150,7 @@ the card.
    one make_batched_render frame (launch counts zeroed before and read
    after: 1 bloom_pyramid and 1 display) equal to the plain batched render
    and, sim by sim, to make_render; 3 make_batched_tick ticks with a dt a
-   sim (6 + 2 launches each), each sim's state and uint8 frame equal to
+   sim (5 + 2 launches each), each sim's state and uint8 frame equal to
    make_step_and_render's on it alone. Then aggregate sim-frames/s and
    sim-ticks/s (B x 200 / wall, one call a frame or tick with a CUDA event
    after each; the timed ticks lock-step, the server's one clock) with their
@@ -192,7 +202,7 @@ the card.
    random sims that differ, the lock-step dt 1/60) against its plain
    version in float32 and in bf16 (RGB9E5), max abs error 0 required. Then,
    the launch counts zeroed just before and read just after,
-   make_packed_multi_step over 3 lock-step steps (6 launches a step,
+   make_packed_multi_step over 3 lock-step steps (5 launches a step,
    whatever B is): unpacked, every field of every sim equal to
    make_batched_multi_step's (max abs error 0), and the fleet equal to 3
    plain_packed_step steps (0). Then aggregate sim-steps/s of 200 steps in
@@ -212,7 +222,7 @@ the card.
    its step-300 checkpoint, whose step-600 checkpoint must equal the
    straight run's bit for bit; a run with no output, the app's loop rate.
    Each prints the app's own steps/s line; the launch counts, zeroed
-   before each run, must be 6 a step and 2 a frame. Then FluidServer
+   before each run, must be 5 a step and 2 a frame. Then FluidServer
    (sim 128, dye 512, 640x360) on the card with its sim thread and a
    ThreadingHTTPServer on 127.0.0.1: drag and burst events, /frame until
    200 frames were served (the tick's ms median and p95, the JPEG encode's,
@@ -220,7 +230,7 @@ the card.
    /trace.npz; paused, /checkpoint.npz, which resumes a second server whose
    state must equal the checkpointed one (0); a live POST /config to
    bfloat16 and dye 256. Last the resumed server's own ticks, in turn with
-   no HTTP traffic: 20 counted (8 launches a tick, timed), and one whose
+   no HTTP traffic: 20 counted (7 launches a tick, timed), and one whose
    frame is held to the plain render of the state it leaves (phase 6's
    bound; 0).
 
@@ -229,7 +239,7 @@ the card.
    bf16 RGB9E5, each its own swirl_trace) for 'scalar', 'vector' (dt
    linspace(1/90, 1/60)) and K = 4 (speeds linspace(0.5, 4.0)): each
    equal to its plain passes on the card (0), each sim of the K = 4 tick
-   equal to its iterated make_step_and_render ticks (0), 8, 8 and 26
+   equal to its iterated make_step_and_render ticks (0), 7, 7 and 22
    launches a tick (counted again over 200 timed ticks each: ticks/s,
    sim-ticks/s, median, p95), the kernels' spin-queued device time a tick
    and the idle share. b. 5 sessions in a padded 8 driven by hand: pad rows
@@ -248,10 +258,10 @@ the card.
    make_batch_sharded_substepped_tick, dryrun, parallel.auto, the drift
    tool), every mesh on the cards there are, round robin. a. Batch DP at
    fleet_256_b16 on a (4, 1) mesh: 200 make_batch_sharded_multi_step steps
-   lock-step and per sim, each equal to make_batched_multi_step (0), 24
+   lock-step and per sim, each equal to make_batched_multi_step (0), 20
    launches a step, no halo byte; the K = 4 make_batch_sharded_substepped_tick
    (speeds as 15a's), state and frames equal to make_substepped_tick (0),
-   104 launches; sim-steps/s and sim-ticks/s beside the unsharded calls' in
+   88 launches; sim-steps/s and sim-ticks/s beside the unsharded calls' in
    the same run, each with its idle share (torch.profiler over 3 calls). b.
    The two new kernel forms against their plain versions, max abs error 0
    (check.batched_bounded_cases in f32, bf16, f16; batched_f32_velocity_dye_cases
@@ -301,6 +311,15 @@ TIMED_STEPS = 200
 CHECK_STEPS = 3                # compared against the plain step
 RENDER_KERNELS = ("bloom_pyramid", "display")
 PTXAS_LIBRARIES = ("stencil", "advect", "jacobi", "bloom", "display")
+# The step's timed calls (check.step_cases before the standalone pair): the solve's
+# case, jacobi_project, covers its chunks before the fused launch.
+MAIN_STEP_KERNELS = ("pre_pressure", "jacobi_project", "advect", "advect_dye")
+# The fused solve's own phase: every sweep count around the chunks' 10, on
+# ((H, W), B, packed): the demo's grid alone (small tiles), 3 of it, 16 of
+# it (large tiles), 1024^2 (large), 288^2 fleets packed.
+PROJECT_SWEEPS = (0, 1, 9, 10, 11, 20, 23)
+PROJECT_CELLS = (((128, 228), 1, False), ((128, 228), 3, False), ((128, 228), 16, False),
+                 ((1024, 1024), 1, False), ((288, 288), 3, True), ((288, 288), 16, True))
 TIMED_FRAMES = 200             # make_render frames and make_step_and_render ticks
 FLOORS_KERNELS = ("floor_taa", "floor_roll", "floor_sweep")
 FLOORS_CONFIG = "1024_bfloat16_rgb9e5"    # bench.py config 3, where bench.py reports floors
@@ -316,7 +335,8 @@ PROFILE_STEPS = 30                        # profile_step_kernels' default
 PROFILE_FRAMES = 30                       # profile_frame_kernels' default
 LONG_HORIZON_STEPS = 1500
 JACOBI_SWEEPS_A_LAUNCH = 10    # the chunk kernel's design: a solve of N sweeps is ceil(N / 10)
-EXACT_KERNELS = ("pre_pressure", "advect_dye")   # step kernels held to max abs error 0
+# step kernels held to max abs error 0
+EXACT_KERNELS = ("pre_pressure", "jacobi_project", "advect_dye")
 LONG_HORIZON_OUT = Path("out/long_horizon_4096")
 # The batched serving cells (bench.py config 7 at --serve-res 256 and 1024):
 # (resolution, sims); each sim replays its own swirl_trace(seed 42 + i).
@@ -387,13 +407,37 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def jacobi_launches(cfg) -> int:
+    """Launches of a Jacobi solve of ``cfg``: JACOBI_SWEEPS_A_LAUNCH sweeps
+    a launch (the standalone solve; the step's last is jacobi_project)."""
+    return math.ceil(cfg.PRESSURE_ITERATIONS / JACOBI_SWEEPS_A_LAUNCH)
+
+
 def expected_per_step(cfg) -> dict:
-    """Launches of each step kernel in one step of ``cfg``: the Jacobi
-    solve in launches of JACOBI_SWEEPS_A_LAUNCH sweeps, the velocity's
-    gather and the dye's kernel."""
-    return {"pre_pressure": 1,
-            "jacobi_chunk": math.ceil(cfg.PRESSURE_ITERATIONS / JACOBI_SWEEPS_A_LAUNCH),
-            "gradient_subtract": 1, "advect": 1, "advect_dye": 1}
+    """Launches of each kernel in one step of ``cfg``, those that launch:
+    the Jacobi solve in launches of JACOBI_SWEEPS_A_LAUNCH sweeps, its last
+    the fused jacobi_project (a solve of no sweeps is that one launch), so
+    no gradient_subtract; the velocity's gather and the dye's kernel. Five
+    at 20 sweeps."""
+    counts = {"pre_pressure": 1, "jacobi_chunk": max(jacobi_launches(cfg) - 1, 0),
+              "jacobi_project": 1, "advect": 1, "advect_dye": 1}
+    return {k: n for k, n in counts.items() if n}
+
+
+def step_device_ms(timing: dict) -> float:
+    """A step's kernels' device ms from timing_phase's rows of its cases:
+    MAIN_STEP_KERNELS, not the standalone pair that check.step_cases adds."""
+    return sum(timing[k]["ms"] for k in MAIN_STEP_KERNELS if k in timing)
+
+
+def print_pair(name: str, timing: dict, gpu: str) -> None:
+    """The fused solve's spin-queued ms beside the pair it replaces."""
+    fused, chunk, grad = (timing[k] for k in ("jacobi_project", "jacobi_chunk",
+                                              "gradient_subtract"))
+    print(f"time   jacobi_project at {name} on {gpu}: fused {fused['ms']:.4f} ms (bound "
+          f"{fused['bound_ms']:.4f} ms, plain {fused['plain_ms']:.4f} ms) beside the pair it "
+          f"replaces, jacobi {chunk['ms']:.4f} + gradient_subtract {grad['ms']:.4f} = "
+          f"{chunk['ms'] + grad['ms']:.4f} ms ({fused['ms'] / (chunk['ms'] + grad['ms']):.3f}x)")
 
 
 def ptxas_report(build) -> list:
@@ -453,6 +497,55 @@ def kernel_phase(torch, check, cfgs, device) -> dict:
     return errors
 
 
+def project_phase(torch, device, errors: dict) -> None:
+    """The fused solve (jacobi_project) against jacobi_plain then
+    gradient_subtract_plain at every sweep count of PROJECT_SWEEPS, in the
+    three storage types, one sim, batches and packed fleets of
+    PROJECT_CELLS (both tiles: the demo's grid takes the small ones alone
+    and 16 of them the large ones): each pressure and velocity bit-equal,
+    the launches ceil(N / 10) - 1 chunks and one fused. Adds each max abs
+    error to ``errors`` under ("project:<cell>", "jacobi_project")."""
+    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.ops.cuda import jacobi as kjacobi
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    sms = build.sm_count(device)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for (h, w), b, packed in PROJECT_CELLS:
+            lead = () if b == 1 and not packed else (b,)
+            p, d = (torch.randn(lead + (h, w), generator=gen, device=device).to(dtype)
+                    for _ in range(2))
+            vel = torch.clamp(torch.randn(lead + (2, h, w), generator=gen, device=device) * 400,
+                              -1000, 1000).to(dtype)
+            kw = {}
+            if packed:
+                p, d, vel = (build.pack_fleet(t) for t in (p, d, vel))
+                kw = {"sim_w": w}
+            cell = f"{h}x{w}:{'packed:' if packed else ''}b{b}"
+            err, chunks, fused = 0.0, 0, 0
+            for n in PROJECT_SWEEPS:
+                before = (kjacobi.JACOBI_CHUNK.launches, kjacobi.JACOBI_PROJECT.launches)
+                got = kjacobi.jacobi_project(p, d, vel, n, 0.8, **kw)
+                torch.cuda.synchronize()
+                ran = (kjacobi.JACOBI_CHUNK.launches - before[0],
+                       kjacobi.JACOBI_PROJECT.launches - before[1])
+                assert ran == (max(math.ceil(n / JACOBI_SWEEPS_A_LAUNCH) - 1, 0), 1), (cell, n,
+                                                                                        ran)
+                chunks, fused = chunks + ran[0], fused + ran[1]
+                want = kjacobi.jacobi_project_plain(p, d, vel, n, 0.8, **kw)
+                for g, x in zip(got, want):
+                    assert g.dtype == x.dtype and g.shape == x.shape, (cell, n)
+                    err = max(err, float((g.float() - x.float()).abs().max()))
+            tiles = kjacobi.tiles_for(h, w, sms, b)
+            print(f"kernel project {cell:22s} {str(dtype)[6:]:8s} jacobi_project at N = "
+                  f"{','.join(map(str, PROJECT_SWEEPS))} on the {('large', 'small')[tiles]} "
+                  f"tiles {kjacobi.TILES[tiles]}: pressure and velocity max_abs_err {err:.3e}  "
+                  f"tol 0 (launches: {chunks} jacobi_chunk, {fused} jacobi_project)")
+            assert err == 0.0, (cell, dtype, err)
+            key = (f"project:{cell}:{str(dtype)[6:]}", "jacobi_project")
+            errors[key] = max(errors.get(key, 0.0), err)
+
+
 def path_phase(torch, cfg, device) -> dict:
     """Drive make_multi_step, then make_step, over a swirl trace; return
     the launch counts, the step rate and the step-time distribution."""
@@ -492,8 +585,8 @@ def path_phase(torch, cfg, device) -> dict:
     state = box[0]
     launches = {k: v.launches for k, v in build.KERNELS.items()}
 
-    for k, per_step in expected_per_step(cfg).items():
-        assert launches[k] == per_step * PATH_STEPS, (k, launches[k], per_step * PATH_STEPS)
+    want = {k: n * PATH_STEPS for k, n in expected_per_step(cfg).items()}
+    assert {k: n for k, n in launches.items() if n} == want, (launches, want)
     v, d, p = (x.float() for x in (state.velocity, state.dye, state.pressure))
     assert all(bool(torch.isfinite(x).all()) for x in (v, d, p)), "non-finite state"
     assert float(d.min()) >= 0.0, "negative dye"
@@ -642,8 +735,9 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     build.reset_launches()
     tps, tick_med, tick_p95 = call_times(one_tick, TIMED_FRAMES)
     tick_launches = {k: v.launches for k, v in build.KERNELS.items()}
-    for k, n in {**expected_per_step(cfg), **per_frame}.items():
-        assert tick_launches[k] == n * TIMED_FRAMES, (k, tick_launches[k])
+    want_tick = {k: n * TIMED_FRAMES for k, n in {**expected_per_step(cfg), **per_frame}.items()
+                 if n}
+    assert {k: n for k, n in tick_launches.items() if n} == want_tick, tick_launches
     pixels = one_tick(0)
     assert pixels.dtype == torch.uint8 and pixels.shape == (cfg.CANVAS_HEIGHT,
                                                            cfg.CANVAS_WIDTH, 3)
@@ -772,8 +866,7 @@ HOST_FUNCS = {  # (module file, function) -> label, for the host profile
     ("step.py", "_step"): "step (all)",
     ("splat.py", "splat_factors"): "splat_factors x2",
     ("stencil.py", "pre_pressure"): "pre_pressure",
-    ("jacobi.py", "jacobi_pressure"): "jacobi_pressure",
-    ("stencil.py", "gradient_subtract"): "gradient_subtract",
+    ("jacobi.py", "jacobi_project"): "jacobi_project",
     ("advect.py", "advect"): "advect x2",
     ("build.py", "__call__"): "Kernel.__call__ (ctypes)",
 }
@@ -999,8 +1092,8 @@ def long_horizon_phase(torch, check, gpu: str, device, errors: dict) -> dict:
     launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
     cfg = FluidConfig(SIM_RESOLUTION=4096, DYE_RESOLUTION=4096, CANVAS_WIDTH=4096,
                       CANVAS_HEIGHT=4096, DTYPE="bfloat16", MAX_SPLATS=8).validate()
-    for k, per_step in expected_per_step(cfg).items():
-        assert launches.get(k) == per_step * LONG_HORIZON_STEPS, (k, launches.get(k))
+    assert launches == {k: n * LONG_HORIZON_STEPS for k, n in expected_per_step(cfg).items()}, \
+        launches
     assert summary["ok"] and summary["nonfinite_total"] == 0, summary
     print(f"long horizon ok: 4096x4096 bfloat16 (RGB9E5) on {gpu}, {LONG_HORIZON_STEPS} "
           f"steps: {summary['steps_per_s_compute_median']} steps/s (median chunk), "
@@ -1014,6 +1107,7 @@ def long_horizon_phase(torch, check, gpu: str, device, errors: dict) -> dict:
     cases = check.step_cases(state, splats, cfg)
     check_cases(torch, check, name, cases, errors)
     timing = timing_phase(torch, check, cases)
+    print_pair(name, timing, gpu)
     _, other = floors.profile_step_kernels(cfg, state, 1.0 / 60.0, PROFILE_STEPS)
     print(f"profile {name} on {gpu}, torch.profiler over {PROFILE_STEPS} steps from a random "
           f"state, each kernel's device time a step beside its spin-queued time:")
@@ -1145,7 +1239,8 @@ def batched_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> dict:
             for k, row in timing_phase(torch, check, check.step_cases(sim, splats0[i], cfg, dt),
                                        False).items():
                 single[k] = single.get(k, 0.0) + row["ms"]
-        device_ms = sum(r["ms"] for r in timing.values())
+        device_ms = step_device_ms(timing)
+        print_pair(f"{name} (batched)", timing, gpu)
         kt, other = floors.profile_step_kernels(cfg, state0, check.per_sim_dts(batch),
                                                 PROFILE_STEPS)
         prof_us = sum(r["us"] for r in other["kernel_events"].values())
@@ -1407,7 +1502,9 @@ def packed_phase(torch, check, gpu: str, device, errors: dict) -> dict:
         lib_ms = check.grid_sample_ms(next(c for c in pcases if c.label.startswith("advect:dye")),
                                       spin_rate(), sim_w=res)
         ptiming["advect_dye"]["library_ms"] = lib_ms
-        device_ms = sum(r["ms"] for r in ptiming.values())
+        device_ms = step_device_ms(ptiming)
+        print_pair(f"{name} (packed)", ptiming, gpu)
+        print_pair(f"{name} (batched, the same sims)", btiming, gpu)
         step_ms = 1e3 * batch / (sum(rates["packed"]) / 2)
         idle = 1 - device_ms / step_ms
         kt, other = floors.profile_step_kernels(cfg, packed, 1.0 / 60.0, PROFILE_STEPS)
@@ -1418,10 +1515,12 @@ def packed_phase(torch, check, gpu: str, device, errors: dict) -> dict:
               f"(library, the fleet's dye as a batch) {lib_ms:.4f} ms")
         for k, row in ptiming.items():
             prof = other["kernel_events"].get(k, {}).get("us")
+            # the standalone gradient subtract: compared and timed, no launch on the step
+            prof = "no launch on the step" if prof is None else f"{prof:.2f} us a step"
             print(f"packed {name} {k:18s} spin-queued {row['ms']:.4f} ms packed, "
                   f"{btiming[k]['ms']:.4f} ms batched ({row['ms'] / btiming[k]['ms']:.3f}x); "
                   f"bound {row['bound_ms']:.4f} ms ({row['by']}), plain {row['plain_ms']:.4f} "
-                  f"ms; profiler {prof:.2f} us a step")
+                  f"ms; profiler {prof}")
         out[name] = {"batch": batch, "res": res, "launches": launches,
                      "timed_launches": timed_launches, "vs_batched_max_abs_err": vs_batched,
                      "vs_plain_max_abs_err": vs_plain, "sim_steps_per_s": rates,
@@ -1455,10 +1554,9 @@ def sharded_launches(cfg, shape) -> dict:
     def bands(ghost, extent):
         return 3 if cfg.overlap_halo and extent >= 3 * ghost else 1
 
-    per = expected_per_step(cfg)
     dye = bands(ss.dye_halo_width(cfg), hd)
-    shard = {"pre_pressure": per["pre_pressure"] * bands(ss._G_STENCIL, h),
-             "jacobi_chunk": per["jacobi_chunk"] * bands(ss._G_JACOBI, h),
+    shard = {"pre_pressure": bands(ss._G_STENCIL, h),
+             "jacobi_chunk": jacobi_launches(cfg) * bands(ss._G_JACOBI, h),
              "gradient_subtract": bands(ss._G_STENCIL, h),
              "advect": bands(ss._G_VEL, h), "advect_dye": dye}
     return {k: v * ny * nx for k, v in shard.items()}
@@ -2066,7 +2164,7 @@ def fleet_programs_phase(torch, check, gpu: str, device) -> dict:
     cases = (check.step_cases(box[0], splats_dev, cfg, check.per_sim_dts(b), ":fleet")
              + check.batched_render_cases(box[0], cfg))
     timing = timing_phase(torch, check, cases, verbose=False)
-    step_ms = sum(r["ms"] for n, r in timing.items() if n in per_step)
+    step_ms = step_device_ms(timing)
     frame_ms = sum(r["ms"] for n, r in timing.items() if n in PER_FRAME)
     for kind, row in out.items():
         k = int(kind) if kind.isdigit() else 1
@@ -2379,7 +2477,8 @@ def fleet_server_phase(torch, gpu: str, device) -> dict:
           f"K = 3 ticks {calls.get((4, 3), 0)}), bad sid and NaN speed 400, /sessions 4 -> 6 -> 3 "
           f"(padded 4 -> 8 -> 4, generation {gen}), sid 4 404, /checkpoint.npz {len(ckpt)} bytes "
           f"resumed: max abs err {resume_err}; launches {launches} over {final['steps']} steps; "
-          f"the resumed fleet's ticks {direct_launches} ({FLEET_DIRECT_TICKS} ticks, 8 a tick)")
+          f"the resumed fleet's ticks {direct_launches} ({FLEET_DIRECT_TICKS} ticks, "
+          f"{sum(direct_launches.values()) // FLEET_DIRECT_TICKS} a tick)")
     return {"traffic": traffic, "direct_tick_ms_median": dm, "direct_tick_ms_p95": dp,
             "resume_err": resume_err, "launches": launches, "program_calls":
             {str(key): n for key, n in calls.items()}, "checkpoint_bytes": len(ckpt)}
@@ -2946,6 +3045,7 @@ def main() -> int:
 
     cfgs = configs()
     errors = kernel_phase(torch, check, cfgs, device)
+    project_phase(torch, device, errors)
     render_kernel_phase(torch, check, cfgs, device, errors)
     floors_kernel_phase(torch, check, device, errors)
 
@@ -2972,13 +3072,16 @@ def main() -> int:
         print(f"time   advect_dye windows on the path's final state: {100 * share:.1f}% of "
               f"its {advect.DYE_TILE[0]}x{advect.DYE_TILE[1]} tiles fit {advect.DYE_SMEM} "
               "bytes of shared memory")
-        device_total = sum(r["ms"] for r in timing.values())
+        print_pair(name, timing, gpu)
+        device_total = step_device_ms(timing)
         step_ms = 1e3 / run["steps_per_s"]
         print(f"path {name}: step {step_ms:.4f} ms, kernels' device time "
               f"{device_total:.4f} ms ({100 * (1 - device_total / step_ms):.1f}% idle); "
               "per step: " + ", ".join(
-                  f"{k} {run['launches'][k] // PATH_STEPS} launches {r['ms']:.4f} ms"
-                  for k, r in timing.items()))
+                  f"{k} {run['launches'][k] // PATH_STEPS} launches {timing[k]['ms']:.4f} ms"
+                  for k in MAIN_STEP_KERNELS)
+              + f" (jacobi_project's ms its {run['launches']['jacobi_chunk'] // PATH_STEPS} "
+              "chunk launch(es) and the fused one)")
         host = host_phase(torch, cfg, run)
         rend = render_path_phase(torch, check, cfg, run, device)
         frame_ms, tick_ms = 1e3 / rend["frames_per_s"], 1e3 / rend["ticks_per_s"]
@@ -3029,6 +3132,9 @@ def main() -> int:
         else:
             row, launches = report["demo_float32"]["kernels"][k.name], \
                 report["demo_float32"]["launches"][k.name]
+            if k.name == "gradient_subtract":   # the sharded step's alone (phase 12)
+                launches = sharded["launches"][k.name]
+                assert launches > 0 and report["demo_float32"]["launches"][k.name] == 0
             err = errors[("demo_float32", k.name)]
             per_config = {c: {**{f: r["kernels"][k.name].get(f) for f in
                                  ("ms", "plain_ms", "bound_ms", "max_abs_err", "library_ms")},
@@ -3084,10 +3190,12 @@ def main() -> int:
         "configs": {f"sharded_{SHARDED_RES}_bf16_2x2": {"window_copy_ms": b["window_copy_ms"],
                                                         "launches": b["launches"]}},
     })
-    # The packed forms: launched by the packed fleet alone.
+    # The packed forms: launched by the packed fleet alone. The standalone
+    # gradient subtract's packed form is compared in phase 13, but no path
+    # launches it (the packed step's solve ends in jacobi_project).
     main = packed[PACKED_MAIN]
     for k in build.KERNELS.values():
-        if k.name not in main["kernels"]:
+        if k.name not in main["kernels"] or not main["launches"].get(k.name):
             continue
         row = main["kernels"][k.name]
         kernels.append({

@@ -33,7 +33,7 @@ CONFIGS = {
                  CANVAS_HEIGHT=64, MAX_SPLATS=8),
 }
 DTYPES = [("float32", False), ("bfloat16", True), ("bfloat16", False), ("float16", False)]
-PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 2, "gradient_subtract": 1, "advect": 1,
+PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 1, "jacobi_project": 1, "advect": 1,
             "advect_dye": 1}
 
 
@@ -103,6 +103,11 @@ def test_batched_tiles_equal_single_launches(dtype, cuda):
         _equal(p[b], jacobi.jacobi_pressure(state.pressure[b], div[b], 20, 0.8),
                f"jacobi sim {b}")
     g = stencil.gradient_subtract(vel, p)
+    # the fused solve: the batch on the large tiles, each sim on the small
+    _equal(jacobi.jacobi_project(state.pressure, div, vel, 20, 0.8), (p, g), "jacobi_project")
+    for b in range(16):
+        _equal(jacobi.jacobi_project(state.pressure[b], div[b], vel[b], 20, 0.8), (p[b], g[b]),
+               f"jacobi_project sim {b}")
     a = advect.advect(g, state.dye, table[1], cfg.DENSITY_DISSIPATION,
                       splat_factors(splats, 256, 256, cfg.splat_radius_uv(),
                                     cfg.aspect_ratio, slice(4, 7)),
@@ -156,7 +161,8 @@ def test_batched_steps_equal_single_steps(size, dtype, rgb9e5, cuda):
 
 def test_batched_step_launches_seven_whatever_b(cuda):
     """The batched step's launches whatever B is: the test keeps its name
-    from when they were seven; since the dye's kernel they are six."""
+    from when they were seven; since the dye's kernel six, since the fused
+    jacobi_project five."""
     cfg = _cfg("small")
     for b in (1, 5):
         state = stack_states([check.random_state(cfg, i, cuda)[0] for i in range(b)])
@@ -165,7 +171,7 @@ def test_batched_step_launches_seven_whatever_b(cuda):
         make_batched_step(cfg)(state, np.full(b, 1 / 60), splats)
         torch.cuda.synchronize()
         assert {k: v.launches for k, v in build.KERNELS.items() if v.launches} == PER_STEP
-        assert sum(PER_STEP.values()) == 6
+        assert sum(PER_STEP.values()) == 5
 
 
 def test_bad_dt_table_raises(cuda):
@@ -211,6 +217,14 @@ def test_wide_batches_take_64_bit_offsets(cuda):
     check_ends(lambda: stencil.gradient_subtract(vel, p), lambda b: stencil.gradient_subtract(
         vel[b], p[b]), n)
     del vel, p
+    n = big // (2 * h * w) + 1                       # jacobi_project: 2 B H W > 2^31
+    vel, p, d = rand(n, 2, h, w), rand(n, h, w), rand(n, h, w)
+    got = jacobi.jacobi_project(p, d, vel, 20, 0.8)
+    for b in (0, n - 1):
+        _equal((got[0][b], got[1][b]), jacobi.jacobi_project(p[b], d[b], vel[b], 20, 0.8),
+               f"jacobi_project sim {b} of {n}")
+    del vel, p, d, got
+    torch.cuda.empty_cache()
     n = big // (h * w) + 1                           # jacobi_chunk: B H W > 2^31
     p, d = rand(n, h, w), rand(n, h, w)
     check_ends(lambda: jacobi.jacobi_pressure(p, d, 20, 0.8),

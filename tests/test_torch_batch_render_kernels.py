@@ -33,7 +33,7 @@ SHAPES = {
                  CANVAS_HEIGHT=1024),
 }
 DTYPES = ["float32", "bfloat16", "float16"]
-PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 2, "gradient_subtract": 1, "advect": 1,
+PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 1, "jacobi_project": 1, "advect": 1,
             "advect_dye": 1}
 PER_FRAME = {"bloom_pyramid": 1, "display": 1}
 

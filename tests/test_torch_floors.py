@@ -175,17 +175,27 @@ def test_jacobi_cell_sweeps_hand_counts():
 
 def test_design_overhead_hand_counts():
     """The kernels' work beyond the function's on the H100 SXM's 132 SMs:
-    1024^2 bf16 runs 2 launches of 240 tiles of 64x128 cells x 10 sweeps
-    (the function: 1024^2 x 20); the demo's 128x228 grid runs 2 launches of
-    66 tiles of 32x64 x 10 sweeps. The dye's windows stay in shared memory:
-    no prepared source in device memory. floor_table carries it as is."""
+    1024^2 bf16 runs a chunk of 240 tiles of 64x128 cells x 10 sweeps and
+    the fused jacobi_project of 250 (its halo one cell deeper; the
+    function: 1024^2 x 20); the demo's 128x228 grid a chunk of 66 tiles of
+    32x64 x 10 sweeps and a fused launch of 78. Its bytes: each block's
+    region of the pressure and the divergence, the float32 scratch, the
+    velocity once, beside the function's 7 planes. The dye's windows stay
+    in shared memory: no prepared source in device memory. floor_table
+    carries it as is."""
+    region, plane = 64 * 128, 1024 * 1024
     d = fk.design_overhead(_square(1024), 132)
-    assert d == {"jacobi_launches": 2, "jacobi_design_cell_sweeps": 2 * 240 * 64 * 128 * 10,
-                 "jacobi_overcompute": 1.875}
+    assert d == {"jacobi_launches": 2,
+                 "jacobi_design_cell_sweeps": (240 + 250) * region * 10,
+                 "jacobi_overcompute": 1.914,
+                 "jacobi_design_bytes": 240 * region * 4 + plane * 4 + 250 * region * 6
+                 + plane * 2 + 4 * plane * 2,
+                 "jacobi_function_bytes": 7 * plane * 2}
     d = fk.design_overhead(T.FluidConfig(DTYPE="float32").validate(), 132)
     assert d["jacobi_launches"] == 2
-    assert d["jacobi_design_cell_sweeps"] == 2 * 66 * 32 * 64 * 10
-    assert d["jacobi_overcompute"] == round(2 * 66 * 32 * 64 * 10 / (128 * 228 * 20), 3)
+    assert d["jacobi_design_cell_sweeps"] == (66 + 78) * 32 * 64 * 10
+    assert d["jacobi_overcompute"] == round((66 + 78) * 32 * 64 * 10 / (128 * 228 * 20), 3)
+    assert d["jacobi_function_bytes"] == 7 * 128 * 228 * 4
     assert "dye_prepared_bytes" not in d
     assert fk.design_overhead(_square(64, iters=0), 132)["jacobi_overcompute"] is None
     other = {"other_device_us": 0.0, "cuda_runtime_host_us": 0.0, "top_other_ops": [],

@@ -101,6 +101,79 @@ def test_jacobi_chunk_matches_plain(shape, dtype, cuda):
             assert err == 0.0, (n, k, err)
 
 
+PROJECT_ITERS = sorted({0, 1, K - 1, K, K + 1, 20, 23})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=lambda d: str(d)[6:])
+@pytest.mark.parametrize("shape", [(5, 7), (100, 300), (37, 66), (128, 228), (530, 1090)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jacobi_project_matches_plain(shape, dtype, cuda):
+    """The step's solve, its last launch jacobi_project (a halo one cell
+    deeper, the pressure rounded to storage before the gradient): the
+    pressure and the projected velocity bit-equal to jacobi_plain then
+    gradient_subtract_plain, in ceil(N / K) - 1 chunk launches and one
+    fused launch (of no sweep for N = 0), on the small tiles and, at
+    530x1090, the large ones."""
+    gen = np.random.default_rng(shape[0] * 1000 + shape[1] + 1)
+    p = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+    d = torch.from_numpy(gen.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+    vel = np.clip(gen.standard_normal((2,) + shape) * 400, -1000, 1000).astype(np.float32)
+    v = torch.from_numpy(vel).to(cuda, dtype)
+    tiles = jacobi.tiles_for(*shape, jacobi.sm_count(p.device))
+    assert tiles == (jacobi.LARGE if shape == (530, 1090) else jacobi.SMALL)
+    for n in PROJECT_ITERS:
+        want = jacobi.jacobi_project_plain(p, d, v, n, 0.8)
+        chunk, fused = jacobi.JACOBI_CHUNK.launches, jacobi.JACOBI_PROJECT.launches
+        got = jacobi.jacobi_project(p, d, v, n, 0.8)
+        torch.cuda.synchronize()
+        assert jacobi.JACOBI_CHUNK.launches - chunk == max(math.ceil(n / K) - 1, 0), n
+        assert jacobi.JACOBI_PROJECT.launches - fused == 1, n
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape, n
+            assert torch.equal(g, w), (n, float((g.float() - w.float()).abs().max()))
+
+
+def test_refused_project_launch_raises(cuda):
+    """The fused launch refuses a halo that leaves no tile and a batch past
+    the grid's z axis, and the wrapper raises; a cut the tiles cannot run
+    and a velocity off the pressure's grid raise before any launch."""
+    from tpufluid_torch.ops.cuda.build import BATCHED, ptr, stream
+
+    p = torch.zeros((64, 64), device=cuda)
+    vel = torch.zeros((2, 64, 64), device=cuda)
+    top = jacobi.TILES[jacobi.SMALL].max_sweeps(project=True)
+    before = jacobi.JACOBI_PROJECT.launches
+    for k, b in ((top + 1, 1), (0, 65536)):
+        with pytest.raises(RuntimeError, match="jacobi_project failed to launch"):
+            jacobi.JACOBI_PROJECT(ptr(p), 0, ptr(p), ptr(vel), ptr(p), ptr(vel), 0.8, b, 64, 64,
+                                  k, jacobi.SMALL, BATCHED, 0, stream())
+    with pytest.raises(ValueError, match="cannot run sweeps"):
+        jacobi.run_project(p, p, vel, 0.8, [10, top + 1])
+    with pytest.raises(ValueError, match="not on the pressure's grid"):
+        jacobi.jacobi_project(p, p, vel[:, :32].contiguous(), 20, 0.8)
+    assert jacobi.JACOBI_PROJECT.launches == before
+    got = jacobi.run_project(p, p, vel, 0.8, [top])     # the deepest fused launch runs
+    torch.cuda.synchronize()
+    assert jacobi.JACOBI_PROJECT.launches == before + 1 and not got[1].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_launches_five_kernels(dtype, cuda):
+    """A step at 20 sweeps launches 5 kernels: pre_pressure, one chunk, the
+    fused jacobi_project, the velocity's and the dye's advection; no
+    standalone gradient subtract."""
+    cfg = FluidConfig(DTYPE=dtype, **CONFIGS["small"]).validate()
+    trace = swirl_trace(cfg, 3, seed=3)
+    build.reset_launches()
+    make_multi_step(cfg)(init_state(cfg), trace.dts, trace.batches)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    assert launches == {"pre_pressure": 3, "jacobi_chunk": 3, "jacobi_project": 3,
+                        "advect": 3, "advect_dye": 3}
+    assert sum(launches.values()) == 5 * 3
+
+
 @pytest.mark.parametrize("dtype,quant", [(torch.float32, None), (torch.bfloat16, "rgb9e5"),
                                          (torch.bfloat16, None), (torch.float16, None)],
                          ids=["float32", "bfloat16-rgb9e5", "bfloat16", "float16"])
@@ -527,11 +600,13 @@ def test_profile_counts_every_launch(cuda):
     times, other = floors.profile_step_kernels(cfg, state, 1 / 60, steps=3)
     events = {k: v["events"] for k, v in other["kernel_events"].items()}
     chunks = math.ceil(cfg.PRESSURE_ITERATIONS / 10)  # the chunk kernel's 10 sweeps a launch
-    assert events == {"advect": 3, "advect_dye": 3, "gradient_subtract": 3,
-                      "jacobi_chunk": 3 * chunks, "pre_pressure": 3}
+    # the last chunk is the fused jacobi_project: no standalone gradient subtract
+    assert events == {"advect": 3, "advect_dye": 3, "jacobi_project": 3,
+                      "jacobi_chunk": 3 * (chunks - 1), "pre_pressure": 3}
     assert set(times) == {"velocity_gather", "dye_gather", "jacobi", "stencil",
                           "gradient_subtract"}
-    assert all(v > 0 for v in times.values())
+    assert times["gradient_subtract"] == 0.0
+    assert all(v > 0 for k, v in times.items() if k != "gradient_subtract")
 
 
 def test_reference_rates_run(cuda):

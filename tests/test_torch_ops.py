@@ -259,8 +259,8 @@ def test_dispatch_routes_cpu_to_plain_and_refuses_other_devices(rng):
     assert torch.equal(got_v, want_v) and torch.equal(got_d, want_d)
     assert torch.equal(dispatch.jacobi_pressure(p, got_d, 5, prescale=0.8),
                        kjacobi.jacobi_plain(p, got_d, 5, prescale=0.8))
-    projected = dispatch.project_and_self_advect(vel, p, float(DT), 0.2)
-    vg = kstencil.gradient_subtract_plain(vel, p)
-    assert torch.equal(projected, kadvect.advect_plain(vg, vg, float(DT), 0.2))
+    pp, vp = dispatch.jacobi_project(p, got_d, vel, 5, prescale=0.8)
+    assert torch.equal(pp, kjacobi.jacobi_plain(p, got_d, 5, prescale=0.8))
+    assert torch.equal(vp, kstencil.gradient_subtract_plain(vel, pp))
     with pytest.raises(ValueError, match="no kernel or plain version"):
         dispatch.gradient_subtract(vel.to("meta"), p.to("meta"))

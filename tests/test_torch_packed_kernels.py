@@ -36,7 +36,7 @@ CONFIGS = {
                       CANVAS_HEIGHT=720, MAX_SPLATS=8),
 }
 DTYPES = [("float32", False), ("bfloat16", True), ("bfloat16", False), ("float16", False)]
-PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 2, "gradient_subtract": 1, "advect": 1,
+PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 1, "jacobi_project": 1, "advect": 1,
             "advect_dye": 1}
 
 
@@ -139,7 +139,7 @@ def test_packed_steps_equal_batched_steps(size, dtype, rgb9e5, cuda):
 @pytest.mark.parametrize("dtype,size", [("float16", "same"), ("float32", "cross")])
 def test_unsupported_geometry_steps_through_the_batched_kernels(dtype, size, cuda):
     """float16 and the demo's cross grid are not packed_supported: a packed
-    step unpacks, runs the batched kernels on the card (6 launches) and
+    step unpacks, runs the batched kernels on the card (5 launches) and
     packs, equal to the batched step."""
     base = CONFIGS["same"] if size == "same" else dict(CONFIGS["same"], DYE_RESOLUTION=128)
     cfg = FluidConfig(DTYPE=dtype, **base).validate()
@@ -167,7 +167,12 @@ def test_refused_packed_launch_raises(cuda):
         stencil.gradient_subtract(vel, p[:, :64].contiguous(), sim_w=1)
     with pytest.raises(ValueError, match="whole number of sims"):
         jacobi.jacobi_pressure(p, p, 20, 0.8, sim_w=3)
+    with pytest.raises(ValueError, match="not on the pressure's grid"):
+        jacobi.jacobi_project(p[:, :64].contiguous(), p[:, :64].contiguous(), vel, 20, 0.8,
+                              sim_w=1)
     assert not any(k.launches for k in build.KERNELS.values())
+    with pytest.raises(RuntimeError, match="jacobi_project failed to launch"):
+        jacobi.jacobi_project(p, p, vel, 0, 0.8, sim_w=1)
     # the step still runs after a refused launch
     one = stencil.gradient_subtract(vel[:, :, :128].contiguous(), p[:, :128].contiguous(),
                                     sim_w=64)
@@ -203,6 +208,14 @@ def test_wide_packed_fleets_take_64_bit_offsets(cuda):
                lambda b: stencil.gradient_subtract(sim(vel, b), sim(p, b)), n)
     check_ends(lambda: advect.advect(vel, vel, 1 / 60, 0.2, sim_w=w),
                lambda b: advect.advect(sim(vel, b), sim(vel, b), 1 / 60, 0.2), n)
+    d = rand(h, n * w)                               # the fused solve: its velocity's 2 H B W
+    got = jacobi.jacobi_project(p, d, vel, 20, 0.8, sim_w=w)
+    for b in (0, n - 1):
+        _equal((sim(got[0], b), sim(got[1], b)),
+               jacobi.jacobi_project(sim(p, b), sim(d, b), sim(vel, b), 20, 0.8),
+               f"jacobi_project sim {b} of {n}")
+    del got, d
+    torch.cuda.empty_cache()
     del p
     dye = rand(3, h, n * w).abs_()                   # 3 H B W > 2^31
     check_ends(lambda: advect.advect(vel, dye, 1 / 60, 1.0, None, "rgb9e5", sim_w=w),

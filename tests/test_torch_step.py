@@ -169,7 +169,9 @@ def test_kernel_cases_follow_the_step():
     """The per-kernel cases that chip_smoke.py and the kernel tests compare
     on the card are the step's own calls: on the CPU their plain versions,
     chained, reproduce fluid_step bit for bit, and each carries a byte and
-    operation count for its bound."""
+    operation count for its bound. After them, the standalone solve and
+    gradient subtract that the fused jacobi_project replaces give its
+    pressure and velocity."""
     from tpufluid_torch.ops.cuda import check
 
     for dtype in ("float32", "bfloat16"):
@@ -177,12 +179,15 @@ def test_kernel_cases_follow_the_step():
         state, splats = check.random_state(cfg, seed=5, device="cpu")
         cases = check.step_cases(state, splats, cfg)
         assert [c.kernel_name for c in cases] == [
-            "pre_pressure", "jacobi_chunk", "gradient_subtract", "advect", "advect_dye"]
+            "pre_pressure", "jacobi_project", "advect", "advect_dye", "jacobi_chunk",
+            "gradient_subtract"]
         want = T.fluid_step(state, 1 / 60, splats, cfg)
-        np.testing.assert_array_equal(cases[1].run(plain=True).float().numpy(),
-                                      want.pressure.float().numpy())
-        np.testing.assert_array_equal(cases[4].run(plain=True).float().numpy(),
+        pressure, projected = cases[1].run(plain=True)
+        np.testing.assert_array_equal(pressure.float().numpy(), want.pressure.float().numpy())
+        assert torch.equal(cases[4].run(plain=True), pressure)
+        assert torch.equal(cases[5].run(plain=True), projected)
+        np.testing.assert_array_equal(cases[3].run(plain=True).float().numpy(),
                                       want.dye.float().numpy())
         assert all(c.nbytes > 0 and c.flops > 0 for c in cases)
-        err, tol = check.compare(want.dye, cases[4].run(plain=True))
+        err, tol = check.compare(want.dye, cases[3].run(plain=True))
         assert err == 0.0 and tol > 0.0

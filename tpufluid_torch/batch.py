@@ -8,7 +8,7 @@ takes the batch itself (the grid's z axis is the sim) and dt in one of two
 forms: a number, every sim's (lock-step), or a table of each sim's clamped
 dt and decay, computed on the host in float32 (step.dt_table) and copied to
 the card once a call. A batched step makes the launches of one single-sim
-step (6 at 20 Jacobi sweeps) and one set of splat factor ops, whatever B is.
+step (5 at 20 Jacobi sweeps) and one set of splat factor ops, whatever B is.
 
 Every field leads with the batch axis: velocity (B, 2, H, W), dye (B, 3,
 Hd, Wd), pressure (B, H, W), splats (B, MAX_SPLATS, 8). Each sim of a

@@ -10,7 +10,7 @@ layout in place, one launch for the fleet, each sim with its own walls
 (ops/cuda/dispatch.py ``packed``; the TPU kernels' ``sim_w`` walls). The
 step body is the batched step's (step._step): one set of splat factor ops
 for the fleet, both splat bumps fused into pre_pressure and the dye's
-advect_dye, 6 launches at 20 sweeps whatever B is. JAX pre-applies the
+advect_dye, 5 launches at 20 sweeps whatever B is. JAX pre-applies the
 bumps with an einsum (tpufluid/batch_packed.py:115-167) and rounds them to
 storage where the fused bumps do, so the port computes what it computes
 without the einsum.

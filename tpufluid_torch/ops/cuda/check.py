@@ -5,7 +5,9 @@ call one step makes, in order, each with the inputs the step would give it
 (computed by the plain versions, so the kernel and its plain version see the
 very same tensors), for one sim or for a batch of B sims in one launch each
 (``batched_step_cases`` on ``random_batch``, in both forms of dt), or for
-a lane-packed fleet of them (``packed_step_cases``);
+a lane-packed fleet of them (``packed_step_cases``), and after them the
+standalone solve and gradient subtract that the step's fused
+``jacobi_project`` replaces and the sharded step still runs;
 ``bounded_cases`` holds pre_pressure's true-wall form on the walls a
 shard of the sharded step sees in its padded block, and
 ``f32_velocity_dye_cases`` the dye kernel with the float32 velocity the
@@ -121,8 +123,12 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
     """Every kernel call of one step from ``state``, in the step's order:
     one sim, or a batch of B sims (fields with a leading B, ``splats``
     (B, S, 8), ``dt`` a number or (B,) per sim), or with ``sim_w`` a packed
-    fleet of B sims that wide (fields (C, H, B*sim_w)), one launch each.
-    ``tag`` is added to each label."""
+    fleet of B sims that wide (fields (C, H, B*sim_w)), one launch each but
+    the solve's (``jacobi_project``: its earlier chunks, then the fused
+    last launch, which returns the pressure and the projected velocity).
+    Then the standalone solve and gradient subtract on the same inputs
+    ("jacobi", "gradient_subtract"): the pair the fused launch replaces,
+    which the sharded step still runs. ``tag`` is added to each label."""
     if sim_w is not None:
         batch = state.velocity.shape[-1] // sim_w
     else:
@@ -144,25 +150,25 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
     pre, pre_plain = (_layout(f, sim_w) for f in (_stencil.pre_pressure,
                                                   _stencil.pre_pressure_plain))
     jac, jac_plain = (_layout(f, sim_w) for f in (_jacobi.jacobi_pressure, _jacobi.jacobi_plain))
+    proj, proj_plain = (_layout(f, sim_w) for f in (_jacobi.jacobi_project,
+                                                    _jacobi.jacobi_project_plain))
     gs, gs_plain = (_layout(f, sim_w) for f in (_stencil.gradient_subtract,
                                                 _stencil.gradient_subtract_plain))
     adv, adv_plain = (_layout(f, sim_w) for f in (_advect.advect, _advect.advect_plain))
 
     vel1, div = pre_plain(state.velocity, config.CURL, vel_dt, vf)
-    pressure = jac_plain(state.pressure, div, iters, config.PRESSURE)
-    vel2 = gs_plain(vel1, pressure)
+    pressure, vel2 = proj_plain(state.pressure, div, vel1, iters, config.PRESSURE)
     vel3 = adv_plain(vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION)
     dye_out = adv_plain(vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df, quant)
+    # A sweep 6 operations a cell, the gradient subtract 4.
     return [
         Case("pre_pressure" + tag, "pre_pressure", pre, pre_plain,
              (state.velocity, config.CURL, vel_dt, vf),
              _bytes(state.velocity, *vf, vel1, div),
              sim * (2 * 2 * n_active + n_sims * _PRE_PRESSURE)),
-        Case("jacobi" + tag, "jacobi_chunk", jac, jac_plain,
-             (state.pressure, div, iters, config.PRESSURE),
-             _bytes(state.pressure, div, pressure), n_sims * sim * 6 * iters),
-        Case("gradient_subtract" + tag, "gradient_subtract", gs, gs_plain, (vel1, pressure),
-             _bytes(vel1, pressure, vel2), n_sims * sim * 4),
+        Case("jacobi_project" + tag, "jacobi_project", proj, proj_plain,
+             (state.pressure, div, vel1, iters, config.PRESSURE),
+             _bytes(state.pressure, div, vel1, pressure, vel2), n_sims * sim * (6 * iters + 4)),
         Case("advect:velocity" + tag, "advect", adv, adv_plain,
              (vel2, vel2, vel_dt, config.VELOCITY_DISSIPATION), _bytes(vel2, vel3),
              n_sims * sim * (20 + 2 * 8)),
@@ -172,6 +178,11 @@ def step_cases(state: FluidState, splats: torch.Tensor, config: FluidConfig,
              (vel3, state.dye, dye_dt, config.DENSITY_DISSIPATION, df, quant),
              _bytes(vel3, state.dye, *df, dye_out),
              dye * (n_sims * (34 + 3 * 8 + (40 if quant else 0)) + 3 * 2 * n_active)),
+        Case("jacobi" + tag, "jacobi_chunk", jac, jac_plain,
+             (state.pressure, div, iters, config.PRESSURE),
+             _bytes(state.pressure, div, pressure), n_sims * sim * 6 * iters),
+        Case("gradient_subtract" + tag, "gradient_subtract", gs, gs_plain, (vel1, pressure),
+             _bytes(vel1, pressure, vel2), n_sims * sim * 4),
     ]
 
 

@@ -13,7 +13,7 @@ sim. So do the frame's two kernels: the bloom pyramid and the display take
 one sim or a batch (B leading) in one launch each.
 
 The lane-packed fleet (tpufluid_torch/batch_packed.py) has its own pair,
-``packed(sim_w)`` routed and ``packed(sim_w, plain=True)``: the same four
+``packed(sim_w)`` routed and ``packed(sim_w, plain=True)``: the same
 passes with every field (C, H, B*sim_w), each kernel launched once for the
 fleet, a CUDA fleet to the kernels and a CPU fleet to the plain versions.
 
@@ -50,13 +50,20 @@ def _routed(kernel, plain):
 
 
 class Passes:
-    """The four passes of one step, of one sim or a batch, through one
-    implementation; or of a packed fleet of sims ``sim_w`` wide."""
+    """The passes of one step, of one sim or a batch, through one
+    implementation; or of a packed fleet of sims ``sim_w`` wide. The step
+    runs pre_pressure, jacobi_project (the solve with the gradient subtract
+    fused into its last launch: (pressure, projected velocity)) and advect;
+    the sharded step, whose pressure crosses a halo exchange between the
+    solve and the gradient, runs jacobi_pressure and gradient_subtract
+    apart."""
 
-    def __init__(self, pre_pressure, jacobi_pressure, gradient_subtract, advect, sim_w=None):
+    def __init__(self, pre_pressure, jacobi_pressure, gradient_subtract, jacobi_project, advect,
+                 sim_w=None):
         self.pre_pressure = pre_pressure
         self.jacobi_pressure = jacobi_pressure
         self.gradient_subtract = gradient_subtract
+        self.jacobi_project = jacobi_project
         self.advect = advect
         self.sim_w = sim_w
 
@@ -83,24 +90,20 @@ class Passes:
         return self.advect(velocity, source, dt, dissipation, splat_factors=splat_factors,
                            quant=quant)
 
-    def project_and_self_advect(self, velocity, pressure, dt, dissipation):
-        """(vel - grad p), then self-advection: the projected velocity goes
-        through storage before the advection reads it."""
-        vel = self.gradient_subtract(velocity, pressure)
-        return self.advect(vel, vel, dt, dissipation)
-
 
 # Kernels on the card, plain versions on the CPU: what fluid_step runs.
 ROUTED = Passes(
     _routed(_stencil.pre_pressure, _stencil.pre_pressure_plain),
     _routed(_jacobi.jacobi_pressure, _jacobi.jacobi_plain),
     _routed(_stencil.gradient_subtract, _stencil.gradient_subtract_plain),
+    _routed(_jacobi.jacobi_project, _jacobi.jacobi_project_plain),
     _routed(_advect.advect, _advect.advect_plain),
 )
 
 # The plain versions on any device: the reference the kernels are held to.
 PLAIN = Passes(_stencil.pre_pressure_plain, _jacobi.jacobi_plain,
-               _stencil.gradient_subtract_plain, _advect.advect_plain)
+               _stencil.gradient_subtract_plain, _jacobi.jacobi_project_plain,
+               _advect.advect_plain)
 
 
 
@@ -110,19 +113,20 @@ def packed(sim_w: int, plain: bool = False) -> Passes:
     B*sim_w)): routed, or the plain versions on any device with ``plain``."""
     if plain:
         fns = (_stencil.pre_pressure_plain, _jacobi.jacobi_plain,
-               _stencil.gradient_subtract_plain, _advect.advect_plain)
+               _stencil.gradient_subtract_plain, _jacobi.jacobi_project_plain,
+               _advect.advect_plain)
     else:
         fns = (ROUTED.pre_pressure, ROUTED.jacobi_pressure, ROUTED.gradient_subtract,
-               ROUTED.advect)
+               ROUTED.jacobi_project, ROUTED.advect)
     return Passes(*(functools.partial(f, sim_w=sim_w) for f in fns), sim_w=sim_w)
 
 
 pre_pressure = ROUTED.pre_pressure
 jacobi_pressure = ROUTED.jacobi_pressure
 gradient_subtract = ROUTED.gradient_subtract
+jacobi_project = ROUTED.jacobi_project
 advect = ROUTED.advect
 advect_same_grid = ROUTED.advect_same_grid
-project_and_self_advect = ROUTED.project_and_self_advect
 
 
 class RenderPasses:

@@ -514,25 +514,32 @@ def gather_rows_per_step(config, velocity, dt) -> List[Tuple[float, int, int]]:
 
 def jacobi_cell_sweeps(config) -> int:
     """Cells x sweeps of the Jacobi solve per step as a function: H x W x
-    iterations, no halo. The chunk kernel's halos and padding are reported
+    iterations, no halo. The chunk kernels' halos and padding are reported
     apart (floor_report's "design", jacobi.design_cell_sweeps)."""
     sw, sh = config.sim_size
     return sw * sh * config.PRESSURE_ITERATIONS
 
 
 def design_overhead(config, sms: int) -> dict:
-    """What the port's kernels compute beyond the function's work per step
-    on a GPU of ``sms`` SMs: the Jacobi chunk kernel's cell-sweeps (halos
-    and the last tiles' padding) over the function's, and its launches.
-    (The dye's windows are staged in shared memory: they add no bytes of
-    device memory beyond the halos' second reads, which depend on the
-    velocity: advect.dye_window_plan.)"""
+    """What the port's kernels compute and move beyond the function's work
+    per step on a GPU of ``sms`` SMs: the step's solve (its chunks and the
+    fused jacobi_project, whose halo is one cell deeper) in cell-sweeps,
+    halos and the last tiles' padding included, over the function's, and
+    its launches; its bytes (every block's region of the pressure and the
+    divergence, the float32 scratch between launches, the velocity once)
+    beside the solve and gradient subtract's as a function. (The dye's
+    windows are staged in shared memory: they add no bytes of device memory
+    beyond the halos' second reads, which depend on the velocity:
+    advect.dye_window_plan.)"""
     sw, sh = config.sim_size
     iters = config.PRESSURE_ITERATIONS
-    design = _jacobi.design_cell_sweeps(sh, sw, iters, sms)
-    return {"jacobi_launches": len(_jacobi.plan(sh, sw, iters, sms)[1]),
+    item = torch.empty((), dtype=config.dtype).element_size()
+    design = _jacobi.design_cell_sweeps(sh, sw, iters, sms, project=True)
+    return {"jacobi_launches": len(_jacobi.plan(sh, sw, iters, sms, project=True)[1]),
             "jacobi_design_cell_sweeps": design,
-            "jacobi_overcompute": round(design / (sw * sh * iters), 3) if iters else None}
+            "jacobi_overcompute": round(design / (sw * sh * iters), 3) if iters else None,
+            "jacobi_design_bytes": _jacobi.design_bytes(sh, sw, iters, sms, item),
+            "jacobi_function_bytes": _jacobi.function_bytes(sh, sw, item)}
 
 
 # ---- profiled step -----------------------------------------------------
@@ -559,8 +566,10 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
     ``(name, on_device, start_us, duration_us)`` of ``steps`` steps.
 
     kernel_times: velocity_gather (the advect launches) and dye_gather
-    (advect_dye), jacobi (the chunks), stencil (pre_pressure) and
-    gradient_subtract. other: the device time of every other device event
+    (advect_dye), jacobi (the chunks and the fused jacobi_project, which
+    subtracts the gradient on the step's main path), stencil (pre_pressure)
+    and gradient_subtract (the sharded step's standalone one). other: the
+    device time of every other device event
     (PyTorch's own kernels, copies, fills), its ``top_other`` largest names,
     ``cuda_runtime_host_us``: the host time of the CUDA runtime calls the
     profiler recorded, synchronizations left out (the profiler inflates it;
@@ -593,7 +602,7 @@ def attribute_device_events(events: Iterable[Tuple[str, bool, float, float]],
     kernel_times = {
         "velocity_gather": per_step("advect"),
         "dye_gather": per_step("advect_dye"),
-        "jacobi": per_step("jacobi_chunk"),
+        "jacobi": per_step("jacobi_chunk", "jacobi_project"),
         "stencil": per_step("pre_pressure"),
         "gradient_subtract": per_step("gradient_subtract"),
     }

@@ -8,7 +8,7 @@ tpufluid_torch/batch.py: every frame, all sessions' pointer events drain
 into one (B, MAX_SPLATS, 8) splat tensor, and one batched step and one
 batched frame advance and render every session (each sim equal to the
 single-sim make_step_and_render on it alone, bit for bit). A tick is the
-step's 6 launches (at 20 Jacobi sweeps) and the frame's 2, whatever B is.
+step's 5 launches (at 20 Jacobi sweeps) and the frame's 2, whatever B is.
 
 Each session has its own clock RATE: a per-session ``speed`` multiplier
 scales the shared wall dt. Below 1 it is slow motion. Above 1 it is
@@ -245,7 +245,7 @@ def make_batch_sharded_substepped_tick(config: FluidConfig, mesh):
     devices; the frames of all B sims, in order, are copied to the mesh's
     first device, as JAX's out_specs gather them when they are read. Each
     sim's state and frame equal the unsharded tick's bit for bit, and each
-    device makes the K-substep tick's 6K + 2 launches. Raises ValueError
+    device makes the K-substep tick's 5K + 2 launches. Raises ValueError
     where mesh.size does not divide B."""
     body = _substepped_body(config)
 

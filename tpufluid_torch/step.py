@@ -2,8 +2,9 @@
 
 Pass order, that of tpufluid/step.py's kernel path: splat bump + curl +
 vorticity confinement + divergence -> Jacobi x N with the warm start fused
-into the first sweep -> gradient subtract -> velocity self-advection -> dye
-advection with the dye splat bump fused into the gather.
+into the first sweep and the gradient subtract into the last launch
+(jacobi_project) -> velocity self-advection -> dye advection with the dye
+splat bump fused into the gather: five launches a step at 20 sweeps.
 
 Nothing is updated in place: every pass writes fresh tensors from PyTorch's
 caching allocator, which hands the previous step's buffers back once the
@@ -11,7 +12,7 @@ caller drops them, and the state passed in stays valid.
 
 The same step body runs one sim or a batch of B independent sims
 (tpufluid_torch/batch.py): one set of splat factor ops for the batch, then
-the same four passes, each kernel launched once for all B sims. A batch's
+the same passes, each kernel launched once for all B sims. A batch's
 dt is a number (lock-step, like a single sim's, with no copy to the card)
 or a table of each sim's clamped dt and decay, computed on the host in
 float32 (``dt_table``) and copied once. So does a lane-packed fleet
@@ -65,9 +66,10 @@ def _step(state: FluidState, dt, splats, config: FluidConfig,
 
     vel, div = passes.pre_pressure(state.velocity, config.CURL, vel_dt,
                                    splat_factors=vel_factors)
-    pressure = passes.jacobi_pressure(state.pressure, div, config.PRESSURE_ITERATIONS,
-                                      prescale=config.PRESSURE)
-    vel = passes.project_and_self_advect(vel, pressure, vel_dt, config.VELOCITY_DISSIPATION)
+    # The projected velocity goes through storage before the advection reads it.
+    pressure, vel = passes.jacobi_project(state.pressure, div, vel, config.PRESSURE_ITERATIONS,
+                                          prescale=config.PRESSURE)
+    vel = passes.advect(vel, vel, vel_dt, config.VELOCITY_DISSIPATION)
     dye = passes.advect(vel, state.dye, dye_dt, config.DENSITY_DISSIPATION,
                         splat_factors=dye_factors, quant=dye_quant)
     return FluidState(velocity=vel, dye=dye, pressure=pressure)

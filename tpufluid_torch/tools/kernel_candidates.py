@@ -7,10 +7,12 @@ Pre-pressure: on the demo's 128x228 float32, 1024x1024 bfloat16 and
 numpy, seed 0), one launch on each tile of ops/cuda/stencil.py TILES, with
 the splat factors and without them.
 
-Jacobi: on 1024x1024 bfloat16 and the demo's 128x228 float32 (pressure and
-divergence from numpy, seed 0), a solve of ``--iters`` sweeps cut into
-launches of K = 1, 4, 5, 8, 10 and 20 sweeps (where the grid's tiles,
-ops/cuda/jacobi.py tiles_for, leave room for a K-deep halo).
+Jacobi: on 1024x1024 bfloat16 and the demo's 128x228 float32 (pressure,
+divergence and velocity from numpy, seed 0), a solve of ``--iters`` sweeps
+cut into launches of K = 1, 4, 5, 8, 10 and 20 sweeps (where the grid's
+tiles, ops/cuda/jacobi.py tiles_for, leave room for a K-deep halo), and the
+step's form of it, the last launch jacobi_project with the gradient
+subtract fused in (where they leave room for a K + 1-deep halo).
 
 Bloom: the pyramid at the demo's base (256x455, 7 mips) and 1024x1024's
 (256x256, 7 mips), base from numpy (seed 0), in its one cooperative launch
@@ -125,24 +127,41 @@ def jacobi_rows(iters: int, rate: float, gpu: str) -> list:
     for name, h, w, dtype in GRIDS:
         p = torch.from_numpy(rng.standard_normal((h, w), dtype=np.float32)).cuda().to(dtype)
         d = torch.from_numpy(rng.standard_normal((h, w), dtype=np.float32)).cuda().to(dtype)
+        vel = np.clip(rng.standard_normal((2, h, w), dtype=np.float32) * 400, -1000, 1000)
+        vel = torch.from_numpy(vel).cuda().to(dtype)
         want = jacobi.jacobi_plain(p, d, iters, 0.8).float()
+        want_v = jacobi.jacobi_project_plain(p, d, vel, iters, 0.8)[1].float()
         t = jacobi.TILES[jacobi.tiles_for(h, w, sms)]
         for k in SWEEPS:
-            if k > min(t.max_sweeps(), iters):
-                continue
             cut = jacobi.chunks(iters, k)
-            err = float((jacobi.run_chunks(p, d, 0.8, cut).float() - want).abs().max())
-            ms = queued_ms(lambda: jacobi.run_chunks(p, d, 0.8, cut), 20, rate)
-            design = sum(t.blocks(h, w, kk) * t.rh * t.rw * kk for kk in cut)
-            row = {"kernel": "jacobi_chunk", "grid": name, "rw": t.rw, "rh": t.rh,
-                   "threads": t.rw * t.ny, "rows_a_thread": t.r, "min_blocks": t.min_blocks,
-                   "sweeps_a_launch": k, "launches": len(cut), "ms": ms,
-                   "overcompute": design / (h * w * iters), "max_abs_err": err}
-            rows.append(row)
-            print(f"jacobi candidate {name:14s} ({t.rh}x{t.rw} region, {t.rw * t.ny} threads, "
-                  f"{t.r} rows a thread, {t.min_blocks} a SM) K={k:2d} launches "
-                  f"{len(cut):2d}: {ms:.4f} ms, overcompute {row['overcompute']:.3f}, "
-                  f"max_abs_err {err:.1e} on {gpu}", flush=True)
+            for fused in (False, True):
+                if k > min(t.max_sweeps(), iters) or (fused and cut[-1] > t.max_sweeps(True)):
+                    continue
+                if fused:
+                    def run():
+                        return jacobi.run_project(p, d, vel, 0.8, cut)
+
+                    err = max(float((g.float() - x).abs().max())
+                              for g, x in zip(run(), (want, want_v)))
+                else:
+                    def run():
+                        return jacobi.run_chunks(p, d, 0.8, cut)
+
+                    err = float((run().float() - want).abs().max())
+                ms = queued_ms(run, 20, rate)
+                design = sum(t.blocks(h, w, kk, fused and n == len(cut) - 1) * t.rh * t.rw * kk
+                             for n, kk in enumerate(cut))
+                kernel = "jacobi_project" if fused else "jacobi_chunk"
+                row = {"kernel": kernel, "grid": name, "rw": t.rw, "rh": t.rh,
+                       "threads": t.rw * t.ny, "rows_a_thread": t.r,
+                       "min_blocks": t.min_blocks, "sweeps_a_launch": k, "launches": len(cut),
+                       "ms": ms, "overcompute": design / (h * w * iters), "max_abs_err": err}
+                rows.append(row)
+                print(f"jacobi candidate {name:14s} ({t.rh}x{t.rw} region, {t.rw * t.ny} "
+                      f"threads, {t.r} rows a thread, {t.min_blocks} a SM) K={k:2d} launches "
+                      f"{len(cut):2d}{', the last fused' if fused else ''}: {ms:.4f} ms, "
+                      f"overcompute {row['overcompute']:.3f}, max_abs_err {err:.1e} on {gpu}",
+                      flush=True)
     return rows
 
 

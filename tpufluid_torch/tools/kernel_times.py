@@ -7,11 +7,15 @@ At the demo's defaults (float32) and at 1024x1024 and 4096x4096 (bfloat16
 with the RGB9E5 dye), on check.random_state (seed 7), times every kernel call
 of one step (check.step_cases; a checkout with check.part_cases, the dye's
 prepare alone too) and the frame's bloom pyramid and display at the canvas
-(render_cases); at the serving cells serving_256_b16 (16 sims of 256^2) and
-packed_288_b64 (64 of 288^2), bf16 RGB9E5, every kernel call of a
-lock-step batched step (check.batched_step_cases, labels ":b<B>:lockstep")
-and of a packed fleet step on the same sims (check.packed_step_cases,
-":packed:b<B>:lockstep"). Then, at every config, the dye's advection on a
+(render_cases); at the serving cells serving_256_b16 (16 sims of 256^2),
+serving_1024_b8 (8 of 1024^2) and packed_288_b64 (64 of 288^2), bf16
+RGB9E5, every kernel call of a lock-step batched step
+(check.batched_step_cases, labels ":b<B>:lockstep") and of a packed fleet
+step on the same sims (check.packed_step_cases, ":packed:b<B>:lockstep").
+Where the step's solve ends in the fused jacobi_project, its case
+("jacobi_project") is timed beside the standalone pair it replaces
+("jacobi" and "gradient_subtract", the cases after the step's), which are
+a parent checkout's step calls. Then, at every config, the dye's advection on a
 flow state, labelled ":flow": the state after FLOW_STEPS steps of
 swirl_trace (seed 42, a fleet's sim i seed 42 + i) through the kernel step
 (make_multi_step, make_batched_multi_step; the packed rows on the same sims
@@ -47,7 +51,8 @@ CONFIGS = (("demo", dict(SIM_RESOLUTION=128, DYE_RESOLUTION=1024, CANVAS_WIDTH=1
            ("4096", dict(SIM_RESOLUTION=4096, DYE_RESOLUTION=4096, CANVAS_WIDTH=4096,
                          CANVAS_HEIGHT=4096, DTYPE="bfloat16")))
 # The fleets: (resolution, sims), bf16 with the RGB9E5 dye, 20 sweeps.
-FLEETS = {"serving_256_b16": (256, 16), "packed_288_b64": (288, 64)}
+FLEETS = {"serving_256_b16": (256, 16), "serving_1024_b8": (1024, 8),
+          "packed_288_b64": (288, 64)}
 FLOW_STEPS = 100
 
 
