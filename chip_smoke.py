@@ -285,6 +285,20 @@ the card.
    make_auto_sharded_step against make_step over 5 steps at demo_float32
    (0). e. tools/fidelity_drift.run() at its defaults: every summary finite.
 
+17. Batch demo phase (tpufluid_torch.tools.batch_demo, the port of
+   tools/batch_demo.py): the tool's main() at its defaults (4 sims at
+   speeds 0.25-1 of 1/60 s sharing swirl_trace seed 11, 96^2 sim, 192^2 dye
+   and canvas, f32, 360 steps, a frame every 6) into out/batch_demo/, with
+   the launches counted over its run (5 a step, 2 a frame: 1,920) and the
+   display form it took; its GIF (60 frames of 384x384); its 60 frames and
+   its final state bit-equal to the same loop through plain_batched_step
+   and the plain batched render with contiguous splat rows a sim (the first
+   10 frames and the state at step 60 alone where the plain run's pace
+   would pass 30 s); each step and frame kernel at the demo's last state
+   against its plain version (max abs err 0) and timed beside its bound;
+   the tool's wall time, sim-steps/s and frames/s beside the card's name
+   and power limit.
+
 Prints a JSON line {"kernels": [...]}, the card's name and power limit, and
 last {"ok": true, "device": {...}}; writes details to
 out/chip_smoke.json. Exits non-zero without a CUDA device.
@@ -396,6 +410,10 @@ BS_SPLIT, BS_SPLIT_MESH = (256, 512), (2, 2, 1)   # 16b: every phase split (OVER
 BS_FULL_MESH, BS_FULL_PER_GROUP, BS_FULL_STEPS = (2, 2, 2), 2, 3   # 16c at 16384^2
 DRYRUN_DEVICES = 8
 AUTO_STEPS = 5
+# Phase 17, the batch demo (tpufluid_torch.tools.batch_demo) at its defaults.
+DEMO_OUT = Path("out/batch_demo/batch_grid.gif")
+DEMO_HELD_FRAMES = 10          # frames always held to the plain loop
+DEMO_PLAIN_BUDGET_S = 30.0     # the whole plain run is held where it fits this
 LONG_HORIZON_ARGS = ["--res", "4096", "--dtype", "bfloat16", "--steps", str(LONG_HORIZON_STEPS),
                      "--splat-steps", "300", "--chunk", "50", "--out", str(LONG_HORIZON_OUT)]
 
@@ -3010,6 +3028,102 @@ def batch_mesh_phase(torch, check, cfgs, gpu: str, device, errors: dict, sharded
             "drift": drift_phase(gpu, device)}
 
 
+def batch_demo_phase(torch, check, gpu: str, device, errors: dict) -> dict:
+    """Phase 17: tpufluid_torch.tools.batch_demo.main at its defaults (4
+    sims at speeds 0.25-1 of 1/60 s, 96^2 sim, 192^2 dye and canvas, 360
+    steps, a frame every 6), launches counted over the tool's run; its GIF;
+    its frames and states bit-equal to the same loop through
+    plain_batched_step and the plain batched render (contiguous splat rows
+    a sim, where the tool passes one expanded view); each step and frame
+    kernel at the demo's last state against its plain version and timed."""
+    from PIL import Image
+
+    from tpufluid_torch import init_batch
+    from tpufluid_torch.batch import plain_batched_render, plain_batched_step
+    from tpufluid_torch.ops.cuda import build
+    from tpufluid_torch.tools import batch_demo as demo
+
+    args = demo.build_argparser().parse_args(["--out", str(DEMO_OUT)])
+    cfg = demo.demo_config(args.sim_res, args.dye_res)
+    n_frames, sims = args.steps // args.every, len(demo.SPEEDS)
+    build.reset_launches()
+    got = demo.main(["--out", str(DEMO_OUT)])
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    display = "display" if got["display_form"] == "staged" else "display_direct"
+    want = {k: n * args.steps for k, n in expected_per_step(cfg).items()}
+    want.update({"bloom_pyramid": n_frames, display: n_frames})
+    assert launches == want, (launches, want)
+    with Image.open(DEMO_OUT) as gif:
+        gif_frames, gif_size = gif.n_frames, gif.size
+    assert gif_frames == n_frames and gif_size == (2 * args.dye_res,) * 2, (gif_frames, gif_size)
+    assert len(got["frames"]) == n_frames
+
+    # The same loop through the plain versions, held bit for bit: the first
+    # DEMO_HELD_FRAMES frames and the state there always, the whole run
+    # where the first part's pace puts it within DEMO_PLAIN_BUDGET_S.
+    dts, rows = demo.demo_inputs(cfg, args.steps, device)
+    held_steps = DEMO_HELD_FRAMES * args.every
+    *_, (_, _, tool_at) = demo.run(cfg, held_steps, args.every, device)
+    state, frame = init_batch(cfg, sims, device=device), 0
+    t0 = time.perf_counter()
+    for t in range(args.steps):
+        state = plain_batched_step(state, dts, rows[t].expand(sims, -1, -1).contiguous(), cfg)
+        if (t + 1) % args.every == 0:
+            g = demo.grid(plain_batched_render(state, cfg).cpu().numpy())
+            assert np.array_equal(g, got["frames"][frame]), ("frame", frame)
+            frame += 1
+        if t + 1 == held_steps:
+            assert states_equal(torch, state, tool_at), ("state", held_steps)
+            pace = (time.perf_counter() - t0) / held_steps
+            if pace * args.steps > DEMO_PLAIN_BUDGET_S:
+                break
+    plain_s = time.perf_counter() - t0
+    whole = frame == n_frames
+    if whole:
+        assert states_equal(torch, state, got["state"]), ("state", args.steps)
+    held = (f"the whole run ({args.steps} steps, {n_frames} frames)" if whole else
+            f"the first {held_steps} steps and {frame} frames")
+    assert bool(torch.isfinite(got["state"].velocity).all()) and float(got["state"].dye.max()) > 0
+
+    cases = check.step_cases(got["state"], rows[-1].expand(sims, -1, -1), cfg, dts.cpu().numpy(),
+                             ":demo") + check.batched_render_cases(got["state"], cfg)
+    check_cases(torch, check, "batch_demo", cases, errors, exact=True)
+    timing = timing_phase(torch, check, cases)
+    # The run's kernels' device time: each step's and frame's spin-queued ms.
+    device_s = 1e-3 * (args.steps * step_device_ms(timing) + n_frames * sum(
+        timing[k]["ms"] for k in ("bloom_pyramid", display)))
+    idle = 1 - device_s / got["seconds"]
+    print(f"batch demo {sims} sims {cfg.SIM_RESOLUTION}/{cfg.DYE_RESOLUTION} f32, canvas "
+          f"{cfg.CANVAS_WIDTH}x{cfg.CANVAS_HEIGHT}, {args.steps} steps, {n_frames} frames, display "
+          f"{got['display_form']} on {gpu}: {got['seconds']:.3f} s, "
+          f"{got['sim_steps_per_s']:.1f} sim-steps/s, {got['frames_per_s']:.2f} frames/s, "
+          f"kernels' device {device_s:.4f} s ({100 * idle:.1f}% idle); launches {launches} ({sum(launches.values())}: "
+          f"{sum(expected_per_step(cfg).values())} a step, 2 a frame); GIF {gif_frames} frames "
+          f"of {gif_size[0]}x{gif_size[1]}; held to the plain loop bit for bit (max abs err 0) "
+          f"over {held}, plain run {plain_s:.1f} s")
+    for k, row in timing.items():
+        print(f"batch demo {k:18s} spin-queued {row['ms']:.4f} ms for {sims} sims; bound "
+              f"{row['bound_ms']:.4f} ms ({row['by']}), plain {row['plain_ms']:.4f} ms")
+    return {"seconds": got["seconds"], "sim_steps_per_s": got["sim_steps_per_s"],
+            "frames_per_s": got["frames_per_s"], "display_form": got["display_form"],
+            "device_seconds": device_s, "idle": idle,
+            "launches": launches, "gif": [gif_frames, *gif_size], "held": held,
+            "plain_seconds": plain_s, "kernels": timing}
+
+
+def demo_config_row(demo: dict, name: str) -> dict:
+    """The kernels line's "batch_demo" entry of kernel ``name``: its timing
+    at the demo's last state and its launches over the tool's run; none
+    where the demo does not launch it."""
+    if not demo["launches"].get(name):
+        return {}
+    row = demo["kernels"][name]
+    return {"batch_demo": {**{f: row.get(f) for f in ("ms", "plain_ms", "bound_ms",
+                                                     "max_abs_err")},
+                           "launches": demo["launches"][name]}}
+
+
 def main() -> int:
     import torch
 
@@ -3120,6 +3234,7 @@ def main() -> int:
                   "server": server_phase(torch, check, gpu, device)}
     fleet = fleet_phase(torch, check, gpu, device)
     batch_mesh = batch_mesh_phase(torch, check, cfgs, gpu, device, errors, sharded)
+    batch_demo = batch_demo_phase(torch, check, gpu, device, errors)
 
     kernels = []
     for k in build.KERNELS.values():
@@ -3160,6 +3275,7 @@ def main() -> int:
                     "launches": fleet["programs"]["launches"].get(k.name, 0)}
                 per_config["fleet_server_default"] = {
                     "launches": fleet["server"]["launches"].get(k.name, 0)}
+            per_config.update(demo_config_row(batch_demo, k.name))
         kernels.append({
             "name": k.name, "route": "cuda", "source": f"tpufluid_torch/csrc/{k.source}.cu",
             "replaces": k.replaces, "launches": launches, "max_abs_err": err,
@@ -3177,6 +3293,7 @@ def main() -> int:
         "bound_by": row["by"], "library_ms": None,
         "configs": {SMALL_SERVER_CANVAS: {"launches": small["launches"]["display_direct"]},
                     SMALL_APP_CANVAS: {"launches": small["app_launches"]["display_direct"]},
+                    **demo_config_row(batch_demo, k.name),
                     **{f"{c}:forced": {"ms": f["direct"], "staged_ms": f["staged"]}
                        for c, f in small["forms"].items()}},
     })
@@ -3244,7 +3361,7 @@ def main() -> int:
          "small_canvas": small, "floors": floors_run,
          "long_horizon": horizon, "batched": batched, "batched_frames": frames,
          "sharded": sharded, "packed": packed, "app_server": app_server, "fleet": fleet,
-         "batch_mesh": batch_mesh, "kernels": kernels}, indent=1,
+         "batch_mesh": batch_mesh, "batch_demo": batch_demo, "kernels": kernels}, indent=1,
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -29,7 +29,7 @@ import torch
 from tpufluid.ops import quant as jquant
 from tpufluid.ops.advect import advect as jax_advect
 from tpufluid.ops.pallas import dispatch as jdispatch
-from tpufluid_torch.ops import advect as advect_ops
+from tpufluid_torch.ops.advect import decay_factor
 from tpufluid_torch.ops import splat as tsplat
 from tpufluid_torch.ops.cuda import advect as kadvect
 from tpufluid_torch.ops.cuda import build
@@ -213,7 +213,7 @@ def _windowed_sim(velocity, source, dt, dissipation, factors, quant):
     r0, r1, q0, q1 = plan["corners"]
     fy, fx = plan["weights"]
     th, tw = kadvect.DYE_TILE
-    decay = float(advect_ops.decay_factor(dissipation, dt))
+    decay = float(decay_factor(dissipation, dt))
     out = torch.empty((c, h, w), dtype=torch.float32)
     for ty, tx in np.ndindex(*plan["box"].shape[:2]):
         lo_r, hi_r, lo_q, hi_q = plan["box"][ty, tx].tolist()

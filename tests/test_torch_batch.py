@@ -29,7 +29,7 @@ from tpufluid.trace import swirl_trace as jax_trace
 import tpufluid_torch as T
 from tpufluid_torch.batch import plain_batched_step, step_dt
 from tpufluid_torch.interop import config_from_dict, state_from_numpy, state_to_numpy
-from tpufluid_torch.ops import advect as plain_advect
+from tpufluid_torch.ops.advect import decay_factor
 from tpufluid_torch.ops.cuda import build, check, jacobi, stencil
 from tpufluid_torch.ops.splat import splat_factors
 from tpufluid_torch.step import clamp_dt, dt_table
@@ -261,7 +261,7 @@ def test_dt_table_is_the_scalar_forms():
             for i in range(3):
                 d = clamp_dt(dts[t, i])
                 assert table[t, k, i, 0] == np.float32(d)
-                assert table[t, k, i, 1] == plain_advect.decay_factor(diss, d)
+                assert table[t, k, i, 1] == decay_factor(diss, d)
 
 
 def test_check_dt_forms():

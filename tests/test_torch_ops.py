@@ -27,7 +27,7 @@ from tpufluid.ops import splat as jsplat
 from tpufluid.ops import stencil as jstencil
 from tpufluid.ops.advect import advect as jax_advect
 from tpufluid.ops.pallas import dispatch as jdispatch
-from tpufluid_torch.ops import advect as tadvect
+from tpufluid_torch.ops.advect import decay_factor
 from tpufluid_torch.ops import quant as tquant
 from tpufluid_torch.ops import sampling as tsampling
 from tpufluid_torch.ops import splat as tsplat
@@ -245,7 +245,7 @@ def test_advect_velocity_matches_jax_oracle(rng):
     vel = _velocity(rng)
     got = kadvect.advect_plain(_t(vel), _t(vel), float(DT), 0.2)
     assert _rel(got, jax_advect(_j(vel), _j(vel), DT, 0.2)) < 1e-5
-    assert np.float32(tadvect.decay_factor(0.2, DT)) == np.float32(1) + np.float32(0.2) * DT
+    assert np.float32(decay_factor(0.2, DT)) == np.float32(1) + np.float32(0.2) * DT
 
 
 def test_dispatch_routes_cpu_to_plain_and_refuses_other_devices(rng):

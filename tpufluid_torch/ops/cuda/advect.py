@@ -39,7 +39,8 @@ from __future__ import annotations
 
 import torch
 
-from tpufluid_torch.ops import advect as A
+from tpufluid_torch.ops.advect import advect as plain_advect
+from tpufluid_torch.ops.advect import backtrace, decay_factor
 from tpufluid_torch.ops.cuda.build import (BATCHED, PACKED, STORAGE_CODES, F, I, P, Kernel,
                                            as_batch, batch_factors, check_dt, check_factors,
                                            check_storage, pack_fleet, packed_batch, per_sim,
@@ -130,7 +131,7 @@ def _launch(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float
         vel, src, single = _check(velocity, source, quant)
         dims, fields = (*src.shape, *vel.shape[2:]), BATCHED
     dt, dts = check_dt(dt, dims[0], src.device)
-    decay = float(A.decay_factor(dissipation, dt)) if dts.value is None else 0.0
+    decay = float(decay_factor(dissipation, dt)) if dts.value is None else 0.0
     return vel, src, single, fields, dims, dt, dts, decay, torch.empty_like(src)
 
 
@@ -177,7 +178,7 @@ def advect(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float,
 def _advect_sim(velocity, source, dt, dissipation, splat_factors, quant):
     if splat_factors is not None:
         source = (source.to(torch.float32) + splat_bump(*splat_factors)).to(source.dtype)
-    return A.advect(velocity, source, dt, dissipation, quant=quant)
+    return plain_advect(velocity, source, dt, dissipation, quant=quant)
 
 
 def advect_plain(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float,
@@ -224,7 +225,7 @@ def _gather_sim(velocity, prepared, channels, dt, dissipation):
     else:
         src = prepared[..., :channels].permute(2, 0, 1).to(torch.float32)
         out_dtype = prepared.dtype
-    return A.advect(velocity, src, dt, dissipation).to(out_dtype)
+    return plain_advect(velocity, src, dt, dissipation).to(out_dtype)
 
 
 def gather_plain(velocity: torch.Tensor, prepared: torch.Tensor, channels: int, dt,
@@ -257,7 +258,7 @@ def dye_window_bytes(rows, cols, channels: int, itemsize: int, quant, splat_rows
 
 def _window_plan_sim(velocity, shape, dtype, dt, factors, quant) -> dict:
     c, h, w = shape
-    r0, r1, q0, q1, fy, fx = bilinear_taps(h, w, *A.backtrace(velocity, h, w, dt))
+    r0, r1, q0, q1, fy, fx = bilinear_taps(h, w, *backtrace(velocity, h, w, dt))
     th, tw = DYE_TILE
     nty, ntx = -(-h // th), -(-w // tw)
 

@@ -16,12 +16,33 @@ from __future__ import annotations
 
 import torch
 
-from tpufluid_torch.ops.sampling import true_div
+from tpufluid_torch.ops.sampling import true_div, uv_grid
 
 # Columns of a splat event row.
 SPLAT_X, SPLAT_Y, SPLAT_DX, SPLAT_DY = 0, 1, 2, 3
 SPLAT_R, SPLAT_G, SPLAT_B, SPLAT_ACTIVE = 4, 5, 6, 7
 SPLAT_COLS = 8
+
+
+def gaussian_splat(h: int, w: int, x, y, radius: float, aspect: float,
+                   device=None) -> torch.Tensor:
+    """exp(-||p||^2 / radius) over an (h, w) grid in float32; p.x
+    aspect-corrected."""
+    u, v = uv_grid(h, w, device=device)
+    px = (u - x) * aspect
+    py = v - y
+    return torch.exp(true_div(-(px * px + py * py), radius))
+
+
+def splat_field(field: torch.Tensor, x, y, amount, radius: float,
+                aspect: float) -> torch.Tensor:
+    """Add one gaussian impulse to ``field`` (C, H, W); ``amount`` has shape
+    (C,). The gaussian and the amount are cast to the field's dtype and the
+    sum is taken there, as tpufluid's splat_field takes it."""
+    h, w = field.shape[-2], field.shape[-1]
+    g = gaussian_splat(h, w, x, y, radius, aspect, device=field.device).to(field.dtype)
+    amount = torch.as_tensor(amount, device=field.device).to(field.dtype)
+    return field + amount[:, None, None] * g[None]
 
 
 def _texel_centers(n: int, start: int, total: int, device) -> torch.Tensor:
