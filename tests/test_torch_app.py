@@ -28,7 +28,7 @@ from tpufluid import init_state as jax_init
 from tpufluid.render import make_step_and_render as jax_make_step_and_render
 from tpufluid.trace import swirl_trace as jax_trace
 import tpufluid_torch.app as tapp
-from tpufluid_torch import FluidConfig, init_state, make_multi_step, make_step_and_render
+from tpufluid_torch import FluidConfig, init_state, make_multi_step, make_step_and_render, spans
 from tpufluid_torch.checkpoint import load_state
 from tpufluid_torch.interop import config_from_dict, state_to_numpy
 from tpufluid_torch.trace import Trace, swirl_trace
@@ -88,6 +88,17 @@ def test_cli_all_gui_knobs(tmp_path, cpu):
     assert cfg.BACK_COLOR == (10, 20, 30) and cfg.TRANSPARENT and not cfg.COLORFUL
     assert os.path.exists(os.path.join(out, "run.gif")) and os.path.exists(tmp_path / "cap.png")
     assert os.path.exists(tmp_path / "prof" / "trace.json")
+    # The trace carries the port's spans (tpufluid_torch.spans) as its
+    # ranges: 4 steps and 2 frames with their passes, nothing else named.
+    with open(tmp_path / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert ranges.count("step") == 4 and ranges.count("frame") == 2
+    assert {"upload", "splat_factors", "pre_pressure", "projection", "velocity_advection",
+            "dye_advection", "dye_cast", "bloom_resample", "bloom_pyramid", "sunrays",
+            "display", "backdrop", "blend"} <= set(ranges)
+    assert "fluid_step" not in ranges and "render" not in ranges
+    assert spans.recorder() is None
 
 
 def test_app_final_state_equals_make_multi_step(tmp_path, cpu):

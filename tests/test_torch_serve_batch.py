@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import tpufluid_torch as T
-from tpufluid_torch import FluidConfig
+from tpufluid_torch import FluidConfig, spans
 from tpufluid_torch.checkpoint import load_state
 from tpufluid_torch.ops.cuda import build
 from tpufluid_torch.ops.splat import SPLAT_COLS
@@ -102,6 +102,32 @@ def test_dashboard_stats_and_frames(server_url):
     with pytest.raises(urllib.error.HTTPError) as e:
         urllib.request.urlopen(server_url + f"/frame?sid={B}", timeout=5)
     assert e.value.code == 404
+
+
+def test_stats_give_the_spans_of_the_ring(server_url):
+    """serve_batch --spans: with the recorder on in a ring, /stats adds each
+    span's count, p50 and p95 ms over the ring (the server's drain,
+    dispatch and copy of a tick, and the program's spans inside); without
+    it /stats has no "spans"."""
+    assert "spans" not in _stats(server_url)
+    assert build_argparser().parse_args(["--spans"]).spans
+    assert not build_argparser().parse_args([]).spans
+    spans.enable(1 << 12, ring=True)
+    try:
+        want = {"server.drain", "server.dispatch", "server.frames_copy", "tick", "step",
+                "pre_pressure", "frame", "display", "quantize"}
+        for _ in range(200):
+            got = _stats(server_url).get("spans", {})
+            if want <= set(got) and got["server.frames_copy"]["count"] >= 3:
+                break
+            time.sleep(0.05)
+        assert want <= set(got), sorted(got)
+        for name, row in got.items():
+            assert row["count"] >= 1 and 0 <= row["p50_ms"] <= row["p95_ms"], (name, row)
+        assert got["server.dispatch"]["p50_ms"] >= got["tick"]["p50_ms"] * 0.5
+    finally:
+        spans.disable()
+    assert "spans" not in _stats(server_url)
 
 
 def test_identical_seed_sessions_stay_identical(server_url):

@@ -16,8 +16,9 @@ import time
 from typing import Optional
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
+from tpufluid_torch import spans
 from tpufluid_torch.checkpoint import load_state, save_state
 from tpufluid_torch.config import MAX_DT, FluidConfig
 from tpufluid_torch.io import save_gif, save_png
@@ -132,17 +133,18 @@ def main(argv: Optional[list] = None) -> None:
             activities.append(ProfilerActivity.CUDA)
         prof = profile(activities=activities)
         prof.start()
+        # The port's spans (step, frame and their passes) as the profiler's
+        # ranges, so the trace carries them on its own clock.
+        spans.enable(profiler=True)
     t0 = time.time()
     for t in range(start_step, args.steps):
         batch, dt = (batches[t], trace.dts[t]) if t < trace.num_steps else (none_batch, MAX_DT)
         if not config.PAUSED:
-            with record_function("fluid_step"):
-                state = step(state, dt, batch)
+            state = step(state, dt, batch)
             if args.debug_nans:
                 _check_finite(state, t + 1)
         if args.render_every and (t + 1) % args.render_every == 0:
-            with record_function("render"):
-                frame = render(state, dither).cpu().numpy()
+            frame = render(state, dither).cpu().numpy()
             save_png(frame, os.path.join(args.out, f"frame_{t + 1:06d}.png"))
             if args.gif:
                 gif_frames.append(frame)
@@ -161,6 +163,7 @@ def main(argv: Optional[list] = None) -> None:
         torch.cuda.synchronize()
     elapsed = time.time() - t0
     if prof is not None:
+        spans.disable()
         prof.stop()
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))

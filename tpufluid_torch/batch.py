@@ -58,6 +58,7 @@ from tpufluid_torch.parallel import sharded_step as _sharded
 from tpufluid_torch.parallel.mesh import (COL_AXIS, ROW_AXIS, Mesh, ShardedState, gather_state,
                                           make_mesh, shard_state)
 from tpufluid_torch.render import plain_render, render_frame
+from tpufluid_torch.spans import span
 from tpufluid_torch.state import FluidState, init_state, resolve_device
 from tpufluid_torch.step import _step, clamp_dt, dt_table
 
@@ -92,7 +93,8 @@ def _table(dts: np.ndarray, config: FluidConfig, device) -> torch.Tensor:
     """dt_table of the velocity's and the dye's dissipation on ``device``:
     (..., 2, B, 2), one copy."""
     table = dt_table(dts, (config.VELOCITY_DISSIPATION, config.DENSITY_DISSIPATION))
-    return torch.from_numpy(table).to(device)
+    with span("upload"):
+        return torch.from_numpy(table).to(device)
 
 
 def step_dt(dt, batch: int, config: FluidConfig, device):

@@ -27,6 +27,7 @@ from tpufluid_torch.ops import bloom as B
 from tpufluid_torch.ops.cuda.build import (F, I, P, Kernel, as_batch, check_storage, per_sim,
                                            ptr, stream)
 from tpufluid_torch.ops.sampling import resample_bilinear
+from tpufluid_torch.spans import span
 
 BLOOM_PYRAMID = Kernel("bloom_pyramid", "bloom", "bloom_pyramid",
                        [P, I, I, I, P, P, P, I, I, F, F, F, F, F, P],
@@ -116,9 +117,12 @@ def bloom_chain(dye_rgb: torch.Tensor, base_hw: Tuple[int, int],
     """apply_bloom on the card, of one sim or a batch: the base resample in
     PyTorch ops, then the pyramid kernel; zeros and no launch below 2 mips."""
     if len(mip_sizes) < 2:
-        return B.apply_bloom(dye_rgb, base_hw, mip_sizes, threshold, soft_knee, intensity)
-    return bloom_pyramid(resample_bilinear(dye_rgb, base_hw), mip_sizes, threshold,
-                         soft_knee, intensity)
+        with span("bloom_pyramid"):
+            return B.apply_bloom(dye_rgb, base_hw, mip_sizes, threshold, soft_knee, intensity)
+    with span("bloom_resample"):
+        base = resample_bilinear(dye_rgb, base_hw)
+    with span("bloom_pyramid"):
+        return bloom_pyramid(base, mip_sizes, threshold, soft_knee, intensity)
 
 
 def bloom_chain_plain(dye_rgb: torch.Tensor, base_hw: Tuple[int, int],
@@ -127,6 +131,9 @@ def bloom_chain_plain(dye_rgb: torch.Tensor, base_hw: Tuple[int, int],
     """Plain version of bloom_chain: ops/bloom.apply_bloom, a batch's
     pyramid sim by sim after its base resample."""
     if len(mip_sizes) < 2:
-        return B.apply_bloom(dye_rgb, base_hw, mip_sizes, threshold, soft_knee, intensity)
-    return bloom_pyramid_plain(resample_bilinear(dye_rgb, base_hw), mip_sizes, threshold,
-                               soft_knee, intensity)
+        with span("bloom_pyramid"):
+            return B.apply_bloom(dye_rgb, base_hw, mip_sizes, threshold, soft_knee, intensity)
+    with span("bloom_resample"):
+        base = resample_bilinear(dye_rgb, base_hw)
+    with span("bloom_pyramid"):
+        return bloom_pyramid_plain(base, mip_sizes, threshold, soft_knee, intensity)

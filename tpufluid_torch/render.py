@@ -29,6 +29,7 @@ from tpufluid_torch.io import load_dither
 from tpufluid_torch.ops.cuda import dispatch
 from tpufluid_torch.ops.display import blend_premultiplied, checkerboard
 from tpufluid_torch.ops.sunrays import apply_sunrays
+from tpufluid_torch.spans import span
 from tpufluid_torch.state import FluidState, resolve_device
 from tpufluid_torch.step import fluid_step
 from tpufluid_torch.utils.bluenoise import blue_noise_64
@@ -45,42 +46,48 @@ def _render(state: FluidState, config: FluidConfig, out_hw, to_screen: bool, dit
     if out_hw is None:
         out_hw = (config.CANVAS_HEIGHT, config.CANVAS_WIDTH)
     out_hw = tuple(out_hw)
-    dye = state.dye.to(torch.float32)
-    device = dye.device
+    with span("frame"):
+        with span("dye_cast"):
+            dye = state.dye.to(torch.float32)
+        device = dye.device
 
-    bloom_tex = None
-    if config.BLOOM:
-        bw, bh = config.bloom_size
-        bloom_tex = passes.bloom_chain(dye, (bh, bw), config.bloom_mip_sizes(),
-                                       config.BLOOM_THRESHOLD, config.BLOOM_SOFT_KNEE,
-                                       config.BLOOM_INTENSITY)
+        bloom_tex = None
+        if config.BLOOM:
+            bw, bh = config.bloom_size
+            bloom_tex = passes.bloom_chain(dye, (bh, bw), config.bloom_mip_sizes(),
+                                           config.BLOOM_THRESHOLD, config.BLOOM_SOFT_KNEE,
+                                           config.BLOOM_INTENSITY)
 
-    sunrays_tex = None
-    if config.SUNRAYS:
-        sw, sh = config.sunrays_size
-        sunrays_tex = apply_sunrays(dye, (sh, sw), config.SUNRAYS_WEIGHT)
+        sunrays_tex = None
+        if config.SUNRAYS:
+            sw, sh = config.sunrays_size
+            with span("sunrays"):
+                sunrays_tex = apply_sunrays(dye, (sh, sw), config.SUNRAYS_WEIGHT)
 
-    if config.BLOOM and dither is None:
-        dither = blue_noise(device)
+        if config.BLOOM and dither is None:
+            dither = blue_noise(device)
 
-    # The display reads the dye in its storage type (its plain version casts);
-    # the backdrop, (4, h, w), broadcasts over a batch in the blend.
-    display = passes.display(state.dye, out_hw, config.SHADING, bloom_tex, sunrays_tex,
-                             dither if config.BLOOM else None)
+        # The display reads the dye in its storage type (its plain version
+        # casts); the backdrop, (4, h, w), broadcasts over a batch in the blend.
+        with span("display"):
+            display = passes.display(state.dye, out_hw, config.SHADING, bloom_tex, sunrays_tex,
+                                     dither if config.BLOOM else None)
 
-    blend = to_screen or not config.TRANSPARENT  # script.js:1304-1310
-    if not config.TRANSPARENT:
-        back = torch.ones((4,) + out_hw, dtype=torch.float32, device=device)
-        for ch, value in enumerate(config.BACK_COLOR):
-            back[ch] = value / 255.0
-    elif to_screen:
-        back = checkerboard(out_hw, config.aspect_ratio, device=device)
-    else:
-        back = None
+        blend = to_screen or not config.TRANSPARENT  # script.js:1304-1310
+        with span("backdrop"):
+            if not config.TRANSPARENT:
+                back = torch.ones((4,) + out_hw, dtype=torch.float32, device=device)
+                for ch, value in enumerate(config.BACK_COLOR):
+                    back[ch] = value / 255.0
+            elif to_screen:
+                back = checkerboard(out_hw, config.aspect_ratio, device=device)
+            else:
+                back = None
 
-    if blend and back is not None:
-        return blend_premultiplied(display, back)
-    return display
+        if blend and back is not None:
+            with span("blend"):
+                return blend_premultiplied(display, back)
+        return display
 
 
 def render_frame(state: FluidState, config: FluidConfig,
@@ -138,8 +145,9 @@ def load_dither_tensor(path: Optional[str], device) -> Optional[torch.Tensor]:
 
 
 def _quantize(frame: torch.Tensor) -> torch.Tensor:
-    rgb = (frame[..., :3, :, :].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
-    return torch.flip(rgb.movedim(-3, -1), dims=(-3,)).contiguous()
+    with span("quantize"):
+        rgb = (frame[..., :3, :, :].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        return torch.flip(rgb.movedim(-3, -1), dims=(-3,)).contiguous()
 
 
 def frame_u8(state: FluidState, config: FluidConfig,

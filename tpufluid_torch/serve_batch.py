@@ -103,9 +103,11 @@ from tpufluid_torch.checkpoint import load_state, save_state
 from tpufluid_torch.config import FluidConfig
 from tpufluid_torch.ops.cuda import dispatch
 from tpufluid_torch.ops.splat import SPLAT_COLS
+from tpufluid_torch import spans
 from tpufluid_torch.render import _quantize, frame_u8, plain_render
 from tpufluid_torch.state import FluidState, device_from_env, resolve_device, state_bytes
 from tpufluid_torch.step import _step
+from tpufluid_torch.spans import span
 from tpufluid_torch.trace import PointerTracer
 
 # The reference's calcDeltaTime clamp, its literal 0.016666 (script.js:1191);
@@ -121,6 +123,10 @@ SPEED_MAX = 4.0
 _K_MAX = math.ceil(SPEED_MAX)
 
 _FIELDS = ("velocity", "dye", "pressure")
+
+
+# Spans serve_batch --spans keeps: ~25 a tick, so the last ~650 ticks.
+SPAN_RING = 1 << 14
 
 
 def _padded(n: int) -> int:
@@ -177,7 +183,8 @@ def _select(active: torch.Tensor, new: FluidState, old: FluidState) -> FluidStat
     def sel(n, o):
         return torch.where(active.view((-1,) + (1,) * (n.ndim - 1)), n, o)
 
-    return FluidState(*(sel(getattr(new, f), getattr(old, f)) for f in _FIELDS))
+    with span("select"):
+        return FluidState(*(sel(getattr(new, f), getattr(old, f)) for f in _FIELDS))
 
 
 def _substepped_body(config: FluidConfig, plain: bool = False):
@@ -198,7 +205,8 @@ def _substepped_body(config: FluidConfig, plain: bool = False):
         if a.ndim != 2 or a.shape[1] != b or a.shape[0] < 1:
             raise ValueError(f"substep dts of shape {a.shape}, expected (K, {b})")
         table = _table(a, config, device)        # (K, 2, B, 2): one copy a tick
-        splats = torch.as_tensor(splats, dtype=torch.float32, device=device)
+        with span("upload"):
+            splats = torch.as_tensor(splats, dtype=torch.float32, device=device)
         state = _step(state, table[0], splats, config, passes)
         if a.shape[0] > 1:
             zero_splats = torch.zeros_like(splats)
@@ -222,7 +230,7 @@ def make_substepped_tick(config: FluidConfig, device="cuda"):
     (splats land even at dt = 0: the frozen-fluid speed-0 semantics);
     substeps 1..K-1 are exact no-ops for sims whose dt entry is 0. Each sim
     with n equal substeps equals n calls of make_step_and_render at that
-    dt, state and frame, bit for bit. A K-substep tick makes the step's 6
+    dt, state and frame, bit for bit. A K-substep tick makes the step's 5
     launches K times and the frame's 2 once."""
     device = resolve_device(device)
     body = _substepped_body(config)
@@ -320,7 +328,8 @@ def make_tick_program(config: FluidConfig, pb: int, kind, plain: bool = False):
         if _shape(dt) != dt_shape or _shape(splats) != splat_shape:
             raise ValueError(f"dt {_shape(dt)} and splats {_shape(splats)}: the ({pb}, "
                              f"{kind!r}) program takes {dt_shape} and {splat_shape}")
-        return body(state, dt, splats)
+        with span("tick"):
+            return body(state, dt, splats)
 
     return program
 
@@ -952,82 +961,88 @@ class BatchFluidServer:
         the tick. Returns False, dispatching nothing, while the current
         padded size has no lock-step program yet."""
         with self.lock:
-            pb = self._pb
-            if (pb, "scalar") in self._prog_errors:
-                raise RuntimeError("lock-step program failed:\n"
-                                   + self._prog_errors[(pb, "scalar")])
-            if (pb, "scalar") not in self._progs:
-                return False
-            live = self._live_rows
-            max_s = self.config.MAX_SPLATS
-            batch = np.zeros((pb, max_s, SPLAT_COLS), np.float32)
-            # Per-session clocks over the PADDED batch: live rows use their
-            # session's speed, pad and pending rows read 1.0 (their zero
-            # state is inert at any dt). Speeds above 1 advance more than
-            # 1/60 of sim time a frame, split into n = ceil(t / MAX_DT) equal
-            # substeps so the ceiling holds per substep.
-            speeds_p = np.ones(pb, np.float32)
-            speeds_p[:live] = self.speeds[:live]
-            t_total = dt_wall * speeds_p
-            n_sub = np.maximum(np.ceil(t_total / MAX_DT - 1e-9), 1.0).astype(np.int64)
-            k = int(n_sub.max())
-            if k > 1 and (pb, k) not in self._progs:
-                # No fast-forward program yet: request it and serve this frame
-                # at the capped single-step rate.
-                if (pb, k) not in self._prog_errors:
-                    self._want.add((pb, k))
-                    self._reconcile.set()
-                k = 1
-            if k == 1:
-                t_total = np.minimum(t_total, MAX_DT)
-            # Pick the program AND the dt it applies BEFORE draining the
-            # tracers: a degrade replaces the per-session clocks with the
-            # shared one, and splat pacing and color cycling must advance at
-            # the dt the sim actually steps.
-            if k == 1:
-                lockstep = bool(np.all(speeds_p == 1.0))
-                if not lockstep and (pb, "vector") not in self._progs:
-                    # Per-sim program not made yet: degrade to the shared
-                    # clock rather than stall the loop.
-                    lockstep = True
-                    self._reconcile.set()
-                if lockstep:
-                    prog = self._progs[(pb, "scalar")]
-                    dt_arg = np.float32(dt_wall)
-                    t_total = np.full(pb, dt_wall, np.float32)
+            with span("server.drain"):
+                pb = self._pb
+                if (pb, "scalar") in self._prog_errors:
+                    raise RuntimeError("lock-step program failed:\n"
+                                       + self._prog_errors[(pb, "scalar")])
+                if (pb, "scalar") not in self._progs:
+                    return False
+                live = self._live_rows
+                max_s = self.config.MAX_SPLATS
+                batch = np.zeros((pb, max_s, SPLAT_COLS), np.float32)
+                # Per-session clocks over the PADDED batch: live rows use their
+                # session's speed, pad and pending rows read 1.0 (their zero
+                # state is inert at any dt). Speeds above 1 advance more than
+                # 1/60 of sim time a frame, split into n = ceil(t / MAX_DT) equal
+                # substeps so the ceiling holds per substep.
+                speeds_p = np.ones(pb, np.float32)
+                speeds_p[:live] = self.speeds[:live]
+                t_total = dt_wall * speeds_p
+                n_sub = np.maximum(np.ceil(t_total / MAX_DT - 1e-9), 1.0).astype(np.int64)
+                k = int(n_sub.max())
+                if k > 1 and (pb, k) not in self._progs:
+                    # No fast-forward program yet: request it and serve this frame
+                    # at the capped single-step rate.
+                    if (pb, k) not in self._prog_errors:
+                        self._want.add((pb, k))
+                        self._reconcile.set()
+                    k = 1
+                if k == 1:
+                    t_total = np.minimum(t_total, MAX_DT)
+                # Pick the program AND the dt it applies BEFORE draining the
+                # tracers: a degrade replaces the per-session clocks with the
+                # shared one, and splat pacing and color cycling must advance at
+                # the dt the sim actually steps.
+                if k == 1:
+                    lockstep = bool(np.all(speeds_p == 1.0))
+                    if not lockstep and (pb, "vector") not in self._progs:
+                        # Per-sim program not made yet: degrade to the shared
+                        # clock rather than stall the loop.
+                        lockstep = True
+                        self._reconcile.set()
+                    if lockstep:
+                        prog = self._progs[(pb, "scalar")]
+                        dt_arg = np.float32(dt_wall)
+                        t_total = np.full(pb, dt_wall, np.float32)
+                    else:
+                        prog = self._progs[(pb, "vector")]
+                        dt_arg = t_total.astype(np.float32)
                 else:
-                    prog = self._progs[(pb, "vector")]
-                    dt_arg = t_total.astype(np.float32)
-            else:
-                # (K, B) substep dts: session b runs n_sub[b] equal substeps
-                # of t_total[b] / n_sub[b] (each <= MAX_DT), zero-padded to
-                # K; zero rows are exact no-ops in the substepped body.
-                prog = self._progs[(pb, k)]
-                sub = (t_total / n_sub).astype(np.float32)
-                dt_arg = np.where(np.arange(k)[:, None] < n_sub[None, :],
-                                  sub[None, :], 0.0).astype(np.float32)
-            # Each tracer drains at ITS OWN applied time. Pending (not yet
-            # activated) tenants are not drained: their events queue until
-            # their zeroed row is live.
-            for b in range(live):
-                for i, (x, y, dx, dy, color) in enumerate(
-                        self.tracers[b].drain_step(float(t_total[b]))[:max_s]):
-                    batch[b, i] = [x, y, dx, dy, color[0], color[1], color[2], 1.0]
-            gen = self._gen
+                    # (K, B) substep dts: session b runs n_sub[b] equal substeps
+                    # of t_total[b] / n_sub[b] (each <= MAX_DT), zero-padded to
+                    # K; zero rows are exact no-ops in the substepped body.
+                    prog = self._progs[(pb, k)]
+                    sub = (t_total / n_sub).astype(np.float32)
+                    dt_arg = np.where(np.arange(k)[:, None] < n_sub[None, :],
+                                      sub[None, :], 0.0).astype(np.float32)
+                # Each tracer drains at ITS OWN applied time. Pending (not yet
+                # activated) tenants are not drained: their events queue until
+                # their zeroed row is live.
+                for b in range(live):
+                    for i, (x, y, dx, dy, color) in enumerate(
+                            self.tracers[b].drain_step(float(t_total[b]))[:max_s]):
+                        batch[b, i] = [x, y, dx, dy, color[0], color[1], color[2], 1.0]
+                gen = self._gen
             # Take the state BEFORE releasing the event lock (lock ->
             # state_lock): a swap cannot replace the fleet between this
             # frame's drain and its tick, yet the tick runs with the event
-            # lock free.
+            # lock free. The dispatch span runs from this wait through the
+            # program.
+            dispatch = span("server.dispatch")
+            dispatch.__enter__()
             self.state_lock.acquire()
         try:
             self.state, frames = prog(self.state, dt_arg, batch)
             self._mark_ready()
         finally:
             self.state_lock.release()
+            dispatch.__exit__(None, None, None)
         # The copy to the host (the sync point) runs outside both locks:
         # checkpoint and swap waiters queue behind the tick on the device
         # instead of waiting for it on the host.
-        frames = frames.cpu().numpy()
+        with span("server.frames_copy"):
+            frames = frames.cpu().numpy()
         with self.out_lock:
             # Publish ONLY if no swap or shrink happened since this tick was
             # dispatched (both bump _gen): after a shrink-then-regrow to the
@@ -1197,6 +1212,11 @@ def make_handler(server: BatchFluidServer):
                            "program_errors": prog_errors,
                            "stuck": stuck,
                            "error": server.error}
+                rec = spans.recorder()
+                if rec is not None and rec.ring:
+                    # serve_batch --spans: each span's count, p50 and p95
+                    # ms over the ring's newest spans.
+                    out["spans"] = spans.summary(rec.snapshot())
                 self._send(json.dumps(out).encode(), "application/json")
             else:
                 self._send(_DASH.replace("%B%", str(server.sessions)).encode(), "text/html")
@@ -1250,6 +1270,9 @@ def build_argparser():
                    help="resume a whole fleet from a /checkpoint.npz download of either "
                         "package (config, sessions, speeds and tracer states come from the "
                         "checkpoint)")
+    p.add_argument("--spans", action="store_true",
+                   help="record the port's spans in a ring of the newest %d; /stats then "
+                        "gives each span's count, p50 and p95 ms" % SPAN_RING)
     return p
 
 
@@ -1263,6 +1286,8 @@ def config_from_args(args) -> FluidConfig:
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     device = device_from_env()
+    if args.spans:
+        spans.enable(SPAN_RING, ring=True)
     server = BatchFluidServer(config_from_args(args), sessions=args.sessions, seed=args.seed,
                               quality=args.quality, resume=args.resume,
                               identical_seeds=args.identical_seeds, prewarm=args.prewarm,

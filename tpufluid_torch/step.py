@@ -29,6 +29,7 @@ from tpufluid_torch.config import MAX_DT, FluidConfig
 from tpufluid_torch.ops.cuda import dispatch
 from tpufluid_torch.ops.splat import (SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R,
                                       apply_splat_batch, splat_factors)
+from tpufluid_torch.spans import span
 from tpufluid_torch.state import FluidState, resolve_device
 
 
@@ -53,26 +54,36 @@ def _step(state: FluidState, dt, splats, config: FluidConfig,
     """One step of one sim or a batch. ``dt``: every sim's clamped dt (a
     number), or a (2, B, 2) table on the state's device (dt_table of the
     velocity's and the dye's dissipation)."""
-    vel_dt, dye_dt = (dt[0], dt[1]) if isinstance(dt, torch.Tensor) else (dt, dt)
-    splats = torch.as_tensor(splats, dtype=torch.float32, device=state.velocity.device)
-    # bf16 dye goes through RGB9E5 before it is sampled (config.DYE_RGB9E5).
-    dye_quant = ("rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16
-                 else None)
-    radius, aspect = config.splat_radius_uv(), config.aspect_ratio
-    dh, dw = passes.grid(state.dye)
-    vh, vw = passes.grid(state.velocity)
-    dye_factors = splat_factors(splats, dh, dw, radius, aspect, slice(SPLAT_R, SPLAT_B + 1))
-    vel_factors = splat_factors(splats, vh, vw, radius, aspect, slice(SPLAT_DX, SPLAT_DY + 1))
+    with span("step"):
+        vel_dt, dye_dt = (dt[0], dt[1]) if isinstance(dt, torch.Tensor) else (dt, dt)
+        with span("upload"):
+            splats = torch.as_tensor(splats, dtype=torch.float32, device=state.velocity.device)
+        # bf16 dye goes through RGB9E5 before it is sampled (config.DYE_RGB9E5).
+        dye_quant = ("rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16
+                     else None)
+        radius, aspect = config.splat_radius_uv(), config.aspect_ratio
+        dh, dw = passes.grid(state.dye)
+        vh, vw = passes.grid(state.velocity)
+        with span("splat_factors"):
+            dye_factors = splat_factors(splats, dh, dw, radius, aspect,
+                                        slice(SPLAT_R, SPLAT_B + 1))
+            vel_factors = splat_factors(splats, vh, vw, radius, aspect,
+                                        slice(SPLAT_DX, SPLAT_DY + 1))
 
-    vel, div = passes.pre_pressure(state.velocity, config.CURL, vel_dt,
-                                   splat_factors=vel_factors)
-    # The projected velocity goes through storage before the advection reads it.
-    pressure, vel = passes.jacobi_project(state.pressure, div, vel, config.PRESSURE_ITERATIONS,
-                                          prescale=config.PRESSURE)
-    vel = passes.advect(vel, vel, vel_dt, config.VELOCITY_DISSIPATION)
-    dye = passes.advect(vel, state.dye, dye_dt, config.DENSITY_DISSIPATION,
-                        splat_factors=dye_factors, quant=dye_quant)
-    return FluidState(velocity=vel, dye=dye, pressure=pressure)
+        with span("pre_pressure"):
+            vel, div = passes.pre_pressure(state.velocity, config.CURL, vel_dt,
+                                           splat_factors=vel_factors)
+        # The projected velocity goes through storage before the advection reads it.
+        with span("projection"):
+            pressure, vel = passes.jacobi_project(state.pressure, div, vel,
+                                                  config.PRESSURE_ITERATIONS,
+                                                  prescale=config.PRESSURE)
+        with span("velocity_advection"):
+            vel = passes.advect(vel, vel, vel_dt, config.VELOCITY_DISSIPATION)
+        with span("dye_advection"):
+            dye = passes.advect(vel, state.dye, dye_dt, config.DENSITY_DISSIPATION,
+                                splat_factors=dye_factors, quant=dye_quant)
+        return FluidState(velocity=vel, dye=dye, pressure=pressure)
 
 
 def apply_splats(state: FluidState, splats, config: FluidConfig) -> FluidState:
@@ -126,11 +137,14 @@ def make_multi_step(config: FluidConfig, device="cuda"):
 
     def multi(state: FluidState, dt, splats_seq) -> FluidState:
         _require(state, device)
-        seq = torch.as_tensor(splats_seq, dtype=torch.float32, device=state.velocity.device)
-        t = seq.shape[0]
-        dts = np.broadcast_to(np.asarray(dt, np.float32).reshape(-1), (t,))
-        for k in range(t):
-            state = fluid_step(state, dts[k], seq[k], config)
-        return state
+        with span("multi_step"):
+            with span("upload"):
+                seq = torch.as_tensor(splats_seq, dtype=torch.float32,
+                                      device=state.velocity.device)
+            t = seq.shape[0]
+            dts = np.broadcast_to(np.asarray(dt, np.float32).reshape(-1), (t,))
+            for k in range(t):
+                state = fluid_step(state, dts[k], seq[k], config)
+            return state
 
     return multi
