@@ -48,8 +48,9 @@ the card.
    subtract, spin-queued on the same inputs); last the host time of the
    step's Python layers under cProfile.
 5. Render kernel phase: every kernel call of a frame (check.render_cases:
-   the whole bloom pyramid, one launch, and the display) against its plain
-   version, with max abs error 0 required,
+   the whole bloom pyramid, one launch; the sunrays, the march and blur
+   launches; and the display) against its plain version, with max abs
+   error 0 required,
    at both grids' canvas in every dtype of phase 2; then, in float32 and
    bf16 (RGB9E5), the flag variants (SHADING, BLOOM, SUNRAYS each off), the
    display without dither and with compose=False, the capture size and the
@@ -143,15 +144,16 @@ the card.
    serve_batch.make_batched_tick, the multi-tenant server's frame): at the
    demo's cross grid with B = 4 in float32 and at serving_256_b16 and
    serving_1024_b8 (canvas = grid, bloom base 256^2 with 7 mips, sunrays
-   196^2). The batched bloom pyramid and display (check.
-   batched_render_cases, one launch each for the B sims) against their
+   196^2). The batched bloom pyramid, sunrays and display (check.
+   batched_render_cases, one call each for the B sims) against their
    plain versions on a random batch, max abs error 0 required; then, on a
    batch stepped BATCH_FRAME_WARM steps over each sim's own swirl_trace:
    one make_batched_render frame (launch counts zeroed before and read
-   after: 1 bloom_pyramid and 1 display) equal to the plain batched render
-   and, sim by sim, to make_render; 3 make_batched_tick ticks with a dt a
-   sim (5 + 2 launches each), each sim's state and uint8 frame equal to
-   make_step_and_render's on it alone. Then aggregate sim-frames/s and
+   after: 1 bloom_pyramid, 1 sunrays, 1 sunrays_blur and 1 display) equal
+   to the plain batched render and, sim by sim, to make_render; 3
+   make_batched_tick ticks with a dt a sim (5 + 4 launches each), each
+   sim's state and uint8 frame equal to make_step_and_render's on it
+   alone. Then aggregate sim-frames/s and
    sim-ticks/s (B x 200 / wall, one call a frame or tick with a CUDA event
    after each; the timed ticks lock-step, the server's one clock) with their
    median and p95 and the idle share (1 - the spin-queued device time of
@@ -230,7 +232,7 @@ the card.
    /trace.npz; paused, /checkpoint.npz, which resumes a second server whose
    state must equal the checkpointed one (0); a live POST /config to
    bfloat16 and dye 256. Last the resumed server's own ticks, in turn with
-   no HTTP traffic: 20 counted (7 launches a tick, timed), and one whose
+   no HTTP traffic: 20 counted (9 launches a tick, timed), and one whose
    frame is held to the plain render of the state it leaves (phase 6's
    bound; 0).
 
@@ -239,7 +241,7 @@ the card.
    bf16 RGB9E5, each its own swirl_trace) for 'scalar', 'vector' (dt
    linspace(1/90, 1/60)) and K = 4 (speeds linspace(0.5, 4.0)): each
    equal to its plain passes on the card (0), each sim of the K = 4 tick
-   equal to its iterated make_step_and_render ticks (0), 7, 7 and 22
+   equal to its iterated make_step_and_render ticks (0), 9, 9 and 24
    launches a tick (counted again over 200 timed ticks each: ticks/s,
    sim-ticks/s, median, p95), the kernels' spin-queued device time a tick
    and the idle share. b. 5 sessions in a padded 8 driven by hand: pad rows
@@ -289,7 +291,7 @@ the card.
    tools/batch_demo.py): the tool's main() at its defaults (4 sims at
    speeds 0.25-1 of 1/60 s sharing swirl_trace seed 11, 96^2 sim, 192^2 dye
    and canvas, f32, 360 steps, a frame every 6) into out/batch_demo/, with
-   the launches counted over its run (5 a step, 2 a frame: 1,920) and the
+   the launches counted over its run (5 a step, 4 a frame: 2,040) and the
    display form it took; its GIF (60 frames of 384x384); its 60 frames and
    its final state bit-equal to the same loop through plain_batched_step
    and the plain batched render with contiguous splat rows a sim (the first
@@ -323,8 +325,8 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 PATH_STEPS = 300               # per config; steps/s over the last TIMED_STEPS
 TIMED_STEPS = 200
 CHECK_STEPS = 3                # compared against the plain step
-RENDER_KERNELS = ("bloom_pyramid", "display")
-PTXAS_LIBRARIES = ("stencil", "advect", "jacobi", "bloom", "display")
+RENDER_KERNELS = ("bloom_pyramid", "sunrays", "sunrays_blur", "display")
+PTXAS_LIBRARIES = ("stencil", "advect", "jacobi", "bloom", "display", "sunrays")
 # The step's timed calls (check.step_cases before the standalone pair): the solve's
 # case, jacobi_project, covers its chunks before the fused launch.
 MAIN_STEP_KERNELS = ("pre_pressure", "jacobi_project", "advect", "advect_dye")
@@ -349,8 +351,8 @@ PROFILE_STEPS = 30                        # profile_step_kernels' default
 PROFILE_FRAMES = 30                       # profile_frame_kernels' default
 LONG_HORIZON_STEPS = 1500
 JACOBI_SWEEPS_A_LAUNCH = 10    # the chunk kernel's design: a solve of N sweeps is ceil(N / 10)
-# step kernels held to max abs error 0
-EXACT_KERNELS = ("pre_pressure", "jacobi_project", "advect_dye")
+# kernels held to max abs error 0 in check_cases (the step's, and the sunrays)
+EXACT_KERNELS = ("pre_pressure", "jacobi_project", "advect_dye", "sunrays")
 LONG_HORIZON_OUT = Path("out/long_horizon_4096")
 # The batched serving cells (bench.py config 7 at --serve-res 256 and 1024):
 # (resolution, sims); each sim replays its own swirl_trace(seed 42 + i).
@@ -358,7 +360,7 @@ BATCH_CONFIGS = {"serving_256_b16": (256, 16), "serving_1024_b8": (1024, 8)}
 BATCH_WARM, BATCH_TIMED = 100, 200
 CROSS_GRID_BATCH = 4           # the demo's 128/1024 cross grid, batched
 BATCH_FRAME_WARM = 50          # steps before the batched frames are compared and timed
-PER_FRAME = {"bloom_pyramid": 1, "display": 1}
+PER_FRAME = {"bloom_pyramid": 1, "sunrays": 1, "sunrays_blur": 1, "display": 1}
 # The display's direct form on the entry points (phase 6b): the server at
 # its CLI defaults, its canvas posted down to a small browser window's, and
 # the app at --canvas 256x256 with its default dye (check.DIRECT_GEOMETRIES).
@@ -646,6 +648,14 @@ def timing_phase(torch, check, cases, verbose: bool = True) -> dict:
     return out
 
 
+def queued_us(timing: dict, kernel: str) -> str:
+    """A kernel's spin-queued µs from timing_phase's rows, where it has a
+    row of its own: the sunrays' blur is timed in its pass, the "sunrays"
+    row, with the march."""
+    return (f"{1e3 * timing[kernel]['ms']:.4f} us" if kernel in timing
+            else "in its pass's row")
+
+
 def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
     """Every kernel call of a frame against its plain version: at each
     config's canvas, then the variants at the two path configs, then two
@@ -657,7 +667,7 @@ def render_kernel_phase(torch, check, cfgs, device, errors: dict) -> None:
 
     def run(name, cfg, label, state, **kw):
         ran = []
-        for case in check.render_cases(state, cfg, **kw):
+        for case in check.render_cases(state, cfg, **kw) + check.sunrays_cases(state, cfg):
             ran.append(case.kernel_name)
             err, tol = check.compare(case.run(), case.run(plain=True))
             torch.cuda.synchronize()
@@ -716,7 +726,9 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     state = run["state"]
     render = make_render(cfg, device=device)
     n_mips = len(cfg.bloom_mip_sizes())
-    per_frame = {"bloom_pyramid": 1 if n_mips >= 2 else 0, "display": 1}
+    rays = 1 if cfg.SUNRAYS else 0
+    per_frame = {"bloom_pyramid": 1 if n_mips >= 2 else 0, "sunrays": rays, "sunrays_blur": rays,
+                 "display": 1}
 
     build.reset_launches()
     frame = render(state)
@@ -760,8 +772,9 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     assert pixels.dtype == torch.uint8 and pixels.shape == (cfg.CANVAS_HEIGHT,
                                                            cfg.CANVAS_WIDTH, 3)
 
-    # One frame (about 400 launches, most of them the sunrays' PyTorch ops)
-    # or one tick behind the spin kernel: the device's queue of pending
+    # One frame (about 25 launches, most of them PyTorch's: the bloom's
+    # base resample, the backdrop, the blend) or one tick behind the spin
+    # kernel: the device's queue of pending
     # launches holds about a thousand, and a host that blocks on a full queue
     # would be timed with the device. The tick's splats are put on the card
     # first: their copy from the host would wait for the spin.
@@ -769,7 +782,8 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     frame_device = queued_ms(lambda: render(state), 1, rate)
     splats = torch.as_tensor(trace.batches[0], device=device)
     tick_device = queued_ms(lambda: tick(state, trace.dts[0], splats), 1, rate)
-    timing = timing_phase(torch, check, check.render_cases(state, cfg))
+    timing = timing_phase(torch, check, check.render_cases(state, cfg)
+                          + check.sunrays_cases(state, cfg))
     host = host_profile(torch, lambda: render(state), 50, RENDER_HOST_FUNCS, "frame")
     profile = floors.profile_frame_kernels(cfg, state, PROFILE_FRAMES)
     for k, row in profile["kernel_events"].items():
@@ -777,7 +791,7 @@ def render_path_phase(torch, check, cfg, run, device) -> dict:
     print(f"profile frame {cfg.DTYPE} {cfg.CANVAS_HEIGHT}x{cfg.CANVAS_WIDTH}, torch.profiler over "
           f"{PROFILE_FRAMES} frames: device {profile['frame_device_us']} us a frame; " + ", ".join(
               f"{k} {row['us']:.4f} us ({row['events']} events = launches), spin-queued "
-              f"{1e3 * timing[k]['ms']:.4f} us" for k, row in profile["kernel_events"].items())
+              f"{queued_us(timing, k)}" for k, row in profile["kernel_events"].items())
           + f"; other device {profile['other_device_us']} us: " + "; ".join(
               f"{o['us']} us {o['op'][:40]}" for o in profile["top_other_ops"]))
     return {"frame_err": err, "host_ms_cprofile": host, "frames_per_s": fps,
@@ -795,8 +809,8 @@ def small_canvas_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> di
     at its CLI defaults ticks at its 640x360, then takes a small browser
     window's canvas (reconfigure, as the page's POST /config) and ticks
     SMALL_TICKS times with pointer events, launch counts zeroed just before
-    and read just after (the step's 6, 1 bloom_pyramid and 1 display_direct
-    a tick, no staged display); its frame against the plain render. The app
+    and read just after (the step's 6, 1 bloom_pyramid, the sunrays' 2 and 1
+    display_direct a tick, no staged display); its frame against the plain render. The app
     at --canvas 256x256 with its default dye, counts zeroed before and read
     after (1 display_direct a frame). Then the direct form's device time on
     the server's state beside its bound and its plain version's, and both
@@ -827,7 +841,8 @@ def small_canvas_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> di
         srv.tracer.feed("move", pid=1, x=40.0 + 6 * k, y=40.0 + 2 * k)
         frame = srv.advance(MAX_DT)
     launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
-    per_tick = {**expected_per_step(small), "bloom_pyramid": 1, "display_direct": 1}
+    per_tick = {**expected_per_step(small), "bloom_pyramid": 1, "sunrays": 1, "sunrays_blur": 1,
+                "display_direct": 1}
     want = {k: n * SMALL_TICKS for k, n in per_tick.items() if n}
     assert launches == want, (launches, want)
     assert frame.shape == (ch, cw, 3) and frame.dtype == np.uint8, frame.shape
@@ -835,7 +850,7 @@ def small_canvas_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> di
     err, tol = check.compare(render_frame(state, small), plain_render(state, small))
     assert err <= tol, f"small-canvas frame vs plain render: {err} > {tol}"
     assert bool(torch.isfinite(state.dye).all()) and float(state.dye.max()) > 0.0
-    cases = check.render_cases(state, small)
+    cases = check.render_cases(state, small) + check.sunrays_cases(state, small)
     check_cases(torch, check, SMALL_SERVER_CANVAS, cases, errors, exact=True)
     print(f"small canvas server {small.SIM_RESOLUTION}/{small.DYE_RESOLUTION} "
           f"{cw}x{ch} (from 640x360) on {gpu}: {SMALL_TICKS} ticks, launches {launches}; "
@@ -853,7 +868,7 @@ def small_canvas_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> di
     frames = SMALL_APP_STEPS // SMALL_APP_RENDER_EVERY
     want = {k: n * SMALL_APP_STEPS for k, n in expected_per_step(cfgs["demo_float32"]).items()
             if n}
-    want.update(bloom_pyramid=frames, display_direct=frames)
+    want.update(bloom_pyramid=frames, sunrays=frames, sunrays_blur=frames, display_direct=frames)
     assert app_launches == want, (app_launches, want)
     assert len(sorted(out.glob("frame_*.png"))) == frames
     print(f"small canvas app --canvas {acw}x{ach} on {gpu}: {line}; launches {app_launches}")
@@ -892,7 +907,7 @@ HOST_FUNCS = {  # (module file, function) -> label, for the host profile
 
 RENDER_HOST_FUNCS = {  # the same, for the render profile
     ("render.py", "_render"): "render (all)",
-    ("sunrays.py", "apply_sunrays"): "apply_sunrays",
+    ("sunrays.py", "sunrays"): "sunrays wrapper (2 launches)",
     ("sampling.py", "sample_affine"): "sample_affine (all callers)",
     ("bloom.py", "bloom_chain"): "bloom_chain (resample + 1 launch)",
     ("display.py", "display"): "display wrapper",
@@ -1312,8 +1327,8 @@ def batched_frame_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> d
     out = {}
     for name, (cfg, batch) in cells.items():
         state0, _ = check.random_batch(cfg, batch, seed=7, device=device)
-        check_cases(torch, check, name, check.batched_render_cases(state0, cfg), errors,
-                    exact=True)
+        check_cases(torch, check, name, check.batched_render_cases(state0, cfg)
+                    + check.sunrays_cases(state0, cfg, f":b{batch}"), errors, exact=True)
         steps = BATCH_FRAME_WARM + CHECK_STEPS + BATCH_TIMED
         seq = torch.as_tensor(np.stack([swirl_trace(cfg, steps, seed=42 + i).batches
                                         for i in range(batch)], axis=1), device=device)
@@ -1383,12 +1398,14 @@ def batched_frame_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> d
         frame_device = queued_ms(lambda: render(box[0]), 1, rate)
         tick_device = queued_ms(lambda: tick(box[0], 1.0 / 60.0, seq[start]), 1, rate)
 
-        cases = check.batched_render_cases(box[0], cfg)
+        cases = (check.batched_render_cases(box[0], cfg)
+                 + check.sunrays_cases(box[0], cfg, f":b{batch}"))
         timing = timing_phase(torch, check, cases)
         alone = {}
         for i in range(batch):
-            for k, row in timing_phase(torch, check, check.render_cases(
-                    unstack_state(box[0], i), cfg), False).items():
+            sim = unstack_state(box[0], i)
+            for k, row in timing_phase(torch, check, check.render_cases(sim, cfg)
+                                       + check.sunrays_cases(sim, cfg), False).items():
                 alone[k] = alone.get(k, 0.0) + row["ms"]
         b1_state = stack_states([unstack_state(box[0], 0)])
         b1 = call_times(lambda k: render(b1_state), BATCH_TIMED)
@@ -1415,7 +1432,7 @@ def batched_frame_phase(torch, check, cfgs, gpu: str, device, errors: dict) -> d
         print(f"profile batched frame {name}, torch.profiler over {PROFILE_FRAMES} batched frames: "
               f"device {profile['frame_device_us']} us a batched frame; " + ", ".join(
                   f"{k} {row['us']:.4f} us ({row['events']} events = launches), spin-queued "
-                  f"{1e3 * timing[k]['ms']:.4f} us" for k, row in profile["kernel_events"].items())
+                  f"{queued_us(timing, k)}" for k, row in profile["kernel_events"].items())
               + f"; other device {profile['other_device_us']} us: " + "; ".join(
                   f"{o['us']} us {o['op'][:40]}" for o in profile["top_other_ops"]))
         out[name] = {"batch": batch, "launches": launches, "tick_launches": tick_launches,
@@ -2180,7 +2197,7 @@ def fleet_programs_phase(torch, check, gpu: str, device) -> dict:
     # plain version): the step's K times, the frame's once.
     splats_dev = torch.as_tensor(seq[-1], device=device)
     cases = (check.step_cases(box[0], splats_dev, cfg, check.per_sim_dts(b), ":fleet")
-             + check.batched_render_cases(box[0], cfg))
+             + check.batched_render_cases(box[0], cfg) + check.sunrays_cases(box[0], cfg, f":b{b}"))
     timing = timing_phase(torch, check, cases, verbose=False)
     step_ms = step_device_ms(timing)
     frame_ms = sum(r["ms"] for n, r in timing.items() if n in PER_FRAME)
@@ -3052,7 +3069,8 @@ def batch_demo_phase(torch, check, gpu: str, device, errors: dict) -> dict:
     launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
     display = "display" if got["display_form"] == "staged" else "display_direct"
     want = {k: n * args.steps for k, n in expected_per_step(cfg).items()}
-    want.update({"bloom_pyramid": n_frames, display: n_frames})
+    want.update({"bloom_pyramid": n_frames, "sunrays": n_frames, "sunrays_blur": n_frames,
+                 display: n_frames})
     assert launches == want, (launches, want)
     with Image.open(DEMO_OUT) as gif:
         gif_frames, gif_size = gif.n_frames, gif.size
@@ -3088,18 +3106,19 @@ def batch_demo_phase(torch, check, gpu: str, device, errors: dict) -> dict:
 
     cases = check.step_cases(got["state"], rows[-1].expand(sims, -1, -1), cfg, dts.cpu().numpy(),
                              ":demo") + check.batched_render_cases(got["state"], cfg)
+    cases += check.sunrays_cases(got["state"], cfg, f":b{sims}")
     check_cases(torch, check, "batch_demo", cases, errors, exact=True)
     timing = timing_phase(torch, check, cases)
     # The run's kernels' device time: each step's and frame's spin-queued ms.
     device_s = 1e-3 * (args.steps * step_device_ms(timing) + n_frames * sum(
-        timing[k]["ms"] for k in ("bloom_pyramid", display)))
+        timing[k]["ms"] for k in ("bloom_pyramid", "sunrays", display)))
     idle = 1 - device_s / got["seconds"]
     print(f"batch demo {sims} sims {cfg.SIM_RESOLUTION}/{cfg.DYE_RESOLUTION} f32, canvas "
           f"{cfg.CANVAS_WIDTH}x{cfg.CANVAS_HEIGHT}, {args.steps} steps, {n_frames} frames, display "
           f"{got['display_form']} on {gpu}: {got['seconds']:.3f} s, "
           f"{got['sim_steps_per_s']:.1f} sim-steps/s, {got['frames_per_s']:.2f} frames/s, "
           f"kernels' device {device_s:.4f} s ({100 * idle:.1f}% idle); launches {launches} ({sum(launches.values())}: "
-          f"{sum(expected_per_step(cfg).values())} a step, 2 a frame); GIF {gif_frames} frames "
+          f"{sum(expected_per_step(cfg).values())} a step, 4 a frame); GIF {gif_frames} frames "
           f"of {gif_size[0]}x{gif_size[1]}; held to the plain loop bit for bit (max abs err 0) "
           f"over {held}, plain run {plain_s:.1f} s")
     for k, row in timing.items():
@@ -3148,7 +3167,7 @@ def main() -> int:
           f"{min(regs)}-{max(regs)} registers, {len(frames)} with a stack frame or spills "
           "(the full report in out/chip_smoke.json)")
     for f in ptxas:
-        if any(k in f["function"] for k in ("pre_pressure", "bloom", "display")):
+        if any(k in f["function"] for k in ("pre_pressure", "bloom", "display", "sunrays")):
             print(f"ptxas {f['function'][:90]}: {f.get('registers')} registers, "
                   f"{f.get('smem')} bytes static smem, {f.get('stack')} bytes stack frame, "
                   f"{f.get('spill_stores')} / {f.get('spill_loads')} bytes spill stores / loads")
@@ -3239,6 +3258,8 @@ def main() -> int:
     kernels = []
     for k in build.KERNELS.values():
         if k.name == "display_direct":   # launched at small canvases only, below
+            continue
+        if k.name == "sunrays_blur":   # timed and compared with the march, the sunrays row
             continue
         if k.name in FLOORS_KERNELS:   # launched by the profiling path only
             row, launches = floors_run["kernels"][k.name], floors_run["launches"][k.name]

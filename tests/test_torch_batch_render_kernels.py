@@ -3,9 +3,10 @@
 These tests need an NVIDIA GPU with nvcc (sm_90a); without one every test
 skips with its reason. They import no JAX, so on the card run
     python -m pytest --noconftest tests/test_torch_batch_render_kernels.py -q
-Every comparison is exact (max abs error 0): the batched bloom pyramid and
-display against their plain versions (which run the batch sim by sim), and
-each sim against the kernel launched on that sim alone, at the render shapes
+Every comparison is exact (max abs error 0): the batched bloom pyramid,
+sunrays and display against their plain versions (the pyramid's and the
+display's run the batch sim by sim), and each sim against the kernel
+launched on that sim alone, at the render shapes
 of the demo (dye 1024x1820, canvas 720x1280, bloom base 256x455), of the
 256^2 and of the 1024^2 serving cells; a batch of more sims than the
 pyramid's cooperative grid has blocks; the batched frame and tick against
@@ -22,8 +23,9 @@ import torch
 from tpufluid_torch import (FluidConfig, make_batched_render, make_batched_tick, make_render,
                             make_step_and_render, swirl_trace, unstack_state)
 from tpufluid_torch.batch import plain_batched_render
-from tpufluid_torch.ops.cuda import bloom, build, check, display, floors
+from tpufluid_torch.ops.cuda import bloom, build, check, display, floors, sunrays
 from tpufluid_torch.ops.cuda.build import ptr, stream
+from tpufluid_torch.ops.sunrays import apply_sunrays
 
 FIELDS = ("velocity", "dye", "pressure")
 SHAPES = {
@@ -35,7 +37,7 @@ SHAPES = {
 DTYPES = ["float32", "bfloat16", "float16"]
 PER_STEP = {"pre_pressure": 1, "jacobi_chunk": 1, "jacobi_project": 1, "advect": 1,
             "advect_dye": 1}
-PER_FRAME = {"bloom_pyramid": 1, "display": 1}
+PER_FRAME = {"bloom_pyramid": 1, "sunrays": 1, "sunrays_blur": 1, "display": 1}
 
 
 @pytest.fixture
@@ -60,6 +62,9 @@ def _single(case, b):
     if case.kernel_name == "bloom_pyramid":
         base, *rest = case.args
         return bloom.bloom_pyramid(base[b], *rest)
+    if case.kernel_name == "sunrays":
+        dye, rays_hw, weight = case.args
+        return sunrays.sunrays(dye[b], rays_hw, weight)
     dye, out_hw, shading, glow, rays, noise, compose = case.args
     return display.display(dye[b], out_hw, shading, None if glow is None else glow[b],
                            None if rays is None else rays[b], noise, compose)
@@ -80,23 +85,25 @@ def _check_batched(cases):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("batch", [1, 3, 16])
 def test_batched_render_kernels_match_plain(batch, dtype, shape, cuda):
-    """The batched pyramid (after its batched base resample) and display,
-    one launch each for the B sims: bit-equal to the plain versions and,
-    sim by sim, to the single-sim launches."""
+    """The batched pyramid (after its batched base resample), sunrays and
+    display, one call each for the B sims: bit-equal to the plain versions
+    and, sim by sim, to the single-sim launches."""
     cfg = _cfg(shape, dtype)
     state, _ = check.random_batch(cfg, batch, seed=batch, device=cuda)
     cases = check.batched_render_cases(state, cfg)
     assert [c.kernel_name for c in cases] == ["bloom_pyramid", "display"]
-    _check_batched(cases)
+    _check_batched(cases + check.sunrays_cases(state, cfg, f":b{batch}"))
 
 
 def test_batched_render_kernel_variants_match_plain(cuda):
     """The display without dither, the shaded center alone (compose off),
-    without shading, bloom or sunrays, at the 360x640 tick, B = 5."""
+    without shading, bloom or sunrays, at the 360x640 tick, B = 5; the
+    sunrays of each."""
     for flags in (dict(), dict(SHADING=False), dict(BLOOM=False), dict(SUNRAYS=False)):
         cfg = _cfg("demo", "bfloat16", **flags)
         state, _ = check.random_batch(cfg, 5, seed=2, device=cuda)
-        _check_batched(check.batched_render_cases(state, cfg, out_hw=(360, 640)))
+        _check_batched(check.batched_render_cases(state, cfg, out_hw=(360, 640))
+                       + check.sunrays_cases(state, cfg, ":b5"))
         _check_batched(check.batched_render_cases(state, cfg, dither=False))
         _check_batched(check.batched_render_cases(state, cfg, compose=False))
 
@@ -126,9 +133,10 @@ def test_batched_pyramid_loops_past_the_grid(cuda):
 
 @pytest.mark.parametrize("shape,dtype", [("demo", "float32"), ("256", "bfloat16")])
 def test_batched_frame_and_tick_equal_each_sim(shape, dtype, cuda):
-    """make_batched_render launches 1 bloom_pyramid and 1 display for the
-    B sims, equals the plain batched render, and each sim make_render on it
-    alone; three make_batched_tick ticks with a dt a sim launch 7 + 2 each,
+    """make_batched_render launches 1 bloom_pyramid, the sunrays' 2 and 1
+    display for the B sims, equals the plain batched render, and each sim
+    make_render on it alone; three make_batched_tick ticks with a dt a sim
+    launch 5 + 4 each,
     and each sim's state and uint8 frame equal make_step_and_render's."""
     cfg = _cfg(shape, dtype)
     b = 4
@@ -175,8 +183,8 @@ def test_profile_counts_each_batched_frame_launch(cuda):
 
 def test_refused_batched_render_launches_raise(cuda):
     """B outside 1..65535 is refused by the launchers (the pyramid's
-    cooperative grid would not grow with B in any case; the display's grid
-    z holds at most 65535), and raises; so does a batch whose bloom or
+    cooperative grid would not grow with B in any case; the display's and
+    the sunrays' grid z holds at most 65535), and raises; so does a batch whose bloom or
     sunrays do not lead with the dye's B. The next launches run."""
     base = torch.zeros((2, 3, 64, 64), device=cuda)
     sizes = (ctypes.c_int * 4)(32, 32, 16, 16)
@@ -184,6 +192,8 @@ def test_refused_batched_render_launches_raise(cuda):
     out = torch.empty_like(base)
     dye, frame = torch.zeros((2, 3, 64, 64), device=cuda), torch.empty((2, 4, 64, 64),
                                                                        device=cuda)
+    tab, decay = sunrays.tables((64, 64), (32, 32), cuda), sunrays._decay(1.0)
+    bounds = sunrays.band_bounds((64, 64), (32, 32), cuda)
     build.reset_launches()
     for batch in (0, 65536):
         with pytest.raises(RuntimeError, match="failed to launch"):
@@ -192,6 +202,12 @@ def test_refused_batched_render_launches_raise(cuda):
         with pytest.raises(RuntimeError, match="failed to launch"):
             display.DISPLAY(ptr(dye), batch, 3, 64, 64, 0, ptr(frame), 64, 64, 1, 0, 0.0, 0.0,
                             0.0, None, 0, 0, None, 0, 0, None, 0, 0, 0.0, 0.0, 64, 64, stream())
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            sunrays.SUNRAYS(ptr(dye), ptr(frame), batch, 64, 64, 32, 32, ptr(tab), ptr(bounds),
+                            stream())
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            sunrays.SUNRAYS_BLUR(ptr(frame), ptr(frame), batch, 64, 64, 32, 32, ptr(tab), decay,
+                                 stream())
     with pytest.raises(ValueError, match="bloom"):
         display.display(dye, (64, 64), True, base[:1])
     with pytest.raises(ValueError, match="sunrays"):
@@ -203,3 +219,5 @@ def test_refused_batched_render_launches_raise(cuda):
     _equal(bloom.bloom_pyramid(base, *args), bloom.bloom_pyramid_plain(base, *args), "bloom")
     _equal(display.display(dye, (64, 64), True), display.display_plain(dye, (64, 64), True),
            "display")
+    _equal(sunrays.sunrays(dye, (32, 32), 1.0), apply_sunrays(dye, (32, 32), 1.0),
+           "sunrays")

@@ -15,7 +15,9 @@ import torch
 
 from tpufluid_torch import FluidConfig, init_state, make_multi_step, swirl_trace
 from tpufluid_torch.ops import floors as plain_floors
-from tpufluid_torch.ops.cuda import advect, bloom, build, check, display, floors, jacobi, stencil
+from tpufluid_torch.ops.cuda import (advect, bloom, build, check, display, floors, jacobi, stencil,
+                                     sunrays)
+from tpufluid_torch.ops.sunrays import apply_sunrays
 from tpufluid_torch.ops.splat import splat_factors
 from tpufluid_torch.render import make_render, plain_render
 from tpufluid_torch.step import plain_step
@@ -292,8 +294,8 @@ def _check_cases(cases):
 @pytest.mark.parametrize("flags", RENDER_VARIANTS, ids=lambda f: ",".join(f) or "all")
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_render_kernels_match_plain(flags, dtype, cuda):
-    """bloom_pyramid and display against their plain versions at small
-    shapes: odd canvas, every flag variant, each storage dtype."""
+    """bloom_pyramid, the sunrays and display against their plain versions
+    at small shapes: odd canvas, every flag variant, each storage dtype."""
     cfg = FluidConfig(DTYPE=dtype, **{**CONFIGS["ragged"], "CANVAS_WIDTH": 333,
                                       "CANVAS_HEIGHT": 201, **flags}).validate()
     state, _ = check.random_state(cfg, seed=5, device=cuda)
@@ -301,6 +303,9 @@ def test_render_kernels_match_plain(flags, dtype, cuda):
     pyramid = cfg.BLOOM and len(cfg.bloom_mip_sizes()) >= 2
     assert [c.kernel_name for c in cases] == ["bloom_pyramid"] * pyramid + ["display"]
     _check_cases(cases)
+    rays = check.sunrays_cases(state, cfg)
+    assert [c.kernel_name for c in rays] == ["sunrays"] * cfg.SUNRAYS
+    _check_cases(rays)
     _check_cases(check.render_cases(state, cfg, out_hw=(50, 77), dither=False))
     _check_cases(check.render_cases(state, cfg, out_hw=(64, 130), compose=False))
 
@@ -374,6 +379,81 @@ def test_display_matches_plain_at_render_sizes(dye_hw, out_hw, dtype, cuda):
             assert display.DISPLAY.launches == before + 1
             want = display.display_plain(dye, out_hw, shading, *extras, compose=compose)
             assert torch.equal(got, want), (shading, compose)
+
+
+# (dye, sunrays grid) of every render config of these tests and of
+# tests/test_torch_batch_render_kernels.py: the demo's canvas (the fleet's
+# geometry), 1024^2, 256^2, and the ragged and small configs, whose dyes
+# are smaller than the sunrays grid (the taps upsample).
+SUNRAYS_CONFIGS = {
+    "demo": dict(DYE_RESOLUTION=1024, CANVAS_WIDTH=1280, CANVAS_HEIGHT=720),
+    "1024": dict(DYE_RESOLUTION=1024, CANVAS_WIDTH=1024, CANVAS_HEIGHT=1024),
+    "256": dict(DYE_RESOLUTION=256, CANVAS_WIDTH=256, CANVAS_HEIGHT=256),
+    "ragged": {**CONFIGS["ragged"], "CANVAS_WIDTH": 333, "CANVAS_HEIGHT": 201},
+    "small": CONFIGS["small"],
+}
+
+
+def _sunrays_inputs(shape, batch, device, seed):
+    """A float32 dye of config ``shape`` (one sim for batch 1, else
+    (batch, 3, H, W)) with values about the mask's knees, and the sunrays
+    grid (h, w)."""
+    cfg = FluidConfig(**SUNRAYS_CONFIGS[shape]).validate()
+    (dw, dh), (sw, sh) = cfg.dye_size, cfg.sunrays_size
+    lead = () if batch == 1 else (batch,)
+    gen = np.random.default_rng(seed)
+    dye = (gen.random(lead + (3, dh, dw)) * 0.06 - 0.01).astype(np.float32)
+    return torch.from_numpy(dye).to(device), (sh, sw)
+
+
+def _sunrays_matches_plain(dye, rays_hw, weight):
+    """The march and blur launches, one each, bit-equal to apply_sunrays
+    (NaN where it has NaN)."""
+    want = apply_sunrays(dye, rays_hw, weight)
+    before = {k: v.launches for k, v in build.KERNELS.items()}
+    got = sunrays.sunrays(dye, rays_hw, weight)
+    torch.cuda.synchronize()
+    ran = {k: v.launches - before[k] for k, v in build.KERNELS.items() if v.launches != before[k]}
+    assert ran == {"sunrays": 1, "sunrays_blur": 1}, ran
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    assert torch.equal(got[ok], want[ok]), float((got - want)[ok].abs().max())
+
+
+@pytest.mark.parametrize("shape", sorted(SUNRAYS_CONFIGS))
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_sunrays_matches_plain_at_render_sizes(shape, batch, cuda):
+    """The sunrays kernels at each render config's dye and sunrays grid,
+    one sim and batches of 3 and 16 in one launch each: max abs error 0
+    against apply_sunrays, with the default weight and another."""
+    dye, rays_hw = _sunrays_inputs(shape, batch, cuda, seed=batch)
+    _sunrays_matches_plain(dye, rays_hw, 1.0)
+    _sunrays_matches_plain(dye, rays_hw, 0.7)
+
+
+def test_sunrays_keeps_nan_and_infinities(cuda):
+    """A NaN channel makes the rays NaN wherever apply_sunrays has NaN; an
+    infinite or negative-zero channel clamps as the plain ops clamp it."""
+    dye, rays_hw = _sunrays_inputs("ragged", 2, cuda, seed=4)
+    dye[0, 1, 10, 20] = float("nan")
+    dye[0, 0, 30, 50] = float("inf")
+    dye[1, 2, 5, 5] = -float("inf")
+    dye[1, :, 20, 30] = -0.0
+    _sunrays_matches_plain(dye, rays_hw, 1.0)
+
+
+def test_sunrays_reads_any_contiguous_dye(cuda):
+    """The march's 16-byte loads need every dye row 16-byte aligned; a
+    contiguous dye that starts one float past its storage's start, or whose
+    width is not a multiple of 4, takes the 4-byte loads, with the same
+    bits."""
+    dye, rays_hw = _sunrays_inputs("demo", 2, cuda, seed=6)
+    shifted = torch.empty(dye.numel() + 1, device=cuda)[1:].view(dye.shape)
+    shifted.copy_(dye)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    _sunrays_matches_plain(shifted, rays_hw, 1.0)
+    _sunrays_matches_plain(dye[..., :-1].contiguous(), rays_hw, 1.0)
 
 
 def _display_extras(cfg, gen, device, batch=()):
@@ -451,9 +531,8 @@ def test_kernel_render_matches_plain_render(cuda):
     state, _ = check.random_state(cfg, seed=2, device=cuda)
     build.reset_launches()
     got = make_render(cfg)(state)
-    launches = {k: v.launches for k, v in build.KERNELS.items()}
-    assert launches["bloom_pyramid"] == 1
-    assert launches["display"] == 1
+    launches = {k: v.launches for k, v in build.KERNELS.items() if v.launches}
+    assert launches == {"bloom_pyramid": 1, "sunrays": 1, "sunrays_blur": 1, "display": 1}
     err, tol = check.compare(got, plain_render(state, cfg))
     assert err <= tol, (err, tol)
 
@@ -467,6 +546,10 @@ def test_render_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="must be float32"):
         display.display(torch.zeros((3, 8, 8), device=cuda), (8, 8), True,
                         torch.zeros((3, 4, 4), device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="float32 dye"):
+        sunrays.sunrays(torch.zeros((3, 8, 8), device=cuda, dtype=torch.bfloat16), (4, 4), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        sunrays.sunrays(torch.zeros((3, 8, 16), device=cuda)[..., ::2], (4, 4), 1.0)
 
 
 def test_refused_render_launches_raise(cuda):

@@ -16,11 +16,10 @@ batched step equals the single-sim step on that sim, with its dt and its
 splats, bit for bit: the kernels run each sim's operations unchanged, and
 the plain versions run a CPU batch sim by sim.
 
-A batched frame (``make_batched_render``) is one bloom pyramid launch and
-one display launch for the B sims, with the sunrays' PyTorch ops run once
-on the whole batch and one dither tile for every sim, as the JAX vmap
-broadcasts it; each sim's frame equals render_frame on that sim, bit for
-bit.
+A batched frame (``make_batched_render``) is one bloom pyramid launch, the
+sunrays' two launches (march and blur) and one display launch for the B
+sims, with one dither tile for every sim, as the JAX vmap broadcasts it;
+each sim's frame equals render_frame on that sim, bit for bit.
 
 Over a mesh of devices (tpufluid/batch.py:168-339), one process drives
 every device, as in tpufluid_torch/parallel:
@@ -197,8 +196,9 @@ plain_batched_render = plain_render
 def make_batched_render(config: FluidConfig, out_hw: Optional[Tuple[int, int]] = None,
                         to_screen: bool = True, device="cuda"):
     """render(batched_state, dither=None) -> (B, 4, h, w) float32 frames on
-    ``device`` (default the GPU): one bloom and one display launch for the
-    B sims on the card, their plain versions on the CPU. ``dither`` is one
+    ``device`` (default the GPU): one bloom launch, the sunrays' two and one
+    display launch for the B sims on the card, their plain versions on the
+    CPU. ``dither`` is one
     (h, w) tile shared by every sim (tpufluid/batch.py:150-151)."""
     device = resolve_device(device)
 

@@ -35,7 +35,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v")
 
-SOURCES = ("stencil", "jacobi", "advect", "bloom", "display", "floors")
+SOURCES = ("stencil", "jacobi", "advect", "bloom", "display", "floors", "sunrays")
 
 # Storage type codes of csrc/common.cuh.
 STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}

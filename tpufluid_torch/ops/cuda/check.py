@@ -48,6 +48,7 @@ from tpufluid_torch.ops.cuda import display as _display
 from tpufluid_torch.ops.cuda import floors as _floors_k
 from tpufluid_torch.ops.cuda import jacobi as _jacobi
 from tpufluid_torch.ops.cuda import stencil as _stencil
+from tpufluid_torch.ops.cuda import sunrays as _sunrays
 from tpufluid_torch.ops.display import shading_constants
 from tpufluid_torch.ops.sampling import affine_axis_plan, resample_bilinear
 from tpufluid_torch.ops.splat import SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R, splat_factors
@@ -93,6 +94,9 @@ def _bytes(*tensors) -> int:
 _DIV, _SQRT, _POW = 18, 16, 56
 _AXIS, _LERP = _DIV + 7, 4
 _KNEE = 12 + _DIV
+# The sunrays' mask at one corner: two maxima over the channels, x 20, the
+# two clamps and 1 - t.
+_MASK = 6
 
 
 # The pre-pressure chain a texel, beside the bump's 2 operations a channel
@@ -422,6 +426,18 @@ def _pyramid_flops(base_hw, mip_sizes) -> int:
     return n + _blur4_flops(base_hw, 0)
 
 
+def _sunrays_flops(out_hw) -> int:
+    """One sunrays pass of one sim, per rays texel as the kernels compute
+    it from their tables: the march's 17 taps of 4 corner masks and 3
+    lerps, 16 weighted adds and the exposure; the blur's two passes, each 3
+    taps of 2 lerps and their weighted sum (3 multiplies, 2 adds)."""
+    h, w = out_hw
+    taps = _sunrays.TAPS
+    march = taps * (4 * _MASK + 3 * _LERP) + 2 * (taps - 1) + 1
+    blur = 2 * (3 * 2 * _LERP + 5)
+    return h * w * (march + blur)
+
+
 def _display_flops(dye_hw, out_hw, c: int, shading: bool, extras, compose: bool) -> int:
     """One display pass, counted as the plain version computes it: every
     axis coordinate once per output row or column, each separable stage's
@@ -480,13 +496,14 @@ def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bo
     the base resample, where the config has 2 mips or more), then the
     display (on the card, the kernel of the form it takes there:
     display.kernel_of); of one sim, or of a batch (fields with a leading
-    B) in one launch each, with the work of the B sims. ``dither=False`` leaves the
-    dither out of the display and ``compose=False`` makes it the shaded
-    center alone: neither is what render_frame calls, both are what the
-    display kernel takes. The pyramid's bytes are its base read and its
-    output written: the mips between are the function's own. The display's
-    dye bytes are the texels its taps touch (_dye_texels_read). ``tag`` is
-    added to each label."""
+    B) in one launch each, with the work of the B sims. The sunrays' call
+    between them is sunrays_cases'. ``dither=False`` leaves the dither out
+    of the display and ``compose=False`` makes it the shaded center alone:
+    neither is what render_frame calls, both are what the display kernel
+    takes. The pyramid's bytes are its base read and its output written:
+    the mips between are the function's own. The display's dye bytes are
+    the texels its taps touch (_dye_texels_read). ``tag`` is added to each
+    label."""
     out_hw = tuple(out_hw or (config.CANVAS_HEIGHT, config.CANVAS_WIDTH))
     dye = state.dye.to(torch.float32)
     lead = tuple(state.dye.shape[:-3])
@@ -530,6 +547,24 @@ def render_cases(state: FluidState, config: FluidConfig, out_hw=None, dither: bo
         n_sims * _display_flops(tuple(state.dye.shape[-2:]), out_hw, c, config.SHADING,
                                 extras, compose)))
     return cases
+
+
+def sunrays_cases(state: FluidState, config: FluidConfig, tag: str = "") -> List[Case]:
+    """The frame's sunrays call from ``state`` (render_frame's, on the dye
+    cast to float32), of one sim or of a batch in one call: the march and
+    blur launches, labelled by the march's Kernel, "sunrays", with the
+    work of the sims: the float32 dye read and the rays written, and
+    _sunrays_flops; none where the config has no sunrays. Apart from
+    render_cases, whose calls fluidbench/work models pass by pass: the
+    sunrays have no pass there yet. ``tag`` is added to the label."""
+    if not config.SUNRAYS:
+        return []
+    dye = state.dye.to(torch.float32)
+    n_sims = state.dye.shape[0] if state.dye.ndim == 4 else 1
+    sw, sh = config.sunrays_size
+    return [Case("sunrays" + tag, "sunrays", _sunrays.sunrays, apply_sunrays,
+                 (dye, (sh, sw), config.SUNRAYS_WEIGHT), _bytes(dye) + 4 * n_sims * sh * sw,
+                 n_sims * _sunrays_flops((sh, sw)))]
 
 
 def batched_render_cases(state: FluidState, config: FluidConfig, out_hw=None,

@@ -9,8 +9,8 @@ TPU padding and tiling policy: the kernels read global memory at any shape.
 The step's passes take one sim or a batch of B sims (every field with a
 leading B, dt a number or a (B, 2) table a sim): a CUDA batch goes to the
 kernels, B sims in each launch; a CPU batch to the plain versions, sim by
-sim. So do the frame's two kernels: the bloom pyramid and the display take
-one sim or a batch (B leading) in one launch each.
+sim. So do the frame's kernels: the bloom pyramid, the sunrays (two
+launches) and the display take one sim or a batch (B leading).
 
 The lane-packed fleet (tpufluid_torch/batch_packed.py) has its own pair,
 ``packed(sim_w)`` routed and ``packed(sim_w, plain=True)``: the same
@@ -34,6 +34,8 @@ from tpufluid_torch.ops.cuda import bloom as _bloom
 from tpufluid_torch.ops.cuda import display as _display
 from tpufluid_torch.ops.cuda import jacobi as _jacobi
 from tpufluid_torch.ops.cuda import stencil as _stencil
+from tpufluid_torch.ops.cuda import sunrays as _sunrays
+from tpufluid_torch.ops.sunrays import apply_sunrays
 
 
 def _routed(kernel, plain):
@@ -130,19 +132,22 @@ advect_same_grid = ROUTED.advect_same_grid
 
 
 class RenderPasses:
-    """The two kernels of one frame, of one sim or a batch, through one
+    """The kernels of one frame, of one sim or a batch, through one
     implementation: ``bloom_chain(dye_rgb, base_hw, mip_sizes, threshold,
-    soft_knee, intensity)`` and ``display(dye, out_hw, shading, bloom,
-    sunrays, dither, compose=True)``, the dither one tile for every sim."""
+    soft_knee, intensity)``, ``sunrays(dye_rgb, out_hw, weight)`` and
+    ``display(dye, out_hw, shading, bloom, sunrays, dither, compose=True)``,
+    the dither one tile for every sim."""
 
-    def __init__(self, bloom_chain, display):
+    def __init__(self, bloom_chain, sunrays, display):
         self.bloom_chain = bloom_chain
+        self.sunrays = sunrays
         self.display = display
 
 
 ROUTED_RENDER = RenderPasses(_routed(_bloom.bloom_chain, _bloom.bloom_chain_plain),
+                             _routed(_sunrays.sunrays, apply_sunrays),
                              _routed(_display.display, _display.display_plain))
-PLAIN_RENDER = RenderPasses(_bloom.bloom_chain_plain, _display.display_plain)
+PLAIN_RENDER = RenderPasses(_bloom.bloom_chain_plain, apply_sunrays, _display.display_plain)
 
 bloom_chain = ROUTED_RENDER.bloom_chain
 

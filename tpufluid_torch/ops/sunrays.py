@@ -1,5 +1,11 @@
 """Sunrays: volumetric light-scattering march + separable blur. Mirrors
-``tpufluid.ops.sunrays``, which is jnp ops there too (no TPU kernel).
+``tpufluid.ops.sunrays``, which is jnp ops there (no TPU kernel).
+
+These ops are the plain version of the CUDA pass (csrc/sunrays.cu, wrapped
+by ops/cuda/sunrays.py: a march launch that masks the dye once in shared
+memory, the mask and the column stages never in device memory, and a blur
+launch), which the render runs on a CUDA dye; the render runs these ops on
+a CPU dye, and plain_render on any device.
 
 Reference applySunrays/blur (script.js:1396-1419) and the
 sunraysMask/sunrays/blur shaders (script.js:676-724, 479-494):

@@ -6,15 +6,17 @@ Order, that of the reference: bloom chain -> sunrays (mask, march, 1x blur)
 mode) -> display composite, blended premultiplied (ONE, ONE_MINUS_SRC_ALPHA)
 unless rendering an offscreen transparent capture (no blend, raw RGBA).
 
-On a CUDA state the bloom pyramid (1 launch) and the display composite (1
-launch) run the CUDA kernels; on a CPU state their plain versions. Sunrays, the base resample and the blend are
-PyTorch ops on either device. The output is a float32 (4, H, W) RGBA tensor
-on the state's device; frame_u8 quantizes it to the servers' wire format.
+On a CUDA state the bloom pyramid (1 launch), the sunrays (2 launches: the
+march, then the blur) and the display composite (1 launch) run the CUDA
+kernels; on a CPU state their plain versions. The dye cast, the bloom's base
+resample, the backdrop and the blend are PyTorch ops on either device. The
+output is a float32 (4, H, W) RGBA tensor on the state's device; frame_u8
+quantizes it to the servers' wire format.
 
 A state whose fields lead with a batch axis of B sims (tpufluid_torch.batch)
-renders as a batch: (B, 4, H, W), one bloom and one display launch for the B
-sims, the sunrays' ops once for all of them, one backdrop broadcast over
-them. Each sim's frame is the single-sim frame of that sim, bit for bit.
+renders as a batch: (B, 4, H, W), one bloom launch, the sunrays' two and
+one display launch for the B sims, one backdrop broadcast over them. Each
+sim's frame is the single-sim frame of that sim, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +30,6 @@ from tpufluid_torch.config import FluidConfig
 from tpufluid_torch.io import load_dither
 from tpufluid_torch.ops.cuda import dispatch
 from tpufluid_torch.ops.display import blend_premultiplied, checkerboard
-from tpufluid_torch.ops.sunrays import apply_sunrays
 from tpufluid_torch.spans import span
 from tpufluid_torch.state import FluidState, resolve_device
 from tpufluid_torch.step import fluid_step
@@ -62,7 +63,7 @@ def _render(state: FluidState, config: FluidConfig, out_hw, to_screen: bool, dit
         if config.SUNRAYS:
             sw, sh = config.sunrays_size
             with span("sunrays"):
-                sunrays_tex = apply_sunrays(dye, (sh, sw), config.SUNRAYS_WEIGHT)
+                sunrays_tex = passes.sunrays(dye, (sh, sw), config.SUNRAYS_WEIGHT)
 
         if config.BLOOM and dither is None:
             dither = blue_noise(device)

@@ -253,7 +253,7 @@ def make_batch_sharded_substepped_tick(config: FluidConfig, mesh):
     devices; the frames of all B sims, in order, are copied to the mesh's
     first device, as JAX's out_specs gather them when they are read. Each
     sim's state and frame equal the unsharded tick's bit for bit, and each
-    device makes the K-substep tick's 5K + 2 launches. Raises ValueError
+    device makes the K-substep tick's 5K + 4 launches. Raises ValueError
     where mesh.size does not divide B."""
     body = _substepped_body(config)
 

@@ -8,9 +8,9 @@ shared splat rows go to the device once for the run and reach every sim as
 one expanded (T, B, MAX_SPLATS, 8) view, the per-sim dts (one float32 tensor
 on the device) as one (T, B) table a chunk. Each frame's (B, 4, H, W) batch
 comes to the host in one copy. On the GPU that is five launches a step
-(pre_pressure, jacobi_chunk, jacobi_project, advect, advect_dye) and two a
-frame (bloom_pyramid, display); TPUFLUID_DEVICE=cpu runs their plain
-versions on the CPU instead.
+(pre_pressure, jacobi_chunk, jacobi_project, advect, advect_dye) and four a
+frame (bloom_pyramid, sunrays, sunrays_blur, display); TPUFLUID_DEVICE=cpu
+runs their plain versions on the CPU instead.
 
   python -m tpufluid_torch.tools.batch_demo                  # the GPU
   TPUFLUID_DEVICE=cpu python -m tpufluid_torch.tools.batch_demo --steps 60
@@ -36,7 +36,7 @@ SPEEDS = (0.25, 0.5, 0.75, 1.0)   # each sim's clock over the 1/60 s ceiling
 SEED = 11                         # the one swirl_trace every sim replays
 GIF_FPS = 15
 # The libraries of the step's and the frame's kernels.
-LIBRARIES = ("stencil", "jacobi", "advect", "bloom", "display")
+LIBRARIES = ("stencil", "jacobi", "advect", "bloom", "display", "sunrays")
 
 
 def build_argparser() -> argparse.ArgumentParser:

@@ -32,6 +32,15 @@ bf16 (RGB9E5), one sim and a batch of DIRECT_BATCH, on check.random_state
 67 TFLOP/s), from the render case's bytes and check._display_flops; and
 the staged form too where a 16-bit window fits.
 
+Sunrays: the fleet's geometry (16 sims of a 1820x1024 float32 dye, rays
+348x196) and one sim at the demo and at 1024x1024, dyes from numpy (seed
+0) about the mask's knees: the march and blur launches, and the march
+alone beside them (the designs they beat, a march of one thread a texel
+and its fusion into the blur, are gone; their times are in PERF.md),
+beside the bound (check.render_cases' bytes and operations)
+and the plain version's ms (one call queued: its 324 launches would
+overfill the device's queue at 20).
+
 Floors (the profiling path's yardsticks, at their defaults): floor_sweep's
 16 x 20 sweeps of 256x1024 at K = 1, 2, 4, 5, 10 and 20 sweeps between
 grid barriers, each on sweep_plan's geometry for that K;
@@ -54,8 +63,8 @@ Every candidate must equal its plain version bit for bit. Prints one line
 per candidate: its device ms (spin-queued CUDA events, as chip_smoke.py
 times), its launches and the card's name and power limit; ``--json``
 writes the rows. ``--only`` takes a comma-separated list of sections
-(stencil, jacobi, bloom, display, floors, rates; all but rates by
-default).
+(stencil, jacobi, bloom, display, sunrays, floors, rates; all but rates
+by default).
 """
 
 from __future__ import annotations
@@ -70,7 +79,7 @@ import torch
 
 from tpufluid_torch import FluidConfig
 from tpufluid_torch.ops import floors as plain_floors
-from tpufluid_torch.ops.cuda import bloom, check, display, jacobi, stencil
+from tpufluid_torch.ops.cuda import bloom, check, display, jacobi, stencil, sunrays
 from tpufluid_torch.ops.cuda import floors
 from tpufluid_torch.ops.cuda.build import sm_count
 from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
@@ -250,6 +259,52 @@ def display_rows(rate: float, gpu: str) -> list:
                 print(f"display candidate {name:14s} shading={int(shading)} "
                       f"compose={int(compose)} {form}: {ms:.4f} ms, max_abs_err {err:.1e} "
                       f"on {gpu}", flush=True)
+    return rows
+
+
+# (label, config, sims) of the sunrays' candidates: the fleet first.
+SUNRAYS_CELLS = (("fleet16", dict(DYE_RESOLUTION=1024, CANVAS_WIDTH=1280, CANVAS_HEIGHT=720), 16),
+                 ("demo", dict(DYE_RESOLUTION=1024, CANVAS_WIDTH=1280, CANVAS_HEIGHT=720), 1),
+                 ("1024", dict(DYE_RESOLUTION=1024, CANVAS_WIDTH=1024, CANVAS_HEIGHT=1024), 1))
+
+
+def sunrays_rows(rate: float, gpu: str) -> list:
+    from tpufluid_torch.ops.cuda.build import ptr, stream
+    from tpufluid_torch.ops.sunrays import apply_sunrays
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for name, kw, sims in SUNRAYS_CELLS:
+        cfg = FluidConfig(**kw).validate()
+        (dw, dh), (sw, sh) = cfg.dye_size, cfg.sunrays_size
+        lead = (sims,) if sims > 1 else ()
+        dye = torch.from_numpy((rng.random(lead + (3, dh, dw)) * 0.06 - 0.01)
+                               .astype(np.float32)).cuda()
+        args = (dye, (sh, sw), cfg.SUNRAYS_WEIGHT)
+        want = apply_sunrays(*args)
+        nbytes = check._bytes(dye, want)
+        bound = max(nbytes / HBM_BYTES_PER_S, sims * check._sunrays_flops((sh, sw))
+                    / F32_FLOPS_PER_S) * 1e3
+        plain_ms = queued_ms(lambda: apply_sunrays(*args), 1, rate)
+        tab = sunrays.tables((dh, dw), (sh, sw), dye.device)
+        bounds = sunrays.band_bounds((dh, dw), (sh, sw), dye.device)
+        taps = torch.empty((sims, sunrays.TAPS, sh, sw), dtype=torch.float32, device=dye.device)
+
+        def march():
+            sunrays.SUNRAYS(ptr(dye), ptr(taps), sims, dh, dw, sh, sw, ptr(tab), ptr(bounds),
+                            stream())
+
+        def run():
+            return sunrays.sunrays(*args)
+
+        err = float((run() - want).abs().max())
+        ms, march_ms = queued_ms(run, 20, rate), queued_ms(march, 20, rate)
+        rows.append({"kernel": "sunrays", "grid": name, "sims": sims, "launches": 2, "ms": ms,
+                     "march_ms": march_ms, "bound_ms": bound, "plain_ms": plain_ms,
+                     "bytes": nbytes, "max_abs_err": err})
+        print(f"sunrays candidate {name:8s} b{sims:<3d} march + blur: {ms:.4f} ms (march "
+              f"{march_ms:.4f}), bound {bound:.4f}, plain {plain_ms:.4f} ms, max_abs_err "
+              f"{err:.1e} on {gpu}", flush=True)
     return rows
 
 
@@ -494,7 +549,7 @@ def rate_rows(rate: float, gpu: str) -> list:
     return rows
 
 
-SECTIONS = ("stencil", "jacobi", "bloom", "display", "floors", "rates")
+SECTIONS = ("stencil", "jacobi", "bloom", "display", "sunrays", "floors", "rates")
 
 
 def main(argv=None) -> list:
@@ -521,6 +576,8 @@ def main(argv=None) -> list:
         rows += bloom_rows(rate, gpu) + bloom_batch_rows(rate, gpu)
     if "display" in only:
         rows += display_rows(rate, gpu) + threshold_rows(rate, gpu) + direct_rows(rate, gpu)
+    if "sunrays" in only:
+        rows += sunrays_rows(rate, gpu)
     if "floors" in only:
         rows += sweep_rows(rate, gpu) + taa_rows(rate, gpu) + roll_rows(rate, gpu)
     rates = rate_rows(rate, gpu) if "rates" in only else []

@@ -6,12 +6,13 @@ checkouts on one card.
 At the demo's defaults (float32) and at 1024x1024 and 4096x4096 (bfloat16
 with the RGB9E5 dye), on check.random_state (seed 7), times every kernel call
 of one step (check.step_cases; a checkout with check.part_cases, the dye's
-prepare alone too) and the frame's bloom pyramid and display at the canvas
-(render_cases); at the serving cells serving_256_b16 (16 sims of 256^2),
-serving_1024_b8 (8 of 1024^2) and packed_288_b64 (64 of 288^2), bf16
-RGB9E5, every kernel call of a lock-step batched step
-(check.batched_step_cases, labels ":b<B>:lockstep") and of a packed fleet
-step on the same sims (check.packed_step_cases, ":packed:b<B>:lockstep").
+prepare alone too) and the frame's bloom pyramid, sunrays (where the
+checkout has the kernel) and display at the canvas (render_cases); at the
+serving cells serving_256_b16 (16 sims of 256^2), serving_1024_b8 (8 of
+1024^2) and packed_288_b64 (64 of 288^2), bf16 RGB9E5, every kernel call
+of a lock-step batched step (check.batched_step_cases, labels
+":b<B>:lockstep") and of a packed fleet step on the same sims
+(check.packed_step_cases, ":packed:b<B>:lockstep").
 Where the step's solve ends in the fused jacobi_project, its case
 ("jacobi_project") is timed beside the standalone pair it replaces
 ("jacobi" and "gradient_subtract", the cases after the step's), which are
@@ -27,7 +28,10 @@ order parent, change, change, parent:
 
     cd path/to/other/checkout && PYTHONPATH=. python3 path/to/kernel_times.py parent
 
-Prints one line per call: ``KT TAG config case ms``; where the checkout has
+Prints one line per call: ``KT TAG config case ms``, and ``BOUND TAG config
+case bound_ms plain_ms`` beside it: the call's bound, max(bytes / 3.35 TB/s,
+operations / 67 TFLOP/s) from the case's work model, and for the frame's
+calls the plain version's ms (one call queued); where the checkout has
 them, ``KT TAG config grid_sample:case ms`` (one torch grid_sample call on
 each advection case's source, check.grid_sample_ms: the library yardstick)
 and ``FIT TAG config case share`` (the share of the dye kernel's tiles
@@ -54,6 +58,8 @@ CONFIGS = (("demo", dict(SIM_RESOLUTION=128, DYE_RESOLUTION=1024, CANVAS_WIDTH=1
 FLEETS = {"serving_256_b16": (256, 16), "serving_1024_b8": (1024, 8),
           "packed_288_b64": (288, 64)}
 FLOW_STEPS = 100
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
+F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 
 
 def config(name, FluidConfig):
@@ -78,7 +84,10 @@ def cases(name, check, FluidConfig) -> list:
     out = check.step_cases(state, splats, cfg)
     if hasattr(check, "part_cases"):
         out += check.part_cases(state, splats, cfg)
-    return out + check.render_cases(state, cfg)
+    out += check.render_cases(state, cfg)
+    if hasattr(check, "sunrays_cases"):
+        out += check.sunrays_cases(state, cfg)
+    return out
 
 
 def flow_cases(name, check, FluidConfig) -> list:
@@ -117,7 +126,8 @@ def main(argv) -> None:
     from tpufluid_torch.ops.cuda import advect, build, check
     from tpufluid_torch.ops.cuda.floors import queued_ms, spin_rate
 
-    build.build(["stencil", "jacobi", "advect", "bloom", "display"])
+    build.build([n for n in ("stencil", "jacobi", "advect", "bloom", "display", "sunrays")
+                 if n in build.SOURCES])
     rate = spin_rate()
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
@@ -125,6 +135,10 @@ def main(argv) -> None:
         for case in cases(name, check, FluidConfig) + flow_cases(name, check, FluidConfig):
             ms = sorted(queued_ms(case.run, 20, rate) for _ in range(args.reps))[args.reps // 2]
             print(f"KT {args.tag} {name} {case.label} {ms:.5f}", flush=True)
+            bound = max(case.nbytes / HBM_BYTES_PER_S, case.flops / F32_FLOPS_PER_S) * 1e3
+            frame = case.kernel_name in ("bloom_pyramid", "sunrays", "display", "display_direct")
+            plain = queued_ms(lambda: case.run(plain=True), 1, rate) if frame else float("nan")
+            print(f"BOUND {args.tag} {name} {case.label} {bound:.5f} {plain:.5f}", flush=True)
             if not case.label.startswith("advect:"):
                 continue
             sim_w = FLEETS[name][0] if ":packed" in case.label else None
