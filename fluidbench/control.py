@@ -28,15 +28,18 @@ LOWER = {"float32": "bfloat16", "bfloat16": "float8_e4m3fn", "float16": "float8_
 class Control:
     """Program's interface, computed by the reference in lower precision."""
 
-    def __init__(self, cfg: Dict, mix: Dict, traffic, device):
-        self.cfg, self.mix, self.traffic, self.device = cfg, mix, traffic, device
+    def __init__(self, cfg: Dict, mix: Dict, traffic, devices):
+        """The whole grid on the first of ``devices``."""
+        self.cfg, self.mix, self.traffic = cfg, mix, traffic
+        self.devices = list(devices)
+        self.device = self.devices[0]
         self.config = program.fluid_config(cfg)
         self.steps = mix.get("chunk", 1)
         self.host_s = 0.0
         self.store = fluid.storage(LOWER[cfg["DTYPE"]])
         self.rgb9e5 = check.precision(cfg)[1]
-        self.tile = (torch.from_numpy(bluenoise.tile()).to(device) if mix["entry"] == "tick"
-                     else None)
+        self.tile = (torch.from_numpy(bluenoise.tile()).to(self.device)
+                     if mix["entry"] == "tick" else None)
 
     def init(self):
         from fluidbench.reference import geometry
@@ -56,10 +59,10 @@ class Control:
         return f, frames
 
 
-def run_seeds(cell, seeds, seconds: float, device, log=sys.stderr) -> Dict[int, Dict]:
+def run_seeds(cell, seeds, seconds: float, devices, log=sys.stderr) -> Dict[int, Dict]:
     out = {}
     for seed in seeds:
-        r = harness.run(cell, seed, seconds, False, device, time.perf_counter(),
+        r = harness.run(cell, seed, seconds, False, devices, time.perf_counter(),
                         make_program=Control, log=log)
         out[seed] = r
         for k, v in r["checks"].items():
@@ -78,7 +81,7 @@ def main(argv=None) -> int:
         return 2
     cell = harness.load_cell(args.workload)
     res = run_seeds(cell, [int(s) for s in args.seeds.split(",")], args.seconds,
-                    torch.device("cuda", 0), log=sys.stdout)
+                    [torch.device("cuda", 0)], log=sys.stdout)
     print(f"control correct {[r['correct'] for r in res.values()]}", flush=True)
     return 0
 

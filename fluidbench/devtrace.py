@@ -1,11 +1,18 @@
 """The device timeline of a traced window, read from torch.profiler.
 
 The window runs ``calls`` calls of the cell's entry between two marker
-kernels (torch.cuda._sleep's), with a few traced calls on either side so
-that the window keeps clear of the trace's edges. Device events between the
-markers are the window's: on one stream they run in launch order. Their
-names are reduced to kernel stems ("void advect_kernel<float, ...>(...)" ->
-"advect_kernel"); memory copies and fills keep their kind.
+kernels (torch.cuda._sleep's) on every card the cell uses, with a few
+traced calls on either side so that the window keeps clear of the trace's
+edges. A card's device events between its own two markers are its window's:
+on its one stream they run in launch order. Their names are reduced to
+kernel stems ("void advect_kernel<float, ...>(...)" -> "advect_kernel");
+memory copies and fills keep their kind, a copy between two cards
+("Memcpy PtoP") too.
+
+Over several cards each event keeps its card's index; busy time and idle
+gaps are a card's, and the digest's busy time is the mean over its cards,
+so that 1 - busy / window stays a card's average idle share. With one card
+every reading is what it was before cards were counted.
 
 Only the device is traced (with the CUDA runtime's calls, which come with
 it), not PyTorch's host operators: the cells are partly bound by the host,
@@ -18,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 MARKER = "spin_kernel"
 EDGE = 2
@@ -32,12 +39,15 @@ class Event:
     device: bool
     start: float   # microseconds
     dur: float
+    card: int = 0  # the CUDA device index of a device event
 
 
 @dataclasses.dataclass
 class Digest:
     """What the readers read: the window's device events and host events,
-    its length, and the units (steps or ticks) it holds."""
+    its length, and the units (steps or ticks) it holds. ``extra["windows"]``
+    holds each card's window (lo, hi) between its markers; ``window_us`` is
+    the mean of the cards' windows."""
 
     window_us: float
     device: List[Event]
@@ -46,15 +56,25 @@ class Digest:
     unit: str                       # "step" or "tick"
     extra: Dict = dataclasses.field(default_factory=dict)
 
+    @property
+    def cards(self) -> List[int]:
+        """The device indices of the cards in the window, in order."""
+        return sorted(self.extra["windows"])
+
     def kernels(self) -> List[Event]:
         return [e for e in self.device if kind(e.name) == "kernel"]
 
-    def busy_us(self) -> float:
-        """Microseconds of the window in which a kernel, copy or fill ran."""
-        spans = sorted((e.start, e.start + e.dur) for e in self.device)
+    def _spans(self, card: int) -> List[Tuple[float, float]]:
+        return sorted((e.start, e.start + e.dur) for e in self.device if e.card == card)
+
+    def busy_us(self, card: Optional[int] = None) -> float:
+        """Microseconds of ``card``'s window in which a kernel, copy or fill
+        ran on it; without a card the mean over the cards."""
+        if card is None:
+            return sum(self.busy_us(c) for c in self.cards) / len(self.cards)
         busy, end = 0.0, None
-        lo_w, hi_w = self.extra["lo"], self.extra["hi"]
-        for a, b in spans:
+        lo_w, hi_w = self.extra["windows"][card]
+        for a, b in self._spans(card):
             a, b = max(a, lo_w), min(b, hi_w)
             if b <= a:
                 continue
@@ -66,16 +86,19 @@ class Digest:
                 end = b
         return busy
 
-    def gaps(self) -> List[Tuple[float, float]]:
-        """The window's idle intervals on the device."""
-        spans = sorted((e.start, e.start + e.dur) for e in self.device)
-        out, t = [], self.extra["lo"]
-        for a, b in spans:
+    def gaps(self, card: Optional[int] = None) -> List[Tuple[float, float]]:
+        """``card``'s idle intervals in its window; without a card every
+        card's, card by card."""
+        if card is None:
+            return [g for c in self.cards for g in self.gaps(c)]
+        lo_w, hi_w = self.extra["windows"][card]
+        out, t = [], lo_w
+        for a, b in self._spans(card):
             if a > t:
                 out.append((t, a))
             t = max(t, b)
-        if self.extra["hi"] > t:
-            out.append((t, self.extra["hi"]))
+        if hi_w > t:
+            out.append((t, hi_w))
         return out
 
 
@@ -89,6 +112,8 @@ def stem(name: str) -> str:
 
 def kind(name: str) -> str:
     if name.startswith("Memcpy"):
+        if "PtoP" in name:
+            return "copy_ptop"          # between two cards
         return "copy_dtoh" if "DtoH" in name else "copy"
     if name.startswith("Memset"):
         return "fill"
@@ -96,37 +121,58 @@ def kind(name: str) -> str:
 
 
 def digest(events: List[Event], units: int, unit: str) -> Digest:
-    """The window between the two marker kernels. Raises unless both were
-    recorded."""
-    marks = sorted((e for e in events if e.device and MARKER in e.name), key=lambda e: e.start)
-    if len(marks) != 2:
-        raise RuntimeError(f"traced window not found: {len(marks)} marker kernels")
-    lo, hi = marks[0].start + marks[0].dur, marks[1].start
-    device = [Event(stem(e.name) if kind(e.name) == "kernel" else e.name, True, e.start, e.dur)
-              for e in events if e.device and lo <= e.start < hi and MARKER not in e.name]
+    """Each card's window between its two marker kernels. Raises unless
+    every card with a device event recorded both."""
+    windows = {}
+    for c in sorted({e.card for e in events if e.device}):
+        marks = sorted((e for e in events if e.device and e.card == c and MARKER in e.name),
+                       key=lambda e: e.start)
+        if len(marks) != 2:
+            raise RuntimeError(f"traced window not found on card {c}: {len(marks)} marker "
+                               f"kernels")
+        windows[c] = (marks[0].start + marks[0].dur, marks[1].start)
+    if not windows:
+        raise RuntimeError("traced window not found: no marker kernels")
+    device = [Event(stem(e.name) if kind(e.name) == "kernel" else e.name, True, e.start, e.dur,
+                    e.card)
+              for e in events if e.device and MARKER not in e.name
+              and windows[e.card][0] <= e.start < windows[e.card][1]]
+    lo, hi = min(w[0] for w in windows.values()), max(w[1] for w in windows.values())
     host = [e for e in events if not e.device and e.start < hi and e.start + e.dur > lo]
-    return Digest(hi - lo, device, host, units, unit, {"lo": lo, "hi": hi})
+    window = sum(b - a for a, b in windows.values()) / len(windows)
+    return Digest(window, device, host, units, unit, {"windows": windows})
 
 
-def profile(call: Callable[[], None], calls: int) -> List[Event]:
+def profile(call: Callable[[], None], calls: int, devices: Sequence) -> List[Event]:
     """Every device event, and the CUDA runtime's calls, of ``calls`` calls
-    of ``call`` between two markers, with EDGE calls traced on either side."""
+    of ``call`` between two markers on each of the CUDA ``devices`` (a card
+    named twice has one pair), with EDGE calls traced on either side."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as _profile
 
+    cards = sorted({torch.device(d).index for d in devices})
+
+    def markers():
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda._sleep(1000)
+
     with _profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(EDGE):
             call()
-        torch.cuda._sleep(1000)
+        markers()
         for _ in range(calls):
             call()
-        torch.cuda._sleep(1000)
+        markers()
         for _ in range(EDGE):
             call()
-        torch.cuda.synchronize()
+        for c in cards:
+            torch.cuda.synchronize(c)
     return [Event(e.name, e.device_type == DeviceType.CUDA, float(e.time_range.start),
-                  float(e.time_range.elapsed_us())) for e in prof.events()]
+                  float(e.time_range.elapsed_us()),
+                  e.device_index if e.device_type == DeviceType.CUDA else 0)
+            for e in prof.events()]
 
 
 def profile_cpu(call: Callable[[], None], calls: int) -> List[Event]:
@@ -161,23 +207,29 @@ def breakdown(d: Digest, top: int = 10) -> Dict:
     innermost host event (a CUDA runtime call) running at its middle, or,
     where none runs, as host time outside the runtime (Python and PyTorch's
     dispatch). The search for an enclosing event looks back SCAN events,
-    more than one call makes."""
+    more than one call makes. Over several cards each name begins with its
+    card ("cuda:1 advect_kernel")."""
     import bisect
+
+    def named(card: int, name: str) -> str:
+        return name if len(d.cards) == 1 else f"cuda:{card} {name}"
 
     ops: Dict[str, float] = {}
     for e in d.device:
-        ops[e.name] = ops.get(e.name, 0.0) + e.dur
+        k = named(e.card, e.name)
+        ops[k] = ops.get(k, 0.0) + e.dur
     host = sorted(d.host, key=lambda e: e.start)
     starts = [e.start for e in host]
     idle: Dict[str, float] = {}
-    for a, b in d.gaps():
-        t = 0.5 * (a + b)
-        j = k = bisect.bisect_right(starts, t) - 1
-        while j >= 0 and k - j < SCAN and host[j].start + host[j].dur < t:
-            j -= 1
-        inside = j >= 0 and host[j].start + host[j].dur >= t
-        name = host[j].name if inside else OUTSIDE
-        idle[name] = idle.get(name, 0.0) + (b - a)
+    for card in d.cards:
+        for a, b in d.gaps(card):
+            t = 0.5 * (a + b)
+            j = k = bisect.bisect_right(starts, t) - 1
+            while j >= 0 and k - j < SCAN and host[j].start + host[j].dur < t:
+                j -= 1
+            inside = j >= 0 and host[j].start + host[j].dur >= t
+            name = named(card, host[j].name if inside else OUTSIDE)
+            idle[name] = idle.get(name, 0.0) + (b - a)
 
     def ranked(x):
         return [[k[:120], v * 1e-6] for k, v in sorted(x.items(), key=lambda kv: -kv[1])[:top]]

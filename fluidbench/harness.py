@@ -7,6 +7,10 @@ mix (``traffic/<traffic>.json``), the limits of its comparison
 (``limits/<cell>.json``), the per-layer readers (``metrics/``) and the
 passes' work models (``work/``).
 
+A cell runs on the run's devices: one, or a sharded entry's mesh of them
+(program.py). Syncs, the peak memory and the allocator's counts take every
+card.
+
 The window. Set-up makes the state (zeros) and the traffic from the seed,
 runs the cell's first call from the zero state (kept as the comparison's
 start) and warm-up calls of the same shapes, and ends at a device sync.
@@ -27,7 +31,7 @@ import math
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -99,19 +103,31 @@ class Window:
     host_s: float
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def cards(devices) -> List[torch.device]:
+    """The distinct CUDA devices among ``devices``, in order."""
+    out: List[torch.device] = []
+    for d in map(torch.device, devices):
+        if d.type == "cuda" and d not in out:
+            out.append(d)
+    return out
+
+
+def _sync(devices) -> None:
+    for d in cards(devices):
+        torch.cuda.synchronize(d)
 
 
 def like(x):
-    """Uninitialised buffers shaped as ``x``: a tensor, a state or None."""
+    """Uninitialised buffers shaped as ``x``, each on its tensor's device: a
+    tensor, a state, a sharded state (tuples of states) or None."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
         return torch.empty_like(x)
     if isinstance(x, dict):
         return {k: like(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(like(v) for v in x)
     return dataclasses.replace(x, **{f.name: like(getattr(x, f.name))
                                      for f in dataclasses.fields(x)})
 
@@ -123,6 +139,9 @@ def copy_into(dst, src):
     elif isinstance(src, dict):
         for k in src:
             copy_into(dst[k], src[k])
+    elif isinstance(src, tuple):
+        for d, x in zip(dst, src):
+            copy_into(d, x)
     elif src is not None:
         for f in dataclasses.fields(src):
             copy_into(getattr(dst, f.name), getattr(src, f.name))
@@ -137,7 +156,7 @@ def measure(prog, state, t: int, seconds: float, sample_at: List[float], keep: L
     pending = sorted(sample_at)
     call_s: List[float] = []
     host_s, last = 0.0, None
-    _sync(prog.device)
+    _sync(prog.devices)
     t0 = time.perf_counter()
     while True:
         a = time.perf_counter()
@@ -154,7 +173,7 @@ def measure(prog, state, t: int, seconds: float, sample_at: List[float], keep: L
             keep.append(Sample("window", t, copy_into(b.before, state), copy_into(b.after, new),
                                copy_into(b.frames, frames)))
         state, t = new, (t + stride) % length
-    _sync(prog.device)
+    _sync(prog.devices)
     elapsed = time.perf_counter() - t0
     if last is not None:
         last.label = "last"
@@ -184,11 +203,10 @@ def unit_shape(cell: Cell, rows: List[int], traffic, item: int):
                  sum(active) / len(rows), 1)
 
 
-def _device_mallocs(device) -> int:
-    """The caching allocator's calls to cudaMalloc so far."""
-    if device.type != "cuda":
-        return 0
-    return int(torch.cuda.memory_stats(device).get("num_device_alloc", 0))
+def _device_mallocs(devices) -> int:
+    """The caching allocator's calls to cudaMalloc so far, on every card."""
+    return sum(int(torch.cuda.memory_stats(d).get("num_device_alloc", 0))
+               for d in cards(devices))
 
 
 def forbidden_modules() -> List[str]:
@@ -196,23 +214,27 @@ def forbidden_modules() -> List[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
-def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: float,
+def run(cell: Cell, seed: int, seconds: float, trace: bool, devices: Sequence, t_start: float,
         make_program: Optional[Callable] = None, log=sys.stderr) -> Dict:
-    """One run; returns the result line's object. ``make_program`` replaces
-    the program (the control, or a broken program in the tests)."""
+    """One run on ``devices`` (one, or a sharded entry's mesh's, row-major;
+    a device may repeat); returns the result line's object.
+    ``make_program`` replaces the program (the control, or a broken program
+    in the tests)."""
     from fluidbench import check, devtrace, metrics, program
     from fluidbench.traffic.generator import generate
 
     seed = int(seed) % (1 << 63)
     traffic = generate(cell.mix, cell.cfg, seed)
-    prog = (make_program or program.Program)(cell.cfg, cell.mix, traffic, device)
+    devices = [torch.device(d) for d in devices]
+    used = cards(devices)
+    prog = (make_program or program.Program)(cell.cfg, cell.mix, traffic, devices)
     stride, length = prog.steps, traffic.splats.shape[0]
     draw = np.random.default_rng([seed, 3])
     sample_at = sorted((draw.random(SAMPLES) * seconds).tolist())
 
     state = prog.init()
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(device)
+    for d in used:
+        torch.cuda.reset_peak_memory_stats(d)
     new, frames = prog.call(state, 0)
     keep = [Sample("start", 0, state, new, frames)]
     state, t = new, stride % length
@@ -225,22 +247,22 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
         held = (state, new, frames)
         state, t = new, (t + stride) % length
     del held
-    _sync(device)
+    _sync(devices)
     setup_s = time.perf_counter() - t_start
 
-    mallocs = _device_mallocs(device)
+    mallocs = _device_mallocs(devices)
     state, t, window = measure(prog, state, t, seconds, sample_at, keep, buffers)
     q = np.percentile(window.call_s, [5, 50, 95, 100]) * 1e3 if window.call_s else [math.nan] * 4
     print(f"window {window.calls} calls in {window.seconds!r} s; call ms p5 {q[0]:.3f} median "
           f"{q[1]:.3f} p95 {q[2]:.3f} max {q[3]:.3f}; device allocations in it "
-          f"{_device_mallocs(device) - mallocs}; setup {setup_s!r} s", file=log)
+          f"{_device_mallocs(devices) - mallocs}; setup {setup_s!r} s", file=log)
     out = {"metrics": end_to_end(cell, window, setup_s)}
     units_per_call = stride if cell.unit == "step" else 1
     spans = {"host_s": window.host_s, "units": window.calls * units_per_call,
              "window_s": window.seconds}
 
-    dev = {"platform": "gpu" if device.type == "cuda" else device.type,
-           "kind": program.device_name(device), "count": 1}
+    dev = {"platform": "gpu" if used else devices[0].type,
+           "kind": program.device_name(devices[0]), "count": max(1, len(used))}
     breakdown = None
     if trace:
         n = cell.mix["trace_calls"]
@@ -252,7 +274,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
             box[0], _ = prog.call(box[0], box[1])
             box[1] = (box[1] + stride) % length
 
-        events = (devtrace.profile if device.type == "cuda" else devtrace.profile_cpu)(call, n)
+        events = (devtrace.profile(call, n, used) if used else devtrace.profile_cpu(call, n))
         rows = rows[devtrace.EDGE:devtrace.EDGE + n]
         state = box[0]
         d = devtrace.digest(events, n * units_per_call, cell.unit)
@@ -270,15 +292,20 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device, t_start: flo
             v = metrics.read(m["name"], ctx)
             if v is not None:
                 out["metrics"][m["name"]] = {"value": v, "unit": m["unit"]}
+        # The mean over the cards, so that 1 - busy_s / window_s is a
+        # card's average idle share.
         dev["busy_s"] = d.busy_us() * 1e-6
+        dev["busy_s_per_device"] = [d.busy_us(c) * 1e-6 for c in d.cards]
         dev["window_s"] = d.window_us * 1e-6
         breakdown = devtrace.breakdown(d)
-    if device.type == "cuda":
-        dev["memory_peak_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    if used:
+        peaks = [int(torch.cuda.max_memory_allocated(d)) for d in used]
+        dev["memory_peak_bytes"] = max(peaks)
+        dev["memory_peak_bytes_per_device"] = peaks
     del state, new, prog
     program.release()
 
-    readings, failed = check.compare(cell, traffic, keep, device, log=log)
+    readings, failed = check.compare(cell, traffic, keep, devices[0], log=log)
     limits = {k: cell.limits[k] for k in readings}
     correct = all(math.isfinite(v) and v <= limits[k] for k, v in readings.items())
     result = {"correct": correct, "attempted": window.calls, "failed": failed,

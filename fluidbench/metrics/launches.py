@@ -1,4 +1,5 @@
-"""Kernels the device ran a unit, the program's and PyTorch's."""
+"""Kernels the cards ran a unit, the program's and PyTorch's, summed over
+the cards."""
 
 
 def read(ctx, args):

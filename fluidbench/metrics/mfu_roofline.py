@@ -1,6 +1,7 @@
-"""The whole unit's share of the card's roofline peak: the sum over every
-pass of its bound, max(bytes / bandwidth, operations / float32 peak), over
-the measured window's time a unit (the traced window runs slower by the
+"""The whole unit's share of the cards' roofline peak: the sum over every
+pass of its bound on one card, max(bytes / bandwidth, operations / float32
+peak), over the cards' time a unit, the traced window's cards times the
+measured window's time a unit (the traced window runs slower by the
 profiler's own host cost).
 
 It is the step's share of the peak, not of float32 operations alone: every
@@ -17,4 +18,6 @@ from fluidbench.work import passes
 
 def read(ctx, args):
     bound, per_unit = sum(bound_s(ctx, p) for p in passes()), unit_s(ctx)
-    return 100.0 * bound / per_unit if bound > 0 and per_unit is not None else None
+    if bound <= 0 or per_unit is None:
+        return None
+    return 100.0 * bound / (len(ctx["digest"].cards) * per_unit)

@@ -1,6 +1,8 @@
-"""A pass's share of its roofline: the least time the card could take for
-the pass's work, max(bytes / bandwidth, operations / float32 peak), over
-the device time of the kernels the work files map to the pass."""
+"""A pass's share of its roofline: the least time one card could take for
+the pass's work over the whole grid, max(bytes / bandwidth, operations /
+float32 peak), over the device time of the kernels the work files map to
+the pass, summed over the cards. Over several cards the halo's padded
+texels, worked on and not counted, read as lost efficiency."""
 
 from fluidbench.work import kernel_pass, pass_work
 

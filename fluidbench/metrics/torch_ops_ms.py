@@ -1,5 +1,5 @@
 """Device milliseconds a unit in kernels that are not the program's own
-(PyTorch's operators), copies and fills left out."""
+(PyTorch's operators), copies and fills left out, summed over the cards."""
 
 from fluidbench.work import kernel_pass
 

@@ -2,21 +2,23 @@
 drives, built from the cell's configuration and traffic mix. This is the
 only module of the benchmark that imports the program.
 
-An entry is called once a *call*: a chunk of steps (``multi_step``) or one
-tick of the fleet's program (``tick``: the batched step or its substeps and
-the batched frame, uint8 on the card, as BatchFluidServer._tick dispatches
-it). A tick ends when its frames are complete on the card. The server's
-copy of the frames to pageable host memory is its own code, outside the
-program, and is left out: it took 19.5-23.3 ms of a ~31 ms tick and spread
-the tick by 11-21% between runs of one seed (PERF.md), which no bound of
-25% can hold.
+An entry is called once a *call*: a chunk of steps (``multi_step``), a
+chunk of steps of the sharded step over the configuration's ``MESH`` [ny,
+nx] of the run's devices (``sharded_multi_step``, row-major: shard (i, j)
+on device i * nx + j), or one tick of the fleet's program (``tick``: the
+batched step or its substeps and the batched frame, uint8 on the card, as
+BatchFluidServer._tick dispatches it). A tick ends when its frames are
+complete on the card. The server's copy of the frames to pageable host
+memory is its own code, outside the program, and is left out: it took
+19.5-23.3 ms of a ~31 ms tick and spread the tick by 11-21% between runs
+of one seed (PERF.md), which no bound of 25% can hold.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +27,7 @@ from fluidbench.traffic.generator import Traffic
 
 # The kernel libraries each entry's calls launch (csrc/<name>.cu).
 STEP_LIBRARIES = ("stencil", "jacobi", "advect")
-FRAME_LIBRARIES = ("bloom", "display")
+FRAME_LIBRARIES = ("bloom", "display", "sunrays")
 
 
 def fluid_config(cfg: Dict):
@@ -66,24 +68,33 @@ def tick_dt(traffic: Traffic, t: int, kind):
 
 
 class Program:
-    """The cell's entry on ``device``: ``init()`` makes the zero state and
-    ``call(state, t)`` runs the call at traffic row ``t``, returning the new
-    state and, for a tick, its frames on the card (uint8, (B, H, W, 3))."""
+    """The cell's entry on ``devices`` (one device, or a sharded entry's
+    mesh's, row-major; a device may repeat, as a mesh allows): ``init()``
+    makes the zero state and ``call(state, t)`` runs the call at traffic row
+    ``t``, returning the new state and, for a tick, its frames on the card
+    (uint8, (B, H, W, 3))."""
 
-    def __init__(self, cfg: Dict, mix: Dict, traffic: Traffic, device: torch.device):
+    def __init__(self, cfg: Dict, mix: Dict, traffic: Traffic, devices: Sequence[torch.device]):
         from tpufluid_torch.serve_batch import make_tick_program
         from tpufluid_torch.step import make_multi_step
 
         self.config = fluid_config(cfg)
-        self.mix, self.traffic, self.device = mix, traffic, device
+        self.mix, self.traffic = mix, traffic
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
         self.entry = mix["entry"]
         self.host_s = 0.0
         self.sims = mix["sims"]
         self.steps = mix.get("chunk", 1)
+        if self.entry in ("multi_step", "sharded_multi_step") and self.sims != 1:
+            raise ValueError(f"{self.entry} drives one sim")
         if self.entry == "multi_step":
-            if self.sims != 1:
-                raise ValueError("multi_step drives one sim")
-            self.fn = make_multi_step(self.config, device=device)
+            self.fn = make_multi_step(self.config, device=self.device)
+        elif self.entry == "sharded_multi_step":
+            from tpufluid_torch.parallel import make_mesh, make_sharded_multi_step
+
+            self.mesh = make_mesh(devices=self.devices, shape=cfg["MESH"])
+            self.fn = make_sharded_multi_step(self.config, self.mesh)
         elif self.entry == "tick":
             self.kind = tick_kind(traffic)
             self.fn = make_tick_program(self.config, self.sims, self.kind)
@@ -91,22 +102,31 @@ class Program:
             raise ValueError(f"unknown entry {self.entry!r}")
 
     def init(self):
-        from tpufluid_torch.state import FluidState
-
+        """The zero state: a sharded entry's as each shard's zero block on
+        its own device, never the whole grid on one."""
         c = self.config
         (sw, sh), (dw, dh) = c.sim_size, c.dye_size
+        if self.entry == "sharded_multi_step":
+            ny, nx = self.mesh.shape
+            return tuple(tuple(self._zeros(d, (sh // ny, sw // nx), (dh // ny, dw // nx))
+                               for d in row) for row in self.mesh.devices)
         lead = () if self.entry == "multi_step" else (self.sims,)
+        return self._zeros(self.device, (sh, sw), (dh, dw), lead)
+
+    def _zeros(self, device, sim_hw, dye_hw, lead=()):
+        from tpufluid_torch.state import FluidState
 
         def zeros(*shape):
-            return torch.zeros(lead + shape, dtype=c.dtype, device=self.device)
+            return torch.zeros(lead + shape, dtype=self.config.dtype, device=device)
 
-        return FluidState(velocity=zeros(2, sh, sw), dye=zeros(3, dh, dw), pressure=zeros(sh, sw))
+        return FluidState(velocity=zeros(2, *sim_hw), dye=zeros(3, *dye_hw),
+                          pressure=zeros(*sim_hw))
 
     def call(self, state, t: int):
         """(new state, frames or None); ``host_s`` is then the host time
         inside the entry. A tick returns once its frames are complete."""
         tr, a = self.traffic, time.perf_counter()
-        if self.entry == "multi_step":
+        if self.entry != "tick":
             out = self.fn(state, tr.dts[t:t + self.steps, 0], tr.splats[t:t + self.steps, 0])
             self.host_s = time.perf_counter() - a
             return out, None
@@ -117,18 +137,43 @@ class Program:
         return state, frames
 
 
-def fields(state) -> Dict[str, torch.Tensor]:
-    """A state's fields as float32 tensors with a leading sim axis."""
+def fields(state, rows: Optional[Dict[str, Tuple[int, int]]] = None,
+           device=None) -> Dict[str, torch.Tensor]:
+    """A state's fields as float32 tensors with a leading sim axis, the
+    whole grid's, or with ``rows`` each field's rows [lo, hi) of the whole
+    grid only, on ``device`` (default where they are). A sharded state's (a
+    (ny, nx) grid of FluidState) are put together from the blocks that hold
+    them, never the whole grid on one device unless asked."""
+    if isinstance(state, tuple):
+        return {f: _rows(state, f, (rows or {}).get(f), device) for f in ("velocity", "dye",
+                                                                            "pressure")}
     out = {}
     for f in ("velocity", "dye", "pressure"):
         x = getattr(state, f) if not isinstance(state, dict) else state[f]
-        x = x.to(torch.float32)
+        if rows is not None:
+            x = x[..., rows[f][0]:rows[f][1], :]
+        x = (x if device is None else x.to(device)).to(torch.float32)
         out[f] = x if x.ndim == (4 if f != "pressure" else 3) else x.unsqueeze(0)
     return out
 
 
+def _rows(sharded, name: str, rows: Optional[Tuple[int, int]], device) -> torch.Tensor:
+    """Rows [lo, hi) of field ``name`` of the whole grid, float32, (1, ...)."""
+    blocks = [[getattr(s, name) for s in row] for row in sharded]
+    h = blocks[0][0].shape[-2]
+    lo, hi = (0, h * len(blocks)) if rows is None else rows
+    device = blocks[0][0].device if device is None else device
+    parts = []
+    for i, row in enumerate(blocks):
+        a, b = max(lo, i * h) - i * h, min(hi, (i + 1) * h) - i * h
+        if b > a:
+            parts.append(torch.cat([x[..., a:b, :].to(device) for x in row], dim=-1))
+    return torch.cat(parts, dim=-2).to(torch.float32).unsqueeze(0)
+
+
 def release() -> None:
-    """Hand the caching allocator's free blocks back before the reference."""
+    """Hand the caching allocator's free blocks back before the reference,
+    on every card (empty_cache empties each device's cache)."""
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
 

@@ -391,14 +391,14 @@ def run(cell, seed: int, seconds: float, device, recorder, make_program=None,
 
     seed = int(seed) % (1 << 63)
     traffic = generate(cell.mix, cell.cfg, seed)
-    prog = (make_program or program.Program)(cell.cfg, cell.mix, traffic, device)
+    prog = (make_program or program.Program)(cell.cfg, cell.mix, traffic, [device])
     stride, length = prog.steps, traffic.splats.shape[0]
     state, _ = prog.call(prog.init(), 0)
     t = stride % length
     for _ in range(cell.mix["warm_calls"]):
         state, _ = prog.call(state, t)
         t = (t + stride) % length
-    harness._sync(device)
+    harness._sync([device])
     state, t, window = harness.measure(prog, state, t, seconds, [], [], [])
     per_call = stride if cell.unit == "step" else 1
     units = window.calls * per_call
@@ -431,7 +431,7 @@ def run(cell, seed: int, seconds: float, device, recorder, make_program=None,
         box[2] = 0.0
         for _ in range(n):
             call()
-        harness._sync(device)
+        harness._sync([device])
         host[on] += box[2]
         if on:
             window_spans += recorder.take()

@@ -14,11 +14,19 @@ shared-exponent RGB9E5 format before it is sampled.
 
 Fields are float32 tensors: velocity (B, 2, H, W), dye (B, 3, Hd, Wd),
 pressure (B, H, W). ``dts`` is a (B,) array of each sim's dt.
+
+A band: ``step`` with ``row0`` takes fields that are a band of whole rows
+of the grid, the sim's from row ``row0`` (the dye's from the same place),
+and computes every texel's coordinates as over the whole grid, which the
+configuration sizes: each row's texel center, gaussian row factor and
+sampled rows are the whole grid's, so a band's rows that lie far enough
+from its edges come out bit for bit as the whole grid's (banded.py). Its
+edges clamp and reflect as walls do: rows near them are not the grid's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,6 +37,22 @@ from fluidbench.reference.sampling import centers, div, sample_bilinear
 Store = Callable[[torch.Tensor], torch.Tensor]
 
 MAX_RGB9E5 = (511.0 / 512.0) * 65536.0
+
+
+class GridRows(NamedTuple):
+    """Where a field's band of rows lies: its first row and the whole
+    grid's height."""
+
+    row0: int
+    height: int
+
+
+def _row_centers(h: int, band: Optional[GridRows], device) -> torch.Tensor:
+    """The texel centers of a field's h rows: the whole grid's, cut to the
+    band."""
+    if band is None:
+        return centers(h, device)
+    return centers(band.height, device)[band.row0:band.row0 + h]
 
 
 def storage(dtype_name: str) -> Store:
@@ -54,16 +78,20 @@ def _per_sim(values: np.ndarray, device, ndim: int) -> torch.Tensor:
 
 
 def splat_bump(splats: torch.Tensor, h: int, w: int, radius: float, aspect: float,
-               cols: slice) -> torch.Tensor:
+               cols: slice, band: Optional[GridRows] = None) -> torch.Tensor:
     """(B, C, h, w): the sum over each sim's splat rows of
     exp(-(dx^2 + dy^2) / radius) times the row's amount (its ``cols``, zero
     where the row is inactive), dx scaled by the aspect. The gaussian is a
-    product of a row factor and a column factor; rows add in order."""
-    u, v = centers(w, splats.device), centers(h, splats.device)
+    product of a row factor and a column factor; rows add in order. In a
+    band the row factor is the whole grid's, cut to the band."""
+    u = centers(w, splats.device)
+    v = centers(h if band is None else band.height, splats.device)
     px = (u - splats[..., 0, None]) * aspect
     py = v - splats[..., 1, None]
     gx = torch.exp(div(-(px * px), radius))           # (B, S, w)
     gy = torch.exp(div(-(py * py), radius))           # (B, S, h)
+    if band is not None:
+        gy = gy[..., band.row0:band.row0 + h]
     amt = splats[..., cols] * splats[..., 7:8]         # (B, S, C)
     b, s_rows, c = amt.shape
     acc = torch.zeros((b, c, h, w), dtype=torch.float32, device=splats.device)
@@ -142,30 +170,38 @@ def rgb9e5(rgb: torch.Tensor) -> torch.Tensor:
     return m * torch.ldexp(one, e - 24)
 
 
-def advect(vel: torch.Tensor, src: torch.Tensor, dt: torch.Tensor,
-           decay: torch.Tensor) -> torch.Tensor:
+def advect(vel: torch.Tensor, src: torch.Tensor, dt: torch.Tensor, decay: torch.Tensor,
+           vel_band: Optional[GridRows] = None,
+           src_band: Optional[GridRows] = None) -> torch.Tensor:
     """Semi-Lagrangian advection of ``src`` (B, C, h, w) on its own grid:
     backtrace uv - dt * velocity / sim size, the velocity sampled at the
-    target's texel centers where the grids differ, sample, / decay."""
+    target's texel centers where the grids differ, sample, / decay. With
+    bands, ``vel`` and ``src`` are bands of their grids (``src``'s rows are
+    also the target's)."""
     b, _, h, w = src.shape
     sh, sw = vel.shape[-2:]
+    h_grid = h
+    if vel_band is not None:
+        sh, h_grid = vel_band.height, src_band.height
     u = centers(w, src.device)[None, :].expand(h, w)
-    v = centers(h, src.device)[:, None].expand(h, w)
+    v = _row_centers(h, src_band, src.device)[:, None].expand(h, w)
     u, v = u.expand(b, h, w), v.expand(b, h, w)
-    if (sh, sw) == (h, w):
+    if (sh, sw) == (h_grid, w):
         vu, vv = vel[:, 0], vel[:, 1]
     else:
-        vs = sample_bilinear(vel, u, v)
+        vs = sample_bilinear(vel, u, v, vel_band)
         vu, vv = vs[:, 0], vs[:, 1]
     cu = u - div(dt * vu, float(sw))
     cv = v - div(dt * vv, float(sh))
-    return sample_bilinear(src, cu, cv) / decay
+    return sample_bilinear(src, cu, cv, src_band) / decay
 
 
 def step(fields: Dict[str, torch.Tensor], dts, splats: torch.Tensor, cfg: Dict,
-         store: Store, rgb9e5_dye: bool) -> Dict[str, torch.Tensor]:
+         store: Store, rgb9e5_dye: bool, row0: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One step of B sims. ``splats`` (B, S, 8): x, y, dx, dy, r, g, b,
-    active. Returns new fields; the inputs are not changed."""
+    active. Returns new fields; the inputs are not changed. With ``row0``
+    the fields are a band of whole rows from the sim's row ``row0`` (module
+    docstring)."""
     vel, dye, p = fields["velocity"], fields["dye"], fields["pressure"]
     dev = vel.device
     d = clamped_dts(dts)
@@ -176,18 +212,30 @@ def step(fields: Dict[str, torch.Tensor], dts, splats: torch.Tensor, cfg: Dict,
     splats = splats.to(device=dev, dtype=torch.float32)
     sh, sw = vel.shape[-2:]
     dh, dw = dye.shape[-2:]
+    sb = db = None
+    if row0 is not None:
+        sb, db = grid_rows(cfg, row0)
 
-    vel = store(vel + splat_bump(splats, sh, sw, radius, aspect, slice(2, 4)))
+    vel = store(vel + splat_bump(splats, sh, sw, radius, aspect, slice(2, 4), sb))
     conf = confine(vel, curl(vel), cfg["CURL"], dt3)
     vel, dv = store(conf), store(divergence(conf))
     p = store(jacobi(p * cfg["PRESSURE"], dv, cfg["PRESSURE_ITERATIONS"]))
     vel = store(subtract_gradient(vel, p))
-    vel = store(advect(vel, vel, dt3, vdecay))
-    src = store(dye + splat_bump(splats, dh, dw, radius, aspect, slice(4, 7)))
+    vel = store(advect(vel, vel, dt3, vdecay, sb, sb))
+    src = store(dye + splat_bump(splats, dh, dw, radius, aspect, slice(4, 7), db))
     if rgb9e5_dye:
         src = rgb9e5(src)
-    dye = store(advect(vel, src, dt3, ddecay))
+    dye = store(advect(vel, src, dt3, ddecay, sb, db))
     return {"velocity": vel, "dye": dye, "pressure": p}
+
+
+def grid_rows(cfg: Dict, row0: int):
+    """(the sim's GridRows, the dye's) of a band from the sim's row
+    ``row0``, whose dye rows start at the same place."""
+    (sh, _), (dh, _) = geometry.sizes(cfg)["sim"], geometry.sizes(cfg)["dye"]
+    if row0 * dh % sh:
+        raise ValueError(f"sim row {row0} of {sh} falls inside a dye row of {dh}")
+    return GridRows(row0, sh), GridRows(row0 * dh // sh, dh)
 
 
 def substep_tick(fields, dts: np.ndarray, splats: torch.Tensor, cfg: Dict, store: Store,

@@ -24,21 +24,31 @@ def centers(n: int, device) -> torch.Tensor:
     return div(torch.arange(n, dtype=torch.float32, device=device) + 0.5, float(n))
 
 
-def sample_bilinear(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def sample_bilinear(tex: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                    band=None) -> torch.Tensor:
     """texture2D of ``tex`` (B, C, H, W) at per-texel coordinates ``u``,
     ``v`` (B, h, w) -> (B, C, h, w): corners at floor(uv * size - 0.5) and
-    one more, clamped to the edge, mixed by the fractions, rows last."""
+    one more, clamped to the edge, mixed by the fractions, rows last. With
+    ``band`` (its first row and the grid's height: fluid.GridRows) ``tex`` is a
+    band of the grid's rows: rows are found in the whole grid, clamped to
+    its edges, then taken from the band (clamped to it: a row outside the
+    band is not the grid's)."""
     b, c, h, w = tex.shape
     x = u * w - 0.5
-    y = v * h - 0.5
+    y = v * (h if band is None else band.height) - 0.5
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = (x - x0)[:, None]
     fy = (y - y0)[:, None]
     ix0 = x0.long().clamp(0, w - 1)
     ix1 = (x0.long() + 1).clamp(0, w - 1)
-    iy0 = y0.long().clamp(0, h - 1)
-    iy1 = (y0.long() + 1).clamp(0, h - 1)
+    if band is None:
+        iy0 = y0.long().clamp(0, h - 1)
+        iy1 = (y0.long() + 1).clamp(0, h - 1)
+    else:
+        top = band.height - 1
+        iy0 = (y0.long().clamp(0, top) - band.row0).clamp(0, h - 1)
+        iy1 = ((y0.long() + 1).clamp(0, top) - band.row0).clamp(0, h - 1)
     flat = tex.reshape(b, c, h * w)
     out_shape = (b, c) + tuple(u.shape[-2:])
 

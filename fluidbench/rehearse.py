@@ -1,7 +1,8 @@
 """A CPU rehearsal of a cell: the whole run at a tiny size, the program's
 plain versions in place of its kernels, the traced window read from the
-CPU profiler. It shows that the plumbing, the readers and the comparison
-work; it prints no device metric, only which metrics were read.
+CPU profiler, a sharded cell's mesh all on the CPU. It shows that the
+plumbing, the readers and the comparison work; it prints no device metric,
+only which metrics were read.
 
   python -m fluidbench.rehearse --workload <name> [--seed 5] [--seconds 0.5]
 """
@@ -13,7 +14,7 @@ import dataclasses
 import json
 import sys
 import time
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
@@ -50,13 +51,15 @@ def shrink_mix(mix: Dict) -> Dict:
     return out
 
 
-def rehearse(name: str, seed: int = 5, seconds: float = 0.5, make_program=None,
-             log=sys.stderr) -> Dict:
-    """harness.run of the cell, shrunk, on the CPU, traced."""
-    cell = harness.load_cell(name)
+def rehearse(name: Union[str, harness.Cell], seed: int = 5, seconds: float = 0.5,
+             make_program=None, log=sys.stderr) -> Dict:
+    """harness.run of the cell (by name, or a Cell), shrunk, on the CPU,
+    traced: a sharded cell's ny * nx shards on ``cpu`` each."""
+    cell = harness.load_cell(name) if isinstance(name, str) else name
     cell = dataclasses.replace(cell, cfg=shrink(cell.cfg), mix=shrink_mix(cell.mix))
-    return harness.run(cell, seed, seconds, True, torch.device("cpu"), time.perf_counter(),
-                       make_program=make_program, log=log)
+    ny, nx = cell.cfg.get("MESH", (1, 1))
+    return harness.run(cell, seed, seconds, True, [torch.device("cpu")] * (ny * nx),
+                       time.perf_counter(), make_program=make_program, log=log)
 
 
 def main(argv=None) -> int:

@@ -15,9 +15,12 @@ with one sim, period 120, amplitude 0.3 and one burst of 8 at step 0 gives
 tpufluid_torch.trace.swirl_trace's rows.
 
 A mix (``traffic/<name>.json``):
-  entry      the program's entry the cell drives: "multi_step" or "tick"
+  entry      the program's entry the cell drives: "multi_step",
+             "sharded_multi_step" (the sharded step over the mesh that the
+             configuration's MESH [ny, nx] names, on the cell's chips) or
+             "tick"
   sims       sims driven together
-  chunk      steps a call (multi-step entries)
+  chunk      steps a call (the multi-step entries)
   length     steps (ticks) of input made; a run cycles through them
   dt         the frame's dt in seconds
   speeds     a tick's substeps of each sim (fast-forward); the tick takes
