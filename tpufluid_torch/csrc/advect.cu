@@ -553,7 +553,7 @@ static int launch_gather(const void* vel, int hv, int wv, const void* src, void*
 }
 
 // One advect_dye_kernel instance on `grid`, its shared-memory budget
-// granted once per instance (a budget that, with the static box, passes
+// granted once per instance and device (a budget that, with the static box, passes
 // the default 48 KB needs it; tools/dye_variants.py builds such budgets).
 template <typename T, int C, bool WORDS, bool SAME_GRID, typename VT, typename I, bool PACKED>
 static int launch_dye_instance(dim3 grid, const void* vel, int hv, int wv, const void* src,
@@ -561,13 +561,9 @@ static int launch_dye_instance(dim3 grid, const void* vel, int hv, int wv, const
                                const float* gy, const float* gx, const float* amt, int S,
                                cudaStream_t stream) {
     const auto kernel = advect_dye_kernel<T, C, WORDS, SAME_GRID, VT, I, PACKED>;
-    static bool configured = false;
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDyeSmem);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    static unsigned long long granted = 0;
+    const cudaError_t err = opt_in_smem(kernel, kDyeSmem, granted);
+    if (err != cudaSuccess) return (int)err;
     kernel<<<grid, dim3(kDyeTileW, kDyeThreadsY), kDyeSmem, stream>>>(
         (const VT*)vel, hv, wv, (const T*)src, (T*)out, H, W, dt, decay, dts, gy, gx, amt, S);
     return (int)cudaGetLastError();

@@ -58,6 +58,22 @@ inline dim3 grid_for(int h, int w, int sims = 1) {
 // Most sims a batched launch takes: the grid's z axis holds at most 65535.
 constexpr int kMaxBatch = 65535;
 
+// Grants `kernel` `bytes` of dynamic shared memory on the current device,
+// once a device: the attribute is the device's own, so a flag kept for the
+// whole process would leave a second card's launches without it. `done` is
+// the caller's mask of the devices already granted (one a kernel instance).
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, int bytes, unsigned long long& done) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (done & bit) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) done |= bit;
+    return err;
+}
+
 // The index type of a batched launch. A block adds its sim's offset,
 // blockIdx.z times the elements of one sim, to every index inside the sim,
 // in type I: int where every element of the batch has a 32-bit index (every

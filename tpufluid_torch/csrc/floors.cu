@@ -217,13 +217,9 @@ static int launch_taa(const void* seed, const void* idx, const void* op, void* o
                       int planes, int n_idx, int reps, int rows, int lanes, int words_b,
                       int splits, int smem, cudaStream_t stream) {
     auto kernel = floor_taa_kernel;
-    static bool configured = false;   // the attribute is set once
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTaaMaxSmem);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    static unsigned long long granted = 0;   // per instance and device
+    const cudaError_t granted_err = opt_in_smem(kernel, kTaaMaxSmem, granted);
+    if (granted_err != cudaSuccess) return (int)granted_err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((rows * lanes + words_b - 1) / words_b);
     cfg.blockDim = dim3(words_b * splits);
@@ -381,13 +377,9 @@ template <int R>
 static int launch_roll(const void* seed, const void* op, void* out, int planes, int nrk, int cbw,
                        int trips, int groups_b, int splits, int smem, cudaStream_t stream) {
     auto kernel = floor_roll_kernel<R>;
-    static bool configured = false;   // per instance: the attribute is set once
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kRollMaxSmem);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    static unsigned long long granted = 0;   // per instance and device
+    const cudaError_t granted_err = opt_in_smem(kernel, kRollMaxSmem, granted);
+    if (granted_err != cudaSuccess) return (int)granted_err;
     const int strips = (cbw + kRollStrip - 1) / kRollStrip;
     const int chunks = ((nrk + R - 1) / R + groups_b - 1) / groups_b;
     cudaLaunchConfig_t cfg = {};
@@ -523,13 +515,9 @@ static int launch_sweep(const void* seed, const void* x, void* band0, void* band
                         int H, int W, int total, int K, int rw, int ny, int tiles_y,
                         int tiles_x, cudaStream_t stream) {
     auto kernel = floor_sweep_kernel<R>;
-    static bool configured = false;   // per instance: the attribute is set once
-    if (!configured) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSweepMaxSmem);
-        if (err != cudaSuccess) return (int)err;
-        configured = true;
-    }
+    static unsigned long long granted = 0;   // per instance and device
+    const cudaError_t granted_err = opt_in_smem(kernel, kSweepMaxSmem, granted);
+    if (granted_err != cudaSuccess) return (int)granted_err;
     const size_t smem = 2 * (size_t)ny * R * rw * sizeof(float);
     void* args[] = {&seed, &x, &band0, &band1, &out, &H, &W, &total, &K, &tiles_x};
     cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(tiles_y * tiles_x),

@@ -242,13 +242,9 @@ static int launch(const void* p, const void* div, void* out, const void* vel, vo
     cudaError_t err;
     if constexpr (PROJECT) {
         auto kernel = jacobi_project_kernel<TIn, TOut, TD, RW, NY, R, MINB, I, PACKED>;
-        static bool configured = false;  // per instance: the attribute is set once
-        if (!configured) {
-            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-            if (err != cudaSuccess) return (int)err;
-            configured = true;
-        }
+        static unsigned long long granted = 0;  // per instance and device
+        err = opt_in_smem(kernel, (int)smem, granted);
+        if (err != cudaSuccess) return (int)err;
         cudaLaunchConfig_t cfg = {};
         cfg.gridDim = grid;
         cfg.blockDim = block;
@@ -267,13 +263,9 @@ static int launch(const void* p, const void* div, void* out, const void* vel, vo
         }
     } else {
         auto kernel = jacobi_chunk_kernel<TIn, TOut, TD, RW, NY, R, MINB, I, PACKED>;
-        static bool configured = false;
-        if (!configured) {
-            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-            if (err != cudaSuccess) return (int)err;
-            configured = true;
-        }
+        static unsigned long long granted = 0;
+        err = opt_in_smem(kernel, (int)smem, granted);
+        if (err != cudaSuccess) return (int)err;
         kernel<<<grid, block, smem, stream>>>((const TIn*)p, (const TD*)div, (TOut*)out,
                                               prescale, H, W, K);
     }

@@ -143,7 +143,7 @@ def _gather(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: float
     vel, src, single, fields, (b, c, h, w, hv, wv), dt, dts, decay, out = _launch(
         velocity, source, dt, dissipation, None, sim_w)
     ADVECT(ptr(vel), hv, wv, ptr(src), ptr(out), b, c, h, w, dt, decay, dts, fields, code,
-           stream())
+           stream(src))
     return out[0] if single else out
 
 
@@ -160,7 +160,7 @@ def _advect_dye(velocity: torch.Tensor, source: torch.Tensor, dt, dissipation: f
     if max(h, w) > 65535:
         raise ValueError(f"advect_dye takes grids of at most 65535 texels a side, got {h}x{w}")
     ADVECT_DYE(ptr(vel), hv, wv, vcode, ptr(src), ptr(out), b, c, h, w, dt, decay, dts,
-               ptr(gy), ptr(gx), ptr(amt), s, 1 if quant else 0, fields, code, stream())
+               ptr(gy), ptr(gx), ptr(amt), s, 1 if quant else 0, fields, code, stream(src))
     return out[0] if single else out
 
 

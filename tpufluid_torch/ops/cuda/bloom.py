@@ -98,7 +98,7 @@ def bloom_pyramid(base: torch.Tensor, mip_sizes: Sequence[Tuple[int, int]], thre
                        device=base.device)
     out = torch.empty_like(base)
     BLOOM_PYRAMID(ptr(base), b, bh, bw, ptr(mips), ptr(out), _sizes(level_hw), len(level_hw),
-                  small, threshold, *B.knee_curve(threshold, soft_knee), intensity, stream())
+                  small, threshold, *B.knee_curve(threshold, soft_knee), intensity, stream(base))
     return out
 
 

@@ -9,6 +9,12 @@ stream as ``void*`` and return the ``cudaError_t`` of their launch.
 ``Kernel`` is the Python face of one entry point: it loads the library,
 launches, raises on a non-zero error code, and counts its launches — the
 count is how a run shows that the main path went through the kernel.
+
+A launch goes to the card that holds its tensors: ``stream(t)`` is the
+current stream of ``t``'s device, and ``Kernel`` makes that device the CUDA
+runtime's current one for the call where it is not already (the entry
+points set no device, and the runtime launches on, and grants shared
+memory for, its current one). On one card that costs no switch.
 """
 
 from __future__ import annotations
@@ -137,9 +143,23 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def stream() -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream, as the kernels' launch stream."""
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+class Stream(ctypes.c_void_p):
+    """A launch stream. ``device`` is the index of its CUDA device where that
+    is not the current device, else None."""
+
+    device: Optional[int] = None
+
+
+def stream(on: Optional[torch.Tensor] = None) -> Stream:
+    """PyTorch's current CUDA stream on the device of the tensor ``on``
+    (None: the current device), as the launch stream of a kernel on that
+    device's memory."""
+    current = torch.cuda.current_device()
+    index = current if on is None else on.get_device()
+    s = Stream(torch._C._cuda_getCurrentRawStream(index))
+    if index != current:
+        s.device = index
+    return s
 
 
 @functools.lru_cache(maxsize=None)
@@ -166,7 +186,9 @@ KERNELS: Dict[str, "Kernel"] = {}
 class Kernel:
     """One C entry point of a ``csrc`` library, with its launch count. The
     ``__global__`` function it launches is named ``<name>_kernel``: that is
-    how a profiler's kernel events map back to it (ops/cuda/floors.py)."""
+    how a profiler's kernel events map back to it (ops/cuda/floors.py).
+    Its last argument is the launch's ``stream(...)``, whose device is made
+    the runtime's current one for the call where it is not already."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: List,
                  replaces: str):
@@ -185,7 +207,12 @@ class Kernel:
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args)
+        on = args[-1].device if args and isinstance(args[-1], Stream) else None
+        if on is None:
+            err = self._fn(*args)
+        else:
+            with torch.cuda.device(on):
+                err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"kernel {self.name} failed to launch: "
                                f"cudaError_t {err}")

@@ -154,9 +154,9 @@ def display(dye: torch.Tensor, out_hw: Tuple[int, int], shading: bool,
             ow / dw if dw else 0.0, oh / dh if dh else 0.0)
     chosen = force or form(c, h, w, oh, ow, shading, dye.element_size(), smem_optin(dye.device))
     if chosen == "staged":
-        DISPLAY(*args, *window(h, w, oh, ow, bool(shading)), stream())
+        DISPLAY(*args, *window(h, w, oh, ow, bool(shading)), stream(dye))
     else:
-        DISPLAY_DIRECT(*args, stream())
+        DISPLAY_DIRECT(*args, stream(dye))
     return out
 
 

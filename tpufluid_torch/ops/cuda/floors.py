@@ -320,7 +320,7 @@ def run_taa(seed: torch.Tensor, idx: torch.Tensor, op: torch.Tensor, trips: int,
     out = torch.empty_like(seed)
     FLOOR_TAA(ptr(seed), ptr(idx), ptr(op), ptr(out), trips, op.shape[0], idx.shape[0],
               plan.reps, plan.rows, plan.lanes, plan.words_b, plan.splits, plan.smem,
-              stream())
+              stream(seed))
     return out
 
 
@@ -345,7 +345,7 @@ def run_roll(seed: torch.Tensor, op: torch.Tensor, plan: RollPlan) -> torch.Tens
     """One floor_roll launch on ``plan``'s blocks (checked inputs)."""
     out = torch.empty_like(seed)
     FLOOR_ROLL(ptr(seed), ptr(op), ptr(out), plan.planes, plan.nrk, plan.cbw, plan.trips,
-               plan.r, plan.groups_b, plan.splits, plan.smem, stream())
+               plan.r, plan.groups_b, plan.splits, plan.smem, stream(seed))
     return out
 
 
@@ -371,7 +371,7 @@ def run_sweep(seed: torch.Tensor, x: torch.Tensor, plan: SweepPlan) -> torch.Ten
     band0, band1 = torch.empty_like(seed), torch.empty_like(seed)
     FLOOR_SWEEP(ptr(seed), ptr(x), ptr(band0), ptr(band1), ptr(out), plan.h, plan.w,
                 sum(plan.phases), plan.k, plan.r, plan.rw, plan.ny, plan.tiles_y,
-                plan.tiles_x, stream())
+                plan.tiles_x, stream(seed))
     return out
 
 

@@ -198,7 +198,7 @@ def _launch_chunks(p, d, cut, prescale, geo, tiles, code, out=None):
         stored = out is not None and n == len(cut) - 1
         dst = out if stored else bufs[n % 2]
         JACOBI_CHUNK(ptr(src), src_f32, ptr(d), ptr(dst), 0 if stored else 1, scale, *geo[:3],
-                     k, tiles, geo[3], code, stream())
+                     k, tiles, geo[3], code, stream(p))
         src, src_f32, scale = dst, int(not stored), 1.0
     return src, src_f32, scale
 
@@ -242,7 +242,7 @@ def run_project(pressure: torch.Tensor, div: torch.Tensor, velocity: torch.Tenso
     src, src_f32, scale = _launch_chunks(p, d, cut[:-1], prescale, geo, tiles, code)
     out, vel_out = torch.empty_like(p), torch.empty_like(vel)
     JACOBI_PROJECT(ptr(src), src_f32, ptr(d), ptr(vel), ptr(out), ptr(vel_out), scale,
-                   *geo[:3], cut[-1], tiles, geo[3], code, stream())
+                   *geo[:3], cut[-1], tiles, geo[3], code, stream(p))
     return (out[0], vel_out[0]) if single else (out, vel_out)
 
 

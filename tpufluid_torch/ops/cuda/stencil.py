@@ -155,7 +155,7 @@ def run_tiles(velocity: torch.Tensor, curl_strength: float, dt, splat_factors, t
     out = torch.empty_like(vel)
     div = torch.empty(vel.shape[:-3] + vel.shape[-2:], dtype=vel.dtype, device=vel.device)
     PRE_PRESSURE(ptr(vel), ptr(gy), ptr(gx), ptr(amt), s, float(curl_strength), dt, dts,
-                 ptr(out), ptr(div), b, h, w, r0, c0, wh, ww, tiles, layout, code, stream())
+                 ptr(out), ptr(div), b, h, w, r0, c0, wh, ww, tiles, layout, code, stream(vel))
     return (out[0], div[0]) if single else (out, div)
 
 
@@ -250,7 +250,7 @@ def gradient_subtract(velocity: torch.Tensor, pressure: torch.Tensor,
     if tuple(pressure.shape) != grid:
         raise ValueError(f"pressure {tuple(pressure.shape)} != grid {grid}")
     out = torch.empty_like(vel)
-    GRADIENT_SUBTRACT(ptr(vel), ptr(pressure), ptr(out), b, h, w, layout, code, stream())
+    GRADIENT_SUBTRACT(ptr(vel), ptr(pressure), ptr(out), b, h, w, layout, code, stream(vel))
     return out[0] if single else out
 
 

@@ -160,6 +160,6 @@ def sunrays(dye: torch.Tensor, out_hw: Tuple[int, int], weight: float) -> torch.
     tab, bounds = tables((dh, dw), (h, w), dye.device), band_bounds((dh, dw), (h, w), dye.device)
     taps = torch.empty((b, TAPS, h, w), dtype=torch.float32, device=dye.device)
     out = torch.empty(dye.shape[:-3] + (h, w), dtype=torch.float32, device=dye.device)
-    SUNRAYS(ptr(dye), ptr(taps), b, dh, dw, h, w, ptr(tab), ptr(bounds), stream())
-    SUNRAYS_BLUR(ptr(taps), ptr(out), b, dh, dw, h, w, ptr(tab), _decay(float(weight)), stream())
+    SUNRAYS(ptr(dye), ptr(taps), b, dh, dw, h, w, ptr(tab), ptr(bounds), stream(dye))
+    SUNRAYS_BLUR(ptr(taps), ptr(out), b, dh, dw, h, w, ptr(tab), _decay(float(weight)), stream(dye))
     return out

@@ -21,6 +21,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from tpufluid_torch import spans
+
 
 class Traffic:
     """Bytes of the strips that shards received from other shards (the
@@ -34,6 +36,7 @@ class Traffic:
 
 
 SENT = Traffic()
+spans.count_sent(SENT)      # each span records the bytes sent inside it
 
 
 def _first(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:

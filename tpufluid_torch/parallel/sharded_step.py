@@ -60,6 +60,7 @@ from tpufluid_torch.ops.sampling import true_div
 from tpufluid_torch.ops.splat import SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R, splat_factors
 from tpufluid_torch.parallel.halo import exchange_halo, ghost_strips
 from tpufluid_torch.parallel.mesh import Mesh, ShardedState, make_mesh
+from tpufluid_torch.spans import span
 from tpufluid_torch.state import FluidState
 from tpufluid_torch.step import clamp_dt
 
@@ -205,18 +206,23 @@ def _along_cols(fn: Callable, grid: Grid) -> Grid:
 
 def _exch2d(grid: Grid, wr: int, wc: int) -> Grid:
     """Rows, then columns (so the corners hold the diagonal neighbours')."""
-    grid = _along_rows(lambda line: exchange_halo(line, wr, -2), grid)
+    with span("halo.rows"):
+        grid = _along_rows(lambda line: exchange_halo(line, wr, -2), grid)
     return _colpad(grid, wc)
 
 
 def _colpad(grid: Grid, wc: int) -> Grid:
     """The column exchange alone (none on a mesh of one column)."""
-    return _along_cols(lambda line: exchange_halo(line, wc, -1), grid) if wc else grid
+    if not wc:
+        return grid
+    with span("halo.cols"):
+        return _along_cols(lambda line: exchange_halo(line, wc, -1), grid)
 
 
 def _row_strips(grid: Grid, width: int) -> Grid:
     """Each shard's (ghost_below, ghost_above) row strips."""
-    return _along_rows(lambda line: ghost_strips(line, width, -2), grid)
+    with span("halo.rows"):
+        return _along_rows(lambda line: ghost_strips(line, width, -2), grid)
 
 
 def _overlap_rows(g: int, operands, op: Callable):
@@ -301,222 +307,241 @@ def _mirrored_pad(line: Sequence[torch.Tensor], width: int, axis: int) -> List[t
 
 def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
           config: FluidConfig, passes: dispatch.Passes) -> ShardedState:
-    """One sharded step of one sim or of a batch of B sims on every shard.
+    """One sharded step of one sim or of a batch of B sims on every shard,
+    in the span ``step``: each phase in the span of its pass (the
+    single-device step's names), its exchanges in the spans ``halo.rows``,
+    ``halo.cols`` and ``halo.mirror``.
     ``splats``: the (S, 8) splat batch, or the (B, S, 8) one, on each
     shard's device. ``dt``: every sim's clamped dt (a number), or each
     shard device's copy of the (2, B, 2) table of step.dt_table (the
     velocity's and the dye's dissipation)."""
-    ny, nx = len(shards), len(shards[0])
-    sw, sh_g = config.sim_size
-    dw, dh_g = config.dye_size
-    vel = _map(lambda i, j, s: s.velocity, shards)
-    dye = _map(lambda i, j, s: s.dye, shards)
-    p = _map(lambda i, j, s: s.pressure, shards)
-    h_loc, w_loc = vel[0][0].shape[-2:]
-    hd_loc, wd_loc = dye[0][0].shape[-2:]
-    radius, aspect = config.splat_radius_uv(), config.aspect_ratio
-    max_disp = MAX_SPEED * _BOUND_DT
-    overlap = config.overlap_halo
-    gc = 0 if nx == 1 else _GC
+    with span("step"):
+        ny, nx = len(shards), len(shards[0])
+        sw, sh_g = config.sim_size
+        dw, dh_g = config.dye_size
+        vel = _map(lambda i, j, s: s.velocity, shards)
+        dye = _map(lambda i, j, s: s.dye, shards)
+        p = _map(lambda i, j, s: s.pressure, shards)
+        h_loc, w_loc = vel[0][0].shape[-2:]
+        hd_loc, wd_loc = dye[0][0].shape[-2:]
+        radius, aspect = config.splat_radius_uv(), config.aspect_ratio
+        max_disp = MAX_SPEED * _BOUND_DT
+        overlap = config.overlap_halo
+        gc = 0 if nx == 1 else _GC
 
-    def dts(x):
-        """(velocity's dt, dye's dt) of the passes on ``x``'s device."""
-        if isinstance(dt, dict):
-            table = dt[x.device]
-            return table[0], table[1]
-        return dt, dt
+        def dts(x):
+            """(velocity's dt, dye's dt) of the passes on ``x``'s device."""
+            if isinstance(dt, dict):
+                table = dt[x.device]
+                return table[0], table[1]
+            return dt, dt
 
-    def factors(i, j, x, h, w, cols, row0, col0, h_total, w_total):
-        return splat_factors(splats[x.device], h, w, radius, aspect, cols, row0=row0,
-                             h_total=h_total, col0=col0, w_total=w_total)
+        def factors(i, j, x, h, w, cols, row0, col0, h_total, w_total):
+            return splat_factors(splats[x.device], h, w, radius, aspect, cols, row0=row0,
+                                 h_total=h_total, col0=col0, w_total=w_total)
 
-    def walls(i, j, top):
-        """The grid's walls in the coordinates of a block whose row 0 of
-        the shard lies at row ``top`` and column 0 at column gc."""
-        return (top if i == 0 else -NO_WALL, top + h_loc - 1 if i == ny - 1 else NO_WALL,
-                gc if j == 0 else -NO_WALL, gc + w_loc - 1 if j == nx - 1 else NO_WALL)
+        def walls(i, j, top):
+            """The grid's walls in the coordinates of a block whose row 0 of
+            the shard lies at row ``top`` and column 0 at column gc."""
+            return (top if i == 0 else -NO_WALL, top + h_loc - 1 if i == ny - 1 else NO_WALL,
+                    gc if j == 0 else -NO_WALL, gc + w_loc - 1 if j == nx - 1 else NO_WALL)
 
-    def crop(x, gr, gcc, h, w):
-        return x[..., gr:gr + h, gcc:gcc + w]
+        def crop(x, gr, gcc, h, w):
+            return x[..., gr:gr + h, gcc:gcc + w]
 
-    def rows(gy, r0, eh):
-        """Rows r0 .. r0 + eh of a row factor, (H, S) or a batch's (B, H, S),
-        as the kernels take it (contiguous; one sim's slice already is)."""
-        return gy[..., r0:r0 + eh, :].contiguous()
+        def rows(gy, r0, eh):
+            """Rows r0 .. r0 + eh of a row factor, (H, S) or a batch's (B, H, S),
+            as the kernels take it (contiguous; one sim's slice already is)."""
+            return gy[..., r0:r0 + eh, :].contiguous()
 
-    # ---- splat bump + curl + confinement + divergence, at the true walls ----
-    g = _G_STENCIL
-    fv = _map(lambda i, j, x: factors(i, j, x, h_loc + 2 * g, w_loc + 2 * gc,
-                                      slice(SPLAT_DX, SPLAT_DY + 1), i * h_loc - g,
-                                      j * w_loc - gc, sh_g, sw), vel)
-    if overlap and h_loc >= 3 * g:
-        vc = _colpad(vel, gc)
+        g = _G_STENCIL
+        gd = dye_halo_width(config)
+        gdc = 0 if nx == 1 else dye_halo_width_cols(config)
+        with span("splat_factors"):
+            fv = _map(lambda i, j, x: factors(i, j, x, h_loc + 2 * g, w_loc + 2 * gc,
+                                              slice(SPLAT_DX, SPLAT_DY + 1), i * h_loc - g,
+                                              j * w_loc - gc, sh_g, sw), vel)
+            fd = _map(lambda i, j, x: factors(i, j, x, hd_loc + 2 * gd, wd_loc + 2 * gdc,
+                                              slice(SPLAT_R, SPLAT_B + 1), i * hd_loc - gd,
+                                              j * wd_loc - gdc, dh_g, dw), dye)
 
-        def pre(i, j, x, strips, f):
-            gy, gx, amt = f
+        with span("pre_pressure"):
+            # ---- splat bump + curl + confinement + divergence, at the true walls ----
+            if overlap and h_loc >= 3 * g:
+                vc = _colpad(vel, gc)
 
-            def op(envs, r0):
-                eh = envs[0].shape[-2]
-                return passes.pre_pressure(envs[0], config.CURL, dts(x)[0],
-                                           splat_factors=(rows(gy, r0, eh), gx, amt),
-                                           true_bounds=walls(i, j, g - r0))
-            v, d = _overlap_rows(g, [(x, *strips)], op)
-            return crop(v, 0, gc, h_loc, w_loc), crop(d, 0, gc, h_loc, w_loc)
+                def pre(i, j, x, strips, f):
+                    gy, gx, amt = f
 
-        out = _map(pre, vc, _row_strips(vc, g), fv)
-    else:
-        out = _map(lambda i, j, x, f: passes.pre_pressure(x, config.CURL, dts(x)[0],
-                                                          splat_factors=f,
-                                                          true_bounds=walls(i, j, g)),
-                   _exch2d(vel, g, gc), fv)
-        out = _map(lambda i, j, o: tuple(crop(t, g, gc, h_loc, w_loc) for t in o), out)
-    vel = _map(lambda i, j, o: o[0], out)
-    div = _map(lambda i, j, o: o[1], out)
+                    def op(envs, r0):
+                        eh = envs[0].shape[-2]
+                        return passes.pre_pressure(envs[0], config.CURL, dts(x)[0],
+                                                   splat_factors=(rows(gy, r0, eh), gx, amt),
+                                                   true_bounds=walls(i, j, g - r0))
+                    v, d = _overlap_rows(g, [(x, *strips)], op)
+                    return crop(v, 0, gc, h_loc, w_loc), crop(d, 0, gc, h_loc, w_loc)
 
-    # ---- pressure: warm start + Jacobi, 20 sweeps a mirror-ghosted halo ----
-    iters = config.PRESSURE_ITERATIONS
-    gj = _G_JACOBI
+                out = _map(pre, vc, _row_strips(vc, g), fv)
+            else:
+                out = _map(lambda i, j, x, f: passes.pre_pressure(x, config.CURL, dts(x)[0],
+                                                                  splat_factors=f,
+                                                                  true_bounds=walls(i, j, g)),
+                           _exch2d(vel, g, gc), fv)
+                out = _map(lambda i, j, o: tuple(crop(t, g, gc, h_loc, w_loc) for t in o), out)
+            vel = _map(lambda i, j, o: o[0], out)
+            div = _map(lambda i, j, o: o[1], out)
 
-    def colpad_mirror(grid):
-        return _along_cols(lambda line: _mirrored_pad(line, gc, -1), grid) if gc else grid
+        with span("projection"):
+            # ---- pressure: warm start + Jacobi, 20 sweeps a mirror-ghosted halo ----
+            iters = config.PRESSURE_ITERATIONS
+            gj = _G_JACOBI
 
-    if iters == 0:
-        p = _map(lambda i, j, x: (x.to(torch.float32) * config.PRESSURE).to(x.dtype), p)
-    elif overlap and h_loc >= 3 * gj:
-        def mirror_rows(grid):
-            return _along_rows(lambda line: _mirror_strips(
-                line, ghost_strips(line, gj, -2), gj, -2), grid)
+            def colpad_mirror(grid):
+                if not gc:
+                    return grid
+                with span("halo.mirror"):
+                    return _along_cols(lambda line: _mirrored_pad(line, gc, -1), grid)
 
-        divc = colpad_mirror(div)
-        dstrips = mirror_rows(divc)
-        done = 0
-        while done < iters:
-            k = min(_JACOBI_SWEEPS_PER_EXCHANGE, iters - done)
-            prescale = config.PRESSURE if done == 0 else 1.0
-            pc = colpad_mirror(p)
+            if iters == 0:
+                p = _map(lambda i, j, x: (x.to(torch.float32) * config.PRESSURE).to(x.dtype), p)
+            elif overlap and h_loc >= 3 * gj:
+                def mirror_rows(grid):
+                    with span("halo.mirror"):
+                        return _along_rows(lambda line: _mirror_strips(
+                            line, ghost_strips(line, gj, -2), gj, -2), grid)
 
-            def jac(i, j, x, ps, d, ds, k=k, prescale=prescale):
-                res = _overlap_rows(gj, [(x, *ps), (d, *ds)], lambda envs, r0: (
-                    passes.jacobi_pressure(envs[0], envs[1], k, prescale=prescale)))
-                return crop(res, 0, gc, h_loc, w_loc)
+                divc = colpad_mirror(div)
+                dstrips = mirror_rows(divc)
+                done = 0
+                while done < iters:
+                    k = min(_JACOBI_SWEEPS_PER_EXCHANGE, iters - done)
+                    prescale = config.PRESSURE if done == 0 else 1.0
+                    pc = colpad_mirror(p)
 
-            p = _map(jac, pc, mirror_rows(pc), divc, dstrips)
-            done += k
-    else:
-        def jacobi_pad(grid):
-            grid = _along_rows(lambda line: _mirrored_pad(line, gj, -2), grid)
-            return colpad_mirror(grid)
+                    def jac(i, j, x, ps, d, ds, k=k, prescale=prescale):
+                        res = _overlap_rows(gj, [(x, *ps), (d, *ds)], lambda envs, r0: (
+                            passes.jacobi_pressure(envs[0], envs[1], k, prescale=prescale)))
+                        return crop(res, 0, gc, h_loc, w_loc)
 
-        div_pad = jacobi_pad(div)
-        done = 0
-        while done < iters:
-            k = min(_JACOBI_SWEEPS_PER_EXCHANGE, iters - done)
-            prescale = config.PRESSURE if done == 0 else 1.0
-            p = _map(lambda i, j, x, d: crop(passes.jacobi_pressure(x, d, k, prescale=prescale),
-                                             gj, gc, h_loc, w_loc),
-                     jacobi_pad(p), div_pad)
-            done += k
+                    p = _map(jac, pc, mirror_rows(pc), divc, dstrips)
+                    done += k
+            else:
+                def jacobi_pad(grid):
+                    with span("halo.mirror"):
+                        grid = _along_rows(lambda line: _mirrored_pad(line, gj, -2), grid)
+                    return colpad_mirror(grid)
 
-    # ---- projection, then the velocity's self-advection ----
-    gs = _G_STENCIL
-    if overlap and h_loc >= 3 * gs:
-        vc, pcs = _colpad(vel, gc), _colpad(p, gc)
-        vel = _map(lambda i, j, x, xs, q, qs: crop(_overlap_rows(
-            gs, [(x, *xs), (q, *qs)], lambda envs, r0: passes.gradient_subtract(*envs)),
-            0, gc, h_loc, w_loc), vc, _row_strips(vc, gs), pcs, _row_strips(pcs, gs))
-    else:
-        vel = _map(lambda i, j, x, q: crop(passes.gradient_subtract(x, q), gs, gc, h_loc, w_loc),
-                   _exch2d(vel, gs, gc), _exch2d(p, gs, gc))
-    gv = _G_VEL
+                div_pad = jacobi_pad(div)
+                done = 0
+                while done < iters:
+                    k = min(_JACOBI_SWEEPS_PER_EXCHANGE, iters - done)
+                    prescale = config.PRESSURE if done == 0 else 1.0
+                    p = _map(lambda i, j, x, d: crop(
+                        passes.jacobi_pressure(x, d, k, prescale=prescale), gj, gc, h_loc, w_loc),
+                        jacobi_pad(p), div_pad)
+                    done += k
 
-    def self_advect(x):
-        return passes.advect_same_grid(x, x, dts(x)[0], config.VELOCITY_DISSIPATION, max_disp,
-                                       max_disp)
+            # ---- projection, then the velocity's self-advection ----
+            gs = _G_STENCIL
+            if overlap and h_loc >= 3 * gs:
+                vc, pcs = _colpad(vel, gc), _colpad(p, gc)
+                vel = _map(lambda i, j, x, xs, q, qs: crop(_overlap_rows(
+                    gs, [(x, *xs), (q, *qs)], lambda envs, r0: passes.gradient_subtract(*envs)),
+                    0, gc, h_loc, w_loc), vc, _row_strips(vc, gs), pcs, _row_strips(pcs, gs))
+            else:
+                vel = _map(lambda i, j, x, q: crop(passes.gradient_subtract(x, q), gs, gc, h_loc,
+                                                   w_loc),
+                           _exch2d(vel, gs, gc), _exch2d(p, gs, gc))
 
-    if overlap and h_loc >= 3 * gv:
-        vc = _colpad(vel, gc)
-        vel = _map(lambda i, j, x, xs: crop(_overlap_rows(
-            gv, [(x, *xs)], lambda envs, r0: self_advect(envs[0])), 0, gc, h_loc, w_loc),
-            vc, _row_strips(vc, gv))
-    else:
-        vel = _map(lambda i, j, x: crop(self_advect(x), gv, gc, h_loc, w_loc),
-                   _exch2d(vel, gv, gc))
+        with span("velocity_advection"):
+            gv = _G_VEL
 
-    # ---- dye advection at the dye's resolution, splat fused ----
-    gd = dye_halo_width(config)
-    gdc = 0 if nx == 1 else dye_halo_width_cols(config)
-    same_grid = (sw, sh_g) == (dw, dh_g)
-    fd = _map(lambda i, j, x: factors(i, j, x, hd_loc + 2 * gd, wd_loc + 2 * gdc,
-                                      slice(SPLAT_R, SPLAT_B + 1), i * hd_loc - gd,
-                                      j * wd_loc - gdc, dh_g, dw), dye)
-    # RGB9E5 is pointwise, so the quantized padded block is the quantized
-    # grid restricted to the block.
-    quant = "rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16 else None
-    disp_y, disp_x = max_disp * dh_g / sh_g, max_disp * dw / sw
+            def self_advect(x):
+                return passes.advect_same_grid(x, x, dts(x)[0], config.VELOCITY_DISSIPATION,
+                                               max_disp, max_disp)
 
-    def advect_dye(vd, src, f):
-        return passes.advect_same_grid(vd, src, dts(src)[1], config.DENSITY_DISSIPATION, disp_y,
-                                       disp_x, splat_factors=f, quant=quant)
+            if overlap and h_loc >= 3 * gv:
+                vc = _colpad(vel, gc)
+                vel = _map(lambda i, j, x, xs: crop(_overlap_rows(
+                    gv, [(x, *xs)], lambda envs, r0: self_advect(envs[0])), 0, gc, h_loc, w_loc),
+                    vc, _row_strips(vc, gv))
+            else:
+                vel = _map(lambda i, j, x: crop(self_advect(x), gv, gc, h_loc, w_loc),
+                           _exch2d(vel, gv, gc))
 
-    if not same_grid:
-        # The velocity resampled on each shard at its padded dye block's
-        # global texel centres (clamped: the reference's clamp-to-edge
-        # sample), in dye texels a second, kept in float32 as JAX keeps it
-        # (tpufluid/parallel/sharded_step.py:594-596): the dye kernel reads
-        # a float32 velocity beside a 16-bit dye.
-        gvr = vel_resample_pad(config)
-        gvrc = gvr if nx > 1 else 0
-        vel_small = _exch2d(vel, gvr, gvrc)
+        with span("dye_advection"):
+            # ---- dye advection at the dye's resolution, splat fused ----
+            same_grid = (sw, sh_g) == (dw, dh_g)
+            # RGB9E5 is pointwise, so the quantized padded block is the quantized
+            # grid restricted to the block.
+            quant = "rgb9e5" if config.DYE_RGB9E5 and config.dtype == torch.bfloat16 else None
+            disp_y, disp_x = max_disp * dh_g / sh_g, max_disp * dw / sw
 
-        def coords(i, j, x):
-            dev = x.device
-            rows = torch.clamp(torch.arange(hd_loc + 2 * gd, dtype=torch.float32, device=dev)
-                               + (i * hd_loc - gd), 0, dh_g - 1)
-            cols = torch.clamp(torch.arange(wd_loc + 2 * gdc, dtype=torch.float32, device=dev)
-                               + (j * wd_loc - gdc), 0, dw - 1)
-            return (true_div(rows + 0.5, float(dh_g)) * float(sh_g) - 0.5
-                    - float(i * h_loc - gvr),
-                    true_div(cols + 0.5, float(dw)) * float(sw) - 0.5 - float(j * w_loc - gvrc))
+            def advect_dye(vd, src, f):
+                return passes.advect_same_grid(vd, src, dts(src)[1], config.DENSITY_DISSIPATION,
+                                               disp_y, disp_x, splat_factors=f, quant=quant)
 
-        rc = _map(coords, vel)
+            if not same_grid:
+                # The velocity resampled on each shard at its padded dye block's
+                # global texel centres (clamped: the reference's clamp-to-edge
+                # sample), in dye texels a second, kept in float32 as JAX keeps it
+                # (tpufluid/parallel/sharded_step.py:594-596): the dye kernel reads
+                # a float32 velocity beside a 16-bit dye.
+                gvr = vel_resample_pad(config)
+                gvrc = gvr if nx > 1 else 0
+                vel_small = _exch2d(vel, gvr, gvrc)
 
-        def vel_on_dye(v_small, rows, cols):
-            vd = _sample_2d(v_small.to(torch.float32), rows, cols)
-            return torch.stack([vd[..., 0, :, :] * (dw / sw), vd[..., 1, :, :] * (dh_g / sh_g)],
-                               dim=-3)
+                def coords(i, j, x):
+                    dev = x.device
+                    f32 = torch.float32
+                    rows = torch.clamp(torch.arange(hd_loc + 2 * gd, dtype=f32, device=dev)
+                                       + (i * hd_loc - gd), 0, dh_g - 1)
+                    cols = torch.clamp(torch.arange(wd_loc + 2 * gdc, dtype=f32, device=dev)
+                                       + (j * wd_loc - gdc), 0, dw - 1)
+                    return (true_div(rows + 0.5, float(dh_g)) * float(sh_g) - 0.5
+                            - float(i * h_loc - gvr),
+                            true_div(cols + 0.5, float(dw)) * float(sw) - 0.5
+                            - float(j * w_loc - gvrc))
 
-    if overlap and hd_loc >= 3 * gd:
-        dc = _colpad(dye, gdc)
-        dstrips = _row_strips(dc, gd)
-        if same_grid:
-            vc = _colpad(vel, gdc)
-            vstrips = _row_strips(vc, gd)
+                rc = _map(coords, vel)
 
-        def dye_shard(i, j, x, xs, f):
-            gy, gx, amt = f
+                def vel_on_dye(v_small, rows, cols):
+                    vd = _sample_2d(v_small.to(torch.float32), rows, cols)
+                    return torch.stack([vd[..., 0, :, :] * (dw / sw),
+                                        vd[..., 1, :, :] * (dh_g / sh_g)], dim=-3)
 
-            def op(envs, r0):
-                eh = envs[-1].shape[-2]
-                vd = envs[0] if same_grid else vel_on_dye(
-                    vel_small[i][j], rc[i][j][0][r0:r0 + eh], rc[i][j][1])
-                return advect_dye(vd, envs[-1], (rows(gy, r0, eh), gx, amt))
+            if overlap and hd_loc >= 3 * gd:
+                dc = _colpad(dye, gdc)
+                dstrips = _row_strips(dc, gd)
+                if same_grid:
+                    vc = _colpad(vel, gdc)
+                    vstrips = _row_strips(vc, gd)
 
-            operands = [(x, *xs)]
-            if same_grid:
-                operands.insert(0, (vc[i][j], *vstrips[i][j]))
-            return crop(_overlap_rows(gd, operands, op), 0, gdc, hd_loc, wd_loc)
+                def dye_shard(i, j, x, xs, f):
+                    gy, gx, amt = f
 
-        dye = _map(dye_shard, dc, dstrips, fd)
-    else:
-        if same_grid:
-            vel_d = _exch2d(vel, gd, gdc)
-        else:
-            vel_d = _map(lambda i, j, v, c: vel_on_dye(v, *c), vel_small, rc)
-        dye = _map(lambda i, j, v, x, f: crop(advect_dye(v, x, f), gd, gdc, hd_loc, wd_loc),
-                   vel_d, _exch2d(dye, gd, gdc), fd)
+                    def op(envs, r0):
+                        eh = envs[-1].shape[-2]
+                        vd = envs[0] if same_grid else vel_on_dye(
+                            vel_small[i][j], rc[i][j][0][r0:r0 + eh], rc[i][j][1])
+                        return advect_dye(vd, envs[-1], (rows(gy, r0, eh), gx, amt))
 
-    return tuple(tuple(FluidState(vel[i][j], dye[i][j], p[i][j]) for j in range(nx))
-                 for i in range(ny))
+                    operands = [(x, *xs)]
+                    if same_grid:
+                        operands.insert(0, (vc[i][j], *vstrips[i][j]))
+                    return crop(_overlap_rows(gd, operands, op), 0, gdc, hd_loc, wd_loc)
+
+                dye = _map(dye_shard, dc, dstrips, fd)
+            else:
+                if same_grid:
+                    vel_d = _exch2d(vel, gd, gdc)
+                else:
+                    vel_d = _map(lambda i, j, v, c: vel_on_dye(v, *c), vel_small, rc)
+                dye = _map(lambda i, j, v, x, f: crop(advect_dye(v, x, f), gd, gdc, hd_loc, wd_loc),
+                           vel_d, _exch2d(dye, gd, gdc), fd)
+
+        return tuple(tuple(FluidState(vel[i][j], dye[i][j], p[i][j]) for j in range(nx))
+                     for i in range(ny))
 
 
 def _splats_on(shards: ShardedState, splats) -> Dict[torch.device, torch.Tensor]:
@@ -581,12 +606,14 @@ def make_sharded_multi_step(config: FluidConfig, mesh: Mesh = None):
 
     def multi(shards: ShardedState, dt, batches) -> ShardedState:
         _check_shards(shards, mesh)
-        seqs = _splats_on(shards, batches)
-        t = next(iter(seqs.values())).shape[0]
-        dts = np.broadcast_to(np.asarray(dt, np.float32).reshape(-1), (t,))
-        for k in range(t):
-            shards = _step(shards, clamp_dt(dts[k]), {d: s[k] for d, s in seqs.items()},
-                           config, dispatch.ROUTED)
-        return shards
+        with span("multi_step"):
+            with span("upload"):
+                seqs = _splats_on(shards, batches)
+            t = next(iter(seqs.values())).shape[0]
+            dts = np.broadcast_to(np.asarray(dt, np.float32).reshape(-1), (t,))
+            for k in range(t):
+                shards = _step(shards, clamp_dt(dts[k]), {d: s[k] for d, s in seqs.items()},
+                               config, dispatch.ROUTED)
+            return shards
 
     return multi

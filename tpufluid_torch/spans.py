@@ -18,7 +18,10 @@ pass boundaries (``with spans.span("sunrays"): ...``). A span records
   spans of one call share it);
 - its thread (``threading.get_ident``);
 - the launches of ``build.Kernel`` made inside it and not inside a child
-  span: the kernels' own launch counts, read at the span's edges.
+  span: the kernels' own launch counts, read at the span's edges;
+- the bytes that the sharded step's halo exchanges sent between shards
+  inside it and not inside a child span, read from
+  ``parallel.halo.SENT`` at its edges in the same way.
 
 A span is kept when it ends, so children come before their parent. The
 recorder keeps spans in a buffer of fixed capacity, allocated by
@@ -53,11 +56,29 @@ class Span(NamedTuple):
     start_ns: int
     end_ns: int
     launches: int
+    bytes: int = 0
 
 
 def launches() -> int:
     """Every build.Kernel's launches so far."""
     return sum(k.launches for k in KERNELS.values())
+
+
+# The counter of the bytes sent between shards (parallel/halo.py's SENT,
+# which registers itself here when it is imported: the halo imports this
+# module, not the other way round).
+_sent = None
+
+
+def count_sent(counter) -> None:
+    """Read ``counter.bytes`` at every span's edges from now on."""
+    global _sent
+    _sent = counter
+
+
+def sent() -> int:
+    """The bytes sent between shards so far (0 before the halo is loaded)."""
+    return _sent.bytes if _sent is not None else 0
 
 
 class _Off:
@@ -136,7 +157,8 @@ class Recorder:
 class _Open:
     """A span being recorded."""
 
-    __slots__ = ("rec", "name", "id", "parent", "root", "start", "at", "child", "rf")
+    __slots__ = ("rec", "name", "id", "parent", "root", "start", "at", "child", "rf",
+                 "sent_at", "child_sent")
 
     def __init__(self, rec: Recorder, name: str):
         self.rec = rec
@@ -150,6 +172,7 @@ class _Open:
         self.parent = up.id if up is not None else 0
         self.root = up.root if up is not None else self.id
         self.child = 0
+        self.child_sent = 0
         stack.append(self)
         self.rf = None
         if rec.profiler:
@@ -158,12 +181,14 @@ class _Open:
             self.rf = record_function(self.name)
             self.rf.__enter__()
         self.at = launches()
+        self.sent_at = sent()
         self.start = perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         end = perf_counter_ns()
         inside = launches() - self.at
+        moved = sent() - self.sent_at
         if self.rf is not None:
             self.rf.__exit__(*exc)
         rec = self.rec
@@ -171,8 +196,9 @@ class _Open:
         stack.pop()
         if stack:
             stack[-1].child += inside
+            stack[-1].child_sent += moved
         rec.put(Span(self.id, self.parent, self.root, threading.get_ident(), self.name,
-                     self.start, end, inside - self.child))
+                     self.start, end, inside - self.child, moved - self.child_sent))
         return False
 
 

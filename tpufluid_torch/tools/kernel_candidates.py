@@ -292,7 +292,7 @@ def sunrays_rows(rate: float, gpu: str) -> list:
 
         def march():
             sunrays.SUNRAYS(ptr(dye), ptr(taps), sims, dh, dw, sh, sw, ptr(tab), ptr(bounds),
-                            stream())
+                            stream(dye))
 
         def run():
             return sunrays.sunrays(*args)
