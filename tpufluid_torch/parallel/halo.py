@@ -13,6 +13,11 @@ neighbour, the advection's backtrace ``ceil(max|v| dt)`` (bounded by the
 reference's +/-1000 velocity clamp). At the global walls the ghost is the
 edge row or column replicated, the clamp-to-edge of the single-device
 kernels.
+
+A block already held in a buffer of its padded width (the sharded step's
+own pass outputs) is padded in place (``exchange_halo_into``): only its
+ghost slices are written, the same values ``exchange_halo`` would put
+around it; ``PADS`` counts the sharded step's column pads of each kind.
 """
 
 from __future__ import annotations
@@ -37,6 +42,23 @@ class Traffic:
 
 SENT = Traffic()
 spans.count_sent(SENT)      # each span records the bytes sent inside it
+
+
+class Pads:
+    """The sharded step's column pads, one a block: ``in_place``, the
+    ghost columns written into the padded buffer that already holds the
+    block (exchange_halo_into); ``fresh``, the block and its ghosts
+    concatenated into a new buffer (exchange_halo)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.in_place = 0
+        self.fresh = 0
+
+
+PADS = Pads()
 
 
 def _first(x: torch.Tensor, k: int, axis: int) -> torch.Tensor:
@@ -117,6 +139,38 @@ def exchange_halo(blocks: Sequence[torch.Tensor], width: int, axis: int) -> List
     ghost_strips for what the ghosts hold."""
     return [torch.cat([below, x, above], dim=axis)
             for x, (below, above) in zip(blocks, ghost_strips(blocks, width, axis))]
+
+
+def _wall_ghosts(x: torch.Tensor, k: int, axis: int, first: bool, mirror: bool) -> torch.Tensor:
+    """The ``k`` ghost slices past the wall at a block's first (last)
+    slice: its edge slice replicated, or with ``mirror`` the mirror of its
+    own ``k`` slices (global -k := k - 1, the far wall alike)."""
+    if mirror:
+        return torch.flip(_first(x, k, axis) if first else _last(x, k, axis), dims=(axis,))
+    return _wall(x, True, k, axis, first, x.device)
+
+
+def exchange_halo_into(pads: Sequence[torch.Tensor], blocks: Sequence[torch.Tensor], width: int,
+                       axis: int, mirror: bool = False) -> List[torch.Tensor]:
+    """exchange_halo written into buffers that already hold the blocks:
+    ``pads[k]`` is ``width`` slices wider than ``blocks[k]`` on each side
+    along ``axis``, with blocks[k] its centre, and only its ghost slices are
+    written: a neighbour's strip copied in (counted as _send counts it; a
+    copy between two cards waits on both cards' current streams), at a
+    wall the edge slice replicated or, with ``mirror``, the mirrored strip.
+    Each padded block then equals exchange_halo's (_mirrored_pad's), value
+    for value. Single hop only. Returns ``pads``."""
+    if width > blocks[0].shape[axis]:
+        raise ValueError("the in-place exchange is single-hop: a ghost deeper than a shard "
+                         "takes exchange_halo")
+    n = len(blocks)
+    for k, (pad, x) in enumerate(zip(pads, blocks)):
+        below, above = _first(pad, width, axis), _last(pad, width, axis)
+        below.copy_(_wall_ghosts(x, width, axis, True, mirror) if k == 0
+                    else _send(_last(blocks[k - 1], width, axis), pad.device))
+        above.copy_(_wall_ghosts(x, width, axis, False, mirror) if k == n - 1
+                    else _send(_first(blocks[k + 1], width, axis), pad.device))
+    return list(pads)
 
 
 def exchange_halo_rows(blocks: Sequence[torch.Tensor], width: int) -> List[torch.Tensor]:

@@ -28,6 +28,15 @@ Exactness on padded blocks (the JAX package's argument, unchanged):
   * the projection is split (gradient subtract, exchange, self-advection),
     as in the single-device step.
 
+Every pass runs on the column-padded block and returns an output as wide,
+of which the step keeps the centre, a view. The next column pad of that
+view writes the ghost columns into the output it was cropped from
+(``_colpad``, halo.exchange_halo_into) instead of concatenating the block
+anew: the same padded block, value for value, without copying the block.
+Only an output the step allocated and cropped at exactly that width is
+written so (``_crop`` registers it, ``_owned`` finds it); any other tensor,
+a caller's among them, is concatenated anew (halo.exchange_halo).
+
 Not bit-equal to the single-device step: the advection's backtrace is
 computed in coordinates relative to the array it gathers from
 (csrc/advect.cu), and a padded block rounds them otherwise than the whole
@@ -52,13 +61,14 @@ from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from tpufluid_torch.config import FluidConfig
 from tpufluid_torch.ops.cuda import dispatch
 from tpufluid_torch.ops.cuda.stencil import NO_WALL
 from tpufluid_torch.ops.sampling import true_div
 from tpufluid_torch.ops.splat import SPLAT_B, SPLAT_DX, SPLAT_DY, SPLAT_R, splat_factors
-from tpufluid_torch.parallel.halo import exchange_halo, ghost_strips
+from tpufluid_torch.parallel.halo import PADS, exchange_halo, exchange_halo_into, ghost_strips
 from tpufluid_torch.parallel.mesh import Mesh, ShardedState, make_mesh
 from tpufluid_torch.spans import span
 from tpufluid_torch.state import FluidState
@@ -211,12 +221,51 @@ def _exch2d(grid: Grid, wr: int, wc: int) -> Grid:
     return _colpad(grid, wc)
 
 
-def _colpad(grid: Grid, wc: int) -> Grid:
-    """The column exchange alone (none on a mesh of one column)."""
+# The pass outputs the step cropped, by the crop it keeps of each: view ->
+# (the output, the ghost columns cropped off each side).
+_PADDED = WeakIdKeyDictionary()
+
+
+def _crop(x: torch.Tensor, gr: int, gc: int, h: int, w: int) -> torch.Tensor:
+    """The shard's block of a pass's output ``x``: rows gr .. gr + h,
+    columns gc .. gc + w. An output that is the block with ``gc`` ghost
+    columns a side and no ghost row is registered with its crop, so that
+    the next column pad of the crop writes into ``x``."""
+    view = x[..., gr:gr + h, gc:gc + w]
+    if gc and tuple(x.shape[-2:]) == (h, w + 2 * gc):
+        _PADDED[view] = (x, gc)
+    return view
+
+
+def _owned(x: torch.Tensor, width: int):
+    """The output the step cropped ``x`` from at ``width`` ghost columns a
+    side, or None."""
+    entry = _PADDED.get(x)
+    return entry[0] if entry is not None and entry[1] == width else None
+
+
+def _colpad(grid: Grid, wc: int, mirror: bool = False) -> Grid:
+    """The column exchange alone (none on a mesh of one column); with
+    ``mirror`` the walls' ghosts mirror the texels inside (_mirrored_pad).
+    A row of shards whose blocks are each cropped from an output of their
+    own (_owned), no deeper than a block, has its ghosts written in place;
+    any other row is concatenated anew."""
     if not wc:
         return grid
-    with span("halo.cols"):
-        return _along_cols(lambda line: exchange_halo(line, wc, -1), grid)
+    with span("halo.mirror" if mirror else "halo.cols"):
+        taken, out = set(), []
+        for line in grid:
+            pads = [_owned(x, wc) for x in line]
+            ids = {id(q) for q in pads}
+            if (wc <= line[0].shape[-1] and all(q is not None for q in pads)
+                    and len(ids) == len(pads) and taken.isdisjoint(ids)):
+                taken |= ids
+                out.append(exchange_halo_into(pads, line, wc, -1, mirror))
+                PADS.in_place += len(line)
+            else:
+                out.append(_mirrored_pad(line, wc, -1) if mirror else exchange_halo(line, wc, -1))
+                PADS.fresh += len(line)
+        return out
 
 
 def _row_strips(grid: Grid, width: int) -> Grid:
@@ -346,9 +395,6 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
             return (top if i == 0 else -NO_WALL, top + h_loc - 1 if i == ny - 1 else NO_WALL,
                     gc if j == 0 else -NO_WALL, gc + w_loc - 1 if j == nx - 1 else NO_WALL)
 
-        def crop(x, gr, gcc, h, w):
-            return x[..., gr:gr + h, gcc:gcc + w]
-
         def rows(gy, r0, eh):
             """Rows r0 .. r0 + eh of a row factor, (H, S) or a batch's (B, H, S),
             as the kernels take it (contiguous; one sim's slice already is)."""
@@ -379,7 +425,7 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
                                                    splat_factors=(rows(gy, r0, eh), gx, amt),
                                                    true_bounds=walls(i, j, g - r0))
                     v, d = _overlap_rows(g, [(x, *strips)], op)
-                    return crop(v, 0, gc, h_loc, w_loc), crop(d, 0, gc, h_loc, w_loc)
+                    return _crop(v, 0, gc, h_loc, w_loc), _crop(d, 0, gc, h_loc, w_loc)
 
                 out = _map(pre, vc, _row_strips(vc, g), fv)
             else:
@@ -387,7 +433,7 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
                                                                   splat_factors=f,
                                                                   true_bounds=walls(i, j, g)),
                            _exch2d(vel, g, gc), fv)
-                out = _map(lambda i, j, o: tuple(crop(t, g, gc, h_loc, w_loc) for t in o), out)
+                out = _map(lambda i, j, o: tuple(_crop(t, g, gc, h_loc, w_loc) for t in o), out)
             vel = _map(lambda i, j, o: o[0], out)
             div = _map(lambda i, j, o: o[1], out)
 
@@ -395,12 +441,6 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
             # ---- pressure: warm start + Jacobi, 20 sweeps a mirror-ghosted halo ----
             iters = config.PRESSURE_ITERATIONS
             gj = _G_JACOBI
-
-            def colpad_mirror(grid):
-                if not gc:
-                    return grid
-                with span("halo.mirror"):
-                    return _along_cols(lambda line: _mirrored_pad(line, gc, -1), grid)
 
             if iters == 0:
                 p = _map(lambda i, j, x: (x.to(torch.float32) * config.PRESSURE).to(x.dtype), p)
@@ -410,18 +450,18 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
                         return _along_rows(lambda line: _mirror_strips(
                             line, ghost_strips(line, gj, -2), gj, -2), grid)
 
-                divc = colpad_mirror(div)
+                divc = _colpad(div, gc, mirror=True)
                 dstrips = mirror_rows(divc)
                 done = 0
                 while done < iters:
                     k = min(_JACOBI_SWEEPS_PER_EXCHANGE, iters - done)
                     prescale = config.PRESSURE if done == 0 else 1.0
-                    pc = colpad_mirror(p)
+                    pc = _colpad(p, gc, mirror=True)
 
                     def jac(i, j, x, ps, d, ds, k=k, prescale=prescale):
                         res = _overlap_rows(gj, [(x, *ps), (d, *ds)], lambda envs, r0: (
                             passes.jacobi_pressure(envs[0], envs[1], k, prescale=prescale)))
-                        return crop(res, 0, gc, h_loc, w_loc)
+                        return _crop(res, 0, gc, h_loc, w_loc)
 
                     p = _map(jac, pc, mirror_rows(pc), divc, dstrips)
                     done += k
@@ -429,14 +469,14 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
                 def jacobi_pad(grid):
                     with span("halo.mirror"):
                         grid = _along_rows(lambda line: _mirrored_pad(line, gj, -2), grid)
-                    return colpad_mirror(grid)
+                    return _colpad(grid, gc, mirror=True)
 
                 div_pad = jacobi_pad(div)
                 done = 0
                 while done < iters:
                     k = min(_JACOBI_SWEEPS_PER_EXCHANGE, iters - done)
                     prescale = config.PRESSURE if done == 0 else 1.0
-                    p = _map(lambda i, j, x, d: crop(
+                    p = _map(lambda i, j, x, d: _crop(
                         passes.jacobi_pressure(x, d, k, prescale=prescale), gj, gc, h_loc, w_loc),
                         jacobi_pad(p), div_pad)
                     done += k
@@ -445,12 +485,12 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
             gs = _G_STENCIL
             if overlap and h_loc >= 3 * gs:
                 vc, pcs = _colpad(vel, gc), _colpad(p, gc)
-                vel = _map(lambda i, j, x, xs, q, qs: crop(_overlap_rows(
+                vel = _map(lambda i, j, x, xs, q, qs: _crop(_overlap_rows(
                     gs, [(x, *xs), (q, *qs)], lambda envs, r0: passes.gradient_subtract(*envs)),
                     0, gc, h_loc, w_loc), vc, _row_strips(vc, gs), pcs, _row_strips(pcs, gs))
             else:
-                vel = _map(lambda i, j, x, q: crop(passes.gradient_subtract(x, q), gs, gc, h_loc,
-                                                   w_loc),
+                vel = _map(lambda i, j, x, q: _crop(passes.gradient_subtract(x, q), gs, gc, h_loc,
+                                                    w_loc),
                            _exch2d(vel, gs, gc), _exch2d(p, gs, gc))
 
         with span("velocity_advection"):
@@ -462,11 +502,11 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
 
             if overlap and h_loc >= 3 * gv:
                 vc = _colpad(vel, gc)
-                vel = _map(lambda i, j, x, xs: crop(_overlap_rows(
+                vel = _map(lambda i, j, x, xs: _crop(_overlap_rows(
                     gv, [(x, *xs)], lambda envs, r0: self_advect(envs[0])), 0, gc, h_loc, w_loc),
                     vc, _row_strips(vc, gv))
             else:
-                vel = _map(lambda i, j, x: crop(self_advect(x), gv, gc, h_loc, w_loc),
+                vel = _map(lambda i, j, x: _crop(self_advect(x), gv, gc, h_loc, w_loc),
                            _exch2d(vel, gv, gc))
 
         with span("dye_advection"):
@@ -529,7 +569,7 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
                     operands = [(x, *xs)]
                     if same_grid:
                         operands.insert(0, (vc[i][j], *vstrips[i][j]))
-                    return crop(_overlap_rows(gd, operands, op), 0, gdc, hd_loc, wd_loc)
+                    return _crop(_overlap_rows(gd, operands, op), 0, gdc, hd_loc, wd_loc)
 
                 dye = _map(dye_shard, dc, dstrips, fd)
             else:
@@ -537,7 +577,8 @@ def _step(shards: ShardedState, dt, splats: Dict[torch.device, torch.Tensor],
                     vel_d = _exch2d(vel, gd, gdc)
                 else:
                     vel_d = _map(lambda i, j, v, c: vel_on_dye(v, *c), vel_small, rc)
-                dye = _map(lambda i, j, v, x, f: crop(advect_dye(v, x, f), gd, gdc, hd_loc, wd_loc),
+                dye = _map(lambda i, j, v, x, f: _crop(advect_dye(v, x, f), gd, gdc, hd_loc,
+                                                       wd_loc),
                            vel_d, _exch2d(dye, gd, gdc), fd)
 
         return tuple(tuple(FluidState(vel[i][j], dye[i][j], p[i][j]) for j in range(nx))

@@ -22,7 +22,9 @@ A cell on more than one card (the sharded step over its ``chips`` cards)
 is read otherwise, since fluidbench's span window aligns one card's
 trace: after set-up, ``trace_calls`` calls with the recorder on give each
 span's count, host ms, the port's launches and the bytes its halo
-exchanges sent between cards a step (the recorder's host summary); as many
+exchanges sent between cards a step (the recorder's host summary), and the
+column pads a shard a step written in place and concatenated anew
+(``halo.PADS``); as many
 again with the recorder's profiler ranges on, under torch.profiler with the
 host's operators, give each span's device ms, kernels and copies a step,
 over every card, each kernel and copy put down to the innermost span whose
@@ -108,9 +110,11 @@ def cards_window(cell, seed: int, devices, spans, trace: bool) -> Dict:
     steps = n * stride
     spans.enable(CAPACITY)
     sent = halo.SENT.bytes
+    pads = halo.PADS.in_place, halo.PADS.fresh
     calls(n)
     got: List = spans.take()
     sent = halo.SENT.bytes - sent
+    pads = halo.PADS.in_place - pads[0], halo.PADS.fresh - pads[1]
     spans.disable()
     per: Dict[str, Dict] = {}
     for s in got:
@@ -124,6 +128,8 @@ def cards_window(cell, seed: int, devices, spans, trace: bool) -> Dict:
             r[k] /= steps
     out = {"workload": cell.name, "seed": seed, "cards": len(harness.cards(devices)),
            "steps": steps, "halo_sent_bytes": sent / steps,
+           "col_pads_in_place": pads[0] / (steps * prog.mesh.size),
+           "col_pads_fresh": pads[1] / (steps * prog.mesh.size),
            "span_bytes": sum(s.bytes for s in got) / steps,
            "port_launches": sum(s.launches for s in got) / steps, "per_span": per,
            "summary": spans.summary(got)}
